@@ -4,11 +4,13 @@
     python3 chip_smoke.py            # every phase, one GPU
 
 Phases, in order (any failure exits non-zero; there is no CPU fallback):
-  1. build   - nvcc builds both CUDA kernels from csrc/ (in parallel).
+  1. build   - nvcc builds the three kernel libraries from csrc/ (qmatmul,
+               attention, ffn; in parallel).
   2. kernels - each kernel's wrapper against its plain PyTorch version on
                the card at llama-7B shapes, with stated tolerances, and
                timed beside its plain version, a one-call PyTorch
-               yardstick and the card's bound.
+               yardstick (or, for the fused kernels, the unfused route of
+               the same function) and the card's bound.
   3. quantize - GPTQ (4-bit, groupsize 128, act-order, static groups,
                true-sequential) of a 2-layer llama-7B-width model from
                seeded weights on 16 x 512 synthetic tokens, pack, a
@@ -17,11 +19,16 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                model.
   4. serve   - a 32-layer llama-7B-width 4-bit packed checkpoint from
                seeded codes, served through `gptq_tpu_torch.cli`
-               (--benchmark 128 --faster-kernel --int8_kv) and through
-               DecodeEngine.generate (4 requests of 64 + 64 tokens); the
-               kernels' launch counters must rise by the expected
-               amounts; at 2 layers, kernel decoding and plain decoding
-               give the same greedy tokens.
+               (--benchmark 128 --faster-kernel --int8_kv --quant_lm_head 8)
+               on the fused route (the default on the card), again on the
+               unfused route (GPTQ_TPU_FFN_FUSION=off, without the head
+               flag), and through DecodeEngine.generate (4 requests of
+               64 + 64 tokens); a 2-layer model whose o projection is
+               act-order takes the ffn_fused route. Each run's launch
+               counters must rise by the expected amounts; a profile gives
+               each route's device time per step; at 2 layers, kernel
+               decoding and plain decoding give the same greedy tokens on
+               each route.
 Then one JSON line {"kernels": [...]}, and last {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero, printing no
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -48,9 +56,16 @@ import numpy as np
 PHASES = ("build", "kernels", "quantize", "serve")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
 ATTN_SRC = "gptq_tpu_torch/csrc/attention.cu"
+FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
-# bf16 x times codes in another order; attention: f32 math, other order
-TOL = {"qmm_a8": 1e-4, "qmm_a16": 2e-3, "attn": 1e-3}
+# bf16 x times codes in another order; attention: f32 math, other order;
+# fused kernels (relative to max|plain|): they round to bf16 (and, a8,
+# int8) between phases, so an element whose f32 sum lands near a rounding
+# boundary can come out one step apart (the largest sound reading on an
+# H100 was 1.25e-3, attn_mlp M=32 a8). Where the down phase's output
+# dwarfs the residual r2, this limit cannot see r2: residual_check holds
+# r2 on its own.
+TOL = {"qmm_a8": 1e-4, "qmm_a16": 2e-3, "attn": 1e-3, "fused": 3e-3}
 
 
 def log(msg: str) -> None:
@@ -320,8 +335,24 @@ def attn_checks(device, peaks, timer, report):
                         rows.append({"S": S, "B": B, "Hkv": Hkv,
                                      "cache": cache, "stacked": stacked,
                                      "max_abs_err": err})
+    # a row of length 0 with no fresh pair attends to nothing: zeros
+    q = torch.randn((2, H, hd), generator=gen, device=device)
+    k = torch.randint(-127, 128, (2, 256, H, hd), generator=gen, device=device,
+                      dtype=torch.int8)
+    ks = torch.rand((2, 256, H), generator=gen, device=device) * 0.02
+    lens = torch.tensor([0, 100], dtype=torch.int32, device=device)
+    got = A.decode_attention(q, k, k, lens, 0.09, k_scale=ks, v_scale=ks)
+    want = A.decode_attention_reference(q, k, k, lens, 0.09, k_scale=ks,
+                                        v_scale=ks)
+    torch.cuda.synchronize()
+    if not (bool((got[0] == 0).all()) and bool(torch.isfinite(got).all())
+            and float((got - want).abs().max()) <= TOL["attn"]):
+        raise AssertionError("attention: a length-0 row without a fresh pair "
+                             "must give zeros")
+    rows.append({"S": 256, "B": 2, "lens": [0, 100], "fresh": False,
+                 "max_abs_err": float((got - want).abs().max())})
     log(f"attention: {len(rows)} cases within {TOL['attn']} "
-        f"(max abs err {worst:.3g})")
+        f"(max abs err {worst:.3g}), length-0 row gives zeros")
     report["attn_rows"] = rows
     report["attn_max_abs_err"] = worst
     # timing at the serving shape: B = 1, llama-7B heads, int8 cache of the
@@ -369,6 +400,191 @@ def attn_times(gen, device, peaks, timer, S, length) -> dict:
     return {"S": S, "length": length, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+@contextlib.contextmanager
+def fusion_mode(mode):
+    """Run with GPTQ_TPU_FFN_FUSION=mode (the serving route switch)."""
+    old = os.environ.get("GPTQ_TPU_FFN_FUSION")
+    os.environ["GPTQ_TPU_FFN_FUSION"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GPTQ_TPU_FFN_FUSION"]
+        else:
+            os.environ["GPTQ_TPU_FFN_FUSION"] = old
+
+
+def packed_bytes(pw) -> int:
+    return (sum(w.numel() * 4 for w in pw.words)
+            + (pw.scale.numel() + pw.zoff.numel()) * 4)
+
+
+def fused_times(timer, peaks, M, a8, weights, io_bytes, kernel, wrapper,
+                plain, unfused) -> dict:
+    """Device times of one fused function: the bare kernel launch, the
+    wrapper, the plain version and the unfused route (qmm launches and the
+    PyTorch glue between them), beside the byte / operation bound."""
+    ms = timer(kernel)
+    wrapper_ms = timer(wrapper)
+    plain_ms = timer(plain)
+    with fusion_mode("off"):
+        unfused_ms = timer(unfused)
+    nbytes = sum(packed_bytes(pw) for pw in weights) + io_bytes
+    ops = 2 * M * sum(pw.Kp * pw.Np for pw in weights)
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = ops / peaks["int8" if a8 else "bf16"] * 1e3
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "unfused_ms": unfused_ms, "bytes": nbytes,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def residual_check(what, attn, xres, ln, o, gu, dn0, a8) -> float:
+    """attn_mlp with down's grid zeroed: the output is the residual r2
+    alone, which the main check cannot see where the down phase's output
+    dwarfs it. Both sides round r2 to bf16, so an element may land one
+    bf16 step (2^-7 of itself) apart, and one near 0 may differ by its f32
+    sum's rounding (1e-5 of max|r2| allowed); a residual left out reads
+    1.0 of max|r2|. Returns max|diff| / max|r2|."""
+    from gptq_tpu_torch.ops import ffn as Fz
+
+    got = Fz.attn_mlp_fused(attn, xres, ln, o, gu, dn0, a8=a8).float()
+    want = Fz.attn_mlp_fused_reference(attn, xres, ln, o, gu, dn0,
+                                       a8=a8).float()
+    diff = (got - want).abs()
+    bound = 2.0**-7 * want.abs() + 1e-5 * want.abs().max()
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"{what}, down zeroed: the residual r2 is off by "
+                             f"{float(diff.max()):.3g}")
+    return float(diff.max() / want.abs().max())
+
+
+def fused_checks(device, peaks, timer, report):
+    """The fused kernels (#4 norm_qkv, #5 attn_mlp, #6 ffn) against their
+    plain versions at llama-7B shapes, M in {1, 32}, a8 and a16; timed at
+    the decode shape (M = 1, a8)."""
+    import torch
+
+    from gptq_tpu_torch.models import common
+    from gptq_tpu_torch.models.common import FusedSplits, ServeFlags
+    from gptq_tpu_torch.ops import ffn as Fz
+    from gptq_tpu_torch.ops.pack import fuse_packed
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    spec = llama7b_spec(1)
+    H, F, V = spec.hidden, spec.ffn, spec.vocab
+    ln = torch.ones(H, dtype=torch.float32, device=device)
+    flags = ServeFlags(a8=True)
+    rows, worst = [], {}
+
+    def fused_weight(K, N, bits, gs, parts):
+        pws = [packed_linear(gen, K, N, bits, gs, device) for _ in range(parts)]
+        return fuse_packed(pws), FusedSplits(tuple((p.Np, p.N) for p in pws))
+
+    def check(kernel, tag, M, a8, got, want):
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not (math.isfinite(err) and rel <= TOL["fused"]):
+            raise AssertionError(f"{kernel} {tag} M={M} a8={a8}: rel err "
+                                 f"{rel:.3g} > {TOL['fused']}")
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+        row = {"kernel": kernel, "w": tag, "M": M, "a8": a8,
+               "max_abs_err": err, "rel_err": rel}
+        rows.append(row)
+        return row
+
+    # 4: ln1 + q|k|v (w4), and final_ln + the 8-bit lm_head
+    nq = [("q|k|v w4g-1", fused_weight(H, H, 4, -1, 3)[0]),
+          ("q|k|v w4g128", fused_weight(H, H, 4, 128, 3)[0]),
+          ("head w8g-1", packed_linear(gen, H, V, 8, -1, device))]
+    for tag, pw in nq:
+        for M in (1, 32):
+            x = torch.randn((M, H), generator=gen, device=device)
+            for a8 in (True, False):
+                row = check("norm_qkv", tag, M, a8,
+                            Fz.norm_qkv_fused(x, ln, pw, a8=a8),
+                            Fz.norm_qkv_fused_reference(x, ln, pw, a8=a8))
+                if M == 1 and a8 and "g128" not in tag:
+                    xb = x.to(torch.bfloat16)
+                    x2 = xb.float()
+                    lin = {"w": pw, "b": None, "serve": flags}
+                    row.update(fused_times(
+                        timer, peaks, M, a8, [pw],
+                        M * H * 2 + H * 2 + M * pw.Np * 4,
+                        kernel=lambda: Fz._norm_qkv_cuda(
+                            x2, ln, pw, "rmsnorm", 1e-5, True, None, None),
+                        wrapper=lambda: Fz.norm_qkv_fused(xb, ln, pw),
+                        plain=lambda: Fz.norm_qkv_fused_reference(xb, ln, pw),
+                        unfused=lambda: common.linear_apply(
+                            lin, common.norm_apply(spec, {"w": ln}, xb))))
+                log("fused " + json.dumps(row))
+
+    # 5 and 6: o (4096^2), gate|up (4096 x 2*11264), down (11264 x 4096)
+    for tag, bits, gs in (("w4g-1", 4, -1), ("w4g128", 4, 128),
+                          ("w3g128", 3, 128)):
+        o = packed_linear(gen, H, H, bits, gs, device)
+        gu, splits = fused_weight(H, F, bits, gs, 2)
+        dn = packed_linear(gen, F, H, bits, gs, device)
+        dn0 = dataclasses.replace(dn, scale=torch.zeros_like(dn.scale),
+                                  zoff=torch.zeros_like(dn.zoff))
+        p = {"o": {"w": o, "b": None, "serve": flags},
+             "gateup_fused": {"w": gu, "splits": splits,
+                              "b_parts": [None, None], "serve": flags},
+             "down": {"w": dn, "b": None, "serve": flags}, "ln2": {"w": ln}}
+        for M in (1, 32):
+            attn = torch.randn((M, H), generator=gen, device=device)
+            xres = torch.randn((M, H), generator=gen,
+                               device=device).to(torch.bfloat16)
+            m = torch.randn((M, H), generator=gen, device=device)
+            for a8 in (True, False):
+                row5 = check("attn_mlp", tag, M, a8,
+                             Fz.attn_mlp_fused(attn, xres, ln, o, gu, dn,
+                                               a8=a8),
+                             Fz.attn_mlp_fused_reference(attn, xres, ln, o, gu,
+                                                         dn, a8=a8))
+                row5["r2_rel_err"] = residual_check(
+                    f"attn_mlp {tag} M={M} a8={a8}", attn, xres, ln, o, gu,
+                    dn0, a8)
+                row6 = check("ffn", tag, M, a8, Fz.ffn_fused(m, gu, dn, a8=a8),
+                             Fz.ffn_fused_reference(m, gu, dn, a8=a8))
+                if M == 1 and a8 and tag == "w4g-1":
+                    x2 = xres.float()
+                    a3, r3 = attn.reshape(1, 1, H), xres.reshape(1, 1, H)
+                    row5.update(fused_times(
+                        timer, peaks, M, a8, [o, gu, dn],
+                        M * H * 4 + M * H * 2 + H * 2 + M * H * 4,
+                        kernel=lambda: Fz._mlp_cuda(
+                            attn, x2, ln, o, gu, dn, "silu", "rmsnorm", 1e-5,
+                            True, True, None, None, None, None),
+                        wrapper=lambda: Fz.attn_mlp_fused(attn, xres, ln, o,
+                                                          gu, dn),
+                        plain=lambda: Fz.attn_mlp_fused_reference(
+                            attn, xres, ln, o, gu, dn),
+                        unfused=lambda: common._finish_block(
+                            spec, p, r3, a3, None, None)))
+
+                    def unfused_ffn():
+                        g, u = common._apply_fused(p["gateup_fused"], m)
+                        return common.linear_apply(
+                            p["down"], common.activation(spec, g) * u)
+
+                    row6.update(fused_times(
+                        timer, peaks, M, a8, [gu, dn], M * H * 4 * 2,
+                        kernel=lambda: Fz._mlp_cuda(
+                            m, None, None, None, gu, dn, "silu", "rmsnorm",
+                            0.0, True, True, None, None, None, None),
+                        wrapper=lambda: Fz.ffn_fused(m, gu, dn),
+                        plain=lambda: Fz.ffn_fused_reference(m, gu, dn),
+                        unfused=unfused_ffn))
+                log("fused " + json.dumps(row5))
+                log("fused " + json.dumps(row6))
+    report["fused_rows"] = rows
+    report["fused_max_abs_err"] = worst
 
 
 # ---------------------------------------------------------------------------
@@ -450,17 +666,68 @@ def phase_quantize(device, tmp, report):
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def phase_serve(device, tmp, card, report):
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from gptq_tpu_torch.ops import attention as A
+    from gptq_tpu_torch.ops import ffn as Fz
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    return {"qmm": Q.launches, "attention": A.launches,
+            "norm_qkv": Fz.norm_qkv_launches,
+            "attn_mlp": Fz.attn_mlp_launches, "ffn": Fz.ffn_launches}
+
+
+def reset_counts() -> None:
+    from gptq_tpu_torch.ops import attention as A
+    from gptq_tpu_torch.ops import ffn as Fz
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    Q.launches = A.launches = 0
+    Fz.norm_qkv_launches = Fz.attn_mlp_launches = Fz.ffn_launches = 0
+
+
+def expect(counts: dict, want: dict, what: str) -> None:
+    """Every kernel's count equals `want` (a missing name: 0)."""
+    bad = {k: (v, want.get(k, 0)) for k, v in counts.items()
+           if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, want) {bad}")
+
+
+def serve_cli(path, n_tok, flags, mode) -> tuple:
+    """One CLI benchmark run on route `mode`; (benchmark dict, counts,
+    printed lines)."""
     import torch
 
     from gptq_tpu_torch import cli
+
+    buf = io.StringIO()
+    with fusion_mode(mode):
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["dummy", "c4", "--load", path, "--benchmark",
+                           str(n_tok), *flags])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    out = buf.getvalue()
+    log(f"cli ({mode}): " + out.strip().replace("\n", " | "))
+    assert rc == 0
+    return json.loads(out.strip().splitlines()[-1])["benchmark"], counts, out
+
+
+def phase_serve(device, tmp, card, report):
+    import torch
+
     from gptq_tpu_torch.engine.decode import DecodeEngine
     from gptq_tpu_torch.io import save_checkpoint
     from gptq_tpu_torch.models import common
     from gptq_tpu_torch.ops import attention as A
+    from gptq_tpu_torch.ops import ffn as Fz
     from gptq_tpu_torch.ops import qmatmul as Q
+    from gptq_tpu_torch.pipeline import quantize_lm_head
 
     spec = llama7b_spec(32)
+    L = spec.n_layers
     t0 = time.perf_counter()
     params = synth_packed_params(spec, device, seed=0)
     path = os.path.join(tmp, "serve32.npz")
@@ -470,75 +737,128 @@ def phase_serve(device, tmp, card, report):
         f"{time.perf_counter() - t0:.1f} s")
 
     n_tok, warmup = 128, 100
-    Q.launches = A.launches = 0
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["dummy", "c4", "--load", path, "--benchmark",
-                       str(n_tok), "--faster-kernel", "--int8_kv"])
-    torch.cuda.synchronize()
-    qmm_main, attn_main = Q.launches, A.launches
-    out = buf.getvalue()
-    log("cli: " + out.strip().replace("\n", " | "))
-    assert rc == 0
-    bench = json.loads(out.strip().splitlines()[-1])["benchmark"]
     steps = warmup + n_tok
-    assert qmm_main == 4 * spec.n_layers * steps, (qmm_main, steps)
-    assert attn_main == spec.n_layers * steps, (attn_main, steps)
-    med_ms = bench["median_s"] * 1e3
-    log(f"decode (cli --benchmark {n_tok} --faster-kernel --int8_kv, B=1): "
-        f"median {med_ms:.3f} ms/token, {bench['tokens_per_s']:.2f} tok/s "
-        f"on {card}; launches qmm {qmm_main}, attention {attn_main}")
-    report["serve"] = {"median_ms": med_ms,
-                       "tokens_per_s": bench["tokens_per_s"],
-                       "p90_ms": bench["p90_s"] * 1e3,
-                       "qmm_launches": qmm_main, "attn_launches": attn_main}
+    serve = {}
+    # the main path: the fused route (the default on the card), with the
+    # lm_head quantized to 8 bits and served by the fused head
+    bench, counts, out = serve_cli(
+        path, n_tok, ["--faster-kernel", "--int8_kv", "--quant_lm_head", "8"],
+        "auto")
+    assert "lm_head quantized to 8 bits" in out
+    expect(counts, {"norm_qkv": (L + 1) * steps, "attn_mlp": L * steps,
+                    "attention": L * steps}, "fused cli")
+    serve["fused"] = {"median_ms": bench["median_s"] * 1e3,
+                      "tokens_per_s": bench["tokens_per_s"],
+                      "p90_ms": bench["p90_s"] * 1e3, "launches": counts}
+    # the unfused route of the first slice: one qmm launch per linear
+    bench, counts, _ = serve_cli(path, n_tok, ["--faster-kernel", "--int8_kv"],
+                                 "off")
+    expect(counts, {"qmm": 4 * L * steps, "attention": L * steps},
+           "unfused cli")
+    serve["unfused"] = {"median_ms": bench["median_s"] * 1e3,
+                        "tokens_per_s": bench["tokens_per_s"],
+                        "p90_ms": bench["p90_s"] * 1e3, "launches": counts}
     os.remove(path)
+    for route in ("fused", "unfused"):
+        r = serve[route]
+        log(f"decode {route} (cli --benchmark {n_tok} --faster-kernel "
+            f"--int8_kv{' --quant_lm_head 8' if route == 'fused' else ''}, "
+            f"B=1): median {r['median_ms']:.3f} ms/token, "
+            f"{r['tokens_per_s']:.2f} tok/s on {card}; launches "
+            + json.dumps(r["launches"]))
+    report["serve"] = serve
 
-    # 4 requests through DecodeEngine.generate: 64-token prompts, 64 new
+    # 4 requests through DecodeEngine.generate on the fused route: the
+    # 64-row prefill takes the unfused route (more than 32 rows)
+    dense_head = params["lm_head"]
+    assert quantize_lm_head(spec, params, bits=8)
     eng = DecodeEngine(spec, params, max_len=128, batch=1,
                        cache_dtype=torch.int8, a8=True)
     rng = np.random.default_rng(5)
     req_s = []
     for _ in range(4):
         prompt = rng.integers(0, spec.vocab, size=(1, 64))
-        Q.launches = A.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         toks = eng.generate(prompt, 64)
         torch.cuda.synchronize()
         req_s.append(time.perf_counter() - t0)
         assert toks.shape == (1, 64) and (toks >= 0).all() \
             and (toks < spec.vocab).all()
-        assert Q.launches == 4 * spec.n_layers * 65, Q.launches
-        assert A.launches == spec.n_layers * 64, A.launches
+        expect(launch_counts(), {"qmm": 4 * L + 1, "norm_qkv": (L + 1) * 64,
+                                 "attn_mlp": L * 64, "attention": L * 64},
+               "requests")
     log(f"requests: 4 x (64 prompt + 64 new) in "
         f"{', '.join(f'{s:.2f}' for s in req_s)} s")
     report["requests_s"] = req_s
-    prof = profile_decode(eng, rng.integers(0, spec.vocab, size=(1, 64)))
-    if prof["device_ms"] > 0:
-        prof["device_busy_share"] = prof["device_ms"] / med_ms
-    log("decode profile " + json.dumps(prof))
-    report["serve"]["profile"] = prof
 
-    # 2 layers: kernel decoding and plain decoding agree token for token
+    # device time per decode step of each route (the unfused one as the
+    # cli ran it: a dense bf16 head)
+    unfused_eng = DecodeEngine(spec, {**params, "lm_head": dense_head},
+                               max_len=128, batch=1, cache_dtype=torch.int8,
+                               a8=True)
+    for route, e, mode in (("fused", eng, "auto"),
+                           ("unfused", unfused_eng, "off")):
+        with fusion_mode(mode):
+            prof = profile_decode(e, rng.integers(0, spec.vocab, size=(1, 64)))
+        if prof["device_ms"] > 0:
+            prof["device_busy_share"] = (prof["device_ms"]
+                                         / serve[route]["median_ms"])
+        log(f"decode profile {route} " + json.dumps(prof))
+        serve[route]["profile"] = prof
+
+    # the ffn_fused route: an act-order o projection keeps attn_mlp off,
+    # so the MLP alone fuses (gate|up + act + down)
     small = llama7b_spec(2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    p_ffn = {**params, "layers": [
+        {**lp, "o": {"w": packed_linear(gen, spec.hidden, spec.hidden, 4, 128,
+                                        device, perm=True), "b": None}}
+        for lp in params["layers"][:2]]}
+    eng_ffn = DecodeEngine(small, p_ffn, max_len=64, batch=1,
+                           cache_dtype=torch.int8, a8=True)
+    reset_counts()
+    eng_ffn.generate(rng.integers(0, small.vocab, size=(1, 16)), 8)
+    torch.cuda.synchronize()
+    ffn_counts = launch_counts()
+    # 9 forwards (a 16-row prefill, 8 steps), each 2 layers + the head
+    expect(ffn_counts, {"norm_qkv": 9 * 3, "ffn": 9 * 2, "qmm": 9 * 2,
+                        "attention": 8 * 2}, "ffn route")
+    log("ffn route (2 layers, act-order o): launches " + json.dumps(ffn_counts))
+    report["ffn_route_launches"] = ffn_counts
+
+    # 2 layers, on each route: kernel decoding and plain decoding agree
+    # token for token
     p2 = {**params, "layers": params["layers"][:2]}
     prompt = rng.integers(0, small.vocab, size=(1, 64))
     eng2 = DecodeEngine(small, p2, max_len=128, batch=1,
                         cache_dtype=torch.int8, a8=True)
-    Q.launches = 0
-    kern = eng2.generate(prompt, 16)
-    assert Q.launches > 0
-    with mock.patch.object(common, "dequant_matmul",
-                           Q.dequant_matmul_reference), \
-            mock.patch.object(common, "decode_attention",
-                              A.decode_attention_reference):
-        Q.launches = A.launches = 0
-        plain = eng2.generate(prompt, 16)
-        assert Q.launches == 0 and A.launches == 0
-    log(f"2-layer greedy tokens, kernels {kern[0].tolist()} vs plain "
-        f"{plain[0].tolist()}")
-    if not np.array_equal(kern, plain):
-        raise AssertionError("kernel and plain decoding disagree")
+    for mode, route_kernel in (("auto", "attn_mlp"), ("off", "qmm")):
+        with fusion_mode(mode):
+            reset_counts()
+            kern = eng2.generate(prompt, 16)
+            torch.cuda.synchronize()
+            if not launch_counts()[route_kernel] > 0:
+                raise AssertionError(f"2-layer decoding ({mode}) launched no "
+                                     f"{route_kernel}")
+            with mock.patch.object(common, "dequant_matmul",
+                                   Q.dequant_matmul_reference), \
+                    mock.patch.object(common, "decode_attention",
+                                      A.decode_attention_reference), \
+                    mock.patch.object(common, "norm_qkv_fused",
+                                      Fz.norm_qkv_fused_reference), \
+                    mock.patch.object(common, "attn_mlp_fused",
+                                      Fz.attn_mlp_fused_reference), \
+                    mock.patch.object(common, "ffn_fused",
+                                      Fz.ffn_fused_reference):
+                reset_counts()
+                plain = eng2.generate(prompt, 16)
+                expect(launch_counts(), {}, f"plain decoding ({mode})")
+        log(f"2-layer greedy tokens ({mode}), kernels {kern[0].tolist()} vs "
+            f"plain {plain[0].tolist()}")
+        if not np.array_equal(kern, plain):
+            raise AssertionError(f"kernel and plain decoding disagree ({mode})")
 
 
 def profile_decode(eng, prompt, steps=8) -> dict:
@@ -564,15 +884,17 @@ def profile_decode(eng, prompt, steps=8) -> dict:
             tok = logits.argmax(-1)[:, None]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ms = {"qmm": 0.0, "attention": 0.0, "other": 0.0}
+    fams = (("qmm", ("qmm_kernel", "qmv_kernel")),
+            ("attention", ("attn_partial", "attn_combine")),
+            ("norm_qkv", ("norm_qkv_kernel",)), ("mlp", ("mlp_kernel",)))
+    ms = {f: 0.0 for f, _ in fams}
+    ms["other"] = 0.0
     n = dict.fromkeys(ms, 0.0)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        fam = ("qmm" if "qmm_kernel" in e.key or "qmv_kernel" in e.key
-               else "attention"
-               if "attn_partial" in e.key or "attn_combine" in e.key
-               else "other")
+        fam = next((f for f, keys in fams if any(k in e.key for k in keys)),
+                   "other")
         ms[fam] += e.device_time_total / 1e3 / steps
         n[fam] += e.count / steps
     return {"steps": steps, "profiled_wall_ms": wall / steps * 1e3,
@@ -620,6 +942,7 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         qmm_checks(device, peaks, timer, report)
         attn_checks(device, peaks, timer, report)
+        fused_checks(device, peaks, timer, report)
     tmp = tempfile.mkdtemp(prefix="gptq_tpu_torch_smoke_")
     try:
         if "quantize" in phases:
@@ -631,13 +954,33 @@ def main(argv=None) -> int:
 
     kernels = []
     if "kernels" in phases:
+        serve = report.get("serve", {})
+        fused_launches = serve.get("fused", {}).get("launches", {})
+
+        def timed(kernel, tag):
+            return next(r for r in report["fused_rows"] if r["kernel"] == kernel
+                        and r["w"] == tag and "ms" in r)
+
+        def fused_entry(name, line, row, launches, shape):
+            return {"name": name, "route": "cuda", "source": FFN_SRC,
+                    "replaces": f"gptq_tpu/ops/ffn.py:{line}",
+                    "launches": launches,
+                    "max_abs_err": report["fused_max_abs_err"][name],
+                    "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    # no one PyTorch call computes these functions
+                    "library_ms": None, "unfused_ms": row["unfused_ms"],
+                    "wrapper_ms": row["wrapper_ms"], "shape": shape}
+
         dec = [r for r in report["qmm_rows"]
                if r["w"] == "w4g-1" and r["M"] == 1 and r["a8"]]
         at = report["attn_times"][0]
         kernels = [
             {"name": "qmm", "route": "cuda", "source": QMM_SRC,
              "replaces": "gptq_tpu/ops/qmatmul.py:156",
-             "launches": report.get("serve", {}).get("qmm_launches", 0),
+             # on the unfused route (the fused one launches no qmm at decode)
+             "launches": serve.get("unfused", {}).get("launches", {})
+             .get("qmm", 0),
              "max_abs_err": report["qmm_max_abs_err"],
              "ms": sum(r["ms"] for r in dec),
              "plain_ms": sum(r["plain_ms"] for r in dec),
@@ -651,14 +994,29 @@ def main(argv=None) -> int:
              "replaces": "gptq_tpu/ops/attention.py:253",
              # the head-loop kernel computes the same function (hd % 128 != 0)
              "also_replaces": "gptq_tpu/ops/attention.py:40",
-             "launches": report.get("serve", {}).get("attn_launches", 0),
+             "launches": fused_launches.get("attention", 0),
              "max_abs_err": report["attn_max_abs_err"],
              "ms": at["ms"], "plain_ms": at["plain_ms"],
              "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
              "library_ms": at["library_ms"],
              "shape": f"B=1, H=Hkv=32, hd=128, int8 cache S={at['S']}, "
                       f"{at['length']} filled + fresh pair"},
+            fused_entry("norm_qkv", 483, timed("norm_qkv", "q|k|v w4g-1"),
+                        fused_launches.get("norm_qkv", 0),
+                        "ln1 + q|k|v 4096x12288 w4a8 g-1, M=1 (head 4096x32256 "
+                        "w8a8 in head_*)"),
+            fused_entry("attn_mlp", 383, timed("attn_mlp", "w4g-1"),
+                        fused_launches.get("attn_mlp", 0),
+                        "o 4096x4096 + ln2 + gate|up 4096x22528 + down "
+                        "11264x4096, w4a8 g-1, M=1"),
+            fused_entry("ffn", 312, timed("ffn", "w4g-1"),
+                        report.get("ffn_route_launches", {}).get("ffn", 0),
+                        "gate|up 4096x22528 + down 11264x4096, w4a8 g-1, M=1; "
+                        "launches from the 2-layer act-order-o route"),
         ]
+        head = timed("norm_qkv", "head w8g-1")
+        kernels[2].update({f"head_{k}": head[k] for k in
+                           ("ms", "plain_ms", "bound_ms", "unfused_ms")})
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

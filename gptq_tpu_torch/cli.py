@@ -2,7 +2,7 @@
 gptq_tpu/cli.py, with the same flag names):
 
     python -m gptq_tpu_torch.cli dummy c4 --load q.npz --benchmark 128 \
-        --faster-kernel --int8_kv
+        --faster-kernel --int8_kv --quant_lm_head 8
 
 Runs on the GPU (`--device cuda`, the default, raises without one).
 Quantizing from a model directory and the PPL evals over the HF datasets
@@ -34,6 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve with the int8 KV cache (per-token-head "
                         "scales; the decode-attention kernel reads it "
                         "directly)")
+    p.add_argument("--quant_lm_head", type=int, default=0, metavar="BITS",
+                   help="also quantize the output projection (RTN, e.g. 8); "
+                        "the fused route serves it with the norm in one "
+                        "launch")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -44,6 +48,7 @@ def main(argv=None) -> int:
     from gptq_tpu_torch.engine.decode import benchmark_decode
     from gptq_tpu_torch.io import load_checkpoint
     from gptq_tpu_torch.models.common import fuse_serving
+    from gptq_tpu_torch.pipeline import quantize_lm_head
 
     device = resolve_device(args.device)
     if not args.load:
@@ -51,6 +56,9 @@ def main(argv=None) -> int:
                          "model directory is not ported yet (ROADMAP)")
     spec, params, _ = load_checkpoint(args.load, device=device)
     print(f"loaded packed checkpoint {args.load}")
+    if args.quant_lm_head and quantize_lm_head(spec, params,
+                                               bits=args.quant_lm_head):
+        print(f"lm_head quantized to {args.quant_lm_head} bits")
     if args.benchmark:
         ids = np.random.default_rng(args.seed).integers(
             0, spec.vocab, size=(1, args.benchmark))

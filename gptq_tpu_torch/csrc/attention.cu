@@ -14,7 +14,8 @@
 // fresh_k / fresh_v merged into the softmax exactly as one more column
 // (the deferred cache write of model_forward). Masked slots follow the TPU
 // kernel's NEG_INF = -1e9 semantics: they get probability 0 while any slot
-// or the fresh pair is valid. A stacked (L, B, S, Hkv, hd) cache is read
+// or the fresh pair is valid; a row with length 0 and no fresh pair
+// attends to nothing and its output is zeros. A stacked (L, B, S, Hkv, hd) cache is read
 // in place: base pointer plus layer * layer stride.
 //
 // Design. The TPU kernel walks the cache in blocks on one core, carrying
@@ -239,7 +240,7 @@ attn_combine(const float* __restrict__ q, const float* __restrict__ fk,
 #pragma unroll
     for (int i = 0; i < ND; ++i) a[i] += e * fv[bh * hd + lane * ND + i];
   }
-  const float inv = 1.f / l;
+  const float inv = l > 0.f ? 1.f / l : 0.f;  // nothing attended: zeros
 #pragma unroll
   for (int i = 0; i < ND; ++i) out[(size_t)row * hd + lane * ND + i] = a[i] * inv;
 }

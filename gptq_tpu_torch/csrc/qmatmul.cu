@@ -39,12 +39,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qdot.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;
 constexpr int COLS = 32;  // output columns per block
 constexpr int KC = 32;    // K rows per chunk
-constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T>
 struct Acc { using type = float; };
@@ -56,13 +57,6 @@ __device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ int load_x(const int8_t* p) { return (int)*p; }
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
 
 // word row and bit shift of packed row k in a field of width fb
 __device__ __forceinline__ void row_pos(int k, int SB, int fb, int& wrow,
@@ -209,41 +203,7 @@ struct Stage { using type = float; };
 template <>
 struct Stage<int8_t> { using type = int8_t; };
 
-__device__ __forceinline__ int dp4a_su(int a, unsigned b, int c) {
-  int d;
-  asm("dp4a.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
-// dot of one word's codes (field width FB) with their x rows
-template <int FB>
-__device__ __forceinline__ int plane_dot(unsigned word, const int8_t* xs,
-                                         int xrow, int quarter, int dot) {
-  constexpr unsigned BM = ((1u << FB) - 1u) * 0x01010101u;
-  if (FB == 8) word ^= 0x80808080u;  // stored code - 128 -> code
-#pragma unroll
-  for (int e = 0; e < 8 / FB; ++e) {
-    const unsigned cb = (word >> (FB * e)) & BM;
-    const int xa = *reinterpret_cast<const int*>(xs + xrow + e * quarter);
-    dot = dp4a_su(xa, cb, dot);
-  }
-  return dot;
-}
-
-template <int FB>
-__device__ __forceinline__ float plane_dot(unsigned word, const float* xs,
-                                           int xrow, int quarter, float dot) {
-  constexpr unsigned BM = ((1u << FB) - 1u) * 0x01010101u;
-  if (FB == 8) word ^= 0x80808080u;
-#pragma unroll
-  for (int e = 0; e < 8 / FB; ++e) {
-    const unsigned cb = (word >> (FB * e)) & BM;
-    const float4 xv = *reinterpret_cast<const float4*>(xs + xrow + e * quarter);
-    dot += xv.x * (float)(cb & 0xffu) + xv.y * (float)((cb >> 8) & 0xffu) +
-           xv.z * (float)((cb >> 16) & 0xffu) + xv.w * (float)(cb >> 24);
-  }
-  return dot;
-}
+// plane_dot (qdot.cuh): the dot of one word's codes with their x rows
 
 // one field's contribution: items (subblock s, run c of word rows)
 template <int FB, typename ST, typename AT>

@@ -10,16 +10,23 @@ ops.attention.decode_attention over the cache slots below the filled
 length plus the token's own fresh k/v, and model_forward writes every
 layer's fresh rows into the cache once per step, in place.
 
-This slice serves the JAX package's unfused configuration
-(GPTQ_TPU_FFN_FUSION=off, GPTQ_TPU_LAYER_FUSION=off): the fused
-norm+qkv, attention+MLP and whole-layer kernels are not ported yet, nor
-are tensor / expert parallelism, MoE, alibi or the OPT / BLOOM / Gemma
-families (ROADMAP queue 1, item 13).
+Serving routes (GPTQ_TPU_FFN_FUSION, as in the JAX package): on the
+fused route a block of at most 32 rows runs ln1 + q|k|v as one
+ops.ffn.norm_qkv_fused launch and o + residual + ln2 + gate|up + act +
+down + residual as one attn_mlp_fused launch (ffn_fused where only the
+MLP can fuse), and the head runs final_ln + a packed lm_head as one
+norm_qkv_fused launch. `auto` (the default) takes the fused route for
+CUDA tensors and the unfused one (one dequant_matmul per linear) on the
+CPU; `on` / `interpret` fuse everywhere (on the CPU through the plain
+versions), `off` never. The whole-layer kernel (GPTQ_TPU_LAYER_FUSION),
+tensor / expert parallelism, MoE, alibi and the OPT / BLOOM / Gemma
+families are not ported yet (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,6 +34,9 @@ import torch
 
 from gptq_tpu_torch.config import resolve_device
 from gptq_tpu_torch.ops.attention import decode_attention
+from gptq_tpu_torch.ops.ffn import (attn_mlp_fusable, attn_mlp_fused,
+                                    ffn_fusable, ffn_fused, norm_qkv_fusable,
+                                    norm_qkv_fused)
 from gptq_tpu_torch.ops.pack import PackedWeight, fuse_packed
 from gptq_tpu_torch.ops.qmatmul import dequant_matmul
 
@@ -186,7 +196,8 @@ class KVCache:
 
     @staticmethod
     def init(spec: ArchSpec, batch: int, max_len: int,
-             dtype=torch.bfloat16, device="cpu") -> "KVCache":
+             dtype=torch.bfloat16, device="cuda") -> "KVCache":
+        device = resolve_device(device)
         shape = (spec.n_layers, batch, max_len, spec.kv_heads, spec.hd)
         ks = vs = None
         if dtype == torch.int8:
@@ -303,6 +314,157 @@ def _apply_fused(entry: dict, x: torch.Tensor) -> list:
 
 
 # ---------------------------------------------------------------------------
+# fused-route gates (as gptq_tpu/models/common.py)
+# ---------------------------------------------------------------------------
+
+def _ffn_fusion_impl(device) -> bool:
+    """Whether the fused serving kernels serve tensors on `device`
+    (GPTQ_TPU_FFN_FUSION: auto = on CUDA tensors only, on / kernel /
+    interpret = everywhere, off = never)."""
+    mode = os.environ.get("GPTQ_TPU_FFN_FUSION", "auto")
+    if mode in ("on", "kernel", "interpret"):
+        return True
+    if mode == "off":
+        return False
+    if mode != "auto":
+        raise ValueError(
+            f"GPTQ_TPU_FFN_FUSION={mode!r}: expected auto/on/off/interpret")
+    return torch.device(device).type == "cuda"
+
+
+def _stream_preferred(w) -> bool:
+    """Serve through the fused kernels? Uniform formats only (BCQ keeps its
+    own kernel, as in the JAX package)."""
+    return isinstance(w, PackedWeight) and w.fmt != "bcq"
+
+
+def _a8_mode(*entries):
+    """The shared dynamic-int8 activation mode of a phase's entries, or
+    None when the flags disagree (mixed configs keep the unfused path)."""
+    modes = {bool(e.get("serve") and e["serve"].a8) for e in entries}
+    return modes.pop() if len(modes) == 1 else None
+
+
+def _ffn_fusion_entry(p, captures, device):
+    """The gate|up entry's activation mode (True = a8, False = a16) when
+    ffn_fused can serve this block's MLP, else None."""
+    if not _ffn_fusion_impl(device) or captures is not None:
+        return None
+    gu = p.get("gateup_fused")
+    dn = p.get("down")
+    if gu is None or dn is None or not _stream_preferred(dn.get("w")):
+        return None
+    if not _stream_preferred(gu.get("w")):
+        return None
+    a8 = _a8_mode(gu, dn)
+    if a8 is None:
+        return None
+    if gu.get("act_q") is not None or dn.get("act_q") is not None:
+        return None
+    if any(b is not None for b in gu["b_parts"]) or dn.get("b") is not None:
+        return None
+    if not ffn_fusable(gu["w"], dn["w"]):
+        return None
+    return a8
+
+
+def _norm_qkv_ok(spec, p, captures, n_rows, device):
+    """Activation mode (True = a8, False = a16) when norm_qkv_fused can
+    serve this block's attention input (ln1 + fused q|k|v), else None."""
+    if (not _ffn_fusion_impl(device) or captures is not None
+            or n_rows > 32):
+        return None
+    if not spec.do_layer_norm_before or spec.norm_type not in (
+            "rmsnorm", "rmsnorm1p", "layernorm"):
+        return None
+    entry = p.get("qkv_fused")
+    if entry is None or not _stream_preferred(entry.get("w")):
+        return None
+    if entry.get("act_q") is not None:
+        return None
+    if any(b is not None for b in entry["b_parts"]):
+        # biases fold into the kernel only when every part's stored width
+        # equals its logical width (the concat then lines up exactly)
+        if any(ns != nl for ns, nl in entry["splits"].parts):
+            return None
+    return _a8_mode(entry) if norm_qkv_fusable(entry["w"]) else None
+
+
+def _qkv_fused_bias(entry):
+    """Concatenated per-part bias vector for the fused qkv kernel, or None
+    (only called when _norm_qkv_ok validated the alignment)."""
+    if all(b is None for b in entry["b_parts"]):
+        return None
+    w = entry["w"].scale
+    return torch.cat([torch.zeros(ns, dtype=torch.float32, device=w.device)
+                      if b is None else b.to(torch.float32)
+                      for (ns, _), b in zip(entry["splits"].parts,
+                                            entry["b_parts"])])
+
+
+def _mlp_entries(spec, p):
+    """(fc1-like entry, fc2-like entry, glu) for the fused MLP kernels: the
+    llama family's fused gate|up weight (OPT / BLOOM fc1 / fc2 wait with
+    those families)."""
+    if spec.arch == "llama":
+        return p.get("gateup_fused"), p.get("down"), True
+    return None, None, False
+
+
+def _attn_mlp_ok(spec, p, captures, n_rows, device):
+    """Activation mode (True = a8, False = a16) when attn_mlp_fused can
+    serve this block (o + residual + norm + MLP + residual), else None."""
+    if (not _ffn_fusion_impl(device) or captures is not None
+            or n_rows > 32):
+        return None
+    if not spec.do_layer_norm_before or spec.norm_type not in (
+            "rmsnorm", "rmsnorm1p", "layernorm"):
+        return None
+    g_e, d_e, glu = _mlp_entries(spec, p)
+    if g_e is None or d_e is None:
+        return None
+    for e in (g_e, d_e):
+        if not _stream_preferred(e.get("w")) or e.get("act_q") is not None:
+            return None
+    if glu and (any(b is not None for b in g_e["b_parts"])
+                or d_e.get("b") is not None):
+        return None  # the llama family has no MLP biases
+    o = p.get("o")
+    if o is None or not _stream_preferred(o.get("w")) or o.get("act_q"):
+        return None
+    if o.get("b") is not None and o["w"].Np != o["w"].N:
+        return None
+    a8 = _a8_mode(o, g_e, d_e)
+    if a8 is None:
+        return None
+    if not attn_mlp_fusable(o["w"], g_e["w"], d_e["w"], glu=glu):
+        return None
+    return a8
+
+
+def _head_fusion_ok(spec, params, n_rows, device):
+    """Activation mode (True = a8 under --faster-kernel, False = bf16) when
+    final_ln + the packed lm_head can run as one norm_qkv_fused launch,
+    else None."""
+    if not _ffn_fusion_impl(device) or n_rows > 32:
+        return None
+    if spec.norm_type not in ("rmsnorm", "rmsnorm1p", "layernorm"):
+        return None
+    if params.get("final_ln") is None:
+        return None
+    lm = params.get("lm_head")
+    if lm is None or not _stream_preferred(lm.get("w")):
+        return None
+    if lm.get("act_q") is not None:
+        return None
+    if lm.get("b") is not None and lm["w"].Np != lm["w"].N:
+        return None
+    if not norm_qkv_fusable(lm["w"]):
+        return None
+    return _a8_mode(lm)
+
+
+# ---------------------------------------------------------------------------
 # block forward
 # ---------------------------------------------------------------------------
 
@@ -341,8 +503,23 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     captures = {} if capture else None
     B, T, _ = x.shape
     residual = x
-    h = norm_apply(spec, p["ln1"], x)
-    q, k, v = _qkv(spec, p, h, captures)
+    qkv_a8 = _norm_qkv_ok(spec, p, captures, B * T, x.device)
+    if qkv_a8 is not None:
+        # ln1 + fused q|k|v in one launch
+        entry = p["qkv_fused"]
+        y = norm_qkv_fused(x, p["ln1"]["w"], entry["w"], norm=spec.norm_type,
+                           eps=float(spec.norm_eps), a8=qkv_a8,
+                           b_ln=p["ln1"].get("b"),
+                           b_qkv=_qkv_fused_bias(entry))
+        outs, off = [], 0
+        for n_stored, n_logical in entry["splits"].parts:
+            outs.append(y[..., off:off + n_logical])
+            off += n_stored
+        q, k, v = (o.reshape(B, T, o.shape[-1] // spec.hd, spec.hd)
+                   for o in outs)
+    else:
+        h = norm_apply(spec, p["ln1"], x)
+        q, k, v = _qkv(spec, p, h, captures)
     cos, sin = rope if rope is not None else rope_tables(spec, positions)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -386,10 +563,26 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
 
 def _finish_block(spec, p, residual, attn, captures, new_kv):
     """Post-attention half of a llama block (o projection + GLU MLP)."""
+    n_rows = attn.numel() // attn.shape[-1]
+    mlp_a8 = _attn_mlp_ok(spec, p, captures, n_rows, attn.device)
+    if mlp_a8 is not None:
+        # o + residual + ln2 + gate|up + act + down + residual in one launch
+        g_e, d_e, glu = _mlp_entries(spec, p)
+        out = attn_mlp_fused(
+            attn, residual, p["ln2"]["w"], p["o"]["w"], g_e["w"], d_e["w"],
+            act=spec.act, norm=spec.norm_type, eps=float(spec.norm_eps),
+            glu=glu, a8=mlp_a8, b_ln=p["ln2"].get("b"), b_o=p["o"].get("b"))
+        return out, new_kv, captures
     if captures is not None:
         captures["self_attn.o_proj"] = attn
     h = residual + linear_apply(p["o"], attn)
     m = norm_apply(spec, p["ln2"], h)
+    ffn_a8 = _ffn_fusion_entry(p, captures, m.device)
+    if n_rows <= 32 and ffn_a8 is not None:
+        # gate|up + act + down in one launch
+        mlp_out = ffn_fused(m, p["gateup_fused"]["w"], p["down"]["w"],
+                            act=spec.act, a8=ffn_a8)
+        return h + mlp_out, new_kv, captures
     if "gateup_fused" in p:
         g, up = _apply_fused(p["gateup_fused"], m)
         gate = activation(spec, g)
@@ -416,6 +609,16 @@ def embed_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
 
 
 def head_forward(spec: ArchSpec, params: dict, h: torch.Tensor) -> torch.Tensor:
+    head_a8 = _head_fusion_ok(spec, params, h.numel() // h.shape[-1],
+                              h.device)
+    if head_a8 is not None:
+        # final_ln + packed lm_head in one launch
+        lm = params["lm_head"]
+        y = norm_qkv_fused(h, params["final_ln"]["w"], lm["w"],
+                           norm=spec.norm_type, eps=float(spec.norm_eps),
+                           a8=head_a8, b_ln=params["final_ln"].get("b"),
+                           b_qkv=lm.get("b"))
+        return y[..., :lm["w"].N]
     if params.get("final_ln") is not None:
         h = norm_apply(spec, params["final_ln"], h)
     lm = params.get("lm_head")

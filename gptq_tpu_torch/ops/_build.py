@@ -8,8 +8,9 @@ with ctypes:
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 Libraries land in `gptq_tpu_torch/build/` (ignored by git) at first use,
-named by a hash of their source, so an edited source rebuilds and an
-unchanged one loads as it is. `build_all()` starts one nvcc per source at
+named by a hash of their source and every csrc/ header it includes
+(`#include "..."`, followed recursively), so an edited source or header
+rebuilds and an unchanged one loads as it is. `build_all()` starts one nvcc per source at
 once and waits for all of them. Nothing here runs at import time.
 """
 
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,7 +28,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD = os.path.join(PKG_DIR, "build")
-SOURCES = ("qmatmul", "attention")
+SOURCES = ("qmatmul", "attention", "ffn")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -42,10 +45,24 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _sources(name: str) -> list:
+    """csrc/<name>.cu and every csrc/ file it includes, recursively."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            todo.extend(m.decode() for m in _INCLUDE.findall(f.read()))
+    return seen
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in sorted(_sources(name)):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read())
     return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -10,7 +10,10 @@ tensors it runs `decode_attention_reference`, the plain PyTorch version.
 
 with kv head h = hq // G (GQA), and, when given, the current token's own
 (not yet written) fresh_k / fresh_v merged as one more softmax column —
-the deferred cache write of models.common.model_forward.
+the deferred cache write of models.common.model_forward. A row with
+length 0 and no fresh pair attends to nothing: its output is zeros (the
+JAX package's Pallas kernel and its XLA path disagree there; the port
+picks zeros for both its kernel and its plain version).
 """
 
 from __future__ import annotations
@@ -70,6 +73,8 @@ def decode_attention_reference(q, k, v, length, sm_scale: float,
     out = torch.einsum("bhgs,bshd->bhgd", p[..., :S], vf)
     if fresh_k is not None:
         out = out + p[..., S:] * fresh_v.to(torch.float32)[:, :, None, :]
+    else:  # a row with nothing to attend gives zeros
+        out = out * (lens > 0).to(out.dtype)[:, None, None, None]
     return out.reshape(B, H, hd)
 
 

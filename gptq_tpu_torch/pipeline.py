@@ -8,8 +8,9 @@ quantize-dequantized weight back, and replay the layer to get the next
 layer's inputs. With true_sequential the Hessians of each sub-block group
 are re-captured after the previous group is quantized.
 
-RTN (--nearest), whole-model BCQ, mixed precision and the mid-run resume
-journal are not ported yet (ROADMAP queue 1).
+quantize_lm_head packs the output projection (per-channel RTN) for the
+fused head. RTN (--nearest), whole-model BCQ, mixed precision and the
+mid-run resume journal are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ from gptq_tpu_torch.config import QuantConfig
 from gptq_tpu_torch.models.common import (ArchSpec, block_forward, build_mask,
                                           embed_forward, rope_tables)
 from gptq_tpu_torch.models.registry import get_arch
-from gptq_tpu_torch.ops.pack import pack_quantized
+from gptq_tpu_torch.ops.pack import PackedWeight, pack_quantized
 from gptq_tpu_torch.quant.gptq import (SolverConfig, gptq_quantize,
                                        hessian_init, hessian_update)
+from gptq_tpu_torch.quant.uniform import find_params, quantize_uniform
 
 
 def solver_config_for(cfg: QuantConfig, bits: int,
@@ -159,3 +161,19 @@ def pack_model(spec: ArchSpec, params: dict, quantizers: dict,
                 q["bits"], groupsize=q.get("groupsize", -1),
                 perm=q.get("perm"), actorder=q.get("perm") is not None)
     return params
+
+
+def quantize_lm_head(spec: ArchSpec, params: dict, bits: int = 8) -> bool:
+    """Quantize the output projection in place: per-channel RTN (the head
+    has no calibration Hessian in the sequential pipeline), packed with
+    groupsize -1 for the fused head kernel. A no-op (returns False) for
+    tied embeddings or a head that is already packed."""
+    lm = params.get("lm_head")
+    if lm is None or lm.get("w") is None or isinstance(lm["w"], PackedWeight):
+        return False
+    W = lm["w"].to(torch.float32)  # (vocab, hidden)
+    p = find_params(W, bits=bits, perchannel=True, weight=True)
+    Q = quantize_uniform(W, p.scale, p.zero, (1 << bits) - 1)
+    lm["w"] = pack_quantized(Q, p.scale.reshape(1, -1), p.zero.reshape(1, -1),
+                             bits, groupsize=-1)
+    return True

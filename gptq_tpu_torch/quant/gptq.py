@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from gptq_tpu_torch.config import resolve_device
 from gptq_tpu_torch.quant.uniform import shrink_factor
 
 
@@ -29,8 +30,10 @@ from gptq_tpu_torch.quant.uniform import shrink_factor
 # Hessian accumulation
 # ---------------------------------------------------------------------------
 
-def hessian_init(columns: int, device="cpu", dtype=torch.float32):
-    """Zero state: (H, nsamples, mean_input)."""
+def hessian_init(columns: int, device="cuda", dtype=torch.float32):
+    """Zero state: (H, nsamples, mean_input), on the card unless the caller
+    names another device."""
+    device = resolve_device(device)
     return (torch.zeros((columns, columns), dtype=dtype, device=device), 0,
             torch.zeros((columns,), dtype=dtype, device=device))
 

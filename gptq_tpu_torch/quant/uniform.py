@@ -31,6 +31,14 @@ def shrink_factor(i: int, grid: int) -> float:
     return float(np.float32(1.0) - np.float32(i) / np.float32(grid))
 
 
+def _per_step(x: torch.Tensor, maxq: int) -> torch.Tensor:
+    """x / maxq as the JAX package computes it once compiled: XLA folds the
+    division by a constant into a multiplication by its float32
+    reciprocal, which differs from true division in the last bit."""
+    return x * torch.tensor(float(np.float32(1.0) / np.float32(maxq)),
+                            dtype=x.dtype, device=x.device)
+
+
 @dataclass(frozen=True)
 class UniformParams:
     """Grid parameters: `scale`/`zero` broadcastable against the tensor."""
@@ -79,7 +87,7 @@ def find_params(x: torch.Tensor, bits: int, perchannel: bool = True,
     if maxq < 0:
         scale, zero = xmax, xmin
     else:
-        scale = (xmax - xmin) / maxq
+        scale = _per_step(xmax - xmin, maxq)
         zero = (torch.full_like(scale, (maxq + 1) / 2) if sym
                 else torch.round(-xmin / scale))
         if mse:
@@ -87,7 +95,7 @@ def find_params(x: torch.Tensor, bits: int, perchannel: bool = True,
             for i in range(int(maxshrink * grid)):
                 p = shrink_factor(i, grid)
                 xmin1, xmax1 = p * xmin, p * xmax
-                scale1 = (xmax1 - xmin1) / maxq
+                scale1 = _per_step(xmax1 - xmin1, maxq)
                 zero1 = zero if sym else torch.round(-xmin1 / scale1)
                 q = quantize_uniform(flat, scale1[:, None], zero1[:, None],
                                      maxq)

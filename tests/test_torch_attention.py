@@ -110,3 +110,16 @@ def test_cpu_tensor_never_launches_the_kernel():
     before = ta.launches
     _port(q, k, v, lens, 0.1, ks, vs, fk, fv)
     assert ta.launches == before
+
+
+def test_length_zero_without_fresh_pair_gives_zeros():
+    # a row with nothing to attend: zeros (the port's one meaning for its
+    # kernel and its plain version); the other rows are unchanged
+    q, k, v, ks, vs, _, _, _ = _inputs(13, 3, 32, 4, 2, 64, True)
+    lens = np.array([0, 7, 0], np.int32)
+    got = _port(q, k, v, lens, 0.125, ks, vs, None, None)
+    assert np.all(got[[0, 2]] == 0) and np.all(np.isfinite(got))
+    want = ja.decode_attention(_j(q), _j(k), _j(v), _j(lens), 0.125,
+                               k_scale=_j(ks), v_scale=_j(vs), interpret=True)
+    np.testing.assert_allclose(got[1], np.asarray(want)[1], rtol=1e-5,
+                               atol=1e-5)

@@ -116,7 +116,7 @@ def test_cached_decode_logits_match(kv_heads, cache_dtype):
     jdt, tdt = {"int8": (jnp.int8, torch.int8),
                 "f32": (jnp.float32, torch.float32)}[cache_dtype]
     jcache = jc.KVCache.init(jspec, 2, 32, jdt)
-    tcache = tc.KVCache.init(tspec, 2, 32, tdt)
+    tcache = tc.KVCache.init(tspec, 2, 32, tdt, device="cpu")
     ids = _ids(7, 2, 12)
     # prefill 8 tokens, then 4 single-token steps (the deferred-write path)
     steps = [ids[:, :8]] + [ids[:, i:i + 1] for i in range(8, 12)]
@@ -271,6 +271,12 @@ def test_entry_points_default_to_cuda(tmp_path):
         params_from_jax({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="cuda"):
         tc.init_params(tspec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tc.KVCache.init(tspec, 1, 8)
+    from gptq_tpu_torch.quant.gptq import hessian_init
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        hessian_init(8)
     from gptq_tpu_torch import cli
 
     with pytest.raises(RuntimeError, match="cuda"):
