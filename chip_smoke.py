@@ -4,19 +4,27 @@
     python3 chip_smoke.py            # every phase, one GPU
 
 Phases, in order (any failure exits non-zero; there is no CPU fallback):
-  1. build   - nvcc builds the three kernel libraries from csrc/ (qmatmul,
-               attention, ffn; in parallel).
+  1. build   - nvcc builds the five kernel libraries from csrc/ (qmatmul,
+               attention, ffn, bcq_matmul, qstream; in parallel).
   2. kernels - each kernel's wrapper against its plain PyTorch version on
                the card at llama-7B shapes, with stated tolerances, and
                timed beside its plain version, a one-call PyTorch
                yardstick (or, for the fused kernels, the unfused route of
-               the same function) and the card's bound.
+               the same function) and the card's bound. The BCQ kernel
+               (#13) and the streamed qmm (#7, GPTQ_TPU_MATMUL_IMPL=
+               streamed) are held the same way; #7 is also timed beside
+               kernel #1 on the same weight.
   3. quantize - GPTQ (4-bit, groupsize 128, act-order, static groups,
                true-sequential) of a 2-layer llama-7B-width model from
                seeded weights on 16 x 512 synthetic tokens, pack, a
                save / load round trip, and the PPL of the packed model
                (through the qmm kernel) against the dequantized dense
-               model.
+               model. Then the BCQ path: GPTQ `lut` mode (3-bit,
+               groupsize 128, APoT alphas, true-sequential) of another
+               2-layer model, pack to sign planes, save / load, PPL through
+               the BCQ kernel against its dequantized dense twin, and
+               greedy tokens of kernel against plain decoding; and the
+               time of one whole-weight `--bcq` layer.
   4. serve   - a 32-layer llama-7B-width 4-bit packed checkpoint from
                seeded codes, served through `gptq_tpu_torch.cli`
                (--benchmark 128 --faster-kernel --int8_kv --quant_lm_head 8)
@@ -28,7 +36,14 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                counters must rise by the expected amounts; a profile gives
                each route's device time per step; at 2 layers, kernel
                decoding and plain decoding give the same greedy tokens on
-               each route.
+               each route. Then a 32-layer 3-bit g128 BCQ checkpoint from
+               seeded signs and alphas through the same CLI (128
+               bcq_matmul + 32 attention launches per step, no qmm, no
+               fused kernel) with its profile, a 2-layer 4-bit serve on
+               the streamed route (GPTQ_TPU_FFN_FUSION=off,
+               GPTQ_TPU_MATMUL_IMPL=streamed: 8 streamed launches per
+               step, no qmm) with kernel-vs-plain greedy tokens, and the
+               CLI's --lut_bench table.
 Then one JSON line {"kernels": [...]}, and last {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero, printing no
@@ -57,6 +72,8 @@ PHASES = ("build", "kernels", "quantize", "serve")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
 ATTN_SRC = "gptq_tpu_torch/csrc/attention.cu"
 FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
+BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
+STREAM_SRC = "gptq_tpu_torch/csrc/qstream.cu"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
 # bf16 x times codes in another order; attention: f32 math, other order;
 # fused kernels (relative to max|plain|): they round to bf16 (and, a8,
@@ -65,6 +82,8 @@ FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
 # H100 was 1.25e-3, attn_mlp M=32 a8). Where the down phase's output
 # dwarfs the residual r2, this limit cannot see r2: residual_check holds
 # r2 on its own.
+# The BCQ kernel (#13) and the streamed qmm (#7) are held like qmm: f32
+# (a8: exact int32 partials at M = 1) sums in another order.
 TOL = {"qmm_a8": 1e-4, "qmm_a16": 2e-3, "attn": 1e-3, "fused": 3e-3}
 
 
@@ -128,20 +147,41 @@ def packed_linear(gen, K, N, bits, groupsize, device, perm=False):
                         K=K, N=N, groupsize=groupsize)
 
 
-def synth_packed_params(spec, device, bits=4, groupsize=-1, seed=0):
-    """Seeded random 4-bit packed llama params (the counterpart of the JAX
-    package's bench.py:synth_packed_params): random codes in the real
-    serving format, bf16 embedding / norms, a dense bf16 lm_head."""
+def bcq_linear(gen, K, N, bits, groupsize, device):
+    """Random BCQ weight of logical (K, N) from seeded signs and alphas
+    (the counterpart of the JAX package's kernel_bench.make_random_bcq),
+    stored dims padded as pack_bcq pads them, pad alphas zero."""
+    import torch
+
+    from gptq_tpu_torch.ops.pack import PackedWeight, pad_dim
+
+    Kp, Np = pad_dim(K, groupsize), pad_dim(N)
+    ng = 1 if groupsize <= 0 else Kp // groupsize
+    words = random_words(gen, bits * Kp // 32, Np, device).reshape(
+        bits, Kp // 32, Np)
+    alpha = torch.randn((ng, bits, Np), generator=gen, device=device).abs() \
+        * 0.004 + 0.002
+    alpha[:, :, N:] = 0
+    return PackedWeight(words=(words,), alpha=alpha, bits=bits, K=K, N=N,
+                        groupsize=groupsize, fmt="bcq")
+
+
+def synth_packed_params(spec, device, bits=4, groupsize=-1, seed=0,
+                        fmt="uniform"):
+    """Seeded random packed llama params (the counterpart of the JAX
+    package's bench.py:synth_packed_params): random codes (fmt="bcq":
+    sign planes and alphas) in the real serving format, bf16 embedding /
+    norms, a dense bf16 lm_head."""
     import torch
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     h, f = spec.hidden, spec.ffn
     kv = spec.kv_heads * spec.hd
+    make = bcq_linear if fmt == "bcq" else packed_linear
 
     def lin(K, N):
-        return {"w": packed_linear(gen, K, N, bits, groupsize, device),
-                "b": None}
+        return {"w": make(gen, K, N, bits, groupsize, device), "b": None}
 
     layers = []
     for _ in range(spec.n_layers):
@@ -159,38 +199,15 @@ def synth_packed_params(spec, device, bits=4, groupsize=-1, seed=0):
             "lm_head": {"w": emb, "b": None}}
 
 
-class Timer:
-    """Median per-call device time (CUDA events), L2 flushed before each
-    timed call so weights stream from device memory as in decode. A spin
-    kernel of ~2.5 ms (5e6 cycles) then holds the device while the host
-    queues the whole call before the start event fires, so the events
-    time the device work, not the host's Python and launch overhead (on
-    a shared host that can exceed a small kernel's own time)."""
+def device_ms(fn) -> float:
+    """Median device time of fn() in ms: kernel_bench.time_fn's protocol
+    (CUDA events, the L2 flushed before each call so weights stream from
+    device memory as in decode, and a spin kernel holding the device while
+    the host queues the call, so the events time the device work and not
+    the host's launch overhead)."""
+    from gptq_tpu_torch.ops.kernel_bench import time_fn
 
-    def __init__(self, device, reps=20, spin_cycles=5_000_000):
-        import torch
-
-        self.reps = reps
-        self.spin_cycles = spin_cycles
-        self.flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
-
-    def __call__(self, fn) -> float:
-        import torch
-
-        fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(self.reps):
-            self.flush.zero_()
-            torch.cuda._sleep(self.spin_cycles)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return float(np.median(ts))
+    return time_fn(fn).median_s * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -243,38 +260,14 @@ def qmm_checks(device, peaks, timer, report):
                        "max_abs_err": err, "rel_err": rel}
                 if (tag in ("w4g-1", "w4g128p") and xdt == torch.bfloat16
                         or (a8 and M == 1 and tag in ("w4g-1", "w4g128p"))):
-                    row.update(qmm_times(pw, x, a8, peaks, timer))
+                    row.update(matmul_times(
+                        pw, x, a8, peaks, timer, kernel=Q._qmm_cuda,
+                        prepare=Q._prepare, wrapper=Q.dequant_matmul,
+                        plain=Q.dequant_matmul_reference, dense=Q.dequant))
                 rows.append(row)
                 log("qmm " + json.dumps(row))
     report["qmm_rows"] = rows
     report["qmm_max_abs_err"] = worst
-
-
-def qmm_times(pw, x, a8, peaks, timer) -> dict:
-    import torch
-
-    from gptq_tpu_torch.ops import qmatmul as Q
-    from gptq_tpu_torch.ops.pack import FIELD_SPLITS
-
-    M = x.shape[0]
-    x2, _ = Q._prepare(x, pw, a8)
-    ms = timer(lambda: Q._qmm_cuda(x2, pw))
-    wrapper_ms = timer(lambda: Q.dequant_matmul(x, pw, a8=a8))
-    plain_ms = timer(lambda: Q.dequant_matmul_reference(x, pw, a8=a8))
-    wd = Q.dequant(pw).to(torch.bfloat16)
-    xb = x.to(torch.bfloat16)
-    lib_ms = timer(lambda: torch.matmul(xb, wd))
-    words = sum(w.numel() * 4 for w in pw.words)
-    grids = (pw.scale.numel() + pw.zoff.numel()) * 4
-    x_bytes = M * pw.Kp * (1 if a8 else 2) + (M * 4 if a8 else 0)
-    out_bytes = M * pw.Np * 4
-    nbytes = words + grids + x_bytes + out_bytes
-    ops = 2 * M * pw.Kp * pw.Np
-    t_bytes = nbytes / peaks["bw"] * 1e3
-    t_ops = ops / peaks["int8" if a8 else "bf16"] * 1e3
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def attn_checks(device, peaks, timer, report):
@@ -403,17 +396,27 @@ def attn_times(gen, device, peaks, timer, S, length) -> dict:
 
 
 @contextlib.contextmanager
-def fusion_mode(mode):
-    """Run with GPTQ_TPU_FFN_FUSION=mode (the serving route switch)."""
-    old = os.environ.get("GPTQ_TPU_FFN_FUSION")
-    os.environ["GPTQ_TPU_FFN_FUSION"] = mode
+def env_var(name, value):
+    """Run with the environment variable `name` set to `value`."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["GPTQ_TPU_FFN_FUSION"]
+            del os.environ[name]
         else:
-            os.environ["GPTQ_TPU_FFN_FUSION"] = old
+            os.environ[name] = old
+
+
+def fusion_mode(mode):
+    """Run with GPTQ_TPU_FFN_FUSION=mode (the serving route switch)."""
+    return env_var("GPTQ_TPU_FFN_FUSION", mode)
+
+
+def matmul_impl(impl):
+    """Run with GPTQ_TPU_MATMUL_IMPL=impl (the packed matmul's route)."""
+    return env_var("GPTQ_TPU_MATMUL_IMPL", impl)
 
 
 def packed_bytes(pw) -> int:
@@ -587,6 +590,186 @@ def fused_checks(device, peaks, timer, report):
     report["fused_max_abs_err"] = worst
 
 
+SHAPES_7B = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096)]
+
+
+def close_check(what, got, want, tol, bf16_out) -> float:
+    """|got - want| within tol of max|want| (plus one bf16 step of each
+    element when the output is bf16); returns max |got - want|."""
+    import torch
+
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ulp = 2.0**-7 * want.abs() if bf16_out else 0.0
+    if not bool((diff <= tol * want.abs().max() + ulp).all()):
+        raise AssertionError(f"{what}: rel err "
+                             f"{float(diff.max() / want.abs().max()):.3g} > "
+                             f"{tol}")
+    return float(diff.max())
+
+
+def bcq_checks(device, peaks, timer, report):
+    """#13 against bcq_matmul_reference at llama-7B shapes: bits 2/3/4,
+    groupsize -1 and 128, M 1 and 32, a8 / bf16 / f32; timed at the decode
+    shape (3-bit g128 a8, M = 1, the four linears of one layer) and at the
+    PPL eval's M = 512."""
+    import torch
+
+    from gptq_tpu_torch.ops import bcq_matmul as B
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    rows, worst, dec = [], 0.0, []
+    modes = (("a8", torch.float32), ("a16", torch.bfloat16),
+             ("a16", torch.float32))
+    for K, N in SHAPES_7B:
+        for bits in (2, 3, 4):
+            for gs in (-1, 128):
+                pw = bcq_linear(gen, K, N, bits, gs, device)
+                for M in (1, 32):
+                    x32 = torch.randn((M, K), generator=gen, device=device)
+                    for act, xdt in modes:
+                        a8 = act == "a8"
+                        x = x32.to(xdt)
+                        err = close_check(
+                            f"bcq_matmul K={K} N={N} w{bits} g{gs} M={M} "
+                            f"{act} {xdt}", B.bcq_matmul(x, pw, a8=a8),
+                            B.bcq_matmul_reference(x, pw, a8=a8),
+                            TOL["qmm_a8" if a8 else "qmm_a16"],
+                            xdt == torch.bfloat16)
+                        if xdt == torch.float32:
+                            worst = max(worst, err)
+                        row = {"K": K, "N": N, "bits": bits, "g": gs, "M": M,
+                               "act": act, "x": str(xdt)[6:],
+                               "max_abs_err": err}
+                        if bits == 3 and gs == 128 and M == 1 and a8:
+                            row.update(matmul_times(
+                                pw, x, a8, peaks, timer,
+                                kernel=B._bcq_cuda, prepare=B._prepare,
+                                wrapper=B.bcq_matmul,
+                                plain=B.bcq_matmul_reference,
+                                dense=B.bcq_dequant))
+                            dec.append(row)
+                        rows.append(row)
+                del pw
+        log(f"bcq_matmul K={K} N={N}: 36 cases within tolerance")
+    # the PPL eval's 512-row blocks go through the tiled kernel (bf16 x,
+    # as the torch.matmul yardstick runs)
+    pw = bcq_linear(gen, 4096, 12288, 3, 128, device)
+    x = torch.randn((512, 4096), generator=gen,
+                    device=device).to(torch.bfloat16)
+    row = {"K": 4096, "N": 12288, "bits": 3, "g": 128, "M": 512,
+           "act": "a16", "x": "bfloat16",
+           "max_abs_err": close_check("bcq_matmul M=512",
+                                      B.bcq_matmul(x, pw),
+                                      B.bcq_matmul_reference(x, pw),
+                                      TOL["qmm_a16"], True)}
+    row.update(matmul_times(pw, x, False, peaks, timer, kernel=B._bcq_cuda,
+                            prepare=B._prepare, wrapper=B.bcq_matmul,
+                            plain=B.bcq_matmul_reference, dense=B.bcq_dequant))
+    log("bcq_matmul timing " + json.dumps(row))
+    for r in dec:
+        log("bcq_matmul timing " + json.dumps(r))
+    report["bcq_rows"] = rows
+    report["bcq_decode"] = dec
+    report["bcq_m512"] = row
+    report["bcq_max_abs_err"] = worst
+
+
+def matmul_times(pw, x, a8, peaks, timer, kernel, prepare, wrapper, plain,
+                 dense, extra=None) -> dict:
+    """Device times of one packed matmul: the bare kernel launch, the
+    wrapper, the plain version and torch.matmul on the dequantized bf16
+    weight (the one-call PyTorch yardstick), beside the byte / operation
+    bound of its inputs and output. `extra`: more named calls to time."""
+    import torch
+
+    M = x.shape[0]
+    x2, _ = prepare(x, pw, a8)
+    ms = timer(lambda: kernel(x2, pw))
+    out = {"ms": ms, "wrapper_ms": timer(lambda: wrapper(x, pw, a8=a8)),
+           "plain_ms": timer(lambda: plain(x, pw, a8=a8))}
+    wd = dense(pw).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    out["library_ms"] = timer(lambda: torch.matmul(xb, wd))
+    del wd
+    for name, fn in (extra or {}).items():
+        out[name] = timer(lambda: fn(x2, pw))
+    grids = sum(t.numel() * 4 for t in (pw.scale, pw.zoff, pw.alpha)
+                if t is not None)
+    words = sum(w.numel() * 4 for w in pw.words)
+    x_bytes = M * pw.Kp * (1 if a8 else x.element_size()) + (M * 4 if a8
+                                                             else 0)
+    nbytes = words + grids + x_bytes + M * pw.Np * 4
+    # the least work: one product with the dequantized weight, at the peak
+    # of the activations' type
+    ops = 2 * M * pw.Kp * pw.Np
+    kind = ("int8" if a8 else "bf16" if x.dtype == torch.bfloat16
+            else "f32")
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = ops / peaks[kind] * 1e3
+    out.update({"bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    return out
+
+
+def stream_checks(device, peaks, timer, report):
+    """#7 (GPTQ_TPU_MATMUL_IMPL=streamed) against dequant_matmul_reference
+    at llama-7B shapes: 2/4/8-bit, groupsize -1 and 128, M 1 and 8, a8 and
+    a16 (bf16); timed at M = 1 w4a8 g-1 beside kernel #1 on the same
+    weight."""
+    import torch
+
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    rows, worst, dec = [], 0.0, []
+    with matmul_impl("streamed"):
+        for K, N in SHAPES_7B:
+            for bits in (2, 4, 8):
+                for gs in (-1, 128):
+                    pw = packed_linear(gen, K, N, bits, gs, device)
+                    for M in (1, 8):
+                        x32 = torch.randn((M, K), generator=gen,
+                                          device=device)
+                        for a8, xdt in ((True, torch.float32),
+                                        (False, torch.bfloat16)):
+                            x = x32.to(xdt)
+                            before = (Q.launches, Q.stream_launches)
+                            got = Q.dequant_matmul(x, pw, a8=a8)
+                            if (Q.launches, Q.stream_launches) != \
+                                    (before[0], before[1] + 1):
+                                raise AssertionError("streamed route did not "
+                                                     "launch kernel #7")
+                            err = close_check(
+                                f"streamed qmm K={K} N={N} w{bits} g{gs} "
+                                f"M={M} a8={a8}", got,
+                                Q.dequant_matmul_reference(x, pw, a8=a8),
+                                TOL["qmm_a8" if a8 else "qmm_a16"], not a8)
+                            if a8:
+                                worst = max(worst, err)
+                            row = {"K": K, "N": N, "bits": bits, "g": gs,
+                                   "M": M, "a8": a8, "max_abs_err": err}
+                            if bits == 4 and gs == -1 and M == 1 and a8:
+                                row.update(matmul_times(
+                                    pw, x, a8, peaks, timer,
+                                    kernel=Q._stream_cuda, prepare=Q._prepare,
+                                    wrapper=Q.dequant_matmul,
+                                    plain=Q.dequant_matmul_reference,
+                                    dense=Q.dequant,
+                                    extra={"qmm_ms": Q._qmm_cuda}))
+                                dec.append(row)
+                            rows.append(row)
+            log(f"streamed qmm K={K} N={N}: 24 cases within tolerance")
+    for r in dec:
+        log("streamed qmm timing " + json.dumps(r))
+    report["stream_rows"] = rows
+    report["stream_decode"] = dec
+    report["stream_max_abs_err"] = worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: quantize -> pack -> save / load -> PPL
 # ---------------------------------------------------------------------------
@@ -594,9 +777,10 @@ def fused_checks(device, peaks, timer, report):
 def dense_weight(pw):
     """(N, K) dense f32 weight in the original column order of a packed
     weight (act-order weights store K permuted)."""
+    from gptq_tpu_torch.ops import bcq_matmul as B
     from gptq_tpu_torch.ops import qmatmul as Q
 
-    w = Q.dequant(pw).T
+    w = (B.bcq_dequant(pw) if pw.fmt == "bcq" else Q.dequant(pw)).T
     if pw.perm is None:
         return w.contiguous()
     out = w.new_empty(w.shape)
@@ -648,11 +832,8 @@ def phase_quantize(device, tmp, report):
     torch.cuda.synchronize()
     qmm_eval = Q.launches
     assert qmm_eval == 4 * 7 * spec.n_layers, qmm_eval
-    dense = {**loaded, "layers": [
-        {k: ({"w": dense_weight(v["w"]), "b": None}
-             if isinstance(v.get("w"), PackedWeight) else v)
-         for k, v in lp.items()} for lp in loaded["layers"]]}
-    ppl_dense = eval_ppl(spec, dense, test, 512, log=lambda s: None)
+    ppl_dense = eval_ppl(spec, dense_twin(loaded), test, 512,
+                         log=lambda s: None)
     rel = abs(ppl_packed / ppl_dense - 1.0)
     log(f"ppl: packed {ppl_packed:.4f} (qmm kernel, {qmm_eval} launches) vs "
         f"dense-dequantized {ppl_dense:.4f}: rel diff {rel:.2e}")
@@ -662,6 +843,165 @@ def phase_quantize(device, tmp, report):
                           "ppl_packed": ppl_packed, "ppl_dense": ppl_dense}
 
 
+def dense_twin(params):
+    """The same model with every packed linear dequantized to dense f32."""
+    from gptq_tpu_torch.ops.pack import PackedWeight
+
+    return {**params, "layers": [
+        {k: ({"w": dense_weight(v["w"]), "b": None}
+             if isinstance(v.get("w"), PackedWeight) else v)
+         for k, v in lp.items()} for lp in params["layers"]]}
+
+
+def plain_versions():
+    """Patch every kernel wrapper the model core calls with its plain
+    version (for kernel-vs-plain greedy tokens)."""
+    from gptq_tpu_torch.models import common
+    from gptq_tpu_torch.ops import attention as A
+    from gptq_tpu_torch.ops import bcq_matmul as B
+    from gptq_tpu_torch.ops import ffn as Fz
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    stack = contextlib.ExitStack()
+    for name, fn in (("dequant_matmul", Q.dequant_matmul_reference),
+                     ("bcq_matmul", B.bcq_matmul_reference),
+                     ("decode_attention", A.decode_attention_reference),
+                     ("norm_qkv_fused", Fz.norm_qkv_fused_reference),
+                     ("attn_mlp_fused", Fz.attn_mlp_fused_reference),
+                     ("ffn_fused", Fz.ffn_fused_reference)):
+        stack.enter_context(mock.patch.object(common, name, fn))
+    return stack
+
+
+def greedy_check(what, eng, prompt, n_new, kernel_name) -> list:
+    """Greedy tokens of kernel decoding (which must launch kernel_name)
+    against plain decoding (which must launch nothing)."""
+    import torch
+
+    reset_counts()
+    kern = eng.generate(prompt, n_new)
+    torch.cuda.synchronize()
+    if not launch_counts()[kernel_name] > 0:
+        raise AssertionError(f"{what}: kernel decoding launched no "
+                             f"{kernel_name}")
+    with plain_versions():
+        reset_counts()
+        plain = eng.generate(prompt, n_new)
+        expect(launch_counts(), {}, f"{what}: plain decoding")
+    log(f"{what}: greedy tokens, kernels {kern[0].tolist()} vs plain "
+        f"{plain[0].tolist()}")
+    if not np.array_equal(kern, plain):
+        raise AssertionError(f"{what}: kernel and plain decoding disagree; "
+                             + divergence(eng, prompt, kern, plain))
+    return kern[0].tolist()
+
+
+def divergence(eng, prompt, kern, plain) -> str:
+    """At the first step where the two decodings part: both logits on the
+    common prefix, the plain version's margin between its token and the
+    kernel's, and the largest logit difference."""
+    import torch
+
+    i = int(np.argmax(kern[0] != plain[0]))
+    ids = torch.as_tensor(np.concatenate([prompt, kern[:, :i]], axis=1),
+                          device=eng.device)
+    lk, _ = eng.prefill(ids)
+    with plain_versions():
+        lp, _ = eng.prefill(ids)
+    lk, lp = lk[0].float(), lp[0].float()
+    tk, tp = int(kern[0, i]), int(plain[0, i])
+    top = torch.topk(lp, 3)
+    return (f"step {i}: plain logits of its token {tp} and the kernel's {tk}: "
+            f"{float(lp[tp]):.6g} / {float(lp[tk]):.6g} (kernel's: "
+            f"{float(lk[tp]):.6g} / {float(lk[tk]):.6g}); max |kernel - "
+            f"plain| {float((lk - lp).abs().max()):.3g} of max |plain| "
+            f"{float(lp.abs().max()):.3g}; plain top-3 "
+            f"{top.values.tolist()} at {top.indices.tolist()}")
+
+
+def phase_quantize_bcq(device, tmp, report):
+    """The BCQ path: GPTQ lut mode -> pack_bcq -> save / load -> PPL through
+    #13 against the dense twin, greedy tokens, and one --bcq layer's time."""
+    import torch
+
+    from gptq_tpu_torch.config import QuantConfig
+    from gptq_tpu_torch.data import synthetic_stream
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.eval.ppl import eval_ppl
+    from gptq_tpu_torch.io import load_checkpoint, save_checkpoint
+    from gptq_tpu_torch.models.common import init_params
+    from gptq_tpu_torch.ops.pack import PackedWeight
+    from gptq_tpu_torch.pipeline import pack_model, quantize_model
+
+    spec = llama7b_spec(2)
+    params = init_params(spec, seed=3, dtype=torch.float32, device=device)
+    calib = torch.as_tensor(synthetic_stream(spec.vocab, 16 * 512, seed=4)
+                            .reshape(16, 512), device=device).long()
+    cfg = QuantConfig(wbits=3, groupsize=128, lut_eval=True, bcq_round=5,
+                      apot_nums=2, use_bst=True, true_sequential=True,
+                      nsamples=16)
+    t0 = time.perf_counter()
+    res = quantize_model(spec, params, calib, cfg, log=lambda s: None)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    per_layer = [res.times[f"layer{i}"] for i in range(spec.n_layers)]
+    log(f"quantize (lut, BCQ 3-bit g128): {spec.n_layers} layers in "
+        f"{t_quant:.1f} s ({', '.join(f'{t:.1f}' for t in per_layer)} s per "
+        f"layer); losses " + json.dumps(
+            {k: round(v, 3) for k, v in res.losses.items()}))
+    pack_model(spec, params, res.quantizers, cfg)
+    path = os.path.join(tmp, "bcq2.npz")
+    save_checkpoint(path, spec, params, cfg)
+    spec2, loaded, cfg2 = load_checkpoint(path, device=device)
+    assert spec2 == spec and cfg2 == cfg
+    for i, lp in enumerate(params["layers"]):
+        for key in ("q", "k", "v", "o", "gate", "up", "down"):
+            a, b = lp[key]["w"], loaded["layers"][i][key]["w"]
+            assert isinstance(b, PackedWeight) and b.fmt == "bcq" \
+                and b.bits == 3, (i, key)
+            assert torch.equal(a.words[0], b.words[0]), (i, key)
+            assert torch.equal(a.alpha, b.alpha), (i, key)
+    test = synthetic_stream(spec.vocab, 4 * 512, seed=2)
+    reset_counts()
+    ppl_packed = eval_ppl(spec, loaded, test, 512, log=lambda s: None)
+    torch.cuda.synchronize()
+    n_eval = launch_counts()
+    expect(n_eval, {"bcq": 4 * 7 * spec.n_layers}, "BCQ PPL eval")
+    ppl_dense = eval_ppl(spec, dense_twin(loaded), test, 512,
+                         log=lambda s: None)
+    rel = abs(ppl_packed / ppl_dense - 1.0)
+    log(f"ppl (BCQ): packed {ppl_packed:.4f} (bcq_matmul kernel, "
+        f"{n_eval['bcq']} launches) vs dense-dequantized {ppl_dense:.4f}: "
+        f"rel diff {rel:.2e}")
+    if not (math.isfinite(ppl_packed) and rel < 0.005):
+        raise AssertionError(f"BCQ packed vs dense PPL differ by {rel:.3g}")
+    # f32 activations and cache: this model's logits are nearly flat (PPL
+    # ~6e4 over 32000 tokens), and under int8 activations and cache one
+    # rounding tie flipped between the kernel and the plain version moves
+    # the logits by ~1% of their range, more than the gap between the top
+    # two at some steps (PERF.md, Findings). The w3a8 int8-KV route's tokens
+    # are held on the serve phase's 2-layer BCQ model.
+    eng = DecodeEngine(spec, loaded, max_len=128, batch=1,
+                       cache_dtype=torch.float32, a8=False)
+    prompt = np.random.default_rng(6).integers(0, spec.vocab, size=(1, 64))
+    tokens = greedy_check("2-layer BCQ decoding (f32 activations and cache)",
+                          eng, prompt, 16, "bcq")
+    del eng, loaded, params
+
+    # one whole-weight --bcq layer (Hessian-free, 5 rounds)
+    spec1 = llama7b_spec(1)
+    p1 = init_params(spec1, seed=5, dtype=torch.float32, device=device)
+    cfg1 = QuantConfig(wbits=3, groupsize=128, bcq=True, nsamples=1)
+    res1 = quantize_model(spec1, p1, calib[:1], cfg1, log=lambda s: None)
+    torch.cuda.synchronize()
+    log(f"quantize (--bcq, 3-bit g128, 5 rounds): one layer in "
+        f"{res1.times['layer0']:.2f} s")
+    report["quantize_bcq"] = {
+        "seconds": t_quant, "per_layer_s": per_layer,
+        "ppl_packed": ppl_packed, "ppl_dense": ppl_dense,
+        "greedy_tokens": tokens, "bcq_rtn_layer_s": res1.times["layer0"]}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
@@ -669,20 +1009,23 @@ def phase_quantize(device, tmp, report):
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count."""
     from gptq_tpu_torch.ops import attention as A
+    from gptq_tpu_torch.ops import bcq_matmul as B
     from gptq_tpu_torch.ops import ffn as Fz
     from gptq_tpu_torch.ops import qmatmul as Q
 
-    return {"qmm": Q.launches, "attention": A.launches,
+    return {"qmm": Q.launches, "stream": Q.stream_launches,
+            "bcq": B.launches, "attention": A.launches,
             "norm_qkv": Fz.norm_qkv_launches,
             "attn_mlp": Fz.attn_mlp_launches, "ffn": Fz.ffn_launches}
 
 
 def reset_counts() -> None:
     from gptq_tpu_torch.ops import attention as A
+    from gptq_tpu_torch.ops import bcq_matmul as B
     from gptq_tpu_torch.ops import ffn as Fz
     from gptq_tpu_torch.ops import qmatmul as Q
 
-    Q.launches = A.launches = 0
+    Q.launches = Q.stream_launches = B.launches = A.launches = 0
     Fz.norm_qkv_launches = Fz.attn_mlp_launches = Fz.ffn_launches = 0
 
 
@@ -694,15 +1037,15 @@ def expect(counts: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launches (got, want) {bad}")
 
 
-def serve_cli(path, n_tok, flags, mode) -> tuple:
-    """One CLI benchmark run on route `mode`; (benchmark dict, counts,
-    printed lines)."""
+def serve_cli(path, n_tok, flags, mode, impl="pallas") -> tuple:
+    """One CLI benchmark run on route `mode` (GPTQ_TPU_FFN_FUSION) and
+    packed-matmul route `impl`; (benchmark dict, counts, printed lines)."""
     import torch
 
     from gptq_tpu_torch import cli
 
     buf = io.StringIO()
-    with fusion_mode(mode):
+    with fusion_mode(mode), matmul_impl(impl):
         reset_counts()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["dummy", "c4", "--load", path, "--benchmark",
@@ -720,10 +1063,6 @@ def phase_serve(device, tmp, card, report):
 
     from gptq_tpu_torch.engine.decode import DecodeEngine
     from gptq_tpu_torch.io import save_checkpoint
-    from gptq_tpu_torch.models import common
-    from gptq_tpu_torch.ops import attention as A
-    from gptq_tpu_torch.ops import ffn as Fz
-    from gptq_tpu_torch.ops import qmatmul as Q
     from gptq_tpu_torch.pipeline import quantize_lm_head
 
     spec = llama7b_spec(32)
@@ -836,29 +1175,116 @@ def phase_serve(device, tmp, card, report):
                         cache_dtype=torch.int8, a8=True)
     for mode, route_kernel in (("auto", "attn_mlp"), ("off", "qmm")):
         with fusion_mode(mode):
-            reset_counts()
-            kern = eng2.generate(prompt, 16)
-            torch.cuda.synchronize()
-            if not launch_counts()[route_kernel] > 0:
-                raise AssertionError(f"2-layer decoding ({mode}) launched no "
-                                     f"{route_kernel}")
-            with mock.patch.object(common, "dequant_matmul",
-                                   Q.dequant_matmul_reference), \
-                    mock.patch.object(common, "decode_attention",
-                                      A.decode_attention_reference), \
-                    mock.patch.object(common, "norm_qkv_fused",
-                                      Fz.norm_qkv_fused_reference), \
-                    mock.patch.object(common, "attn_mlp_fused",
-                                      Fz.attn_mlp_fused_reference), \
-                    mock.patch.object(common, "ffn_fused",
-                                      Fz.ffn_fused_reference):
-                reset_counts()
-                plain = eng2.generate(prompt, 16)
-                expect(launch_counts(), {}, f"plain decoding ({mode})")
-        log(f"2-layer greedy tokens ({mode}), kernels {kern[0].tolist()} vs "
-            f"plain {plain[0].tolist()}")
-        if not np.array_equal(kern, plain):
-            raise AssertionError(f"kernel and plain decoding disagree ({mode})")
+            greedy_check(f"2-layer decoding ({mode})", eng2, prompt, 16,
+                         route_kernel)
+    del params, p2, p_ffn, eng, unfused_eng, eng2, eng_ffn, dense_head
+    torch.cuda.empty_cache()
+    serve_bcq(device, tmp, card, report)
+    serve_streamed(device, tmp, report)
+    lut_bench(report)
+
+
+def serve_bcq(device, tmp, card, report):
+    """The BCQ route: a 32-layer 3-bit g128 BCQ checkpoint through the CLI;
+    every packed linear launches #13 (the fused kernels take uniform
+    weights only), 128 per step, plus 32 attention launches."""
+    import torch
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.io import save_checkpoint
+
+    spec = llama7b_spec(32)
+    L = spec.n_layers
+    t0 = time.perf_counter()
+    params = synth_packed_params(spec, device, bits=3, groupsize=128, seed=7,
+                                 fmt="bcq")
+    path = os.path.join(tmp, "bcq32.npz")
+    save_checkpoint(path, spec, params)
+    log(f"serve (BCQ): synthesized + saved a 32-layer 3-bit g128 BCQ "
+        f"checkpoint ({os.path.getsize(path) / 2**30:.2f} GiB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_tok, warmup = 128, 100
+    steps = warmup + n_tok
+    bench, counts, out = serve_cli(path, n_tok,
+                                   ["--faster-kernel", "--int8_kv"], "auto")
+    os.remove(path)
+    quant = json.loads(out.strip().splitlines()[-1])["quant"]
+    assert quant["wbits"] == 3 and quant["lut_eval"] is True, quant
+    expect(counts, {"bcq": 4 * L * steps, "attention": L * steps},
+           "BCQ cli")
+    r = {"median_ms": bench["median_s"] * 1e3,
+         "tokens_per_s": bench["tokens_per_s"],
+         "p90_ms": bench["p90_s"] * 1e3, "launches": counts}
+    log(f"decode bcq (cli --benchmark {n_tok} --faster-kernel --int8_kv, "
+        f"w3g128 BCQ, B=1): median {r['median_ms']:.3f} ms/token, "
+        f"{r['tokens_per_s']:.2f} tok/s on {card}; launches "
+        + json.dumps(counts))
+    eng = DecodeEngine(spec, params, max_len=128, batch=1,
+                       cache_dtype=torch.int8, a8=True)
+    prof = profile_decode(eng, np.random.default_rng(8).integers(
+        0, spec.vocab, size=(1, 64)))
+    if prof["device_ms"] > 0:
+        prof["device_busy_share"] = prof["device_ms"] / r["median_ms"]
+    log("decode profile bcq " + json.dumps(prof))
+    r["profile"] = prof
+    report.setdefault("serve", {})["bcq"] = r
+    # 2 layers: kernel decoding and plain decoding agree token for token
+    small = llama7b_spec(2)
+    eng2 = DecodeEngine(small, {**params, "layers": params["layers"][:2]},
+                        max_len=128, batch=1, cache_dtype=torch.int8,
+                        a8=True)
+    prompt = np.random.default_rng(9).integers(0, small.vocab, size=(1, 64))
+    r["greedy_tokens"] = greedy_check("2-layer BCQ decoding (w3a8, int8 KV)",
+                                      eng2, prompt, 16, "bcq")
+
+
+def serve_streamed(device, tmp, report):
+    """The streamed route: a 2-layer 4-bit checkpoint through the CLI with
+    GPTQ_TPU_FFN_FUSION=off and GPTQ_TPU_MATMUL_IMPL=streamed (8 launches
+    of #7 per step, no qmm), and kernel-vs-plain greedy tokens."""
+    import torch
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.io import save_checkpoint
+
+    spec = llama7b_spec(2)
+    params = synth_packed_params(spec, device, bits=4, groupsize=-1, seed=11)
+    path = os.path.join(tmp, "stream2.npz")
+    save_checkpoint(path, spec, params)
+    n_tok, warmup = 32, 100
+    steps = warmup + n_tok
+    bench, counts, _ = serve_cli(path, n_tok, ["--faster-kernel", "--int8_kv"],
+                                 "off", impl="streamed")
+    os.remove(path)
+    expect(counts, {"stream": 4 * 2 * steps, "attention": 2 * steps},
+           "streamed cli")
+    r = {"median_ms": bench["median_s"] * 1e3,
+         "tokens_per_s": bench["tokens_per_s"], "launches": counts}
+    log(f"decode streamed (2 layers, w4a8, cli --benchmark {n_tok}): median "
+        f"{r['median_ms']:.3f} ms/token; launches " + json.dumps(counts))
+    eng = DecodeEngine(spec, params, max_len=128, batch=1,
+                       cache_dtype=torch.int8, a8=True)
+    prompt = np.random.default_rng(12).integers(0, spec.vocab, size=(1, 64))
+    with fusion_mode("off"), matmul_impl("streamed"):
+        r["greedy_tokens"] = greedy_check("2-layer streamed decoding", eng,
+                                          prompt, 16, "stream")
+    report.setdefault("serve", {})["streamed"] = r
+
+
+def lut_bench(report):
+    """`python -m gptq_tpu_torch.cli dummy c4 --lut_bench --groupsize 128`,
+    its table printed line by line."""
+    from gptq_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["dummy", "c4", "--lut_bench", "--groupsize", "128"])
+    assert rc == 0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log("lut_bench " + line)
+    assert len(lines) == 7, lines  # dense, uniform 2/3/4/8, BCQ 2/3
+    report["lut_bench"] = lines
 
 
 def profile_decode(eng, prompt, steps=8) -> dict:
@@ -885,6 +1311,8 @@ def profile_decode(eng, prompt, steps=8) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fams = (("qmm", ("qmm_kernel", "qmv_kernel")),
+            ("bcq", ("bcq_mv_kernel", "bcq_mm_kernel")),
+            ("stream", ("qstream_kernel",)),
             ("attention", ("attn_partial", "attn_combine")),
             ("norm_qkv", ("norm_qkv_kernel",)), ("mlp", ("mlp_kernel",)))
     ms = {f: 0.0 for f, _ in fams}
@@ -938,15 +1366,18 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
 
     report = {}
-    timer = Timer(device)
+    timer = device_ms
     if "kernels" in phases:
         qmm_checks(device, peaks, timer, report)
         attn_checks(device, peaks, timer, report)
         fused_checks(device, peaks, timer, report)
+        bcq_checks(device, peaks, timer, report)
+        stream_checks(device, peaks, timer, report)
     tmp = tempfile.mkdtemp(prefix="gptq_tpu_torch_smoke_")
     try:
         if "quantize" in phases:
             phase_quantize(device, tmp, report)
+            phase_quantize_bcq(device, tmp, report)
         if "serve" in phases:
             phase_serve(device, tmp, card, report)
     finally:
@@ -1017,6 +1448,43 @@ def main(argv=None) -> int:
         head = timed("norm_qkv", "head w8g-1")
         kernels[2].update({f"head_{k}": head[k] for k in
                            ("ms", "plain_ms", "bound_ms", "unfused_ms")})
+
+        def summed(rows, key):
+            vals = [r[key] for r in rows]
+            return None if None in vals else sum(vals)
+
+        layer = ("one llama-7B layer's four packed linears (K x N: "
+                 "4096x12288, 4096x4096, 4096x22528, 11264x4096), M=1, "
+                 "times summed")
+        sd, bd = report["stream_decode"], report["bcq_decode"]
+        kernels.append({
+            "name": "streamed_qmm", "route": "cuda", "source": STREAM_SRC,
+            "replaces": "gptq_tpu/ops/qmatmul.py:205",
+            "launches": serve.get("streamed", {}).get("launches", {})
+            .get("stream", 0),
+            "max_abs_err": report["stream_max_abs_err"],
+            "ms": summed(sd, "ms"), "plain_ms": summed(sd, "plain_ms"),
+            "bound_ms": summed(sd, "bound_ms"), "bound_by": "bytes",
+            "library_ms": summed(sd, "library_ms"),
+            "qmm_ms": summed(sd, "qmm_ms"),
+            "wrapper_ms": summed(sd, "wrapper_ms"),
+            "shape": layer + "; w4a8 groupsize -1; launches from the 2-layer "
+                             "streamed serve"})
+        kernels.append({
+            "name": "bcq_matmul", "route": "cuda", "source": BCQ_SRC,
+            "replaces": "gptq_tpu/ops/bcq_matmul.py:70",
+            "launches": serve.get("bcq", {}).get("launches", {})
+            .get("bcq", 0),
+            "max_abs_err": report["bcq_max_abs_err"],
+            "ms": summed(bd, "ms"), "plain_ms": summed(bd, "plain_ms"),
+            "bound_ms": summed(bd, "bound_ms"), "bound_by": "bytes",
+            "library_ms": summed(bd, "library_ms"),
+            "wrapper_ms": summed(bd, "wrapper_ms"),
+            "m512": {k: report["bcq_m512"][k] for k in
+                     ("ms", "plain_ms", "library_ms", "bound_ms",
+                      "bound_by")},
+            "shape": layer + "; 3-bit BCQ groupsize 128, a8 (m512: "
+                             "4096x12288, M=512, bf16 x)"})
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@ gptq_tpu/models/common.py).
 
 Params are plain nested dicts of tensors; a "linear" is {"w": (out, in)
 [, "b"]} and `linear_apply` serves PackedWeight low-bit weights through
-ops.qmatmul.dequant_matmul (the CUDA kernel on the card). Every block
+ops.qmatmul.dequant_matmul (uniform grids) or ops.bcq_matmul.bcq_matmul
+(BCQ sign planes), the CUDA kernels on the card. Every block
 forward can return the calibration captures, the inputs seen by each
 linear. Decode (T == 1 on a cache) attends through
 ops.attention.decode_attention over the cache slots below the filled
@@ -34,6 +35,7 @@ import torch
 
 from gptq_tpu_torch.config import resolve_device
 from gptq_tpu_torch.ops.attention import decode_attention
+from gptq_tpu_torch.ops.bcq_matmul import bcq_matmul
 from gptq_tpu_torch.ops.ffn import (attn_mlp_fusable, attn_mlp_fused,
                                     ffn_fusable, ffn_fused, norm_qkv_fusable,
                                     norm_qkv_fused)
@@ -126,7 +128,11 @@ def linear_apply(lin: dict, x: torch.Tensor) -> torch.Tensor:
     w = lin["w"]
     if isinstance(w, PackedWeight):
         flags = lin.get("serve")
-        y = dequant_matmul(x, w, a8=bool(flags and flags.a8))
+        a8 = bool(flags and flags.a8)
+        if w.fmt == "bcq":
+            y = bcq_matmul(x, w, a8=a8)
+        else:
+            y = dequant_matmul(x, w, a8=a8)
     else:
         y = _dense(x, w)
     if lin.get("b") is not None:

@@ -1,5 +1,5 @@
 """Bit-packing of quantized weights into int32 words (port of the
-uniform-grid parts of gptq_tpu/ops/pack.py).
+uniform-grid and BCQ parts of gptq_tpu/ops/pack.py).
 
 The layout is the JAX package's byteplane-subblock order, bit for bit, so
 checkpoints interchange:
@@ -118,18 +118,23 @@ def unpack_codes(words: tuple[torch.Tensor, ...], bits: int,
 
 @dataclass
 class PackedWeight:
-    """A served quantized linear: y = x @ dequant() + bias (uniform grids).
+    """A served quantized linear: y = x @ dequant() + bias.
 
+    fmt="uniform" (uniform grids):
       words  — tuple of blocked int32 field tensors, K-major
       scale  — (num_groups, Np) f32
       zoff   — (num_groups, Np) f32, scale*zero so dequant = scale*q - zoff
+    fmt="bcq" (binary coding, served by ops/bcq_matmul.py):
+      words  — one (bits, Kp//32, Np) int32 tensor: a 1-bit byteplane
+               field per sign plane (+1 -> bit set)
+      alpha  — (num_groups, bits, Np) f32
+    Both:
       bias   — (N,) or None
       perm   — (K,) int32 activation permutation for act-order, or None
 
     K/N are the LOGICAL dims; stored tensors may be zero-padded (pad_dim),
-    with zero pad scales so padded rows/columns contribute exactly 0.
-    `alpha` and fmt="bcq" exist for checkpoint compatibility only: BCQ
-    serving is not ported yet (ROADMAP queue 1)."""
+    with zero pad scales / alphas so padded rows/columns contribute
+    exactly 0."""
 
     words: tuple
     scale: Optional[torch.Tensor] = None
@@ -253,12 +258,44 @@ def fuse_packed(pws: list) -> Optional[PackedWeight]:
             return None
         if pw.perm is not None and not torch.equal(pw.perm, p0.perm):
             return None
-    if p0.fmt != "uniform":
-        return None
-    words = tuple(torch.cat(list(ws), dim=-1)
-                  for ws in zip(*[pw.words for pw in pws]))
+    if p0.fmt == "bcq":
+        words = (torch.cat([pw.words[0] for pw in pws], dim=-1),)
+        alpha = torch.cat([pw.alpha for pw in pws], dim=-1)
+        scale = zoff = None
+    else:
+        words = tuple(torch.cat(list(ws), dim=-1)
+                      for ws in zip(*[pw.words for pw in pws]))
+        scale = torch.cat([pw.scale for pw in pws], dim=-1)
+        zoff = torch.cat([pw.zoff for pw in pws], dim=-1)
+        alpha = None
     return PackedWeight(
-        words=words, scale=torch.cat([pw.scale for pw in pws], dim=-1),
-        zoff=torch.cat([pw.zoff for pw in pws], dim=-1), bias=None,
+        words=words, scale=scale, zoff=zoff, alpha=alpha, bias=None,
         perm=p0.perm, bits=p0.bits, K=p0.K, N=sum(pw.Np for pw in pws),
         groupsize=p0.groupsize, fmt=p0.fmt)
+
+
+def pack_bcq(B: torch.Tensor, alpha: torch.Tensor,
+             bias: torch.Tensor | None = None,
+             groupsize: int = -1) -> PackedWeight:
+    """Pack BCQ signs for serving.
+
+    B: (N, num_groups, g, bits) in {-1, +1}; alpha: (N, num_groups, bits).
+    Stored as (bits, Kp//32, Np) sign bitplanes (+1 -> bit set), each a
+    1-bit byteplane field of pack_codes, and alpha (num_groups, bits, Np)
+    f32, both zero-padded like pack_quantized pads."""
+    Nn, ng, g, bits = B.shape
+    K = ng * g
+    signs = (B.reshape(Nn, K, bits) > 0).to(torch.int32)
+    signs = signs.permute(2, 1, 0)  # (bits, K, N)
+    gsz = g if groupsize != -1 else -1
+    alpha_t = alpha.to(torch.float32).permute(1, 2, 0)  # (ng, bits, N)
+    Kp, Np = pad_dim(K, gsz, 512), pad_dim(Nn, -1, 512)
+    if (Kp, Np) != (K, Nn):
+        signs = torch.nn.functional.pad(signs, (0, Np - Nn, 0, Kp - K))
+        ng_p = Kp // gsz if gsz > 0 else 1
+        alpha_t = torch.nn.functional.pad(
+            alpha_t, (0, Np - Nn, 0, 0, 0, ng_p - alpha_t.shape[0]))
+    words = torch.stack([pack_codes(signs[b], 1, gsz)[0]
+                         for b in range(bits)])  # (bits, Kp//32, Np)
+    return PackedWeight(words=(words,), alpha=alpha_t.contiguous(), bias=bias,
+                        bits=bits, K=K, N=Nn, groupsize=gsz, fmt="bcq")

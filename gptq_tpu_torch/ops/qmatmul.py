@@ -1,11 +1,18 @@
 """Fused dequantize + matmul for uniform-grid packed weights (port of
-gptq_tpu/ops/qmatmul.py: dequant, quantize_acts_int8, dequant_matmul).
+gptq_tpu/ops/qmatmul.py: dequant, quantize_acts_int8, _matmul_streamed,
+dequant_matmul).
 
-`dequant_matmul` on a CUDA tensor launches the hand-written kernel in
-csrc/qmatmul.cu (the counterpart of the Pallas `_qmm_kernel`); on a CPU
-tensor it runs `dequant_matmul_reference`, the plain PyTorch version of
-the same function. There is no fallback from the kernel to the plain
-version on the card: a launch that fails raises.
+`dequant_matmul` routes by GPTQ_TPU_MATMUL_IMPL, as in the JAX package:
+  * `pallas` (the default): on a CUDA tensor the hand-written kernel in
+    csrc/qmatmul.cu (the counterpart of the Pallas `_qmm_kernel`);
+  * `streamed`: single-field (2/4/8-bit) weights take csrc/qstream.cu
+    (the counterpart of `_stream_kernel`), which walks K itself; a 3-bit
+    weight takes the `pallas` route;
+  * `xla`: the plain version, `dequant_matmul_reference`, because the
+    caller asked for it;
+  * `staged`: the resident serving mode, not ported (ROADMAP item 17).
+A CPU tensor always runs the plain version. There is no fallback from a
+kernel to the plain version on the card: a launch that fails raises.
 
 Both compute y[m,n] = sum_k x[m,k] * (scale[g(k),n] * c[k,n] - zoff[g(k),n]).
 """
@@ -13,14 +20,17 @@ Both compute y[m,n] = sum_k x[m,k] * (scale[g(k),n] * c[k,n] - zoff[g(k),n]).
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from gptq_tpu_torch.ops import _build
 from gptq_tpu_torch.ops.pack import FIELD_SPLITS, PackedWeight, subblock, unpack_codes
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): csrc/qmatmul.cu and csrc/qstream.cu
 launches = 0
+stream_launches = 0
 
 
 def dequant(pw: PackedWeight) -> torch.Tensor:
@@ -78,8 +88,8 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     """Launch csrc/qmatmul.cu on x2 (M, K) -> (M, Np) f32."""
     global launches
     if pw.fmt != "uniform":
-        raise NotImplementedError(
-            f"dequant_matmul: fmt={pw.fmt!r} is not ported (ROADMAP kernel #13)")
+        raise ValueError(f"dequant_matmul: fmt={pw.fmt!r} weights are served "
+                         f"by ops.bcq_matmul")
     if x2.dtype not in _X_KIND:
         x2 = x2.to(torch.float32)
     M = x2.shape[0]
@@ -117,14 +127,108 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     return out
 
 
-def _lib():
-    lib = _build.load("qmatmul")
-    f = lib.qmm_launch
+def _lib(name="qmatmul"):
+    lib = _build.load(name)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    if name == "qmatmul":
+        f, types = lib.qmm_launch, [vp, i, i, i, vp, i, i, vp, i, i, i, vp,
+                                    vp, i, vp, i, vp]
+    else:
+        f, types = lib.qstream_launch, [vp, i, i, i, vp, i, i, i, i, vp, vp,
+                                        i, vp, i, vp]
     if f.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp, i, i, i, vp, i, i, vp, i, i, i, vp, vp, i, vp, i, vp]
+        f.argtypes = types
         f.restype = ctypes.c_int
     return lib
+
+
+def _pick_tile(dim: int, prefer: int, minimum: int = 128) -> int:
+    """Largest power-of-two-ish tile <= prefer that divides dim."""
+    t = min(prefer, dim)
+    while t >= minimum:
+        if dim % t == 0:
+            return t
+        t //= 2
+    return dim  # fall back to the whole dimension
+
+
+def stream_chunks(pw: PackedWeight) -> tuple[int, int]:
+    """(tk, seg) of the streamed kernel for pw: K rows per chunk, chosen
+    as the JAX package's `_matmul_streamed` chooses them, and the rows
+    one group grid covers inside a chunk, min(group, tk). Raises where
+    the JAX package raises."""
+    if pw.fmt != "uniform" or len(pw.words) != 1:
+        raise ValueError("the streamed kernel takes single-field formats "
+                         "(2/4/8-bit) only")
+    K = pw.Kp
+    sb = subblock(K, pw.groupsize)
+    tk = min(2048, K)
+    tk = _pick_tile(K, tk) if K % tk else tk
+    tk = max(tk, sb)
+    g = K // pw.scale.shape[0]
+    if not (tk % g == 0 or g % tk == 0) or (g < tk and g < 128):
+        raise ValueError("streamed kernel needs group-aligned chunks")
+    return tk, min(g, tk)
+
+
+def _stream_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
+    """Launch csrc/qstream.cu on x2 (M, Kp) -> (M, Np) f32."""
+    global stream_launches
+    tk, seg = stream_chunks(pw)
+    if x2.dtype not in _X_KIND:
+        x2 = x2.to(torch.float32)
+    x2 = x2.contiguous()
+    w, scale, zoff = (pw.words[0].contiguous(), pw.scale.contiguous(),
+                      pw.zoff.contiguous())
+    for t in (w, scale, zoff):
+        if not t.is_cuda or t.device != x2.device:
+            raise ValueError("dequant_matmul: weight and activations must "
+                             "lie on the same CUDA device")
+    fb = FIELD_SPLITS[pw.bits][0][0]
+    ng = scale.shape[0]
+    if (x2.shape[1] != pw.Kp or w.dtype != torch.int32
+            or w.shape != (pw.Kp * fb // 32, pw.Np) or w.data_ptr() % 16
+            or scale.dtype != torch.float32 or zoff.dtype != torch.float32
+            or scale.shape != (ng, pw.Np) or zoff.shape != scale.shape):
+        raise ValueError(f"streamed dequant_matmul: packed weight of "
+                         f"K={pw.Kp} N={pw.Np} bits={pw.bits} is malformed")
+    M = x2.shape[0]
+    out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
+    err = _lib("qstream").qstream_launch(
+        x2.data_ptr(), _X_KIND[x2.dtype], M, pw.Kp, w.data_ptr(), fb,
+        subblock(pw.Kp, pw.groupsize), tk, seg, scale.data_ptr(),
+        zoff.data_ptr(), ng, out.data_ptr(), pw.Np,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(err, "qstream_launch")
+    stream_launches += 1
+    return out
+
+
+def _matmul_streamed(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
+    """The streamed route on x2 (M, Kp), padded: single-field formats only
+    (ValueError otherwise, and for chunks that split a group as the JAX
+    package refuses them). Returns (M, Np) f32: the kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+    stream_chunks(pw)
+    if not x2.is_cuda:
+        return torch.matmul(x2.to(torch.float32),
+                            torch.nn.functional.pad(
+                                dequant(pw),
+                                (0, pw.Np - pw.N, 0, pw.Kp - pw.K)))
+    return _stream_cuda(x2, pw)
+
+
+def matmul_impl() -> str:
+    """GPTQ_TPU_MATMUL_IMPL (default `pallas`), checked."""
+    impl = os.environ.get("GPTQ_TPU_MATMUL_IMPL", "pallas")
+    if impl not in ("pallas", "streamed", "staged", "xla"):
+        raise ValueError(f"GPTQ_TPU_MATMUL_IMPL={impl!r}: expected "
+                         f"pallas/streamed/staged/xla")
+    if impl == "staged":
+        raise NotImplementedError(
+            "GPTQ_TPU_MATMUL_IMPL=staged: the resident serving mode is not "
+            "ported (ROADMAP item 17)")
+    return impl
 
 
 def dequant_matmul(x: torch.Tensor, pw: PackedWeight,
@@ -133,11 +237,20 @@ def dequant_matmul(x: torch.Tensor, pw: PackedWeight,
 
     x: (..., K). Returns (..., N) in x's dtype. With a8=True activations
     quantize to int8 per row first (the --faster-kernel serving path).
-    A CUDA tensor goes through the CUDA kernel, a CPU tensor through
-    dequant_matmul_reference."""
-    if not x.is_cuda:
+    The route follows GPTQ_TPU_MATMUL_IMPL (module docstring); a CPU
+    tensor runs the plain version on every route but `streamed`, whose
+    entry rules it still applies."""
+    impl = matmul_impl()
+    if impl == "xla" or (impl == "pallas" and not x.is_cuda):
         return dequant_matmul_reference(x, pw, a8=a8)
     lead = x.shape[:-1]
     x2, sx = _prepare(x, pw, a8)
-    y = _qmm_cuda(x2, pw)[:, :pw.N]
+    if impl == "streamed" and len(pw.words) == 1:
+        if pw.Kp != x2.shape[1]:
+            x2 = torch.nn.functional.pad(x2, (0, pw.Kp - x2.shape[1]))
+        y = _matmul_streamed(x2, pw)[:, :pw.N]
+    elif not x.is_cuda:  # a 3-bit weight on the streamed route
+        return dequant_matmul_reference(x, pw, a8=a8)
+    else:
+        y = _qmm_cuda(x2, pw)[:, :pw.N]
     return _finish(y, sx, pw, lead, x.dtype)

@@ -8,8 +8,11 @@ quantize-dequantized weight back, and replay the layer to get the next
 layer's inputs. With true_sequential the Hessians of each sub-block group
 are re-captured after the previous group is quantized.
 
-quantize_lm_head packs the output projection (per-channel RTN) for the
-fused head. RTN (--nearest), whole-model BCQ, mixed precision and the
+The solver's `lut` mode (--lut_eval) fits BCQ alphas and pack_model
+packs its sign planes for ops/bcq_matmul.py. The Hessian-free modes
+(--nearest: uniform RTN, --bcq: whole-weight BCQ) write dense weights
+and skip the calibration capture. quantize_lm_head packs the output
+projection (per-channel RTN) for the fused head. Mixed precision and the
 mid-run resume journal are not ported yet (ROADMAP queue 1).
 """
 
@@ -25,9 +28,11 @@ from gptq_tpu_torch.config import QuantConfig
 from gptq_tpu_torch.models.common import (ArchSpec, block_forward, build_mask,
                                           embed_forward, rope_tables)
 from gptq_tpu_torch.models.registry import get_arch
-from gptq_tpu_torch.ops.pack import PackedWeight, pack_quantized
+from gptq_tpu_torch.ops.pack import PackedWeight, pack_bcq, pack_quantized
+from gptq_tpu_torch.quant.bcq import bcq_quantize
 from gptq_tpu_torch.quant.gptq import (SolverConfig, gptq_quantize,
                                        hessian_init, hessian_update)
+from gptq_tpu_torch.quant.rtn import bcq_rtn_weight, rtn_quantize_weight
 from gptq_tpu_torch.quant.uniform import find_params, quantize_uniform
 
 
@@ -47,7 +52,9 @@ def solver_config_for(cfg: QuantConfig, bits: int,
                         percdamp=cfg.percdamp, groupsize=cfg.groupsize,
                         actorder=cfg.act_order,
                         static_groups=cfg.static_groups, sym=cfg.sym,
-                        trits=cfg.trits, mse=cfg.mse)
+                        trits=cfg.trits, mse=cfg.mse,
+                        bcq_rounds=cfg.bcq_round, use_bst=cfg.use_bst,
+                        apot_nums=cfg.apot_nums)
 
 
 @torch.no_grad()
@@ -89,13 +96,11 @@ class QuantResult:
 def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
                    cfg: QuantConfig,
                    log: Callable[[str], None] = print) -> QuantResult:
-    """Quantize every per-block linear in place (params mutated) with GPTQ.
+    """Quantize every per-block linear in place (params mutated) with GPTQ,
+    or with the Hessian-free RTN (cfg.nearest) / whole-weight BCQ
+    (cfg.bcq) modes.
 
     calib_ids: (nsamples, seqlen) token ids on the params' device."""
-    if cfg.nearest or cfg.bcq:
-        raise NotImplementedError(
-            "RTN / whole-model BCQ quantization is not ported (ROADMAP "
-            "queue 1)")
     arch = get_arch(spec.arch)
     nsamples, T = calib_ids.shape
     dev = calib_ids.device
@@ -115,22 +120,41 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
     for i, bp in enumerate(params["layers"]):
         t_layer = time.time()
         for names in groups:
-            _, hstates = _layer_scan(spec, bp, inps, positions, mask, names)
+            if cfg.nearest or cfg.bcq:
+                hstates = {}  # Hessian-free: no capture
+            else:
+                _, hstates = _layer_scan(spec, bp, inps, positions, mask,
+                                         names)
             for name in names:
                 key = arch.linears[name]
                 W = bp[key]["w"]
                 full_name = f"{arch.hf_prefix}.{i}.{name}"
                 t0 = time.time()
+                if cfg.nearest or cfg.bcq:
+                    if cfg.nearest:
+                        mode, bp[key]["w"] = "rtn", rtn_quantize_weight(
+                            W, cfg.wbits, sym=cfg.sym, mse=cfg.mse,
+                            groupsize=cfg.groupsize)
+                    else:
+                        mode, bp[key]["w"] = "bcq_rtn", bcq_rtn_weight(
+                            W, cfg.wbits, rounds=cfg.bcq_round,
+                            groupsize=cfg.groupsize,
+                            apot_nums=cfg.apot_nums, use_bst=cfg.use_bst)
+                    quantizers[full_name] = {"mode": mode, "bits": cfg.wbits}
+                    times[full_name] = time.time() - t0
+                    continue
                 scfg = solver_config_for(cfg, cfg.wbits)
                 H, _, mean_input = hstates[name]
                 out = gptq_quantize(W, H, scfg, mean_input)
                 bp[key]["w"] = out["Q"].to(W.dtype)
                 losses[full_name] = float(out["loss"])
-                quantizers[full_name] = {
-                    "mode": scfg.mode, "bits": cfg.wbits,
-                    "groupsize": cfg.groupsize,
-                    "perm": out["perm"] if scfg.actorder else None,
-                    "scale": out["scale"], "zero": out["zero"]}
+                q = {"mode": scfg.mode, "bits": cfg.wbits,
+                     "groupsize": cfg.groupsize,
+                     "perm": out["perm"] if scfg.actorder else None}
+                for f in ("scale", "zero", "alpha"):
+                    if f in out:
+                        q[f] = out[f]
+                quantizers[full_name] = q
                 times[full_name] = time.time() - t0
                 log(f"layer {i} {name}: loss={losses[full_name]:.1f} "
                     f"t={times[full_name]:.2f}s")
@@ -144,22 +168,25 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
 
 def pack_model(spec: ArchSpec, params: dict, quantizers: dict,
                cfg: QuantConfig) -> dict:
-    """Swap quantized dense linears for PackedWeights (uniform grids).
-    Layers without an entry stay dense."""
+    """Swap quantized dense linears for PackedWeights: uniform grids pack
+    to byteplane fields, the lut mode's BCQ to sign planes (the signs
+    recovered against the solver's alphas). Linears without an entry,
+    and those of the RTN / whole-weight BCQ modes, stay dense."""
     arch = get_arch(spec.arch)
     for i, bp in enumerate(params["layers"]):
         for name, key in arch.linears.items():
             q = quantizers.get(f"{arch.hf_prefix}.{i}.{name}")
             if q is None:
                 continue
-            if q["mode"] != "uniform" or q["bits"] not in (1, 2, 3, 4, 8):
-                raise NotImplementedError(
-                    f"packing mode={q['mode']} bits={q['bits']} is not "
-                    f"ported (ROADMAP queue 1)")
-            bp[key]["w"] = pack_quantized(
-                bp[key]["w"].to(torch.float32), q["scale"], q["zero"],
-                q["bits"], groupsize=q.get("groupsize", -1),
-                perm=q.get("perm"), actorder=q.get("perm") is not None)
+            W = bp[key]["w"].to(torch.float32)
+            gs = q.get("groupsize", -1)
+            if q["mode"] == "uniform" and q["bits"] in (1, 2, 3, 4, 8):
+                bp[key]["w"] = pack_quantized(
+                    W, q["scale"], q["zero"], q["bits"], groupsize=gs,
+                    perm=q.get("perm"), actorder=q.get("perm") is not None)
+            elif q["mode"] == "lut":
+                _, B = bcq_quantize(W, q["alpha"], groupsize=gs)
+                bp[key]["w"] = pack_bcq(B, q["alpha"], groupsize=gs)
     return params
 
 

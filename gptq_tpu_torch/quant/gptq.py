@@ -1,5 +1,5 @@
 """Layer-wise second-order (GPTQ) quantization solver (port of the
-uniform-grid modes of gptq_tpu/quant/gptq.py).
+uniform-grid and BCQ (`lut`) modes of gptq_tpu/quant/gptq.py).
 
   * Hessian accumulation H = sum (2/n) x x^T with running rescale, one f32
     matmul per calibration batch (TF32 must be off on the card).
@@ -10,8 +10,10 @@ uniform-grid modes of gptq_tpu/quant/gptq.py).
     body loops over the in-block columns; the trailing update
     W[:, i2:] -= Err1 @ Hinv[i1:i2, :] is one matmul per block.
 
-Uniform grids only (act-order, static groups, dynamic groups, sym, mse,
-trits). The BCQ / columnwise / non-linear back-ends raise
+Uniform grids (act-order, static groups, dynamic groups, sym, mse,
+trits) and the `lut` mode: APoT BCQ alphas fit once per group on the
+(permuted) weight, then each column takes the sign code nearest to it
+among its group's sorted levels (quant/bcq.search_levels). The columnwise / non-linear back-ends raise
 NotImplementedError until they are ported (ROADMAP queue 1).
 """
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from gptq_tpu_torch.config import resolve_device
+from gptq_tpu_torch.quant import bcq as bcq_mod
 from gptq_tpu_torch.quant.uniform import shrink_factor
 
 
@@ -68,6 +71,10 @@ class SolverConfig:
     sym: bool = False
     trits: bool = False
     mse: bool = False
+    # BCQ / shift (lut mode)
+    bcq_rounds: int = 5
+    use_bst: bool = True
+    apot_nums: int = 2
 
     @property
     def maxq(self) -> int:
@@ -139,12 +146,14 @@ def gptq_quantize(W: torch.Tensor, H: torch.Tensor, cfg: SolverConfig,
     W: (rows, cols) weight (rows = out features); H: (cols, cols) Hessian.
     Returns a dict with Q (rows, cols) quantize-dequantized weight in the
     original column order, loss (sum of (w-q)^2 / (2 d^2)), scale/zero
-    (num_groups, rows) grids and perm (the act-order permutation)."""
-    if cfg.mode != "uniform":
+    (num_groups, rows) grids (uniform) or alpha (rows, num_groups, bits)
+    BCQ magnitudes (lut), and perm (the act-order permutation)."""
+    if cfg.mode not in ("uniform", "lut"):
         raise NotImplementedError(
-            f"gptq_quantize mode={cfg.mode!r}: only uniform grids are ported "
-            f"(BCQ / columnwise / non-linear wait: ROADMAP queue 1, items "
-            f"10-11)")
+            f"gptq_quantize mode={cfg.mode!r}: only the uniform and lut "
+            f"modes are ported (columnwise / non-linear wait: ROADMAP queue "
+            f"1, items 10-11)")
+    lut = cfg.mode == "lut"
     del mean_input  # used by the non-linear back-end only
     rows, cols = W.shape
     dev = W.device
@@ -161,7 +170,7 @@ def gptq_quantize(W: torch.Tensor, H: torch.Tensor, cfg: SolverConfig,
 
     # static per-group grids fit on the pre-permutation W
     sg_scale = sg_zero = None
-    if cfg.static_groups:
+    if cfg.static_groups and not lut:
         Wg = W.reshape(rows, num_groups, g).permute(1, 0, 2)  # (ng, rows, g)
         fits = [_row_params(Wg[i], cfg) for i in range(num_groups)]
         sg_scale = torch.stack([f[0] for f in fits])
@@ -179,6 +188,15 @@ def gptq_quantize(W: torch.Tensor, H: torch.Tensor, cfg: SolverConfig,
     H = H + damp * torch.eye(cols, dtype=H.dtype, device=dev)
     Hinv = _upper_cholesky_inverse(H)
 
+    alpha0 = None
+    if lut:  # APoT alphas per group of the (permuted) weight
+        _, _, alpha0 = bcq_mod._fit(W, cfg.bits, cfg.bcq_rounds, cfg.groupsize,
+                                    cfg.use_bst, cfg.apot_nums, apot=True)
+        # each group's sorted levels once, for the per-column search
+        order, mids = bcq_mod.sorted_levels(alpha0.reshape(-1, cfg.bits))
+        order = order.reshape(rows, -1, order.shape[-1])
+        mids = mids.reshape(rows, -1, mids.shape[-1])
+
     bs = cfg.blocksize
     nb = -(-cols // bs)
     cols_pad = nb * bs
@@ -191,16 +209,20 @@ def gptq_quantize(W: torch.Tensor, H: torch.Tensor, cfg: SolverConfig,
         Hinv_p[idx, idx] = 1.0
     perm_pad = torch.cat([perm, torch.arange(cols, cols_pad, device=dev)])
 
-    dynamic = cfg.groupsize > 0 and not cfg.static_groups
-    if cfg.groupsize <= 0:
+    dynamic = not lut and cfg.groupsize > 0 and not cfg.static_groups
+    scales = zeros = None  # lut mode carries no grid state
+    if not lut and cfg.groupsize <= 0:
         s0, z0 = _row_params(W, cfg)
         scales, zeros = s0[None].clone(), z0[None].clone()
-    elif cfg.static_groups:
+    elif not lut and cfg.static_groups:
         scales, zeros = sg_scale, sg_zero
-    else:
+    elif not lut:
         scales = torch.ones((num_groups, rows), device=dev)
         zeros = torch.zeros((num_groups, rows), device=dev)
-    # group index of every (padded, permuted) column position
+    # group index of every (padded, permuted) column position. With
+    # act-order, lut mode fits alphas on the permuted groups but indexes
+    # them by the original column's group, as the JAX package does:
+    # pack_model recovers the signs against the same alphas
     if dynamic or not cfg.actorder or cfg.groupsize <= 0:
         pos = torch.arange(cols_pad)
     else:
@@ -229,7 +251,13 @@ def gptq_quantize(W: torch.Tensor, H: torch.Tensor, cfg: SolverConfig,
                 scales[gi] = s
                 zeros[gi] = z
             gi = group_of[idx]
-            q = _quantize_col(w, scales[gi], zeros[gi], maxq)
+            if lut:
+                a = alpha0[:, gi, :]  # (rows, bits)
+                B = bcq_mod.search_levels(w[:, None], order[:, gi],
+                                          mids[:, gi])  # (rows, 1, bits)
+                q = torch.einsum("rcb,rb->rc", B, a)[:, 0]
+            else:
+                q = _quantize_col(w, scales[gi], zeros[gi], maxq)
             err = (w - q) / d
             W1[:, i:] -= err[:, None] * Hinv_b[i, i1 + i:i1 + bs][None, :]
             Q1[:, i] = q
@@ -244,5 +272,9 @@ def gptq_quantize(W: torch.Tensor, H: torch.Tensor, cfg: SolverConfig,
     loss = (torch.cat(Ls, dim=1) / 2)[:, :cols].sum()
     if cfg.actorder:
         Q = Q[:, invperm]
-    return {"Q": Q, "loss": loss, "perm": perm, "scale": scales,
-            "zero": zeros}
+    out = {"Q": Q, "loss": loss, "perm": perm}
+    if lut:
+        out["alpha"] = alpha0
+    else:
+        out["scale"], out["zero"] = scales, zeros
+    return out

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from gptq_tpu_torch.ops import attention as ta
+from gptq_tpu_torch.ops import bcq_matmul as tbm
 from gptq_tpu_torch.ops import ffn as tf
 from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.ops import qmatmul as tq
@@ -82,6 +83,95 @@ def test_qmm_single_row_past_48kb(cuda, a8):
     got = tq.dequant_matmul(x, pw, a8=a8)
     want = tq.dequant_matmul_reference(x, pw, a8=a8)
     _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
+def _bcq(rng, bits, groupsize, K, N):
+    """Random BCQ weight packed by pack_bcq (K and N pad as it pads)."""
+    ng = 1 if groupsize <= 0 else K // groupsize
+    g = K if groupsize <= 0 else groupsize
+    B = np.where(rng.normal(size=(N, ng, g, bits)) > 0, 1.0, -1.0)
+    alpha = np.abs(rng.normal(size=(N, ng, bits))) * 0.05
+    pw = tpack.pack_bcq(torch.from_numpy(B.astype(np.float32)),
+                        torch.from_numpy(alpha.astype(np.float32)),
+                        bias=torch.from_numpy(rng.normal(size=N).astype(
+                            np.float32)), groupsize=groupsize)
+    pw.perm = torch.from_numpy(rng.permutation(K).astype(np.int32))
+    return pw
+
+
+# #13: sums of f32 products in another order (a8: exact int32 partials in
+# the single-row kernel, f32 in the tiled one); bf16 outputs may round
+# one bf16 step apart
+@pytest.mark.parametrize("bits,groupsize", [(2, -1), (3, 128), (4, 128),
+                                            (3, 32), (3, 64), (2, 16)])
+@pytest.mark.parametrize("M", [1, 3, 70])
+@pytest.mark.parametrize("act", ["f32", "bf16", "a8"])
+def test_bcq_kernel_matches_plain(cuda, bits, groupsize, M, act):
+    rng = np.random.default_rng(M * 7 + bits + groupsize)
+    pw = _bcq(rng, bits, groupsize, 512, 200).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(M, 512)).astype(np.float32)).to(cuda)
+    if act == "bf16":
+        x = x.to(torch.bfloat16)
+    a8 = act == "a8"
+    before = tbm.launches
+    got = tbm.bcq_matmul(x, pw, a8=a8)
+    torch.cuda.synchronize()
+    assert tbm.launches == before + 1
+    want = tbm.bcq_matmul_reference(x, pw, a8=a8)
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if act == "bf16":
+        bound = 2.0 ** -7 * np.abs(want) + 1e-4 * np.abs(want).max()
+        assert np.all(np.abs(got - want) <= bound)
+    else:
+        _close(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_bcq_single_row_past_48kb(cuda, a8):
+    rng = np.random.default_rng(12800)
+    pw = _bcq(rng, 3, 128, 12800, 96).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(1, 12800)).astype(np.float32)).to(cuda)
+    got = tbm.bcq_matmul(x, pw, a8=a8)
+    want = tbm.bcq_matmul_reference(x, pw, a8=a8)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
+# #7: the streamed route against the plain version, single-field weights
+@pytest.mark.parametrize("bits,groupsize,K", [(4, -1, 480), (4, 128, 1024),
+                                              (2, 256, 4096), (8, -1, 4096),
+                                              (4, 128, 11264)])
+@pytest.mark.parametrize("M", [1, 3, 8, 13])
+@pytest.mark.parametrize("act", ["f32", "bf16", "a8"])
+def test_streamed_kernel_matches_plain(cuda, monkeypatch, bits, groupsize, K,
+                                       M, act):
+    rng = np.random.default_rng(M + bits + K)
+    pw = _packed(rng, bits, groupsize, K, 200).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda)
+    if act == "bf16":
+        x = x.to(torch.bfloat16)
+    a8 = act == "a8"
+    monkeypatch.setenv("GPTQ_TPU_MATMUL_IMPL", "streamed")
+    before = (tq.launches, tq.stream_launches)
+    got = tq.dequant_matmul(x, pw, a8=a8)
+    torch.cuda.synchronize()
+    assert (tq.launches, tq.stream_launches) == (before[0], before[1] + 1)
+    want = tq.dequant_matmul_reference(x, pw, a8=a8)
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if act == "bf16":
+        bound = 2.0 ** -7 * np.abs(want) + 1e-4 * np.abs(want).max()
+        assert np.all(np.abs(got - want) <= bound)
+    else:
+        _close(got, want, rtol=1e-4)
+
+
+def test_streamed_route_takes_qmm_for_3_bits(cuda, monkeypatch):
+    rng = np.random.default_rng(3)
+    pw = _packed(rng, 3, 128, 512, 96).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(1, 512)).astype(np.float32)).to(cuda)
+    monkeypatch.setenv("GPTQ_TPU_MATMUL_IMPL", "streamed")
+    before = (tq.launches, tq.stream_launches)
+    tq.dequant_matmul(x, pw)
+    assert (tq.launches, tq.stream_launches) == (before[0] + 1, before[1])
 
 
 def _cache(rng, lead, S, Hkv, hd, int8):

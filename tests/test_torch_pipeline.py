@@ -112,3 +112,210 @@ def test_cli_serves_a_checkpoint_on_cpu(quantized, tmp_path, capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "Median:" in out and "PPL:" in out
+
+
+# --- BCQ: the solver's lut mode, --bcq, --nearest, BCQ checkpoints --------
+
+from gptq_tpu import io as jio  # noqa: E402
+from gptq_tpu.engine import decode as jdec  # noqa: E402
+from gptq_tpu_torch.engine import decode as tdec  # noqa: E402
+from gptq_tpu_torch.models import common as tcommon  # noqa: E402
+from gptq_tpu_torch.ops import bcq_matmul as tbm  # noqa: E402
+
+LUT_QKW = dict(wbits=3, groupsize=32, lut_eval=True, bcq_round=5,
+               apot_nums=2, true_sequential=True, nsamples=8)
+KEYS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+@pytest.fixture(scope="module")
+def lut_quantized():
+    jspec, tspec = jc.ArchSpec(**KW), tc.ArchSpec(**KW)
+    jp = jc.init_params(jspec, jax.random.PRNGKey(1))
+    tp = params_from_jax(to_numpy_tree(jp), device="cpu")
+    calib = tdata.synthetic_stream(KW["vocab"], 8 * 64, seed=3).reshape(8, 64)
+    jres = jpipe.quantize_model(jspec, jp, jnp.asarray(calib),
+                                JQuantConfig(**LUT_QKW), log=lambda s: None)
+    tres = tpipe.quantize_model(tspec, tp, torch.from_numpy(calib).long(),
+                                QuantConfig(**LUT_QKW), log=lambda s: None)
+    tres.dense = [{k: lp[k]["w"].clone() for k in KEYS} for lp in tp["layers"]]
+    jpipe.pack_model(jspec, jp, jres.quantizers, JQuantConfig(**LUT_QKW))
+    tpipe.pack_model(tspec, tp, tres.quantizers, QuantConfig(**LUT_QKW))
+    return jspec, jp, jres, tspec, tp, tres
+
+
+def test_solver_config_carries_bcq_fields():
+    scfg = tpipe.solver_config_for(QuantConfig(**LUT_QKW), 3)
+    jcfg = jpipe.solver_config_for(JQuantConfig(**LUT_QKW), 3)
+    assert scfg.mode == jcfg.mode == "lut"
+    assert (scfg.bcq_rounds, scfg.use_bst, scfg.apot_nums) == \
+        (jcfg.bcq_rounds, jcfg.use_bst, jcfg.apot_nums)
+
+
+def test_lut_quantize_and_pack_match(lut_quantized):
+    jspec, jp, jres, tspec, tp, tres = lut_quantized
+    assert set(tres.quantizers) == set(jres.quantizers)
+    for name, jq in jres.quantizers.items():
+        tq = tres.quantizers[name]
+        assert tq["mode"] == "lut" and "scale" not in tq
+        # the alphas are fit on the weights before any error feedback
+        assert np.mean(tq["alpha"].numpy() == np.asarray(jq["alpha"])) >= 0.995
+        jl, tl = jres.losses[name], tres.losses[name]
+        # layer 0 sees the same inputs in both packages: solver tolerances
+        # (tests/test_reference_parity.py:18-23). Layer 1's inputs come
+        # from layer 0's outputs, whose f32 sums differ in the last bits;
+        # that flips a few sign codes near a level midpoint, and the error
+        # feedback carries each flip along the row (measured: 0.1% of
+        # layer 0's down codes, losses of layer 1 up to 6% apart). Layer
+        # 1 is held to 10%, its PPL to 1% (test_lut_ppl_matches), and the
+        # solver itself on identical Hessians to the solver tolerances
+        # (tests/test_torch_bcq.py::test_gptq_lut_mode_matches).
+        rtol = 0.01 if ".layers.0." in name else 0.1
+        assert abs(jl - tl) <= rtol * abs(jl) + 1e-6, (name, jl, tl)
+    for i in range(KW["n_layers"]):
+        for key in KEYS:
+            jw, tw = jp["layers"][i][key]["w"], tp["layers"][i][key]["w"]
+            assert isinstance(tw, tpack.PackedWeight) and tw.fmt == "bcq"
+            assert (tw.bits, tw.Kp, tw.Np, tw.groupsize) == \
+                (jw.bits, jw.Kp, jw.Np, jw.groupsize)
+            # packing recovers the solver's reconstruction exactly
+            np.testing.assert_array_equal(tbm.bcq_dequant(tw).T.numpy(),
+                                          tres.dense[i][key].numpy())
+            if i == 0:
+                tb = np.unpackbits(tw.words[0].numpy().view(np.uint8))
+                jb = np.unpackbits(np.asarray(jw.words[0]).view(np.uint8))
+                assert np.mean(tb == jb) >= 0.995, (i, key)
+
+
+def test_lut_ppl_matches(lut_quantized):
+    jspec, jp, _, tspec, tp, _ = lut_quantized
+    test = tdata.synthetic_stream(KW["vocab"], 4 * 48, seed=9)
+    jppl = jeval_ppl(jspec, jp, test[None], 48, log=lambda s: None)
+    tppl = eval_ppl(tspec, tp, test[None], 48, log=lambda s: None)
+    assert abs(tppl / jppl - 1) < 0.01, (tppl, jppl)
+
+
+@pytest.mark.parametrize("mode", ["bcq", "nearest"])
+def test_hessian_free_modes_match(mode):
+    qkw = dict(wbits=3, groupsize=32, nsamples=2, bcq_round=6,
+               **{mode: True})
+    jspec, tspec = jc.ArchSpec(**KW), tc.ArchSpec(**KW)
+    jp = jc.init_params(jspec, jax.random.PRNGKey(2))
+    tp = params_from_jax(to_numpy_tree(jp), device="cpu")
+    calib = tdata.synthetic_stream(KW["vocab"], 2 * 16, seed=4).reshape(2, 16)
+    jres = jpipe.quantize_model(jspec, jp, jnp.asarray(calib),
+                                JQuantConfig(**qkw), log=lambda s: None)
+    tres = tpipe.quantize_model(tspec, tp, torch.from_numpy(calib).long(),
+                                QuantConfig(**qkw), log=lambda s: None)
+    want_mode = {"bcq": "bcq_rtn", "nearest": "rtn"}[mode]
+    assert {q["mode"] for q in tres.quantizers.values()} == {want_mode}
+    assert tres.losses == {} and len(tres.quantizers) == len(jres.quantizers)
+    tpipe.pack_model(tspec, tp, tres.quantizers, QuantConfig(**qkw))
+    for i in range(KW["n_layers"]):
+        for key in KEYS:
+            tw = tp["layers"][i][key]["w"]
+            assert isinstance(tw, torch.Tensor)  # these modes stay dense
+            jw = np.asarray(jp["layers"][i][key]["w"])
+            assert np.mean(tw.numpy() == jw) >= 0.995, (mode, i, key)
+
+
+def test_bcq_checkpoint_interchange(lut_quantized, tmp_path):
+    jspec, jp, _, tspec, tp, _ = lut_quantized
+    ids = np.random.default_rng(5).integers(0, KW["vocab"], size=(1, 9))
+    # JAX save -> port load
+    path = str(tmp_path / "j.npz")
+    jio.save_checkpoint(path, jspec, jp, JQuantConfig(**LUT_QKW))
+    spec2, tp2, cfg = tio.load_checkpoint(path, device="cpu")
+    assert spec2 == tspec and cfg == QuantConfig(**LUT_QKW)
+    for i in range(KW["n_layers"]):
+        for key in KEYS:
+            jw, tw = jp["layers"][i][key]["w"], tp2["layers"][i][key]["w"]
+            assert tw.fmt == "bcq" and tw.scale is None
+            np.testing.assert_array_equal(tw.words[0].numpy(),
+                                          np.asarray(jw.words[0]))
+            np.testing.assert_array_equal(tw.alpha.numpy(),
+                                          np.asarray(jw.alpha))
+    want, _ = jc.model_forward(jspec, jp, jnp.asarray(ids))
+    got, _ = tc.model_forward(spec2, tp2, torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+    # port save -> JAX load
+    path = str(tmp_path / "t.npz")
+    tio.save_checkpoint(path, tspec, tp, QuantConfig(**LUT_QKW))
+    spec3, jp3, cfg3 = jio.load_checkpoint(path)
+    assert spec3 == jspec and cfg3.lut_eval and cfg3.wbits == 3
+    for key in KEYS:
+        jw, tw = jp3["layers"][1][key]["w"], tp["layers"][1][key]["w"]
+        assert jw.fmt == "bcq" and jw.bits == 3
+        np.testing.assert_array_equal(np.asarray(jw.words[0]),
+                                      tw.words[0].numpy())
+        np.testing.assert_array_equal(np.asarray(jw.alpha), tw.alpha.numpy())
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_bcq_model_logits_match(lut_quantized, a8):
+    jspec, jp, _, tspec, _, _ = lut_quantized
+    # the JAX package's own packed BCQ model, converted leaf for leaf
+    tp = params_from_jax(to_numpy_tree(jp), device="cpu")
+    if a8:
+        jp = jc.fuse_serving(jspec, jp, a8=True)
+        tp = tcommon.fuse_serving(tspec, tp, a8=True)
+        assert tp["layers"][0]["qkv_fused"]["w"].fmt == "bcq"
+    ids = np.random.default_rng(6).integers(0, KW["vocab"], size=(2, 12))
+    want, _ = jc.model_forward(jspec, jp, jnp.asarray(ids))
+    got, _ = tc.model_forward(tspec, tp, torch.from_numpy(ids))
+    want = np.asarray(want, np.float64)
+    err = np.max(np.abs(got.numpy() - want)) / np.max(np.abs(want))
+    # a16: f32 on both sides in another order. a8: int8 activation
+    # rounding ties flip between the frameworks, one step moving the next
+    # layer by ~1e-3, as for uniform weights (test_torch_model.py)
+    assert err <= (5e-2 if a8 else 1e-4), err
+
+
+def test_bcq_greedy_tokens_match(lut_quantized):
+    jspec, jp, _, tspec, _, _ = lut_quantized
+    tp = params_from_jax(to_numpy_tree(jp), device="cpu")
+    prompt = np.random.default_rng(7).integers(0, KW["vocab"], size=(1, 10))
+    jeng = jdec.DecodeEngine(jspec, jp, max_len=32, cache_dtype=jnp.int8,
+                             a8=True)
+    teng = tdec.DecodeEngine(tspec, tp, max_len=32, cache_dtype=torch.int8,
+                             a8=True)
+    np.testing.assert_array_equal(teng.generate(prompt, 12),
+                                  jeng.generate(prompt, 12))
+
+
+def test_bcq_stays_off_the_fused_route(lut_quantized, monkeypatch):
+    _, _, _, tspec, tp, _ = lut_quantized
+    fused = tcommon.fuse_serving(tspec, tp, a8=True)
+    ids = torch.from_numpy(
+        np.random.default_rng(8).integers(0, KW["vocab"], size=(1, 6)))
+    outs = {}
+    for mode in ("on", "off"):
+        monkeypatch.setenv("GPTQ_TPU_FFN_FUSION", mode)
+        outs[mode], _ = tc.model_forward(tspec, fused, ids)
+    torch.testing.assert_close(outs["on"], outs["off"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_cfg", [True, False])
+def test_cli_result_line_carries_the_checkpoint_quant_fields(
+        lut_quantized, tmp_path, capsys, with_cfg):
+    import json
+
+    _, _, _, tspec, tp, _ = lut_quantized
+    path = str(tmp_path / "q.npz")
+    cfg = QuantConfig(**{**LUT_QKW, "bcq_round": 7}) if with_cfg else None
+    tio.save_checkpoint(path, tspec, tp, cfg)
+    rc = cli.main(["dummy", "c4", "--load", path, "--benchmark", "4",
+                   "--device", "cpu", "--wbits", "4", "--groupsize", "128"])
+    assert rc == 0
+    quant = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "quant"]
+    # from the checkpoint, not from this invocation's --wbits / --groupsize
+    assert quant["wbits"] == 3 and quant["groupsize"] == 32
+    assert quant["lut_eval"] is True
+    assert quant["bcq_round"] == (7 if with_cfg else 5)
+    assert quant["apot_nums"] == 2 and quant["use_bst"] is True
+
+
+def test_lut_bench_needs_the_card():
+    with pytest.raises(SystemExit, match="card"):
+        cli.main(["dummy", "c4", "--lut_bench", "--device", "cpu"])

@@ -97,3 +97,68 @@ def test_cpu_tensor_never_launches_the_kernel():
     before = tq.launches
     tq.dequant_matmul(torch.zeros(1, 256), tp)
     assert tq.launches == before
+
+
+# --- the streamed route (GPTQ_TPU_MATMUL_IMPL=streamed, kernel #7) ---------
+
+@pytest.mark.parametrize("bits,groupsize", [(2, -1), (4, 128), (8, -1),
+                                            (4, 256)])
+@pytest.mark.parametrize("a8", [False, True])
+def test_streamed_plain_matches_pallas_interpret(bits, groupsize, a8):
+    rng = np.random.default_rng(bits + groupsize + 5 * a8)
+    jp, tp = _weights(rng, bits, groupsize, 1024, 256)
+    x = rng.normal(size=(8, 1024)).astype(np.float32)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    if a8:
+        jx, _ = jq.quantize_acts_int8(jx)
+        tx, _ = tq.quantize_acts_int8(tx)
+    want = jq._matmul_streamed(jx, jp, interpret=True)
+    got = tq._matmul_streamed(tx, tp)
+    assert got.shape == (8, 256)
+    _close(got.numpy(), want, rtol=1e-4 if a8 else RTOL)
+    assert tq.stream_chunks(tp) == (1024, 1024 if groupsize < 0 else groupsize)
+
+
+def test_streamed_entry_rules_match():
+    rng = np.random.default_rng(2)
+    # 64-row groups inside a 512-row chunk: both packages refuse them
+    jp, tp = _weights(rng, 4, 64, 512, 128)
+    x = np.zeros((8, 512), np.float32)
+    with pytest.raises(ValueError, match="group-aligned"):
+        jq._matmul_streamed(jnp.asarray(x), jp, interpret=True)
+    with pytest.raises(ValueError, match="group-aligned"):
+        tq._matmul_streamed(torch.from_numpy(x), tp)
+    # 3-bit weights have two fields: the streamed kernel takes one
+    _, tp3 = _weights(rng, 3, 128, 512, 128)
+    with pytest.raises(ValueError, match="single-field"):
+        tq._matmul_streamed(torch.from_numpy(x), tp3)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "streamed", "xla"])
+@pytest.mark.parametrize("bits", [4, 3])
+def test_matmul_impl_routes_agree_on_cpu(monkeypatch, impl, bits):
+    rng = np.random.default_rng(bits)
+    jp, tp = _weights(rng, bits, 128, 480, 96, perm=True, bias=True)
+    x = rng.normal(size=(2, 3, 480)).astype(np.float32)
+    want = jq.dequant_matmul(jnp.asarray(x), jp, impl="xla", a8=True)
+    monkeypatch.setenv("GPTQ_TPU_MATMUL_IMPL", impl)
+    before = (tq.launches, tq.stream_launches)
+    got = tq.dequant_matmul(torch.from_numpy(x), tp, a8=True)
+    assert (tq.launches, tq.stream_launches) == before
+    assert got.shape == (2, 3, 96)
+    _close(got.numpy(), want, rtol=1e-4)
+
+
+def test_matmul_impl_errors(monkeypatch):
+    _, tp = _weights(np.random.default_rng(0), 4, -1, 256, 64)
+    x = torch.zeros(1, 256)
+    monkeypatch.setenv("GPTQ_TPU_MATMUL_IMPL", "staged")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+        tq.dequant_matmul(x, tp)
+    monkeypatch.setenv("GPTQ_TPU_MATMUL_IMPL", "fast")
+    with pytest.raises(ValueError, match="GPTQ_TPU_MATMUL_IMPL"):
+        tq.dequant_matmul(x, tp)
+    monkeypatch.setenv("GPTQ_TPU_MATMUL_IMPL", "pallas")
+    with pytest.raises(ValueError, match="bcq"):
+        tq._qmm_cuda(x, tpack.PackedWeight(words=tp.words, bits=4, K=256,
+                                           N=64, fmt="bcq"))
