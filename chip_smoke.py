@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # every phase, one GPU
 
 Phases, in order (any failure exits non-zero; there is no CPU fallback):
-  1. build   - nvcc builds the five kernel libraries from csrc/ (qmatmul,
-               attention, ffn, bcq_matmul, qstream; in parallel).
+  1. build   - nvcc builds the six kernel libraries from csrc/ (qmatmul,
+               attention, ffn, bcq_matmul, qstream, qexpert; in parallel).
   2. kernels - each kernel's wrapper against its plain PyTorch version on
                the card at llama-7B shapes, with stated tolerances, and
                timed beside its plain version, a one-call PyTorch
@@ -13,7 +13,9 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                the same function) and the card's bound. The BCQ kernel
                (#13) and the streamed qmm (#7, GPTQ_TPU_MATMUL_IMPL=
                streamed) are held the same way; #7 is also timed beside
-               kernel #1 on the same weight.
+               kernel #1 on the same weight. The expert kernels: #8 (the
+               batched bank) and #9 (the select, index in device memory)
+               at Mixtral-8x7B shapes.
   3. quantize - GPTQ (4-bit, groupsize 128, act-order, static groups,
                true-sequential) of a 2-layer llama-7B-width model from
                seeded weights on 16 x 512 synthetic tokens, pack, a
@@ -44,6 +46,20 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                GPTQ_TPU_MATMUL_IMPL=streamed: 8 streamed launches per
                step, no qmm) with kernel-vs-plain greedy tokens, and the
                CLI's --lut_bench table.
+  5. moe     - Mixtral-8x7B width (spec_from_hf_config of its published
+               config): GPTQ of a 1-layer model (attention linears, then
+               gptq_quantize_experts), pack_model + pack_experts, save /
+               load, PPL through #1 (512-row windows) against the dense
+               twin; an 8-layer 4-bit checkpoint from seeded codes served
+               through the CLI (--faster-kernel --int8_kv --quant_lm_head
+               8: per step 6L select, L qmm, L+1 norm_qkv, L attention
+               launches) with its profile; 2-layer requests of 16 / 32
+               tokens (prefill through #8) and 48 (per-expert #1), greedy
+               tokens against the plain versions; one layer's decode FFN
+               under torch.cuda.set_sync_debug_mode("error"); and the
+               whole 32-layer model (~23.6 GB) through
+               engine.decode.benchmark_decode, with its profile and byte
+               bound.
 Then one JSON line {"kernels": [...]}, and last {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero, printing no
@@ -68,12 +84,13 @@ from unittest import mock
 
 import numpy as np
 
-PHASES = ("build", "kernels", "quantize", "serve")
+PHASES = ("build", "kernels", "quantize", "serve", "moe")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
 ATTN_SRC = "gptq_tpu_torch/csrc/attention.cu"
 FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
 BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
 STREAM_SRC = "gptq_tpu_torch/csrc/qstream.cu"
+MOE_SRC = "gptq_tpu_torch/csrc/qexpert.cu"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
 # bf16 x times codes in another order; attention: f32 math, other order;
 # fused kernels (relative to max|plain|): they round to bf16 (and, a8,
@@ -118,6 +135,22 @@ def llama7b_spec(n_layers: int = 32):
                     linear_bias=False, tie_embeddings=False)
 
 
+def mixtral_spec(n_layers: int = 32):
+    """Mixtral-8x7B's published config values through the port's
+    spec_from_hf_config (expert capacity E / k = 4.0: dropless)."""
+    from types import SimpleNamespace
+
+    from gptq_tpu_torch.models.registry import spec_from_hf_config
+
+    return spec_from_hf_config(SimpleNamespace(
+        model_type="mixtral", hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=n_layers, num_attention_heads=32,
+        num_key_value_heads=8, vocab_size=32000,
+        max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-5,
+        tie_word_embeddings=False, num_local_experts=8,
+        num_experts_per_tok=2))
+
+
 def random_words(gen, rows, cols, device):
     import torch
 
@@ -145,6 +178,59 @@ def packed_linear(gen, K, N, bits, groupsize, device, perm=False):
          if perm else None)
     return PackedWeight(words=words, scale=scale, zoff=zoff, perm=p, bits=bits,
                         K=K, N=N, groupsize=groupsize)
+
+
+def packed_bank(gen, E, K, N, bits, groupsize, device):
+    """Random PackedExperts bank of E experts of logical (K, N), stored
+    dims padded as pack_expert_stack pads them, pad grids zero."""
+    import torch
+
+    from gptq_tpu_torch.ops.pack import FIELD_SPLITS, PackedExperts, pad_dim
+
+    Kp, Np = pad_dim(K, groupsize), pad_dim(N)
+    ng = 1 if groupsize <= 0 else Kp // groupsize
+    words = tuple(torch.stack([random_words(gen, Kp // (32 // fb), Np, device)
+                               for _ in range(E)])
+                  for fb, _ in FIELD_SPLITS[bits])
+    scale = torch.randn((E, ng, Np), generator=gen, device=device).abs() \
+        * 0.002 + 0.01
+    scale[..., N:] = 0
+    return PackedExperts(words=words, scale=scale, zoff=scale * (2 ** (bits - 1)),
+                         bits=bits, K=K, N=N, groupsize=groupsize)
+
+
+def synth_moe_params(spec, device, seed=0, bits=4):
+    """Seeded random Mixtral params in the real serving format (the
+    counterpart of the JAX package's bench.py:synth_moe_packed_params):
+    packed attention linears, PackedExperts banks, f32 routers, a bf16
+    embedding and norms, a dense bf16 lm_head."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h, f, E = spec.hidden, spec.ffn, spec.n_experts
+    kv = spec.kv_heads * spec.hd
+
+    def lin(K, N):
+        return {"w": packed_linear(gen, K, N, bits, -1, device), "b": None}
+
+    def ones():
+        return {"w": torch.ones(h, dtype=torch.bfloat16, device=device)}
+
+    layers = []
+    for _ in range(spec.n_layers):
+        layers.append({
+            "q": lin(h, h), "k": lin(h, kv), "v": lin(h, kv), "o": lin(h, h),
+            "router": {"w": torch.randn((E, h), generator=gen, device=device)
+                       * 0.02, "b": None},
+            "experts": {"gate": packed_bank(gen, E, h, f, bits, -1, device),
+                        "up": packed_bank(gen, E, h, f, bits, -1, device),
+                        "down": packed_bank(gen, E, f, h, bits, -1, device)},
+            "ln1": ones(), "ln2": ones()})
+    emb = (torch.randn((spec.vocab, h), generator=gen, device=device)
+           * 0.02).to(torch.bfloat16)
+    return {"embed": {"tokens": emb}, "layers": layers, "final_ln": ones(),
+            "lm_head": {"w": emb, "b": None}}
 
 
 def bcq_linear(gen, K, N, bits, groupsize, device):
@@ -770,6 +856,145 @@ def stream_checks(device, peaks, timer, report):
     report["stream_max_abs_err"] = worst
 
 
+def expert_checks(device, peaks, timer, report):
+    """#8 and #9 against their plain versions at Mixtral-8x7B shapes: the
+    gate / up bank (8 x 4096 -> 14336, x shared) and the down bank
+    (8 x 14336 -> 4096, x per expert); #8 at M 2 / 16 / 32, f32 and bf16
+    x, 4-bit g-1 and g128, and one case each at 2, 3 and 8 bits; #9 at
+    M = 1 on each projection for expert indices held in a device tensor.
+    Timed at the path's shapes: #8 at a 16-token prefill, #9 at decode,
+    bf16 x."""
+    import torch
+
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    E, H, F = 8, 4096, 14336
+    tol = TOL["qmm_a16"]  # f32 outputs: sums in another order
+    rows, worst = [], 0.0
+    banks = {}
+    for tag, bits, gs, K, N, per_x, Ms, dts in (
+            ("gate w4g-1", 4, -1, H, F, False, (2, 16, 32), ("f32", "bf16")),
+            ("down w4g-1", 4, -1, F, H, True, (2, 16, 32), ("f32", "bf16")),
+            ("gate w4g128", 4, 128, H, F, False, (2, 16, 32),
+             ("f32", "bf16")),
+            ("down w4g128", 4, 128, F, H, True, (2, 16, 32), ("f32", "bf16")),
+            ("gate w2g-1", 2, -1, H, F, False, (16,), ("bf16",)),
+            ("down w3g128", 3, 128, F, H, True, (16,), ("bf16",)),
+            ("gate w8g-1", 8, -1, H, F, False, (16,), ("bf16",))):
+        pe = packed_bank(gen, E, K, N, bits, gs, device)
+        for M in Ms:
+            x32 = torch.randn((E, M, K) if per_x else (M, K), generator=gen,
+                              device=device)
+            for dt in dts:
+                x = x32.to(torch.bfloat16) if dt == "bf16" else x32
+                before = Q.expert_launches
+                got = Q.expert_dequant_matmul(x, pe)
+                if Q.expert_launches != before + 1:
+                    raise AssertionError("expert_dequant_matmul did not "
+                                         "launch kernel #8")
+                err = close_check(f"expert matmul {tag} M={M} {dt}", got,
+                                  Q.expert_dequant_matmul_reference(x, pe),
+                                  tol, False)
+                worst = max(worst, err)
+                row = {"w": tag, "K": K, "N": N, "M": M, "x": dt,
+                       "per_x": per_x, "max_abs_err": err}
+                if M == 16 and dt == "bf16" and bits == 4 and gs == -1:
+                    row.update(expert_times(pe, x, peaks, timer))
+                rows.append(row)
+                log("expert matmul " + json.dumps(row))
+        if tag in ("gate w4g-1", "down w4g-1", "gate w4g128"):
+            banks[tag] = pe
+        del pe
+    banks["up w4g-1"] = packed_bank(gen, E, H, F, 4, -1, device)
+    sel = []
+    for tag in ("gate w4g-1", "up w4g-1", "down w4g-1", "gate w4g128"):
+        pe = banks[tag]
+        x32 = torch.randn((1, pe.K), generator=gen, device=device)
+        for e in (0, 3, 7):
+            idx = torch.tensor([e], dtype=torch.int32, device=device)
+            for dt in ("f32", "bf16"):
+                x = x32.to(torch.bfloat16) if dt == "bf16" else x32
+                before = Q.select_launches
+                got = Q.expert_dequant_matmul_select(x, pe, idx)
+                if Q.select_launches != before + 1:
+                    raise AssertionError("expert_dequant_matmul_select did "
+                                         "not launch kernel #9")
+                err = close_check(
+                    f"expert select {tag} e={e} {dt}", got,
+                    Q.expert_dequant_matmul_select_reference(x, pe, idx),
+                    tol, False)
+                worst = max(worst, err)
+                row = {"w": tag, "K": pe.K, "N": pe.N, "M": 1, "e": e,
+                       "x": dt, "max_abs_err": err}
+                if e == 3 and dt == "bf16" and "g128" not in tag:
+                    row.update(select_times(pe, x, idx, peaks, timer))
+                    sel.append(row)
+                rows.append(row)
+        log(f"expert select {tag}: 6 cases within {tol}")
+    for r in sel:
+        log("expert select timing " + json.dumps(r))
+    report["expert_rows"] = rows
+    report["expert_max_abs_err"] = worst
+
+
+def expert_times(pe, x, peaks, timer) -> dict:
+    """Device times of #8 on one bank: the bare launch, the plain version
+    and torch.bmm on the dequantized bf16 bank, beside the byte bound
+    (the whole bank read once) and the operation bound at the bf16
+    tensor-core peak; `cuda_core_ms`: the operations at the f32 CUDA-core
+    peak, which bound a kernel on CUDA cores."""
+    import torch
+
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    E, M = pe.E, x.shape[-2]
+    out = {"ms": timer(lambda: Q._expert_cuda(x, pe)),
+           "plain_ms": timer(lambda: Q.expert_dequant_matmul_reference(x, pe))}
+    wd = Q.dequant_experts(pe).to(torch.bfloat16)  # (E, K, N)
+    xb = x.to(torch.bfloat16)
+    xe = xb if xb.dim() == 3 else xb.expand(E, M, pe.K)
+    out["library_ms"] = timer(lambda: torch.bmm(xe, wd))
+    del wd
+    nbytes = (sum(w.numel() * 4 for w in pe.words)
+              + (pe.scale.numel() + pe.zoff.numel()) * 4
+              + x.numel() * x.element_size() + E * M * pe.Np * 4)
+    ops = 2 * E * M * pe.Kp * pe.Np
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = ops / peaks["bf16"] * 1e3
+    out.update({"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "cuda_core_ms": ops / peaks["f32"] * 1e3})
+    return out
+
+
+def select_times(pe, x, idx, peaks, timer) -> dict:
+    """Device times of #9 on one selected expert: the bare launch, the
+    plain version and torch.matmul on that expert's dequantized bf16
+    weight, beside the byte bound of one expert's words and grids."""
+    import torch
+
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    out = {"ms": timer(lambda: Q._select_cuda(x, pe, idx)),
+           "plain_ms": timer(
+               lambda: Q.expert_dequant_matmul_select_reference(x, pe, idx))}
+    wd = Q.dequant(pe.expert(idx)).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    out["library_ms"] = timer(lambda: torch.matmul(xb, wd))
+    del wd
+    nbytes = (sum(w[0].numel() * 4 for w in pe.words)
+              + (pe.scale[0].numel() + pe.zoff[0].numel()) * 4
+              + x.numel() * x.element_size() + pe.Np * 4 + 4)
+    ops = 2 * pe.Kp * pe.Np
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = ops / peaks["bf16"] * 1e3
+    out.update({"bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: quantize -> pack -> save / load -> PPL
 # ---------------------------------------------------------------------------
@@ -856,26 +1081,33 @@ def dense_twin(params):
 def plain_versions():
     """Patch every kernel wrapper the model core calls with its plain
     version (for kernel-vs-plain greedy tokens)."""
-    from gptq_tpu_torch.models import common
+    from gptq_tpu_torch.models import common, moe
     from gptq_tpu_torch.ops import attention as A
     from gptq_tpu_torch.ops import bcq_matmul as B
     from gptq_tpu_torch.ops import ffn as Fz
     from gptq_tpu_torch.ops import qmatmul as Q
 
     stack = contextlib.ExitStack()
-    for name, fn in (("dequant_matmul", Q.dequant_matmul_reference),
-                     ("bcq_matmul", B.bcq_matmul_reference),
-                     ("decode_attention", A.decode_attention_reference),
-                     ("norm_qkv_fused", Fz.norm_qkv_fused_reference),
-                     ("attn_mlp_fused", Fz.attn_mlp_fused_reference),
-                     ("ffn_fused", Fz.ffn_fused_reference)):
-        stack.enter_context(mock.patch.object(common, name, fn))
+    for mod, name, fn in (
+            (common, "dequant_matmul", Q.dequant_matmul_reference),
+            (common, "bcq_matmul", B.bcq_matmul_reference),
+            (common, "decode_attention", A.decode_attention_reference),
+            (common, "norm_qkv_fused", Fz.norm_qkv_fused_reference),
+            (common, "attn_mlp_fused", Fz.attn_mlp_fused_reference),
+            (common, "ffn_fused", Fz.ffn_fused_reference),
+            (moe, "dequant_matmul", Q.dequant_matmul_reference),
+            (moe, "expert_dequant_matmul",
+             Q.expert_dequant_matmul_reference),
+            (moe, "expert_dequant_matmul_select",
+             Q.expert_dequant_matmul_select_reference)):
+        stack.enter_context(mock.patch.object(mod, name, fn))
     return stack
 
 
-def greedy_check(what, eng, prompt, n_new, kernel_name) -> list:
-    """Greedy tokens of kernel decoding (which must launch kernel_name)
-    against plain decoding (which must launch nothing)."""
+def greedy_check(what, eng, prompt, n_new, kernel_name, want=None) -> list:
+    """Greedy tokens of kernel decoding (which must launch kernel_name, and
+    exactly the counts `want` where given) against plain decoding (which
+    must launch nothing)."""
     import torch
 
     reset_counts()
@@ -884,6 +1116,8 @@ def greedy_check(what, eng, prompt, n_new, kernel_name) -> list:
     if not launch_counts()[kernel_name] > 0:
         raise AssertionError(f"{what}: kernel decoding launched no "
                              f"{kernel_name}")
+    if want is not None:
+        expect(launch_counts(), want, what)
     with plain_versions():
         reset_counts()
         plain = eng.generate(prompt, n_new)
@@ -1016,7 +1250,8 @@ def launch_counts() -> dict:
     return {"qmm": Q.launches, "stream": Q.stream_launches,
             "bcq": B.launches, "attention": A.launches,
             "norm_qkv": Fz.norm_qkv_launches,
-            "attn_mlp": Fz.attn_mlp_launches, "ffn": Fz.ffn_launches}
+            "attn_mlp": Fz.attn_mlp_launches, "ffn": Fz.ffn_launches,
+            "expert": Q.expert_launches, "select": Q.select_launches}
 
 
 def reset_counts() -> None:
@@ -1027,6 +1262,7 @@ def reset_counts() -> None:
 
     Q.launches = Q.stream_launches = B.launches = A.launches = 0
     Fz.norm_qkv_launches = Fz.attn_mlp_launches = Fz.ffn_launches = 0
+    Q.expert_launches = Q.select_launches = 0
 
 
 def expect(counts: dict, want: dict, what: str) -> None:
@@ -1287,6 +1523,270 @@ def lut_bench(report):
     report["lut_bench"] = lines
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the Mixtral-8x7B MoE path
+# ---------------------------------------------------------------------------
+
+def moe_dense_twin(params):
+    """The MoE model with every packed linear and expert bank dequantized
+    to dense f32 ((E, out, in) expert stacks)."""
+    from gptq_tpu_torch.ops import qmatmul as Q
+    from gptq_tpu_torch.ops.pack import PackedExperts
+
+    twin = dense_twin(params)
+    for lp in twin["layers"]:
+        ex = lp.get("experts")
+        if ex is not None:
+            lp["experts"] = {k: (Q.dequant_experts(v).transpose(1, 2)
+                                 if isinstance(v, PackedExperts) else v)
+                             for k, v in ex.items()}
+    return twin
+
+
+def moe_quantize(device, tmp, report):
+    """quantize_model (attention linears) -> gptq_quantize_experts ->
+    pack_model + pack_experts -> save / load -> PPL through the kernels
+    against the dequantized dense twin, on a 1-layer Mixtral-width model
+    with 16 x 512 synthetic tokens."""
+    import torch
+
+    from gptq_tpu_torch.config import QuantConfig
+    from gptq_tpu_torch.data import synthetic_stream
+    from gptq_tpu_torch.eval.ppl import eval_ppl
+    from gptq_tpu_torch.io import load_checkpoint, save_checkpoint
+    from gptq_tpu_torch.models.common import init_params
+    from gptq_tpu_torch.models.moe import gptq_quantize_experts, pack_experts
+    from gptq_tpu_torch.ops.pack import PackedExperts
+    from gptq_tpu_torch.pipeline import pack_model, quantize_model
+
+    spec = mixtral_spec(1)
+    params = init_params(spec, seed=0, dtype=torch.float32, device=device)
+    calib = torch.as_tensor(synthetic_stream(spec.vocab, 16 * 512, seed=1)
+                            .reshape(16, 512), device=device).long()
+    cfg = QuantConfig(wbits=4, groupsize=-1, true_sequential=True,
+                      nsamples=16)
+    t0 = time.perf_counter()
+    res = quantize_model(spec, params, calib, cfg, log=lambda s: None)
+    torch.cuda.synchronize()
+    t_attn = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses = gptq_quantize_experts(spec, params, calib, cfg,
+                                   log=lambda s: None, keep_grids=True)
+    torch.cuda.synchronize()
+    t_exp = time.perf_counter() - t0
+    assert len(losses) == 3 * spec.n_experts and "_grids" in \
+        params["layers"][0]["experts"]
+    log(f"moe quantize: one Mixtral-width layer, attention linears "
+        f"{t_attn:.1f} s, {3 * spec.n_experts} expert projections "
+        f"{t_exp:.1f} s; expert losses " + json.dumps(
+            {k: round(v, 3) for k, v in losses.items()}))
+    pack_model(spec, params, res.quantizers, cfg)
+    pack_experts(params, bits=4, groupsize=-1)
+    path = os.path.join(tmp, "moe1.npz")
+    save_checkpoint(path, spec, params, cfg)
+    spec2, loaded, cfg2 = load_checkpoint(path, device=device)
+    os.remove(path)
+    assert spec2 == spec and cfg2 == cfg
+    for name in ("gate", "up", "down"):
+        a = params["layers"][0]["experts"][name]
+        b = loaded["layers"][0]["experts"][name]
+        assert isinstance(b, PackedExperts) and b.bits == 4 \
+            and b.E == spec.n_experts
+        for wa, wb in zip(a.words, b.words):
+            assert torch.equal(wa, wb), f"{name} words differ after load"
+    del params
+    test = synthetic_stream(spec.vocab, 4 * 512, seed=2)
+    reset_counts()
+    ppl_packed = eval_ppl(spec, loaded, test, 512, log=lambda s: None)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # 512-row windows: each expert's projections go through #1 (N > 32),
+    # 24 a layer, beside q, k, v and o
+    expect(counts, {"qmm": 4 * (4 + 3 * spec.n_experts)}, "MoE PPL eval")
+    ppl_dense = eval_ppl(spec, moe_dense_twin(loaded), test, 512,
+                         log=lambda s: None)
+    rel = abs(ppl_packed / ppl_dense - 1.0)
+    log(f"ppl (MoE, w4 g-1): packed {ppl_packed:.4f} ({counts['qmm']} qmm "
+        f"launches) vs dense-dequantized {ppl_dense:.4f}: rel diff "
+        f"{rel:.2e}")
+    if not (math.isfinite(ppl_packed) and rel < 0.005):
+        raise AssertionError(f"MoE packed vs dense PPL differ by {rel:.3g}")
+    report["moe_quantize"] = {"attn_s": t_attn, "experts_s": t_exp,
+                              "ppl_packed": ppl_packed,
+                              "ppl_dense": ppl_dense, "eval_launches": counts}
+
+
+def moe_decode_counts(L, steps):
+    """Launches of `steps` batch-1 decode steps of an L-layer MoE model on
+    the default route (JAX routing: MoE layers keep attn_mlp off): ln1 +
+    q|k|v and the head through norm_qkv, o through qmm, top-2 x (gate,
+    up, down) selections, attention."""
+    return {"norm_qkv": (L + 1) * steps, "qmm": L * steps,
+            "select": 6 * L * steps, "attention": L * steps}
+
+
+def moe_step_bytes(spec, params, n_ctx) -> int:
+    """Bytes one batch-1 decode step must read: every attention linear's
+    packed words and grids, the two selected experts' three projections
+    per layer, the routers, the packed head, the int8 KV cache over n_ctx
+    positions with its scales."""
+    pe = params["layers"][0]["experts"]
+    per_expert = sum(sum(w[0].numel() * 4 for w in b.words)
+                     + (b.scale[0].numel() + b.zoff[0].numel()) * 4
+                     for b in pe.values())
+    attn = sum(packed_bytes(params["layers"][0][k]["w"])
+               for k in ("q", "k", "v", "o"))
+    router = params["layers"][0]["router"]["w"].numel() * 4
+    kv = 2 * n_ctx * spec.kv_heads * (spec.hd + 4)
+    return (spec.n_layers * (attn + spec.expert_top_k * per_expert + router
+                             + kv) + packed_bytes(params["lm_head"]["w"]))
+
+
+def moe_serve(device, tmp, card, peaks, report):
+    """The 8-layer Mixtral checkpoint through the CLI, with exact launch
+    counts and a profile; requests through #8 and per-expert #1 on 2
+    layers, greedy tokens against the plain versions; the whole 32-layer
+    model in-process; one layer's decode FFN without a host sync."""
+    import torch
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine, benchmark_decode
+    from gptq_tpu_torch.io import save_checkpoint
+    from gptq_tpu_torch.models.common import fuse_serving
+    from gptq_tpu_torch.models.moe import moe_ffn
+    from gptq_tpu_torch.pipeline import quantize_lm_head
+
+    spec = mixtral_spec(8)
+    L = spec.n_layers
+    t0 = time.perf_counter()
+    params = synth_moe_params(spec, device, seed=3)
+    path = os.path.join(tmp, "moe8.npz")
+    save_checkpoint(path, spec, params)
+    log(f"moe serve: synthesized + saved an 8-layer Mixtral-width 4-bit "
+        f"checkpoint ({os.path.getsize(path) / 2**30:.2f} GiB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_tok, warmup = 128, 100
+    bench, counts, out = serve_cli(
+        path, n_tok, ["--faster-kernel", "--int8_kv", "--quant_lm_head", "8"],
+        "auto")
+    os.remove(path)
+    assert "lm_head quantized to 8 bits" in out
+    expect(counts, moe_decode_counts(L, warmup + n_tok), "MoE cli")
+    r = {"median_ms": bench["median_s"] * 1e3,
+         "tokens_per_s": bench["tokens_per_s"],
+         "p90_ms": bench["p90_s"] * 1e3, "launches": counts}
+    log(f"decode moe (cli, 8 layers, --benchmark {n_tok} --faster-kernel "
+        f"--int8_kv --quant_lm_head 8, B=1): median {r['median_ms']:.3f} "
+        f"ms/token on {card}; launches " + json.dumps(counts))
+    assert quantize_lm_head(spec, params, bits=8)
+    eng = DecodeEngine(spec, params, max_len=128, batch=1,
+                       cache_dtype=torch.int8, a8=True)
+    prof = profile_decode(eng, np.random.default_rng(13).integers(
+        0, spec.vocab, size=(1, 16)))
+    if prof["device_ms"] > 0:
+        prof["device_busy_share"] = prof["device_ms"] / r["median_ms"]
+    log("decode profile moe8 " + json.dumps(prof))
+    r["profile"] = prof
+    moe = report.setdefault("moe", {})
+    moe["cli8"] = r
+    del eng
+
+    # requests on 2 layers with an f32 embedding: f32 activations and
+    # cache, since random weights give near-flat logits whose top two an
+    # int8 rounding flip can swap (PERF.md, Findings)
+    small = mixtral_spec(2)
+    p2 = {**params, "layers": params["layers"][:2],
+          "embed": {"tokens": params["embed"]["tokens"].float()}}
+    eng2 = DecodeEngine(small, p2, max_len=128, batch=1,
+                        cache_dtype=torch.float32, a8=False)
+    rng = np.random.default_rng(14)
+    n_new, E, L2 = 6, small.n_experts, small.n_layers
+    reqs = {}
+    for T in (16, 32, 48):
+        prompt = rng.integers(0, small.vocab, size=(1, T))
+        dec = moe_decode_counts(L2, n_new)
+        if T <= 32:  # prefill through #8: 3 launches a layer
+            want = {"norm_qkv": dec["norm_qkv"] + L2 + 1,
+                    "qmm": dec["qmm"] + L2, "expert": 3 * L2,
+                    "select": dec["select"], "attention": dec["attention"]}
+        else:  # per-expert #1: 3E a layer, beside q|k|v, o and the head
+            want = {"norm_qkv": dec["norm_qkv"],
+                    "qmm": dec["qmm"] + L2 * (2 + 3 * E) + 1,
+                    "select": dec["select"], "attention": dec["attention"]}
+        toks = greedy_check(f"2-layer MoE request T={T} (f32 activations "
+                            f"and cache)", eng2, prompt, n_new,
+                            "expert" if T <= 32 else "qmm", want)
+        reqs[T] = {"launches": want, "tokens": toks}
+    moe["requests"] = reqs
+    del eng2, p2
+
+    # one layer's decode FFN under the sync debug mode: the routing and the
+    # expert index never reach the host
+    lp = fuse_serving(spec, params, a8=True)["layers"][0]
+    x = torch.randn((1, 1, spec.hidden), device=device).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = moe_ffn(spec, lp, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    expect(launch_counts(), {"select": 6}, "moe_ffn under sync debug")
+    assert bool(torch.isfinite(y).all())
+    log("moe_ffn at N = 1 ran under torch.cuda.set_sync_debug_mode('error'): "
+        "6 select launches, no host sync")
+    del params, lp
+    torch.cuda.empty_cache()
+
+    # the whole model: 32 layers on the card, no checkpoint on disk
+    spec = mixtral_spec(32)
+    t0 = time.perf_counter()
+    params = synth_moe_params(spec, device, seed=5)
+    assert quantize_lm_head(spec, params, bits=8)
+    fused = fuse_serving(spec, params, a8=True)
+    torch.cuda.synchronize()
+    t_syn = time.perf_counter() - t0
+    alloc = torch.cuda.memory_allocated() / 2**30
+    ids = np.random.default_rng(15).integers(0, spec.vocab, size=(1, n_tok))
+    reset_counts()
+    bench = benchmark_decode(spec, fused, ids, cache_dtype=torch.int8,
+                             log=lambda s: None)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect(counts, moe_decode_counts(spec.n_layers, warmup + n_tok),
+           "MoE 32 layers")
+    nbytes = moe_step_bytes(spec, params, n_tok // 2)
+    r32 = {"median_ms": bench["median_s"] * 1e3,
+           "tokens_per_s": bench["tokens_per_s"],
+           "p90_ms": bench["p90_s"] * 1e3, "launches": counts,
+           "synth_s": t_syn, "allocated_gib": alloc, "step_bytes": nbytes,
+           "bound_ms": nbytes / peaks["bw"] * 1e3}
+    eng = DecodeEngine(spec, fused, max_len=256, batch=1,
+                       cache_dtype=torch.int8, a8=True)
+    prof = profile_decode(eng, np.random.default_rng(16).integers(
+        0, spec.vocab, size=(1, 16)))
+    if prof["device_ms"] > 0:
+        prof["device_busy_share"] = prof["device_ms"] / r32["median_ms"]
+    r32["profile"] = prof
+    log(f"decode moe (32 layers, Mixtral-8x7B width, w4a8 + w8 head + int8 "
+        f"KV, B=1, in-process benchmark_decode): median "
+        f"{r32['median_ms']:.3f} ms/token, {r32['tokens_per_s']:.2f} tok/s "
+        f"on {card}; {alloc:.1f} GiB on the card; byte bound "
+        f"{r32['bound_ms']:.3f} ms/token ({nbytes / 1e9:.3f} GB per step)")
+    log("decode profile moe32 " + json.dumps(prof))
+    moe["decode32"] = r32
+    del eng, fused, params
+    torch.cuda.empty_cache()
+
+
+def phase_moe(device, tmp, card, peaks, report):
+    moe_quantize(device, tmp, report)
+    import torch
+
+    torch.cuda.empty_cache()
+    moe_serve(device, tmp, card, peaks, report)
+
+
 def profile_decode(eng, prompt, steps=8) -> dict:
     """Device time per decode step by kernel family, from a torch.profiler
     trace of `steps` steps after a 64-token prefill. The profiled steps'
@@ -1311,6 +1811,7 @@ def profile_decode(eng, prompt, steps=8) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fams = (("qmm", ("qmm_kernel", "qmv_kernel")),
+            ("select", ("qsel_kernel",)), ("expert", ("qexpert_kernel",)),
             ("bcq", ("bcq_mv_kernel", "bcq_mm_kernel")),
             ("stream", ("qstream_kernel",)),
             ("attention", ("attn_partial", "attn_combine")),
@@ -1373,6 +1874,7 @@ def main(argv=None) -> int:
         fused_checks(device, peaks, timer, report)
         bcq_checks(device, peaks, timer, report)
         stream_checks(device, peaks, timer, report)
+        expert_checks(device, peaks, timer, report)
     tmp = tempfile.mkdtemp(prefix="gptq_tpu_torch_smoke_")
     try:
         if "quantize" in phases:
@@ -1380,6 +1882,8 @@ def main(argv=None) -> int:
             phase_quantize_bcq(device, tmp, report)
         if "serve" in phases:
             phase_serve(device, tmp, card, report)
+        if "moe" in phases:
+            phase_moe(device, tmp, card, peaks, report)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1485,6 +1989,45 @@ def main(argv=None) -> int:
                       "bound_by")},
             "shape": layer + "; 3-bit BCQ groupsize 128, a8 (m512: "
                              "4096x12288, M=512, bf16 x)"})
+        if "expert_rows" in report:
+            moe = report.get("moe", {})
+            ex = {r["w"]: r for r in report["expert_rows"]
+                  if "ms" in r and "e" not in r}
+            se = {r["w"]: r for r in report["expert_rows"]
+                  if "ms" in r and "e" in r}
+            # one layer's 16-token prefill: gate and up share x (the gate
+            # bank stands for both), down takes x per expert
+            pre = [ex["gate w4g-1"], ex["gate w4g-1"], ex["down w4g-1"]]
+            # one layer's decode: top-2 x (gate, up, down)
+            dec = [se["gate w4g-1"], se["up w4g-1"], se["down w4g-1"]] * 2
+            kernels.append({
+                "name": "expert_matmul", "route": "cuda", "source": MOE_SRC,
+                "replaces": "gptq_tpu/ops/qmatmul.py:177",
+                "launches": sum(r["launches"].get("expert", 0) for r in
+                                moe.get("requests", {}).values()),
+                "max_abs_err": report["expert_max_abs_err"],
+                "ms": summed(pre, "ms"), "plain_ms": summed(pre, "plain_ms"),
+                "bound_ms": summed(pre, "bound_ms"), "bound_by": "bytes",
+                "library_ms": summed(pre, "library_ms"),
+                "cuda_core_ms": summed(pre, "cuda_core_ms"),
+                "shape": "one Mixtral-8x7B layer's three banks at a 16-token "
+                         "prefill (8 x 4096x14336 gate / up, x shared; 8 x "
+                         "14336x4096 down, x per expert), 4-bit g-1, bf16 x, "
+                         "times summed; launches from the 2-layer requests"})
+            kernels.append({
+                "name": "expert_select", "route": "cuda", "source": MOE_SRC,
+                "replaces": "gptq_tpu/ops/qmatmul.py:730",
+                "launches": moe.get("cli8", {}).get("launches", {})
+                .get("select", 0),
+                "max_abs_err": report["expert_max_abs_err"],
+                "ms": summed(dec, "ms"), "plain_ms": summed(dec, "plain_ms"),
+                "bound_ms": summed(dec, "bound_ms"), "bound_by": "bytes",
+                "library_ms": summed(dec, "library_ms"),
+                "shape": "one Mixtral-8x7B layer's six decode selections "
+                         "(top-2 x gate / up 4096x14336, down 14336x4096), "
+                         "4-bit g-1, M=1 bf16 x, index in device memory, "
+                         "times summed; launches from the 8-layer CLI "
+                         "serve"})
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ gptq_tpu/cli.py, with the same flag names):
 Runs on the GPU (`--device cuda`, the default, raises without one).
 `--lut_bench` prints the serving matmuls' latencies (ops/kernel_bench.py)
 at the flags' groupsize (and --wbits, if below 16). The benchmark's
-result line carries the loaded checkpoint's quantization fields.
+result line carries the loaded checkpoint's quantization fields. An MoE
+(Mixtral-style) checkpoint serves the same way, its expert banks through
+csrc/qexpert.cu.
 Quantizing from a model directory and the PPL evals over the HF datasets
 are not ported yet (ROADMAP queue 1): serving needs --load.
 """

@@ -28,8 +28,8 @@
 //     acc += part * scale - xsum * zoff, xsum by a warp reduction. Groups
 //     that do not cover whole chunks dequantize per element instead.
 //   * decode (M == 1) takes a word-centric single-row kernel (qmv_kernel
-//     below): every word is loaded once and all its codes used, a8 with
-//     dp4a on 4 codes at a time.
+//     of qmv.cuh): every word is loaded once and all its codes used, a8
+//     with dp4a on 4 codes at a time.
 //
 // Bound on an H100: at decode (M <= 64) the packed-weight bytes over the
 // memory rate; at M = 2048 the multiply-adds over the tensor-core rate
@@ -39,24 +39,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "qdot.cuh"
+#include "qmv.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int COLS = 32;  // output columns per block
-constexpr int KC = 32;    // K rows per chunk
-
-template <typename T>
-struct Acc { using type = float; };
-template <>
-struct Acc<int8_t> { using type = int; };
-
-__device__ __forceinline__ float load_x(const float* p) { return *p; }
-__device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ int load_x(const int8_t* p) { return (int)*p; }
+constexpr int KC = 32;  // K rows per chunk (WARPS, COLS: qmv.cuh)
 
 // word row and bit shift of packed row k in a field of width fb
 __device__ __forceinline__ void row_pos(int k, int SB, int fb, int& wrow,
@@ -180,149 +167,7 @@ qmm_kernel(const XT* __restrict__ x, int M, int Kp,
   }
 }
 
-// ---------------------------------------------------------------------------
-// single-row path (decode, M == 1): the same function, word-centric
-// ---------------------------------------------------------------------------
-//
-// The whole activation row is staged once in shared memory (f32 for
-// a16, int8 for a8) with one partial sum per subblock. Work items are
-// (subblock, field, run of <= 16 word rows); a lane loads each word of
-// its column once and uses every code in it: for sub-byte plane e, the
-// word's 4 bytes hold rows 4*j + b (b < 4) of the plane, contiguous in
-// x, so a8 takes them in one dp4a (signed x bytes times unsigned code
-// bytes) and a16 in one float4 of x. Needs the group length to cover
-// whole subblocks and the staged row to fit shared memory.
-
-constexpr int JC = 16;     // word rows per work item
-constexpr int VWARPS = 32; // most warps per single-row block: a narrow
-                           // weight gives few blocks, so each keeps many
-                           // word loads in flight; a wide one uses 8
-
-template <typename XT>
-struct Stage { using type = float; };
-template <>
-struct Stage<int8_t> { using type = int8_t; };
-
-// plane_dot (qdot.cuh): the dot of one word's codes with their x rows
-
-// one field's contribution: items (subblock s, run c of word rows)
-template <int FB, typename ST, typename AT>
-__device__ __forceinline__ float field_items(
-    const int32_t* __restrict__ w, int sh, const ST* xs, const AT* xsum,
-    int SB, int nsub, int G, const float* __restrict__ scale,
-    const float* __restrict__ zoff, int Np, int n, bool col_ok, int warp,
-    bool first_field) {
-  constexpr int P = 32 / FB;
-  const int Wsb = SB / P;
-  const int quarter = 4 * Wsb;
-  const int jc = Wsb < JC ? Wsb : JC;
-  const int nch = Wsb / jc;
-  float acc = 0.f;
-  const int nwarps = blockDim.x >> 5;
-  for (int it = warp; it < nsub * nch; it += nwarps) {
-    const int s = it / nch;
-    const int c = it - s * nch;
-    if (!col_ok) continue;
-    const int32_t* wp = w + (size_t)(s * Wsb + c * jc) * Np + n;
-    AT dot = 0;
-#pragma unroll
-    for (int jj = 0; jj < JC; ++jj) {
-      if (jj < jc) {
-        const unsigned word = (unsigned)__ldg(wp + (size_t)jj * Np);
-        dot = plane_dot<FB>(word, xs, s * SB + 4 * (c * jc + jj), quarter, dot);
-      }
-    }
-    const int g = (s * SB) / G;
-    acc += (float)dot * (float)(1 << sh) * scale[(size_t)g * Np + n];
-    if (first_field && c == 0) acc -= (float)xsum[s] * zoff[(size_t)g * Np + n];
-  }
-  return acc;
-}
-
-template <typename XT, int BITS>
-__global__ void __launch_bounds__(VWARPS * 32)
-qmv_kernel(const XT* __restrict__ x, int Kp, const int32_t* __restrict__ w0,
-           const int32_t* __restrict__ w1, int SB,
-           const float* __restrict__ scale, const float* __restrict__ zoff,
-           int ng, float* __restrict__ out, int Np) {
-  using ST = typename Stage<XT>::type;
-  using AT = typename Acc<XT>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  ST* xs = reinterpret_cast<ST*>(smem);
-  AT* xsum = reinterpret_cast<AT*>(smem + ((Kp * sizeof(ST) + 15) & ~15));
-  __shared__ float red[VWARPS][COLS];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * COLS + lane;
-  const bool col_ok = n < Np;
-  const int nsub = Kp / SB;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = threadIdx.x; i < Kp; i += blockDim.x) xs[i] = (ST)load_x(x + i);
-  __syncthreads();
-  for (int s = warp; s < nsub; s += nwarps) {
-    AT v = 0;
-    for (int r = lane; r < SB; r += 32) v += (AT)xs[s * SB + r];
-    v = warp_sum(v);
-    if (lane == 0) xsum[s] = v;
-  }
-  __syncthreads();
-  const int G = Kp / ng;
-  float acc;
-  if (BITS == 3) {
-    acc = field_items<2>(w0, 0, xs, xsum, SB, nsub, G, scale, zoff, Np, n,
-                         col_ok, warp, true) +
-          field_items<1>(w1, 2, xs, xsum, SB, nsub, G, scale, zoff, Np, n,
-                         col_ok, warp, false);
-  } else {
-    acc = field_items<BITS>(w0, 0, xs, xsum, SB, nsub, G, scale, zoff, Np,
-                            n, col_ok, warp, true);
-  }
-  red[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < nwarps; ++w) s += red[w][lane];
-    if (col_ok) out[n] = s;
-  }
-}
-
-// the single-row path applies when groups cover whole subblocks and the
-// staged row fits a block's 227 KB of shared memory (above 48 KB only as
-// dynamic shared memory the kernel has opted into)
-template <typename XT>
-bool qmv_launch(const void* x, int Kp, int bits, const void* w0,
-                const void* w1, int SB, const void* scale, const void* zoff,
-                int ng, void* out, int Np, cudaStream_t st) {
-  using ST = typename Stage<XT>::type;
-  using AT = typename Acc<XT>::type;
-  void (*kern)(const XT*, int, const int32_t*, const int32_t*, int,
-               const float*, const float*, int, float*, int);
-  switch (bits) {
-    case 2: kern = qmv_kernel<XT, 2>; break;
-    case 3: kern = qmv_kernel<XT, 3>; break;
-    case 4: kern = qmv_kernel<XT, 4>; break;
-    case 8: kern = qmv_kernel<XT, 8>; break;
-    default: return false;
-  }
-  const int G = Kp / ng;
-  const size_t smem = ((Kp * sizeof(ST) + 15) & ~(size_t)15) +
-                      (size_t)(Kp / SB) * sizeof(AT);
-  const size_t static_smem = sizeof(float) * VWARPS * COLS;
-  if (G % SB != 0 || smem + static_smem > 227 * 1024) return false;
-  if (smem + static_smem > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);  // a failure shows in cudaGetLastError
-  const dim3 grid((Np + COLS - 1) / COLS);
-  // up to two blocks of 32 warps per SM cover 264 blocks; wider weights
-  // have enough blocks for 8 warps each
-  const int threads = (grid.x <= 264 ? VWARPS : WARPS) * 32;
-  kern<<<grid, threads, smem, st>>>(
-      (const XT*)x, Kp, (const int32_t*)w0, (const int32_t*)w1, SB,
-      (const float*)scale, (const float*)zoff, ng, (float*)out, Np);
-  return true;
-}
+// the single-row path (decode, M == 1) is qmv_kernel of qmv.cuh
 
 template <typename XT, int TM>
 void launch(const void* x, int M, int Kp, const void* w0, int fb0, int sh0,
@@ -341,8 +186,8 @@ void launch_tm(const void* x, int M, int Kp, const void* w0, int fb0,
                const void* scale, const void* zoff, int ng, void* out,
                int Np, cudaStream_t st) {
   const int bits = w1 != nullptr ? 3 : fb0;
-  if (M == 1 && qmv_launch<XT>(x, Kp, bits, w0, w1, SB, scale, zoff, ng, out,
-                               Np, st))
+  if (M == 1 && qmv_launch<XT>(x, 1, Kp, bits, w0, w1, SB, scale, zoff, ng,
+                               nullptr, 0, out, Np, st))
     return;
   if (M <= 1)
     launch<XT, 1>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB, scale, zoff, ng,

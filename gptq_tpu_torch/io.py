@@ -6,7 +6,10 @@ a JSON `__header__` with the ArchSpec, the QuantConfig, per-packed-weight
 metadata and `pack_format: 2` (byteplane word order). bfloat16 leaves
 travel as uint16 bit views listed in `bf16_keys`; they are read back with
 `torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)`, so neither
-side needs ml_dtypes. A file written by either package loads in the other.
+side needs ml_dtypes. An MoE expert bank (PackedExperts) is stored as the
+JAX package stores it: meta {"experts": true, bits, K, N, groupsize,
+n_words} and leaves words{i}, scale, zoff. A file written by either
+package loads in the other.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from gptq_tpu_torch.config import QuantConfig, resolve_device
 from gptq_tpu_torch.models.common import ArchSpec
-from gptq_tpu_torch.ops.pack import PackedWeight
+from gptq_tpu_torch.ops.pack import PackedExperts, PackedWeight
 
 PACK_FORMAT = 2
 
@@ -46,6 +49,17 @@ def _flatten(tree, prefix="", out=None, meta=None, bf16=None):
         for f in ("scale", "zoff", "alpha", "bias", "perm"):
             if getattr(tree, f) is not None:
                 leaves[f] = getattr(tree, f)
+        for name, t in leaves.items():
+            _flatten(t, f"{prefix}.{name}", out, meta, bf16)
+        return
+    if isinstance(tree, PackedExperts):
+        meta[prefix] = {
+            "packed": True, "experts": True, "bits": tree.bits, "K": tree.K,
+            "N": tree.N, "groupsize": tree.groupsize,
+            "n_words": len(tree.words),
+        }
+        leaves = {f"words{i}": w for i, w in enumerate(tree.words)}
+        leaves.update(scale=tree.scale, zoff=tree.zoff)
         for name, t in leaves.items():
             _flatten(t, f"{prefix}.{name}", out, meta, bf16)
         return
@@ -136,16 +150,19 @@ def load_checkpoint(path: str, device="cuda"):
         node, key = node_for(k.split("."))
         node[key] = v
     for prefix, m in packed_meta.items():
-        if m.get("experts"):
-            raise NotImplementedError(
-                "MoE expert banks are not ported (ROADMAP queue 1, item 15)")
         f = packed_fields[prefix]
         node, key = node_for(prefix.split("."))
+        words = tuple(f[f"words{i}"] for i in range(m["n_words"]))
+        if m.get("experts"):
+            node[key] = PackedExperts(
+                words=words, scale=f["scale"], zoff=f["zoff"], bits=m["bits"],
+                K=m["K"], N=m["N"], groupsize=m["groupsize"])
+            continue
         node[key] = PackedWeight(
-            words=tuple(f[f"words{i}"] for i in range(m["n_words"])),
-            scale=f.get("scale"), zoff=f.get("zoff"), alpha=f.get("alpha"),
-            bias=f.get("bias"), perm=f.get("perm"), bits=m["bits"], K=m["K"],
-            N=m["N"], groupsize=m["groupsize"], fmt=m["fmt"])
+            words=words, scale=f.get("scale"), zoff=f.get("zoff"),
+            alpha=f.get("alpha"), bias=f.get("bias"), perm=f.get("perm"),
+            bits=m["bits"], K=m["K"], N=m["N"], groupsize=m["groupsize"],
+            fmt=m["fmt"])
 
     def add_b(node):
         # every {"w": ...} linear carries a "b" key (None when absent)

@@ -19,9 +19,11 @@ MLP can fuse), and the head runs final_ln + a packed lm_head as one
 norm_qkv_fused launch. `auto` (the default) takes the fused route for
 CUDA tensors and the unfused one (one dequant_matmul per linear) on the
 CPU; `on` / `interpret` fuse everywhere (on the CPU through the plain
-versions), `off` never. The whole-layer kernel (GPTQ_TPU_LAYER_FUSION),
-tensor / expert parallelism, MoE, alibi and the OPT / BLOOM / Gemma
-families are not ported yet (ROADMAP queue 1, item 13).
+versions), `off` never. A layer with a router (Mixtral-style MoE, spec
+n_experts > 0) runs its FFN through models/moe.moe_ffn and keeps the
+fused o + MLP route off. The whole-layer kernel (GPTQ_TPU_LAYER_FUSION),
+tensor / expert parallelism, alibi and the OPT / BLOOM / Gemma families
+are not ported yet (ROADMAP queue 1, items 13 and 18).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Optional
 import torch
 
 from gptq_tpu_torch.config import resolve_device
+from gptq_tpu_torch.models.moe import init_moe_params, moe_ffn
 from gptq_tpu_torch.ops.attention import decode_attention
 from gptq_tpu_torch.ops.bcq_matmul import bcq_matmul
 from gptq_tpu_torch.ops.ffn import (attn_mlp_fusable, attn_mlp_fused,
@@ -88,10 +91,11 @@ class ArchSpec:
 
 
 def _check_arch(spec: ArchSpec) -> None:
-    if spec.arch != "llama" or spec.n_experts:
+    if spec.arch != "llama":
         raise NotImplementedError(
-            f"arch={spec.arch!r} n_experts={spec.n_experts}: only the dense "
-            f"llama family is ported (ROADMAP queue 1, items 13 and 15)")
+            f"arch={spec.arch!r}: only the llama family (dense, or with "
+            f"routed experts) is ported; OPT / BLOOM / Gemma wait (ROADMAP "
+            f"queue 1, item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -495,7 +499,7 @@ def _qkv(spec: ArchSpec, p: dict, x: torch.Tensor, captures):
 def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
                   positions=None, mask=None, cache=None, cache_len=None,
                   capture: bool = False, rope=None, defer_write: bool = False,
-                  full_cache=None):
+                  full_cache=None, moe_aux: list | None = None):
     """One llama decoder block. Returns (out, new_kv, captures).
 
     With `cache` = (k, v, k_scale, v_scale) per-layer views, keys/values
@@ -505,7 +509,8 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     cache `full_cache` = (kL, vL, ksL, vsL, i) at this block's layer i,
     over slots < cache_len plus the token's own k/v, and new_kv returns
     the fresh (B, 1, kvh, hd) rows for model_forward to write. Without a
-    cache, S = T (calibration / eval)."""
+    cache, S = T (calibration / eval). `moe_aux`, a list, collects an MoE
+    layer's load-balancing loss."""
     captures = {} if capture else None
     B, T, _ = x.shape
     residual = x
@@ -543,7 +548,8 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
                                    k_scale=ksL, v_scale=vsL, fresh_k=k[:, 0],
                                    fresh_v=v[:, 0], layer=li)
             attn = out.reshape(B, 1, -1).to(x.dtype)
-            return _finish_block(spec, p, residual, attn, captures, new_kv)
+            return _finish_block(spec, p, residual, attn, captures, new_kv,
+                                 moe_aux)
         end = cache_len + T
         if ks is not None:
             kq, ksn = _quantize_kv(k)
@@ -564,13 +570,15 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     else:
         k_all, v_all = k, v
     attn = attention(spec, q, k_all, v_all, mask)
-    return _finish_block(spec, p, residual, attn, captures, new_kv)
+    return _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux)
 
 
-def _finish_block(spec, p, residual, attn, captures, new_kv):
-    """Post-attention half of a llama block (o projection + GLU MLP)."""
+def _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux=None):
+    """Post-attention half of a llama block (o projection + GLU MLP, or
+    the routed expert FFN of an MoE layer)."""
     n_rows = attn.numel() // attn.shape[-1]
-    mlp_a8 = _attn_mlp_ok(spec, p, captures, n_rows, attn.device)
+    mlp_a8 = (None if "router" in p else
+              _attn_mlp_ok(spec, p, captures, n_rows, attn.device))
     if mlp_a8 is not None:
         # o + residual + ln2 + gate|up + act + down + residual in one launch
         g_e, d_e, glu = _mlp_entries(spec, p)
@@ -583,6 +591,12 @@ def _finish_block(spec, p, residual, attn, captures, new_kv):
         captures["self_attn.o_proj"] = attn
     h = residual + linear_apply(p["o"], attn)
     m = norm_apply(spec, p["ln2"], h)
+    if "router" in p:
+        if captures is not None:
+            captures["moe.input"] = m  # gptq_quantize_experts calibration
+        mlp_out = moe_ffn(spec, p, m, activation=lambda g: activation(spec, g),
+                          aux_out=moe_aux)
+        return h + mlp_out, new_kv, captures
     ffn_a8 = _ffn_fusion_entry(p, captures, m.device)
     if n_rows <= 32 and ffn_a8 is not None:
         # gate|up + act + down in one launch
@@ -634,13 +648,15 @@ def head_forward(spec: ArchSpec, params: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
-                  cache: KVCache | None = None):
+                  cache: KVCache | None = None,
+                  moe_aux: list | None = None):
     """Full forward -> (logits (B, T, vocab), new cache or None).
 
     With a cache, appends T tokens at cache.length. Single-token decode
     (T == 1) attends the slots strictly below cache.length plus each
     layer's own fresh k/v, and writes all layers' fresh rows once after
-    the last layer (quantized for an int8 cache), in place."""
+    the last layer (quantized for an int8 cache), in place. `moe_aux`, a
+    list, collects each MoE layer's load-balancing loss."""
     _check_arch(spec)
     B, T = input_ids.shape
     dev = input_ids.device
@@ -672,7 +688,7 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
             cache_len=start if cache is not None else None, rope=rope,
             defer_write=defer,
             full_cache=((cache.k, cache.v, cache.k_scale, cache.v_scale, i)
-                        if defer else None))
+                        if defer else None), moe_aux=moe_aux)
         if defer:
             fresh.append(new_kv)
     if defer:
@@ -703,7 +719,9 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
 def init_params(spec: ArchSpec, seed: int = 0, dtype=torch.float32,
                 device="cuda") -> dict:
     """Random params with the structure of converted HF weights, drawn
-    from a torch.Generator seeded with `seed` on `device`."""
+    from a torch.Generator seeded with `seed` on `device`. With
+    spec.n_experts every layer carries a router and expert stacks
+    (models/moe.init_moe_params) in place of gate / up / down."""
     _check_arch(spec)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -725,12 +743,14 @@ def init_params(spec: ArchSpec, seed: int = 0, dtype=torch.float32,
     kvd = spec.kv_heads * spec.hd
     layers = []
     for _ in range(spec.n_layers):
-        layers.append({
-            "ln1": norm_p(), "ln2": norm_p(),
-            "q": lin(qd, h), "k": lin(kvd, h), "v": lin(kvd, h),
-            "o": lin(h, qd), "gate": lin(f, h), "up": lin(f, h),
-            "down": lin(h, f),
-        })
+        lp = {"ln1": norm_p(), "ln2": norm_p(),
+              "q": lin(qd, h), "k": lin(kvd, h), "v": lin(kvd, h),
+              "o": lin(h, qd)}
+        if spec.n_experts:
+            lp.update(init_moe_params(spec, gen, dtype, device))
+        else:
+            lp.update(gate=lin(f, h), up=lin(f, h), down=lin(h, f))
+        layers.append(lp)
     params = {"embed": {"tokens": randn(spec.vocab, h) * 0.02},
               "layers": layers, "final_ln": norm_p()}
     params["lm_head"] = (None if spec.tie_embeddings else

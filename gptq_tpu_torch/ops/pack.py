@@ -1,5 +1,5 @@
 """Bit-packing of quantized weights into int32 words (port of the
-uniform-grid and BCQ parts of gptq_tpu/ops/pack.py).
+uniform-grid, expert-bank and BCQ parts of gptq_tpu/ops/pack.py).
 
 The layout is the JAX package's byteplane-subblock order, bit for bit, so
 checkpoints interchange:
@@ -272,6 +272,97 @@ def fuse_packed(pws: list) -> Optional[PackedWeight]:
         words=words, scale=scale, zoff=zoff, alpha=alpha, bias=None,
         perm=p0.perm, bits=p0.bits, K=p0.K, N=sum(pw.Np for pw in pws),
         groupsize=p0.groupsize, fmt=p0.fmt)
+
+
+@dataclass
+class PackedExperts:
+    """A stacked bank of E uniform-grid packed weights sharing one format:
+    the sub-byte serving layout of an MoE layer's expert stacks
+    (models/moe.py).
+
+      words — tuple of (E, Kp // P, Np) int32 field tensors (each expert's
+              pack_codes planes, stacked on a leading expert dim)
+      scale — (E, ng, Np) f32 per-(expert, group) grids
+      zoff  — (E, ng, Np) f32, scale*zero
+
+    E derives from the tensors. K/N are the logical (in, out) dims of one
+    expert; stored dims may be padded like PackedWeight's, with zero pad
+    grids."""
+
+    words: tuple
+    scale: torch.Tensor
+    zoff: torch.Tensor
+    bits: int = 4
+    K: int = 0
+    N: int = 0
+    groupsize: int = -1
+
+    @property
+    def E(self) -> int:
+        return self.words[0].shape[0]
+
+    @property
+    def Kp(self) -> int:
+        fb = FIELD_SPLITS[self.bits][0][0]
+        return self.words[0].shape[-2] * (32 // fb)
+
+    @property
+    def Np(self) -> int:
+        return self.words[0].shape[-1]
+
+    def expert(self, e) -> PackedWeight:
+        """Expert e's weight as a PackedWeight view (e: an int, or a 0-d
+        integer tensor on the bank's device, which indexes without a host
+        sync: index_select, where plain indexing would read it on the
+        host)."""
+        if isinstance(e, torch.Tensor):
+            idx = e.reshape(1).to(torch.long)
+
+            def pick(t):
+                return t.index_select(0, idx)[0]
+        else:
+            def pick(t):
+                return t[e]
+        return PackedWeight(
+            words=tuple(pick(w) for w in self.words), scale=pick(self.scale),
+            zoff=pick(self.zoff), bits=self.bits, K=self.K, N=self.N,
+            groupsize=self.groupsize, fmt="uniform")
+
+    def to(self, device) -> "PackedExperts":
+        return PackedExperts(
+            words=tuple(w.to(device) for w in self.words),
+            scale=self.scale.to(device), zoff=self.zoff.to(device),
+            bits=self.bits, K=self.K, N=self.N, groupsize=self.groupsize)
+
+
+def pack_expert_stack(W: torch.Tensor, scale: torch.Tensor,
+                      zero: torch.Tensor, bits: int,
+                      groupsize: int = -1) -> PackedExperts:
+    """Pack an (E, N, K) expert weight stack for serving.
+
+    W: per-expert (out, in) quantize-dequantized weights; scale/zero:
+    (E, num_groups, N) grids. Every expert packs with pack_codes, padded
+    like pack_quantized and then to a multiple of 32 rows (pad rows store
+    code 0, met by zero x pad rows at run time)."""
+    E, Nn, K = W.shape
+    ng = scale.shape[1]
+    codes = torch.stack([quantize_to_codes(W[e], scale[e], zero[e], bits)
+                         for e in range(E)])  # (E, K, N)
+    scale = scale.to(torch.float32)
+    zoff = (scale * zero).to(torch.float32)
+    Kp, Np = pad_dim(K, groupsize, 512), pad_dim(Nn, -1, 512)
+    if Kp % 32:
+        Kp = -(-Kp // 32) * 32
+    if (Kp, Np) != (K, Nn):
+        codes = torch.nn.functional.pad(codes, (0, Np - Nn, 0, Kp - K))
+        ng_p = Kp // groupsize if groupsize > 0 else 1
+        scale = torch.nn.functional.pad(scale, (0, Np - Nn, 0, ng_p - ng))
+        zoff = torch.nn.functional.pad(zoff, (0, Np - Nn, 0, ng_p - ng))
+    per = [pack_codes(codes[e], bits, groupsize) for e in range(E)]
+    words = tuple(torch.stack(ws) for ws in zip(*per))
+    return PackedExperts(words=words, scale=scale.contiguous(),
+                         zoff=zoff.contiguous(), bits=bits, K=K, N=Nn,
+                         groupsize=groupsize)
 
 
 def pack_bcq(B: torch.Tensor, alpha: torch.Tensor,

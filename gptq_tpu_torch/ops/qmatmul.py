@@ -1,6 +1,7 @@
 """Fused dequantize + matmul for uniform-grid packed weights (port of
 gptq_tpu/ops/qmatmul.py: dequant, quantize_acts_int8, _matmul_streamed,
-dequant_matmul).
+dequant_matmul, and the expert-bank functions dequant_experts,
+expert_dequant_matmul, expert_dequant_matmul_select).
 
 `dequant_matmul` routes by GPTQ_TPU_MATMUL_IMPL, as in the JAX package:
   * `pallas` (the default): on a CUDA tensor the hand-written kernel in
@@ -15,6 +16,14 @@ A CPU tensor always runs the plain version. There is no fallback from a
 kernel to the plain version on the card: a launch that fails raises.
 
 Both compute y[m,n] = sum_k x[m,k] * (scale[g(k),n] * c[k,n] - zoff[g(k),n]).
+
+The expert-bank functions serve a PackedExperts bank (models/moe.py):
+`expert_dequant_matmul` runs every expert's matmul in one launch of
+csrc/qexpert.cu's batched kernel (#8), `expert_dequant_matmul_select` one
+selected expert's, whose index the kernel reads from device memory (#9).
+A CPU tensor runs their plain versions; `xla` runs the batched plain
+version on the card too (the select has no `xla` form of its own: the
+MoE layer then serves each selection through dequant_matmul).
 """
 
 from __future__ import annotations
@@ -25,12 +34,15 @@ import os
 import torch
 
 from gptq_tpu_torch.ops import _build
-from gptq_tpu_torch.ops.pack import FIELD_SPLITS, PackedWeight, subblock, unpack_codes
+from gptq_tpu_torch.ops.pack import (FIELD_SPLITS, PackedExperts,
+                                     PackedWeight, subblock, unpack_codes)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): csrc/qmatmul.cu and csrc/qstream.cu
+# them): csrc/qmatmul.cu, csrc/qstream.cu and csrc/qexpert.cu's two
 launches = 0
 stream_launches = 0
+expert_launches = 0
+select_launches = 0
 
 
 def dequant(pw: PackedWeight) -> torch.Tensor:
@@ -133,6 +145,17 @@ def _lib(name="qmatmul"):
     if name == "qmatmul":
         f, types = lib.qmm_launch, [vp, i, i, i, vp, i, i, vp, i, i, i, vp,
                                     vp, i, vp, i, vp]
+    elif name == "qexpert":
+        for f, types in ((lib.qexpert_launch,
+                          [vp, i, i, i, i, i, vp, vp, i, i, vp, vp, i, vp, i,
+                           vp]),
+                         (lib.qselect_launch,
+                          [vp, i, i, i, vp, vp, i, i, vp, vp, i, vp, i, vp, i,
+                           vp])):
+            if f.argtypes is None:
+                f.argtypes = types
+                f.restype = ctypes.c_int
+        return lib
     else:
         f, types = lib.qstream_launch, [vp, i, i, i, vp, i, i, i, i, vp, vp,
                                         i, vp, i, vp]
@@ -254,3 +277,139 @@ def dequant_matmul(x: torch.Tensor, pw: PackedWeight,
     else:
         y = _qmm_cuda(x2, pw)[:, :pw.N]
     return _finish(y, sx, pw, lead, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# expert banks (PackedExperts)
+# ---------------------------------------------------------------------------
+
+def dequant_experts(pe: PackedExperts) -> torch.Tensor:
+    """Materialize the dequantized (E, K, N) f32 bank (plain version)."""
+    return torch.stack([dequant(pe.expert(e)) for e in range(pe.E)])
+
+
+def _check_bank(x: torch.Tensor, pe: PackedExperts, what: str):
+    """The bank's tensors, contiguous, after the checks every expert
+    kernel needs; raises on what csrc/qexpert.cu does not take."""
+    words = [w.contiguous() for w in pe.words]
+    scale, zoff = pe.scale.contiguous(), pe.zoff.contiguous()
+    for t in (*words, scale, zoff):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{what}: bank and activations must lie on the "
+                             f"same CUDA device")
+    fields = FIELD_SPLITS.get(pe.bits)
+    if fields is None or pe.bits == 1:
+        raise ValueError(f"{what}: bits={pe.bits} not in (2, 3, 4, 8)")
+    E, Kp, Np = pe.E, pe.Kp, pe.Np
+    ng = scale.shape[1]
+    if (scale.dtype != torch.float32 or zoff.dtype != torch.float32
+            or scale.shape != (E, ng, Np) or zoff.shape != scale.shape
+            or len(words) != len(fields) or Kp % ng
+            or any(w.dtype != torch.int32 or w.shape != (E, Kp * fb // 32, Np)
+                   for (fb, _), w in zip(fields, words))):
+        raise ValueError(f"{what}: bank of E={E} K={Kp} N={Np} "
+                         f"bits={pe.bits} has malformed fields")
+    sb = subblock(Kp, pe.groupsize)
+    if (Kp // ng) % sb:
+        raise ValueError(f"{what}: groups of {Kp // ng} rows do not cover "
+                         f"whole {sb}-row subblocks")
+    return words, scale, zoff, ng, sb
+
+
+def _kernel_x(x: torch.Tensor, Kp: int) -> torch.Tensor:
+    """x in a dtype the kernels take, K padded to the stored Kp."""
+    if x.dtype not in _X_KIND:
+        x = x.to(torch.float32)
+    if x.shape[-1] != Kp:
+        x = torch.nn.functional.pad(x, (0, Kp - x.shape[-1]))
+    return x.contiguous()
+
+
+def _expert_cuda(x: torch.Tensor, pe: PackedExperts) -> torch.Tensor:
+    """Launch #8 on x (M, K) or (E, M, K) -> (E, M, Np) f32."""
+    global expert_launches
+    what = "expert_dequant_matmul"
+    per_x = x.dim() == 3
+    E, M = pe.E, x.shape[-2]
+    if (per_x and x.shape[0] != E) or x.dim() not in (2, 3) \
+            or x.shape[-1] not in (pe.K, pe.Kp):
+        raise ValueError(f"{what}: x of shape {tuple(x.shape)} does not "
+                         f"meet a bank of E={E} K={pe.K}")
+    if not 1 <= M <= 32:
+        raise ValueError(f"{what}: the batched kernel takes 1..32 rows, "
+                         f"got {M}")
+    x = _kernel_x(x, pe.Kp)
+    words, scale, zoff, ng, sb = _check_bank(x, pe, what)
+    out = torch.empty((E, M, pe.Np), dtype=torch.float32, device=x.device)
+    err = _lib("qexpert").qexpert_launch(
+        x.data_ptr(), _X_KIND[x.dtype], int(per_x), E, M, pe.Kp,
+        words[0].data_ptr(), words[1].data_ptr() if len(words) > 1 else None,
+        pe.bits, sb, scale.data_ptr(), zoff.data_ptr(), ng, out.data_ptr(),
+        pe.Np, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "qexpert_launch")
+    expert_launches += 1
+    return out
+
+
+def expert_dequant_matmul_reference(x: torch.Tensor,
+                                    pe: PackedExperts) -> torch.Tensor:
+    """Plain version of expert_dequant_matmul: the dequantized bank, one
+    f32 batched product."""
+    w = dequant_experts(pe)  # (E, K, N)
+    eq = "emk,ekn->emn" if x.dim() == 3 else "mk,ekn->emn"
+    return torch.einsum(eq, x.to(torch.float32), w)
+
+
+def expert_dequant_matmul(x: torch.Tensor, pe: PackedExperts) -> torch.Tensor:
+    """y[e] = x[e] @ dequant(pe.expert(e)) for the whole bank in ONE kernel
+    launch (#8). x: (M, K) shared by the experts (gate / up) or (E, M, K)
+    one per expert (down); M <= 32 on the card. Returns (E, M, N) f32."""
+    impl = matmul_impl()
+    if impl == "xla" or not x.is_cuda:
+        return expert_dequant_matmul_reference(x, pe)
+    return _expert_cuda(x, pe)[..., :pe.N]
+
+
+def _select_cuda(x: torch.Tensor, pe: PackedExperts,
+                 e_idx: torch.Tensor) -> torch.Tensor:
+    """Launch #9 on x (M, K) with a device int32 expert index -> (M, Np)."""
+    global select_launches
+    what = "expert_dequant_matmul_select"
+    if x.dim() != 2 or x.shape[-1] not in (pe.K, pe.Kp):
+        raise ValueError(f"{what}: x of shape {tuple(x.shape)} does not "
+                         f"meet a bank of K={pe.K}")
+    if (not e_idx.is_cuda or e_idx.device != x.device
+            or e_idx.dtype != torch.int32 or e_idx.numel() != 1):
+        raise ValueError(f"{what}: the expert index must be one int32 on "
+                         f"the activations' CUDA device")
+    x = _kernel_x(x, pe.Kp)
+    words, scale, zoff, ng, sb = _check_bank(x, pe, what)
+    e_idx = e_idx.contiguous()
+    M = x.shape[0]
+    out = torch.empty((M, pe.Np), dtype=torch.float32, device=x.device)
+    err = _lib("qexpert").qselect_launch(
+        x.data_ptr(), _X_KIND[x.dtype], M, pe.Kp, words[0].data_ptr(),
+        words[1].data_ptr() if len(words) > 1 else None, pe.bits, sb,
+        scale.data_ptr(), zoff.data_ptr(), ng, e_idx.data_ptr(), pe.E,
+        out.data_ptr(), pe.Np, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "qselect_launch")
+    select_launches += 1
+    return out
+
+
+def expert_dequant_matmul_select_reference(
+        x: torch.Tensor, pe: PackedExperts,
+        e_idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of expert_dequant_matmul_select."""
+    return torch.matmul(x.to(torch.float32), dequant(pe.expert(e_idx)))
+
+
+def expert_dequant_matmul_select(x: torch.Tensor, pe: PackedExperts,
+                                 e_idx: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(pe.expert(e_idx)) with the expert chosen INSIDE the
+    kernel (#9): e_idx is a one-element int32 tensor on x's device, read
+    by the kernel, so the host never waits for the routing and only the
+    chosen expert's words are read. x: (M, K). Returns (M, N) f32."""
+    if not x.is_cuda:
+        return expert_dequant_matmul_select_reference(x, pe, e_idx)
+    return _select_cuda(x, pe, e_idx)[:, :pe.N]

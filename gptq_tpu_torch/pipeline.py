@@ -12,8 +12,10 @@ The solver's `lut` mode (--lut_eval) fits BCQ alphas and pack_model
 packs its sign planes for ops/bcq_matmul.py. The Hessian-free modes
 (--nearest: uniform RTN, --bcq: whole-weight BCQ) write dense weights
 and skip the calibration capture. quantize_lm_head packs the output
-projection (per-channel RTN) for the fused head. Mixed precision and the
-mid-run resume journal are not ported yet (ROADMAP queue 1).
+projection (per-channel RTN) for the fused head. On an MoE model the
+attention linears quantize here and the expert stacks through
+models/moe.gptq_quantize_experts. Mixed precision and the mid-run resume
+journal are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -120,6 +122,12 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
     for i, bp in enumerate(params["layers"]):
         t_layer = time.time()
         for names in groups:
+            # only the linears this layer has: an MoE layer carries router /
+            # experts instead of gate / up / down (models/moe.py quantizes
+            # those: gptq_quantize_experts)
+            names = tuple(n for n in names if arch.linears[n] in bp)
+            if not names:
+                continue
             if cfg.nearest or cfg.bcq:
                 hstates = {}  # Hessian-free: no capture
             else:

@@ -3,10 +3,11 @@
 `params_from_jax` takes the JAX package's params already converted to
 numpy (a dict / list tree whose leaves are numpy arrays or None, where a
 packed weight arrives as a dict of its dataclass fields: words, scale,
-zoff, alpha, bias, perm, bits, K, N, groupsize, fmt) and returns the
-port's tree of torch tensors and PackedWeights on `device`. It imports
-nothing of the JAX package; the tests use it to run both packages on the
-same weights.
+zoff, alpha, bias, perm, bits, K, N, groupsize, fmt; an MoE expert bank
+as the dict of words, scale, zoff, bits, K, N, groupsize) and returns the
+port's tree of torch tensors, PackedWeights and PackedExperts on
+`device`. It imports nothing of the JAX package; the tests use it to run
+both packages on the same weights.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import numpy as np
 import torch
 
 from gptq_tpu_torch.config import resolve_device
-from gptq_tpu_torch.ops.pack import PackedWeight
+from gptq_tpu_torch.ops.pack import PackedExperts, PackedWeight
 
 _PACKED_FIELDS = ("words", "scale", "zoff", "alpha", "bias", "perm", "bits",
                   "K", "N", "groupsize", "fmt")
+_EXPERT_FIELDS = frozenset(("words", "scale", "zoff", "bits", "K", "N",
+                            "groupsize"))
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -34,6 +37,11 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def _is_packed(node) -> bool:
     return isinstance(node, dict) and "words" in node and "fmt" in node
+
+
+def _is_experts(node) -> bool:
+    """A PackedExperts' field dict: exactly its fields (it has no fmt)."""
+    return isinstance(node, dict) and set(node) == _EXPERT_FIELDS
 
 
 def to_numpy_tree(tree):
@@ -60,6 +68,13 @@ def params_from_jax(tree, device="cuda"):
     def conv(node):
         if node is None:
             return None
+        if _is_experts(node):
+            return PackedExperts(
+                words=tuple(tensor_from_numpy(w, dev) for w in node["words"]),
+                scale=tensor_from_numpy(node["scale"], dev),
+                zoff=tensor_from_numpy(node["zoff"], dev),
+                bits=int(node["bits"]), K=int(node["K"]), N=int(node["N"]),
+                groupsize=int(node["groupsize"]))
         if _is_packed(node):
             extra = set(node) - set(_PACKED_FIELDS)
             if extra:

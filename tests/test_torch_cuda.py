@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from gptq_tpu_torch.models import common as tc
+from gptq_tpu_torch.models import moe as tm
 from gptq_tpu_torch.ops import attention as ta
 from gptq_tpu_torch.ops import bcq_matmul as tbm
 from gptq_tpu_torch.ops import ffn as tf
@@ -356,3 +358,120 @@ def test_fused_kernels_refuse_what_they_cannot_serve(cuda):
         tf.norm_qkv_fused(x, torch.ones(512, device=cuda), pw)
     with pytest.raises(ValueError, match="width"):
         tf.norm_qkv_fused(x[:1, :256], torch.ones(256, device=cuda), pw)
+
+
+def _bank(rng, bits, groupsize, K, N, E=4):
+    """A random RTN-gridded (E, N, K) expert stack packed by
+    pack_expert_stack (K and N pad as it pads them)."""
+    W = torch.from_numpy((rng.normal(size=(E, N, K)) * 0.2).astype(np.float32))
+    s, z = tm._rtn_expert_grids(W, bits, groupsize)
+    return tpack.pack_expert_stack(W, s, z, bits, groupsize)
+
+
+def _acts(rng, shape, act, cuda):
+    if act == "int8":
+        return torch.from_numpy(rng.integers(-127, 128, size=shape).astype(
+            np.int8)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    return x.to(torch.bfloat16) if act == "bf16" else x
+
+
+# #8 and #9: f32 sums in another order (int8 x: exact int32 partials),
+# f32 outputs on both sides
+@pytest.mark.parametrize("bits,groupsize", [(4, -1), (4, 128), (3, 128),
+                                            (2, -1), (8, -1)])
+@pytest.mark.parametrize("M", [1, 2, 16, 32])
+@pytest.mark.parametrize("per_x", [False, True])
+@pytest.mark.parametrize("act", ["f32", "bf16", "int8"])
+def test_expert_kernel_matches_plain(cuda, bits, groupsize, M, per_x, act):
+    rng = np.random.default_rng(M * 11 + bits + groupsize)
+    K = 480 if groupsize < 0 else 512  # 480: stored padded to 512
+    pe = _bank(rng, bits, groupsize, K, 200).to(cuda)
+    x = _acts(rng, (4, M, K) if per_x else (M, K), act, cuda)
+    before = tq.expert_launches
+    got = tq.expert_dequant_matmul(x, pe)
+    torch.cuda.synchronize()
+    assert tq.expert_launches == before + 1
+    assert got.shape == (4, M, 200) and got.dtype == torch.float32
+    want = tq.expert_dequant_matmul_reference(x, pe)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("bits,groupsize", [(4, -1), (4, 128), (3, 128),
+                                            (2, -1), (8, -1)])
+@pytest.mark.parametrize("M", [1, 3])
+@pytest.mark.parametrize("act", ["f32", "bf16", "int8"])
+def test_expert_select_kernel_matches_plain(cuda, bits, groupsize, M, act):
+    rng = np.random.default_rng(M * 13 + bits + groupsize)
+    K = 480 if groupsize < 0 else 512
+    pe = _bank(rng, bits, groupsize, K, 200).to(cuda)
+    x = _acts(rng, (M, K), act, cuda)
+    for e in (0, 3, 1):
+        idx = torch.tensor([e], dtype=torch.int32, device=cuda)
+        before = tq.select_launches
+        got = tq.expert_dequant_matmul_select(x, pe, idx)
+        torch.cuda.synchronize()
+        assert tq.select_launches == before + 1
+        want = tq.expert_dequant_matmul_select_reference(x, pe, idx)
+        _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
+def test_expert_select_past_48kb_and_bad_index(cuda):
+    # a 14336-wide f32 row (Mixtral's down projection) needs more than
+    # 48 KB of shared memory; an index outside the bank gives NaN
+    rng = np.random.default_rng(14336)
+    pe = _bank(rng, 4, -1, 14336, 96, E=3).to(cuda)
+    x = _acts(rng, (1, 14336), "f32", cuda)
+    idx = torch.tensor([2], dtype=torch.int32, device=cuda)
+    _close(tq.expert_dequant_matmul_select(x, pe, idx).cpu().numpy(),
+           tq.expert_dequant_matmul_select_reference(x, pe, idx).cpu().numpy(),
+           rtol=1e-4)
+    bad = torch.tensor([3], dtype=torch.int32, device=cuda)
+    assert torch.isnan(tq.expert_dequant_matmul_select(x, pe, bad)).all()
+
+
+def test_expert_kernels_refuse_what_they_cannot_serve(cuda):
+    rng = np.random.default_rng(1)
+    pe = _bank(rng, 4, 16, 512, 64).to(cuda)  # 16-row groups < a subblock
+    x = torch.zeros((2, 512), device=cuda)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="subblocks"):
+        tq.expert_dequant_matmul(x, pe)
+    with pytest.raises(ValueError, match="subblocks"):
+        tq.expert_dequant_matmul_select(x, pe, idx)
+    pe = _bank(rng, 4, -1, 512, 64).to(cuda)
+    with pytest.raises(ValueError, match="rows"):
+        tq.expert_dequant_matmul(torch.zeros((33, 512), device=cuda), pe)
+    with pytest.raises(ValueError, match="int32"):
+        tq.expert_dequant_matmul_select(x, pe, idx.cpu())
+
+
+def test_moe_decode_selects_without_a_host_sync(cuda):
+    """moe_ffn at one token: routing, the top-k selections and the six
+    select launches run with no host sync (the index never leaves the
+    card), and the output equals the plain versions'."""
+    spec = tc.ArchSpec(arch="llama", n_layers=1, hidden=512, n_heads=4,
+                       ffn=1024, vocab=64, max_pos=64, act="silu",
+                       pos="rope", norm_type="rmsnorm", linear_bias=False,
+                       n_experts=8, expert_top_k=2, expert_capacity=4.0)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    p = tm.init_moe_params(spec, gen, device=cuda)
+    tm.pack_experts({"layers": [p]}, bits=4)
+    x = torch.randn((1, 1, 512), generator=gen, device=cuda).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    before = tq.select_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tm.moe_ffn(spec, p, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tq.select_launches == before + 6
+    cpu = {"router": {"w": p["router"]["w"].cpu()},
+           "experts": {k: v.to("cpu") for k, v in p["experts"].items()}}
+    want = tm.moe_ffn(spec, cpu, x.cpu())
+    # bf16 output, and a bf16 GLU inner on both sides: an element whose f32
+    # sum lands by a rounding boundary comes out one bf16 step (2^-8 of
+    # itself) apart, which the down product carries
+    _close(got.float().cpu().numpy(), want.float().numpy(), rtol=1e-2)
