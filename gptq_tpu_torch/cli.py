@@ -6,12 +6,20 @@ gptq_tpu/cli.py, with the same flag names):
 
     python -m gptq_tpu_torch.cli dummy c4 --lut_bench --groupsize 128
 
+    python -m gptq_tpu_torch.cli dummy c4 --load q.npz --benchmark 128 \
+        --faster-kernel --benchmark_batch 4
+
 Runs on the GPU (`--device cuda`, the default, raises without one).
 `--lut_bench` prints the serving matmuls' latencies (ops/kernel_bench.py)
-at the flags' groupsize (and --wbits, if below 16). The benchmark's
-result line carries the loaded checkpoint's quantization fields. An MoE
-(Mixtral-style) checkpoint serves the same way, its expert banks through
-csrc/qexpert.cu.
+at the flags' groupsize (and --wbits, if below 16). The benchmark takes
+the JAX CLI's protocol: `--benchmark_batch N` (N > 1) times the second of
+two generate_chained runs of N sequences; otherwise the on-device
+chained protocol (engine.decode.benchmark_decode_chained) when one
+dispatch round trip costs more than 1 ms, else the per-token one. The
+result line names the protocol and carries the loaded checkpoint's
+quantization fields. GPTQ_TPU_LAYER_FUSION=on serves each decode layer
+in one launch (csrc/layer_fused.cu). An MoE (Mixtral-style) checkpoint
+serves the same way, its expert banks through csrc/qexpert.cu.
 Quantizing from a model directory and the PPL evals over the HF datasets
 are not ported yet (ROADMAP queue 1): serving needs --load.
 """
@@ -21,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -35,6 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--load", type=str, default="")
     p.add_argument("--benchmark", type=int, default=0)
+    p.add_argument("--benchmark_batch", type=int, default=1,
+                   help="batched lock-step decode: N sequences through "
+                        "generate_chained, tok/s over all of them")
     p.add_argument("--check", action="store_true")
     p.add_argument("--faster-kernel", action="store_true")
     p.add_argument("--int8_kv", action="store_true",
@@ -84,7 +96,7 @@ def quant_fields(params: dict, cfg) -> dict:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from gptq_tpu_torch.config import resolve_device
-    from gptq_tpu_torch.engine.decode import benchmark_decode
+    from gptq_tpu_torch.engine import decode
     from gptq_tpu_torch.io import load_checkpoint
     from gptq_tpu_torch.models.common import fuse_serving
     from gptq_tpu_torch.pipeline import quantize_lm_head
@@ -116,9 +128,34 @@ def main(argv=None) -> int:
             params = fuse_serving(spec, params, a8=True)
             print("--faster-kernel: serving with dynamic int8 activations")
         cache_dtype = torch.int8 if args.int8_kv else torch.bfloat16
-        r = benchmark_decode(spec, params, ids, check=args.check,
-                             cache_dtype=cache_dtype)
-        print(json.dumps({"benchmark": r, "quant": quant,
+        if args.benchmark_batch > 1:
+            # batched lock-step decode: weight reads amortise over the batch
+            n, nb = args.benchmark, args.benchmark_batch
+            eng = decode.DecodeEngine(spec, params, max_len=n + 8, batch=nb,
+                                      cache_dtype=cache_dtype)
+            prompt = np.tile(ids[:1, :1], (nb, 1))
+            # the first run captures the chunks' graphs
+            eng.generate_chained(prompt, max_new_tokens=n)
+            t0 = time.perf_counter()
+            eng.generate_chained(prompt, max_new_tokens=n)
+            dt = time.perf_counter() - t0
+            rate = n * nb / dt
+            print(f"batch {nb}: {rate:.1f} tok/s ({dt / n * 1e3:.2f} ms/step "
+                  f"incl dispatch)")
+            r = {"tokens_per_s": rate, "step_s": dt / n, "batch": nb,
+                 "n_tokens": n}
+            protocol = f"batch{nb}"
+        elif decode.measure_dispatch_rtt(reps=3, device=device) > 1e-3:
+            print("dispatch RTT > 1ms: using on-device chained protocol")
+            r = decode.benchmark_decode_chained(spec, params, ids,
+                                                check=args.check,
+                                                cache_dtype=cache_dtype)
+            protocol = "chained"
+        else:
+            r = decode.benchmark_decode(spec, params, ids, check=args.check,
+                                        cache_dtype=cache_dtype)
+            protocol = "per-token"
+        print(json.dumps({"benchmark": r, "protocol": protocol, "quant": quant,
                           "device": str(device),
                           "kind": (torch.cuda.get_device_name(device)
                                    if device.type == "cuda" else "cpu")}))

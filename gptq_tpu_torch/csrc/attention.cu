@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cache_row.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -45,30 +47,10 @@ constexpr int MAXG = 8;  // query heads per kv head
 constexpr float NEG_INF = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
-}
-
-// a lane's ND contiguous elements of a cache row, in one vector load
-template <typename CT, int ND>
-struct alignas(sizeof(CT) * ND) Slice {
-  CT v[ND];
-};
-
-template <typename CT, int ND>
-__device__ __forceinline__ void load_slice(const CT* row, int lane,
-                                           float (&out)[ND]) {
-  const Slice<CT, ND> s = *reinterpret_cast<const Slice<CT, ND>*>(row + lane * ND);
-#pragma unroll
-  for (int i = 0; i < ND; ++i) out[i] = to_f(s.v[i]);
 }
 
 template <typename CT, int ND>  // ND = hd / 32 dims per lane

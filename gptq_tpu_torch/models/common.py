@@ -21,9 +21,15 @@ CUDA tensors and the unfused one (one dequant_matmul per linear) on the
 CPU; `on` / `interpret` fuse everywhere (on the CPU through the plain
 versions), `off` never. A layer with a router (Mixtral-style MoE, spec
 n_experts > 0) runs its FFN through models/moe.moe_ffn and keeps the
-fused o + MLP route off. The whole-layer kernel (GPTQ_TPU_LAYER_FUSION),
-tensor / expert parallelism, alibi and the OPT / BLOOM / Gemma families
-are not ported yet (ROADMAP queue 1, items 13 and 18).
+fused o + MLP route off. With GPTQ_TPU_LAYER_FUSION=on (default off, as
+in the JAX package) a decode block at B = T = 1 over a bf16 / f32 cache
+runs as ONE ops.layer_fused.decode_layer_fused launch, which writes its
+own fresh cache rows; model_forward then keeps the write-first path for
+the blocks that gate refuses. A cache's length may be a device tensor
+(the chained decode loop of engine/decode.py): positions, the cache
+writes and the kernels then read it on the device, so a CUDA graph can
+replay a step. Tensor / expert parallelism, alibi and the OPT / BLOOM /
+Gemma families are not ported yet (ROADMAP queue 1, items 13 and 18).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from gptq_tpu_torch.ops.bcq_matmul import bcq_matmul
 from gptq_tpu_torch.ops.ffn import (attn_mlp_fusable, attn_mlp_fused,
                                     ffn_fusable, ffn_fused, norm_qkv_fusable,
                                     norm_qkv_fused)
+from gptq_tpu_torch.ops.layer_fused import decode_layer_fused, layer_fusable
 from gptq_tpu_torch.ops.pack import PackedWeight, fuse_packed
 from gptq_tpu_torch.ops.qmatmul import dequant_matmul
 
@@ -190,7 +197,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 @dataclass
 class KVCache:
-    """Preallocated cache; `length` is the filled prefix (a host int).
+    """Preallocated cache; `length` is the filled prefix: a host int, or a
+    0-dim int32 tensor on the cache's device (the chained decode loop's,
+    which a CUDA graph reads without a host sync).
 
     k/v: (L, B, max_len, kv_heads, hd). With dtype int8 the cache stores
     dynamically quantized rows with per-token-head absmax scales
@@ -200,7 +209,7 @@ class KVCache:
 
     k: torch.Tensor
     v: torch.Tensor
-    length: int
+    length: int | torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
 
@@ -216,6 +225,19 @@ class KVCache:
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device),
                        length=0, k_scale=ks, v_scale=vs)
+
+
+def _write_slots(buf: torch.Tensor, rows: torch.Tensor, start, dim: int):
+    """buf[start:start + T] = rows along `dim` (T = rows.shape[dim]), in
+    place. A tensor `start` is read on the device (index_copy_)."""
+    T = rows.shape[dim]
+    rows = rows.to(buf.dtype)
+    if isinstance(start, torch.Tensor):
+        idx = (start.reshape(1).to(device=buf.device, dtype=torch.int64)
+               + torch.arange(T, device=buf.device))
+        buf.index_copy_(dim, idx, rows)
+    else:
+        buf.narrow(dim, start, T).copy_(rows)
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -452,6 +474,65 @@ def _attn_mlp_ok(spec, p, captures, n_rows, device):
     return a8
 
 
+def _layer_fusion_impl() -> bool:
+    """Whether decode takes the whole-layer route (ops/layer_fused.py):
+    GPTQ_TPU_LAYER_FUSION = off (the default, as in the JAX package) / on
+    (also `kernel`, `auto`) / interpret. `on` and `interpret` both take
+    it; the wrapper launches the kernel for CUDA tensors and runs the
+    plain version for CPU ones."""
+    mode = os.environ.get("GPTQ_TPU_LAYER_FUSION", "off")
+    if mode in ("on", "kernel", "auto", "interpret"):
+        return True
+    if mode != "off":
+        raise ValueError(
+            f"GPTQ_TPU_LAYER_FUSION={mode!r}: expected off/on/interpret")
+    return False
+
+
+def _layer_fusion_ok(spec, p, captures, B, T, cache, cache_len):
+    """Activation mode (True = a8, False = a16) when decode_layer_fused can
+    serve this whole block, else None (the JAX gate): decode only at
+    B == T == 1 with a scalar length, a bf16 / f32 cache, rope + pre-norm
+    rmsnorm, and four bias-free PackedWeight entries sharing one a8
+    mode."""
+    if (not _layer_fusion_impl() or captures is not None or B != 1
+            or T != 1):
+        return None
+    if cache is None or cache_len is None:
+        return None
+    if getattr(cache_len, "ndim", 0):
+        return None  # per-slot offsets keep the three-launch path
+    if len(cache) == 4 and cache[2] is not None:
+        return None  # an int8 cache keeps the int8 attention kernel
+    if cache[0].dtype == torch.int8:
+        return None
+    if (spec.pos != "rope" or not spec.do_layer_norm_before
+            or spec.norm_type not in ("rmsnorm", "rmsnorm1p")):
+        return None
+    entries = (p.get("qkv_fused"), p.get("o"), p.get("gateup_fused"),
+               p.get("down"))
+    if any(e is None for e in entries):
+        return None
+    for e in entries:
+        if not isinstance(e.get("w"), PackedWeight) or e.get("act_q"):
+            return None
+    qkv, o, gu, dn = entries
+    if any(b is not None for b in qkv["b_parts"]):
+        return None
+    if any(b is not None for b in gu["b_parts"]):
+        return None
+    if o.get("b") is not None or dn.get("b") is not None:
+        return None
+    a8 = _a8_mode(*entries)
+    if a8 is None:
+        return None
+    if not layer_fusable(qkv["w"], qkv["splits"], o["w"], gu["w"], dn["w"],
+                         spec.hidden, spec.n_heads, spec.kv_heads,
+                         head_dim=spec.hd):
+        return None
+    return a8
+
+
 def _head_fusion_ok(spec, params, n_rows, device):
     """Activation mode (True = a8 under --faster-kernel, False = bf16) when
     final_ln + the packed lm_head can run as one norm_qkv_fused launch,
@@ -508,12 +589,32 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     does not write the cache: decode_attention reads the whole stacked
     cache `full_cache` = (kL, vL, ksL, vsL, i) at this block's layer i,
     over slots < cache_len plus the token's own k/v, and new_kv returns
-    the fresh (B, 1, kvh, hd) rows for model_forward to write. Without a
+    the fresh (B, 1, kvh, hd) rows for model_forward to write. On the
+    whole-layer route (_layer_fusion_ok) one decode_layer_fused launch
+    runs the block and writes its fresh rows at cache_len. Without a
     cache, S = T (calibration / eval). `moe_aux`, a list, collects an MoE
     layer's load-balancing loss."""
     captures = {} if capture else None
     B, T, _ = x.shape
     residual = x
+    layer_a8 = (None if defer_write else
+                _layer_fusion_ok(spec, p, captures, B, T, cache, cache_len))
+    if layer_a8 is not None:
+        # the whole decoder layer in one launch (ln1 + q|k|v + rope +
+        # attention + o + ln2 + MLP + residuals); it writes the fresh rows
+        cos, sin = rope if rope is not None else rope_tables(spec, positions)
+        if full_cache is not None:  # read the stacked cache in place
+            kc, vc, li = full_cache[0], full_cache[1], full_cache[4]
+        else:
+            kc, vc, li = cache[0], cache[1], None
+        y = decode_layer_fused(
+            x, kc, vc, cache_len, cos, sin, p["ln1"]["w"], p["ln2"]["w"],
+            p["qkv_fused"]["w"], p["o"]["w"], p["gateup_fused"]["w"],
+            p["down"]["w"], n_heads=spec.n_heads, n_kv_heads=spec.kv_heads,
+            head_dim=spec.hd, act=spec.act, norm=spec.norm_type,
+            eps=float(spec.norm_eps), sm_scale=float(spec.scale), a8=layer_a8,
+            layer=li)
+        return y.to(x.dtype), cache, captures
     qkv_a8 = _norm_qkv_ok(spec, p, captures, B * T, x.device)
     if qkv_a8 is not None:
         # ln1 + fused q|k|v in one launch
@@ -550,21 +651,18 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
             attn = out.reshape(B, 1, -1).to(x.dtype)
             return _finish_block(spec, p, residual, attn, captures, new_kv,
                                  moe_aux)
-        end = cache_len + T
         if ks is not None:
             kq, ksn = _quantize_kv(k)
             vq, vsn = _quantize_kv(v)
-            ck[:, cache_len:end] = kq
-            cv[:, cache_len:end] = vq
-            ks[:, cache_len:end] = ksn
-            vs[:, cache_len:end] = vsn
+            for buf, rows in ((ck, kq), (cv, vq), (ks, ksn), (vs, vsn)):
+                _write_slots(buf, rows, cache_len, 1)
             k_all = ck.to(torch.float32) * ks[..., None]
             v_all = cv.to(torch.float32) * vs[..., None]
         elif ck.dtype == torch.int8:
             raise ValueError("an int8 KV cache needs its scale planes")
         else:
-            ck[:, cache_len:end] = k.to(ck.dtype)
-            cv[:, cache_len:end] = v.to(cv.dtype)
+            _write_slots(ck, k, cache_len, 1)
+            _write_slots(cv, v, cache_len, 1)
             k_all, v_all = ck, cv
         new_kv = cache
     else:
@@ -655,13 +753,19 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
     With a cache, appends T tokens at cache.length. Single-token decode
     (T == 1) attends the slots strictly below cache.length plus each
     layer's own fresh k/v, and writes all layers' fresh rows once after
-    the last layer (quantized for an int8 cache), in place. `moe_aux`, a
-    list, collects each MoE layer's load-balancing loss."""
+    the last layer (quantized for an int8 cache), in place. With layer
+    fusion on (GPTQ_TPU_LAYER_FUSION) decode keeps the write-first path,
+    as in the JAX package: the whole-layer kernel writes its own rows.
+    A tensor cache.length stays on the device at T == 1 (a prompt reads
+    it on the host). `moe_aux`, a list, collects each MoE layer's
+    load-balancing loss."""
     _check_arch(spec)
     B, T = input_ids.shape
     dev = input_ids.device
-    defer = cache is not None and T == 1
-    start = 0 if cache is None else int(cache.length)
+    defer = cache is not None and T == 1 and not _layer_fusion_impl()
+    start = 0 if cache is None else cache.length
+    if isinstance(start, torch.Tensor) and T > 1:
+        start = int(start)
     positions = (start + torch.arange(T, device=dev)).expand(B, T)
     if cache is None:
         mask = causal_mask(T, T, dev)
@@ -688,7 +792,8 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
             cache_len=start if cache is not None else None, rope=rope,
             defer_write=defer,
             full_cache=((cache.k, cache.v, cache.k_scale, cache.v_scale, i)
-                        if defer else None), moe_aux=moe_aux)
+                        if cache is not None and T == 1 else None),
+            moe_aux=moe_aux)
         if defer:
             fresh.append(new_kv)
     if defer:
@@ -697,13 +802,12 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
         if cache.k_scale is not None:
             kq, ksn = _quantize_kv(fk)
             vq, vsn = _quantize_kv(fv)
-            cache.k[:, :, start:start + 1] = kq
-            cache.v[:, :, start:start + 1] = vq
-            cache.k_scale[:, :, start:start + 1] = ksn
-            cache.v_scale[:, :, start:start + 1] = vsn
+            writes = ((cache.k, kq), (cache.v, vq), (cache.k_scale, ksn),
+                      (cache.v_scale, vsn))
         else:
-            cache.k[:, :, start:start + 1] = fk.to(cache.k.dtype)
-            cache.v[:, :, start:start + 1] = fv.to(cache.v.dtype)
+            writes = ((cache.k, fk), (cache.v, fv))
+        for buf, rows in writes:
+            _write_slots(buf, rows, start, 2)
     logits = head_forward(spec, params, h)
     new_cache = None
     if cache is not None:

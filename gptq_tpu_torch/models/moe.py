@@ -36,6 +36,7 @@ import time
 
 import torch
 
+from gptq_tpu_torch.config import resolve_device
 from gptq_tpu_torch.ops.pack import PackedExperts, pack_expert_stack
 from gptq_tpu_torch.ops.qmatmul import (dequant_matmul,
                                         expert_dequant_matmul,
@@ -273,9 +274,10 @@ def pack_experts(params: dict, bits: int = 4, groupsize: int = -1) -> None:
 
 
 def init_moe_params(spec, gen: torch.Generator, dtype=torch.float32,
-                    device="cpu") -> dict:
+                    device="cuda") -> dict:
     """Router and stacked expert weights of one decoder layer, drawn from
-    `gen` (on `device`)."""
+    `gen` (on `device`: the card unless the caller names the CPU)."""
+    device = resolve_device(device)
     E, D, F = spec.n_experts, spec.hidden, spec.ffn
     s = 0.4 / math.sqrt(D)
     sf = 0.4 / math.sqrt(F)

@@ -475,3 +475,189 @@ def test_moe_decode_selects_without_a_host_sync(cuda):
     # sum lands by a rounding boundary comes out one bf16 step (2^-8 of
     # itself) apart, which the down product carries
     _close(got.float().cpu().numpy(), want.float().numpy(), rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the whole-layer kernel (#12) and the chained decode's CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _layer_weights(rng, cuda, hidden, Hkv, hd, F):
+    """q|k|v (hidden x (hidden + 2 Hkv hd)), o, gate|up and down, 4-bit g-1."""
+    kvw = Hkv * hd
+    qkv = tpack.fuse_packed([_fusable(rng, 4, -1, hidden, n)
+                             for n in (hidden, kvw, kvw)])
+    return [w.to(cuda) for w in (qkv, _fusable(rng, 4, -1, hidden, hidden),
+                                 _fusable(rng, 4, -1, hidden, F, parts=2),
+                                 _fusable(rng, 4, -1, F, hidden))]
+
+
+@pytest.mark.parametrize("cache", ["bf16", "f32"])
+@pytest.mark.parametrize("G", [1, 2, 4])  # 4: Mixtral's ratio
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("hd,S,length", [(128, 64, 37), (64, 512, 300)])
+def test_layer_kernel_matches_plain(cuda, hd, S, length, a8, G, cache):
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    H, F = 8, 1024
+    Hkv, hidden = H // G, H * hd
+    rng = np.random.default_rng(hd + 10 * G + a8)
+    ws = _layer_weights(rng, cuda, hidden, Hkv, hd, F)
+    spec = tc.ArchSpec(arch="llama", n_layers=2, hidden=hidden, n_heads=H,
+                       n_kv_heads=Hkv, ffn=F, vocab=8, max_pos=S, pos="rope")
+    lens = torch.tensor(length, dtype=torch.int32, device=cuda)
+    cos, sin = tc.rope_tables(spec, lens.reshape(1, 1))
+    x = torch.from_numpy(rng.normal(size=(1, 1, hidden)).astype(np.float32)
+                         ).to(cuda)
+    w1, w2 = _vec(rng, hidden, cuda, base=1.0), _vec(rng, hidden, cuda, base=1.0)
+    dt = torch.bfloat16 if cache == "bf16" else torch.float32
+    kv0 = [torch.from_numpy(rng.normal(size=(2, 1, S, Hkv, hd)).astype(
+        np.float32)).to(cuda).to(dt) for _ in range(2)]
+    kw = dict(n_heads=H, n_kv_heads=Hkv, sm_scale=hd ** -0.5, a8=a8, layer=1)
+    args = (cos, sin, w1, w2, *ws)
+    plain = [c.clone() for c in kv0]
+    tl.decode_layer_fused_reference(x, *plain, lens, *args, **kw)
+    kern = [c.clone() for c in kv0]
+    before = tl.launches
+    got = tl.decode_layer_fused(x, *kern, lens, *args, **kw)
+    torch.cuda.synchronize()
+    assert tl.launches == before + 1
+    # FUSED_RTOL, or the few bf16 / int8 near-tie flips of the plain
+    # version that explain a larger difference (chip_smoke.tie_check, the
+    # rule of test_torch_ffn._check)
+    import chip_smoke
+
+    again = [c.clone() for c in kv0]
+    err, rel, flips = chip_smoke.tie_check(
+        "layer", got, lambda: tl.decode_layer_fused_reference(
+            x, *again, lens, *args, **kw), FUSED_RTOL)
+    print(f"rel err {rel:.3g} after {flips} near-tie flips")
+    # the kernel's own q|k|v row, roped and rounded as the plain rope does
+    own = [c.clone() for c in kv0]
+    _, scratch = tl._layer_cuda(x, *own, lens, cos, sin, w1, w2, *ws, H, Hkv, hd,
+                             "silu", "rmsnorm", 1e-5, hd ** -0.5, a8, 1)
+    torch.cuda.synchronize()
+    kvw = Hkv * hd
+    qkvo = scratch["qkv"]
+    rows = [tl.rope_rows(qkvo[hidden:hidden + kvw].reshape(Hkv, hd),
+                         cos.reshape(-1), sin.reshape(-1)).to(dt),
+            qkvo[hidden + kvw:hidden + 2 * kvw].reshape(Hkv, hd).to(dt)]
+    rest = torch.ones(S, dtype=torch.bool, device=cuda)
+    rest[length] = False
+    for k_or_v in range(2):
+        got_c, own_c, plain_c = kern[k_or_v], own[k_or_v], plain[k_or_v]
+        assert torch.equal(got_c, own_c)  # the same launch twice
+        assert torch.equal(got_c[0], kv0[k_or_v][0])  # the other layer
+        assert torch.equal(got_c[1, :, rest], kv0[k_or_v][1, :, rest])
+        assert torch.equal(got_c[1, 0, length], rows[k_or_v])  # bit-exact
+        # against the plain version's row: its q|k|v sums run in another
+        # order, so a bf16 element may round one step the other way, and
+        # at a8 an int8 code of ln1's output on a tie moves every element
+        # by up to a code's worth of the product (FUSED_RTOL of the max)
+        d = (got_c[1, 0, length].float() - plain_c[1, 0, length].float()).abs()
+        ref = plain_c[1, 0, length].float().abs()
+        assert bool((d <= 2.0**-7 * ref + FUSED_RTOL * ref.max()).all())
+
+
+def _serve_model(cuda, n_layers=2, hidden=1024, H=8, Hkv=4, F=1024,
+                 vocab=512):
+    """A small packed llama model on the card (4-bit g-1 linears, random)."""
+    spec = tc.ArchSpec(arch="llama", n_layers=n_layers, hidden=hidden,
+                       n_heads=H, n_kv_heads=Hkv, ffn=F, vocab=vocab,
+                       max_pos=256, act="silu", pos="rope",
+                       norm_type="rmsnorm", linear_bias=False)
+    rng = np.random.default_rng(0)
+    kvw = Hkv * (hidden // H)
+
+    def lin(K, N):
+        return {"w": _fusable(rng, 4, -1, K, N).to(cuda), "b": None}
+
+    def ones():
+        return {"w": torch.ones(hidden, device=cuda)}
+
+    layers = [{"q": lin(hidden, hidden), "k": lin(hidden, kvw),
+               "v": lin(hidden, kvw), "o": lin(hidden, hidden),
+               "gate": lin(hidden, F), "up": lin(hidden, F),
+               "down": lin(F, hidden), "ln1": ones(), "ln2": ones()}
+              for _ in range(n_layers)]
+    emb = torch.from_numpy((rng.normal(size=(vocab, hidden)) * 0.02).astype(
+        np.float32)).to(cuda)
+    return spec, {"embed": {"tokens": emb}, "layers": layers,
+                  "final_ln": ones(), "lm_head": {"w": emb, "b": None}}
+
+
+def _route(monkeypatch, route):
+    monkeypatch.setenv("GPTQ_TPU_LAYER_FUSION", "on" if route == "layer"
+                       else "off")
+    return torch.bfloat16 if route == "layer" else torch.int8
+
+
+@pytest.mark.parametrize("route", ["layer", "fused"])
+def test_decode_step_captures_without_a_host_sync(cuda, monkeypatch, route):
+    """One decode step with a device length, captured as a CUDA graph with
+    torch.cuda.set_sync_debug_mode("error") on: the replay equals the
+    eager step and writes the same cache."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    cache_dtype = _route(monkeypatch, route)
+    spec, params = _serve_model(cuda)
+    served = tc.fuse_serving(spec, params, a8=True)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, spec.vocab, size=(1, 5))).to(cuda)
+    cache = tc.KVCache.init(spec, 1, 32, cache_dtype, device=cuda)
+    logits, cache = tc.model_forward(spec, served, ids, cache)
+    tok = logits[:, -1].argmax(-1)[:, None]
+
+    def at5(c, clone):
+        bufs = [None if t is None else (t.clone() if clone else t)
+                for t in (c.k, c.v, c.k_scale, c.v_scale)]
+        return tc.KVCache(bufs[0], bufs[1],
+                          torch.tensor(5, dtype=torch.int32, device=cuda),
+                          bufs[2], bufs[3])
+
+    ref = at5(cache, clone=True)
+    want, _ = tc.model_forward(spec, served, tok, ref)  # warms every kernel
+    live = at5(cache, clone=False)
+    torch.cuda.synchronize()
+    before = (tl.launches, ta.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, new = tc.model_forward(spec, served, tok, live)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    launched = (tl.launches - before[0], ta.launches - before[1])
+    assert launched == ((2, 0) if route == "layer" else (0, 2))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(new.length) == 6
+    for a, b in ((live.k, ref.k), (live.v, ref.v), (live.k_scale, ref.k_scale)):
+        assert a is None and b is None or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("route,B", [("layer", 1), ("fused", 1), ("fused", 2)])
+def test_generate_chained_replays_graphs(cuda, monkeypatch, route, B):
+    """generate_chained's tokens equal generate's; a second call replays
+    the captured chunks (no decode kernel launches from the host)."""
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    cache_dtype = _route(monkeypatch, route)
+    spec, params = _serve_model(cuda)
+    eng = DecodeEngine(spec, params, max_len=64, batch=B,
+                       cache_dtype=cache_dtype, a8=True)
+    prompt = np.random.default_rng(2).integers(0, spec.vocab, size=(B, 6))
+    want = eng.generate(prompt, 12)
+    np.testing.assert_array_equal(eng.generate_chained(prompt, 12, chunk=5),
+                                  want)
+    before = (tl.launches, ta.launches)
+    np.testing.assert_array_equal(eng.generate_chained(prompt, 12, chunk=5),
+                                  want)
+    assert (tl.launches, ta.launches) == before
+    # sampling: a generator registered with the graphs, one seed twice
+    draws = [eng.generate_chained(
+        prompt, 9, chunk=4, temperature=0.8, top_k=8,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+        for _ in range(2)]
+    np.testing.assert_array_equal(draws[0], draws[1])
