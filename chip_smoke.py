@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # every phase, one GPU
 
 Phases, in order (any failure exits non-zero; there is no CPU fallback):
-  1. build   - nvcc builds the seven kernel libraries from csrc/ (qmatmul,
-               attention, ffn, bcq_matmul, qstream, qexpert, layer_fused;
-               in parallel).
+  1. build   - nvcc builds the eight kernel libraries from csrc/ (qmatmul,
+               attention, ffn, bcq_matmul, qstream, qexpert, layer_fused,
+               attention_partial; in parallel).
   2. kernels - each kernel's wrapper against its plain PyTorch version on
                the card at llama-7B shapes, with stated tolerances, and
                timed beside its plain version, a one-call PyTorch
@@ -21,7 +21,14 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                slots and an f32 one, with the near-tie rule of
                tests/test_torch_ffn.py, its cache write bit for bit, timed
                beside its plain version and the fused route's launches
-               over the same layer.
+               over the same layer. The partial-attention kernel (#10 /
+               #11, one kernel) on stacked caches of 2048 local slots with
+               1,100 valid: llama-7B (int8, bf16, f32), Mixtral GQA 4
+               (with and without alibi slopes), TinyLlama-1.1B (hd 64) and
+               a BLOOM-style G = 1 case with slopes, each timed beside its
+               plain version and SDPA over the dequantized cache. The
+               shared int8 quantizer on rows of exact .5 ties: the card's
+               codes equal the CPU's bit for bit.
   3. quantize - GPTQ (4-bit, groupsize 128, act-order, static groups,
                true-sequential) of a 2-layer llama-7B-width model from
                seeded weights on 16 x 512 synthetic tokens, pack, a
@@ -61,7 +68,23 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                graph per chain) on 32 layers of the layer route and of the
                fused route, and 2-layer generate_chained tokens against
                generate on each.
-  5. moe     - Mixtral-8x7B width (spec_from_hf_config of its published
+  5. sp      - sequence-parallel serving (engine/serving.SPEngine) on a
+               one-rank NCCL process group: the serve phase's 32-layer
+               checkpoint at sp = 1 (fused, a8, 8-bit head, int8 cache,
+               max_len 2048): per step 32 partial-wide (#10) launches, 33
+               norm_qkv, 32 attn_mlp and no flat attention or #12; the
+               per-token median over 128 tokens, benchmark_chained (one
+               CUDA graph per chain, the all-reduces captured inside) and
+               a profile; a 1,024-token prompt through the ring prefill
+               and 64 decoded tokens; 2 layers on a bf16 cache at that
+               width and at TinyLlama-1.1B width (hd 64: #11): greedy
+               tokens against the plain versions, and the logits against
+               DecodeEngine's flat decode at the prefill and 16 teacher-
+               forced steps, a limit that a planted fault (the fresh
+               pair left out of the combine) must exceed. Greedy checks
+               part only at an exact tie of the plain version's logits
+               (greedy_check's tie rule).
+  6. moe     - Mixtral-8x7B width (spec_from_hf_config of its published
                config): GPTQ of a 1-layer model (attention linears, then
                gptq_quantize_experts), pack_model + pack_experts, save /
                load, PPL through #1 (512-row windows) against the dense
@@ -99,7 +122,7 @@ from unittest import mock
 
 import numpy as np
 
-PHASES = ("build", "kernels", "quantize", "serve", "moe")
+PHASES = ("build", "kernels", "quantize", "serve", "sp", "moe")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
 ATTN_SRC = "gptq_tpu_torch/csrc/attention.cu"
 FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
@@ -107,6 +130,7 @@ BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
 STREAM_SRC = "gptq_tpu_torch/csrc/qstream.cu"
 MOE_SRC = "gptq_tpu_torch/csrc/qexpert.cu"
 LAYER_SRC = "gptq_tpu_torch/csrc/layer_fused.cu"
+PARTIAL_SRC = "gptq_tpu_torch/csrc/attention_partial.cu"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
 # bf16 x times codes in another order; attention: f32 math, other order;
 # fused kernels (relative to max|plain|): they round to bf16 (and, a8,
@@ -117,7 +141,17 @@ LAYER_SRC = "gptq_tpu_torch/csrc/layer_fused.cu"
 # r2 on its own.
 # The BCQ kernel (#13) and the streamed qmm (#7) are held like qmm: f32
 # (a8: exact int32 partials at M = 1) sums in another order.
-TOL = {"qmm_a8": 1e-4, "qmm_a16": 2e-3, "attn": 1e-3, "fused": 3e-3}
+# partial attention (#10 / #11): f32 math in another order; l and acc grow
+# with the valid slots (up to ~1e3 here), so the limit is relative:
+# |got - plain| <= 1e-3 * (1 + |plain|), m compared where l > 0.
+# logits_a8: whole-model a8 logits of two decode routes that differ only
+# in summation order (the SP decode against the flat one), relative to
+# max |logit|: int8 activation ties flip, as in the fused route's logits
+# against gptq_tpu (tests/test_torch_fused_serving.py, a8: 1.6e-2); the
+# logits are bf16 (one ulp ~ 4e-3 of max there). sp_vs_flat shows that a
+# planted fault in the combine reads above it.
+TOL = {"qmm_a8": 1e-4, "qmm_a16": 2e-3, "attn": 1e-3, "fused": 3e-3,
+       "partial": 1e-3, "logits_a8": 1.6e-2}
 
 
 def log(msg: str) -> None:
@@ -494,6 +528,198 @@ def attn_times(gen, device, peaks, timer, S, length) -> dict:
     t_ops = ops / peaks["f32"] * 1e3
     return {"S": S, "length": length, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def tie_rows(n_rows=8, width=256, seed=0) -> np.ndarray:
+    """f32 rows whose entries sit on exact .5 ties of x / (absmax / 127)
+    in IEEE division, each row's absmax (its first entry) chosen so that
+    absmax * fl(1 / 127) is one ulp off absmax / 127 (the rows of
+    tests/test_torch_cuda.py tie_rows)."""
+    f = np.float32
+    rng = np.random.default_rng(seed)
+    rows = []
+    while len(rows) < n_rows:
+        a = f(rng.uniform(1.0, 2.0))
+        s = a / f(127)
+        if s == a * (f(1) / f(127)):
+            continue
+        j = rng.integers(-126, 126, size=4 * width) + 0.5
+        x = (j * s).astype(f)
+        x = x[(x / s) == j.astype(f)][:width - 1]  # exact ties only
+        if len(x) == width - 1:
+            rows.append(np.concatenate([[a], x]).astype(f))
+    return np.stack(rows)
+
+
+def quant_tie_check(device, report):
+    """The shared int8 quantizer (every a8 kernel input, the int8 KV rows)
+    on rows of exact .5 ties: the card's codes and scales equal the CPU's
+    bit for bit (the CPU's equal gptq_tpu's: tests/test_torch_qmatmul.py).
+    Also counts the codes a division by the Python number 127.0 (a product
+    with the reciprocal on the card) would have moved."""
+    import torch
+
+    from gptq_tpu_torch.models.common import _quantize_kv
+    from gptq_tpu_torch.ops.qmatmul import quantize_acts_int8
+
+    x = torch.from_numpy(tie_rows())
+    xg = x.to(device)
+    q_cpu, s_cpu = quantize_acts_int8(x)
+    q_gpu, s_gpu = quantize_acts_int8(xg)
+    kq_cpu, ks_cpu = _quantize_kv(x.reshape(8, 4, 64))
+    kq_gpu, ks_gpu = _quantize_kv(xg.reshape(8, 4, 64))
+    same = (torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+            and torch.equal(kq_gpu.cpu(), kq_cpu)
+            and torch.equal(ks_gpu.cpu(), ks_cpu))
+    old = xg.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+    moved = int((torch.clamp(torch.round(xg / old), -127, 127).to(torch.int8)
+                 != q_gpu).sum())
+    log(f"int8 quantizer on {x.shape[0]} rows of exact .5 ties: card == CPU "
+        f"bit for bit: {same}; a division by the number 127.0 on the card "
+        f"would move {moved} of {x.numel()} codes")
+    if not same:
+        raise AssertionError("int8 quantizer: the card's codes or scales "
+                             "differ from the CPU's on tie rows")
+    report["quant_ties"] = {"rows": x.shape[0], "codes": x.numel(),
+                            "equal": same, "moved_by_reciprocal": moved}
+
+
+def partial_pos(S: int, prompt: int, decoded: int) -> "np.ndarray":
+    """Rank 0's positions in a 2-rank SPCache of S local slots after a
+    2 * prompt-token prompt and 2 * decoded decode steps (round-robin)."""
+    pos = np.full((S,), -1, np.int32)
+    pos[:prompt] = np.arange(prompt)
+    pos[prompt:prompt + decoded] = 2 * prompt + 2 * np.arange(decoded)
+    return pos
+
+
+def partial_checks(device, peaks, timer, report):
+    """#10 and #11 (one kernel, csrc/attention_partial.cu) against their
+    plain version on stacked caches of 2048 local slots, 1,100 of them
+    valid and laid out round-robin, each case timed beside the plain
+    version, the byte / operation bound and a yardstick."""
+    import torch
+
+    from gptq_tpu_torch.models.common import alibi_slopes
+    from gptq_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    S, L, B = 2048, 32, 1
+    pos_np = partial_pos(S, 1024, 76)
+    n_valid = int((pos_np >= 0).sum())
+    pos = torch.from_numpy(pos_np).to(device)
+    # (case, entry, H, Hkv, hd, layers, caches, slopes)
+    cases = (("llama-7B", "wide", 32, 32, 128, L, ("int8", "bf16", "f32"),
+              False),
+             ("Mixtral GQA 4", "wide", 32, 8, 128, L, ("int8",), False),
+             ("Mixtral GQA 4 + alibi", "wide", 32, 8, 128, L, ("int8",), True),
+             ("TinyLlama-1.1B (hd 64, GQA 8)", "narrow", 32, 4, 64, 22,
+              ("int8", "bf16"), False),
+             ("BLOOM-style G=1 hd 64 + alibi", "narrow", 32, 32, 64, L,
+              ("int8",), True))
+    rows = []
+    worst = 0.0
+    for case, entry, H, Hkv, hd, nl, caches, use_slopes in cases:
+        fn = (A.decode_attention_partial_wide if entry == "wide"
+              else A.decode_attention_partial)
+        slopes = (torch.from_numpy(alibi_slopes(H)).to(device)
+                  if use_slopes else None)
+        layer = nl // 2
+        for cache in caches:
+            shape = (nl, B, S, Hkv, hd)
+            if cache == "int8":
+                k = torch.randint(-127, 128, shape, generator=gen,
+                                  device=device, dtype=torch.int8)
+                v = torch.randint(-127, 128, shape, generator=gen,
+                                  device=device, dtype=torch.int8)
+                ks = torch.rand(shape[:-1], generator=gen, device=device) \
+                    * 0.02 + 0.001
+                vs = torch.rand(shape[:-1], generator=gen, device=device) \
+                    * 0.02 + 0.001
+            else:
+                dt = torch.bfloat16 if cache == "bf16" else torch.float32
+                k = torch.randn(shape, generator=gen, device=device).to(dt)
+                v = torch.randn(shape, generator=gen, device=device).to(dt)
+                ks = vs = None
+            q = torch.randn((B, H, hd), generator=gen, device=device)
+            sm = 1.0 / math.sqrt(hd)
+            kw = dict(k_scale=ks, v_scale=vs, slopes=slopes, layer=layer)
+            got = fn(q, k, v, pos, sm, **kw)
+            want = A.decode_attention_partial_wide_reference(q, k, v, pos, sm,
+                                                             **kw)
+            torch.cuda.synchronize()
+            err = 0.0
+            live = want[1] > 0
+            for g_, w_ in ((got[0][live], want[0][live]), (got[1], want[1]),
+                           (got[2], want[2])):
+                d = (g_ - w_).abs()
+                err = max(err, float(d.max()))
+                if not bool((d <= TOL["partial"] * (1 + w_.abs())).all()):
+                    raise AssertionError(
+                        f"partial attention {case} {cache}: max abs err "
+                        f"{float(d.max()):.3g} beyond {TOL['partial']} "
+                        f"(relative)")
+            worst = max(worst, err)
+            row = {"case": case, "entry": entry, "cache": cache, "H": H,
+                   "Hkv": Hkv, "hd": hd, "layers": nl, "S": S,
+                   "valid": n_valid, "slopes": use_slopes,
+                   "max_abs_err": err}
+            row.update(partial_times(timer, peaks, fn, q, k, v, pos, sm, kw,
+                                     n_valid))
+            rows.append(row)
+            log("partial attention " + json.dumps(row))
+            del k, v, ks, vs
+        torch.cuda.empty_cache()
+    report["partial_rows"] = rows
+    report["partial_max_abs_err"] = worst
+
+
+def partial_times(timer, peaks, fn, q, k, v, pos, sm, kw, n_valid) -> dict:
+    """Kernel, plain version and yardstick ms of one partial-attention
+    call, and its bound: the valid slots' cache bytes (the kernel reads
+    only those) plus pos, q and the outputs over the memory rate, or the
+    f32 operations (q . k and p v over the valid slots) over the f32
+    peak. The yardstick, scaled_dot_product_attention over the layer's
+    dequantized bf16 cache with the pos mask (and the alibi bias), gives
+    the normalised output, not (m, l, acc), and reads every slot."""
+    import torch
+
+    from gptq_tpu_torch.ops import attention as A
+
+    ms = timer(lambda: fn(q, k, v, pos, sm, **kw))
+    plain_ms = timer(lambda: A.decode_attention_partial_wide_reference(
+        q, k, v, pos, sm, **kw))
+    li = kw["layer"]
+    B, H, hd = q.shape
+    Hkv = k.shape[-2]
+    kd, vd = k[li].float(), v[li].float()
+    if kw["k_scale"] is not None:
+        kd = kd * kw["k_scale"][li][..., None]
+        vd = vd * kw["v_scale"][li][..., None]
+    kd = kd.to(torch.bfloat16).transpose(1, 2).contiguous()
+    vd = vd.to(torch.bfloat16).transpose(1, 2).contiguous()
+    valid = pos >= 0
+    bias = torch.zeros((1, H, 1, pos.shape[0]), device=q.device)
+    if kw["slopes"] is not None:
+        bias = bias + (kw["slopes"][None, :, None, None]
+                       * pos.clamp_min(0).float()[None, None, None, :])
+    mask = torch.where(valid[None, None, None, :], bias,
+                       torch.full_like(bias, float("-inf"))).to(torch.bfloat16)
+    qd = q[:, :, None].to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sm,
+                                enable_gqa=H != Hkv))
+    nbytes = (n_valid * Hkv * hd * 2 * k.element_size()
+              + (n_valid * Hkv * 4 * 2 if kw["k_scale"] is not None else 0)
+              + pos.numel() * 4 + B * H * hd * 4 + B * H * (hd + 2) * 4
+              + (H * 4 if kw["slopes"] is not None else 0))
+    ops = 4 * B * H * n_valid * hd
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = ops / peaks["f32"] * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -1373,9 +1599,14 @@ def plain_versions():
     from gptq_tpu_torch.ops import ffn as Fz
     from gptq_tpu_torch.ops import layer_fused as LF
     from gptq_tpu_torch.ops import qmatmul as Q
+    from gptq_tpu_torch.parallel import sp
 
     stack = contextlib.ExitStack()
     for mod, name, fn in (
+            (sp, "decode_attention_partial",
+             A.decode_attention_partial_reference),
+            (sp, "decode_attention_partial_wide",
+             A.decode_attention_partial_wide_reference),
             (common, "decode_layer_fused", LF.decode_layer_fused_reference),
             (common, "dequant_matmul", Q.dequant_matmul_reference),
             (common, "bcq_matmul", B.bcq_matmul_reference),
@@ -1395,27 +1626,80 @@ def plain_versions():
 def greedy_check(what, eng, prompt, n_new, kernel_name, want=None) -> list:
     """Greedy tokens of kernel decoding (which must launch kernel_name, and
     exactly the counts `want` where given) against plain decoding (which
-    must launch nothing)."""
+    must launch nothing).
+
+    The tie rule: where the two decodings first part, the step passes only
+    if the plain version's logits of the two tokens, taken along its
+    decode path at the common prefix, are exactly equal (random weights
+    give near-flat logits, and an exact tie may go either way under sums
+    taken in another order). Both decodings then go on from the plain
+    version's token, and a later parting is judged the same way. Any
+    other parting fails."""
     import torch
 
+    _drop_graphs(eng)
     reset_counts()
     kern = eng.generate(prompt, n_new)
     torch.cuda.synchronize()
-    if not launch_counts()[kernel_name] > 0:
+    counts = launch_counts()
+    if not counts[kernel_name] > 0:
         raise AssertionError(f"{what}: kernel decoding launched no "
                              f"{kernel_name}")
     if want is not None:
-        expect(launch_counts(), want, what)
-    with plain_versions():
-        reset_counts()
-        plain = eng.generate(prompt, n_new)
-        expect(launch_counts(), {}, f"{what}: plain decoding")
+        expect(counts, want, what)
+    plain = plain_generate(eng, prompt, n_new, f"{what}: plain decoding")
     log(f"{what}: greedy tokens, kernels {kern[0].tolist()} vs plain "
         f"{plain[0].tolist()}")
-    if not np.array_equal(kern, plain):
-        raise AssertionError(f"{what}: kernel and plain decoding disagree; "
-                             + divergence(eng, prompt, kern, plain))
-    return kern[0].tolist()
+    g = 0  # decoding restarted from prompt + plain[:, :g]
+    while not np.array_equal(kern, plain):
+        i = int(np.argmax(kern[0] != plain[0]))
+        ctx = np.concatenate([prompt, plain[:, :g]], axis=1)
+        with plain_decoding(eng):
+            lp = decode_logits(eng, ctx, plain[0, g:i].tolist())
+        tk, tp = int(kern[0, i]), int(plain[0, i])
+        if float(lp[tk]) != float(lp[tp]):
+            raise AssertionError(f"{what}: kernel and plain decoding disagree; "
+                                 + divergence(eng, prompt, kern, plain))
+        log(f"{what}: exact tie at step {i} (plain logits of {tp} and {tk} "
+            f"both {float(lp[tp]):.6g}); both go on from {tp}")
+        g = i + 1
+        ctx = np.concatenate([prompt, plain[:, :g]], axis=1)
+        if g == n_new:
+            kern = plain
+            break
+        kern = np.concatenate([plain[:, :g], eng.generate(ctx, n_new - g)], 1)
+        plain = np.concatenate(
+            [plain[:, :g], plain_generate(eng, ctx, n_new - g, what)], 1)
+    return plain[0].tolist()
+
+
+def _drop_graphs(eng) -> None:
+    """Forget the CUDA graphs an engine captured (a replay would run the
+    launches captured, whichever wrappers are patched in now)."""
+    graphs = getattr(eng, "_graphs", None)
+    if graphs is not None:
+        graphs.clear()
+
+
+@contextlib.contextmanager
+def plain_decoding(eng):
+    """plain_versions() for one engine's decoding, its graphs dropped on
+    the way in and out."""
+    _drop_graphs(eng)
+    try:
+        with plain_versions():
+            yield
+    finally:
+        _drop_graphs(eng)
+
+
+def plain_generate(eng, prompt, n_new, what) -> np.ndarray:
+    """eng.generate on the plain versions, which must launch nothing."""
+    with plain_decoding(eng):
+        reset_counts()
+        out = eng.generate(prompt, n_new)
+        expect(launch_counts(), {}, what)
+    return out
 
 
 def divergence(eng, prompt, kern, plain) -> str:
@@ -1545,7 +1829,8 @@ def launch_counts() -> dict:
             "norm_qkv": Fz.norm_qkv_launches,
             "attn_mlp": Fz.attn_mlp_launches, "ffn": Fz.ffn_launches,
             "expert": Q.expert_launches, "select": Q.select_launches,
-            "layer": LF.launches}
+            "layer": LF.launches, "partial": A.partial_launches,
+            "partial_wide": A.partial_wide_launches}
 
 
 def reset_counts() -> None:
@@ -1558,6 +1843,7 @@ def reset_counts() -> None:
     Q.launches = Q.stream_launches = B.launches = A.launches = 0
     Fz.norm_qkv_launches = Fz.attn_mlp_launches = Fz.ffn_launches = 0
     Q.expert_launches = Q.select_launches = LF.launches = 0
+    A.partial_launches = A.partial_wide_launches = 0
 
 
 def expect(counts: dict, want: dict, what: str) -> None:
@@ -2230,6 +2516,253 @@ def moe_serve(device, tmp, card, peaks, report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase: sequence-parallel serving (SPEngine) at sp = 1
+# ---------------------------------------------------------------------------
+
+def tinyllama_spec(n_layers: int = 22):
+    """TinyLlama-1.1B's published config (hidden 2048, 32 heads, 4 KV
+    heads, head dim 64, ffn 5632, vocab 32000)."""
+    from gptq_tpu_torch.models.common import ArchSpec
+
+    return ArchSpec(arch="llama", n_layers=n_layers, hidden=2048, n_heads=32,
+                    n_kv_heads=4, ffn=5632, vocab=32000, max_pos=2048,
+                    act="silu", pos="rope", norm_type="rmsnorm",
+                    linear_bias=False, tie_embeddings=False)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def timed_steps(eng, cache, tok, n) -> tuple:
+    """n synchronised eager decode steps: (per-step seconds, cache, tok)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        logits, cache = eng.step(cache, tok)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("sp decode: non-finite logits")
+    return times, cache, tok
+
+
+def phase_sp(device, card, report):
+    """SPEngine (parallel/sp.py, engine/serving.py) on a one-rank NCCL
+    process group: the SPCache layout, the content mask, #10 on every
+    layer of every step, the fresh-pair merge, the all_reduce combine and
+    the deferred write all run on the card at sp = 1."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        sp_serve(device, card, report)
+        torch.cuda.empty_cache()
+        sp_tiny(device, report)
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_serve(device, card, report):
+    """The 32-layer llama-7B-width checkpoint of the serve phase through
+    SPEngine(sp=1): fused route, a8, the 8-bit head, int8 cache, max_len
+    2048 (per-token median, chained benchmark, profile), a 1,024-token
+    prompt through the ring prefill and 64 decoded tokens; then 2 layers
+    on a bf16 cache: greedy tokens against the plain versions and the
+    logits against DecodeEngine's flat decode."""
+    import torch
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.engine.serving import SPEngine
+    from gptq_tpu_torch.pipeline import quantize_lm_head
+
+    spec = llama7b_spec(32)
+    L = spec.n_layers
+    params = synth_packed_params(spec, device, seed=0)
+    assert quantize_lm_head(spec, params, bits=8)
+    eng = SPEngine(spec, params, sp=1, max_len=2048, cache_dtype=torch.int8,
+                   fuse=True, a8=True, device=device)
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(0, spec.vocab, size=(1, 64))
+    logits, cache = eng.prefill(torch.as_tensor(prompt, device=device))
+    tok = logits.argmax(-1)[:, None]
+    reset_counts()
+    _, cache, tok = timed_steps(eng, cache, tok, 4)
+    expect(launch_counts(), {"partial_wide": 4 * L, "norm_qkv": 4 * (L + 1),
+                             "attn_mlp": 4 * L}, "sp decode (4 steps)")
+    n_tok = 128
+    times, cache, tok = timed_steps(eng, cache, tok, n_tok)
+    counts = launch_counts()
+    expect(counts, {"partial_wide": (4 + n_tok) * L,
+                    "norm_qkv": (4 + n_tok) * (L + 1),
+                    "attn_mlp": (4 + n_tok) * L}, "sp decode")
+    r = {"median_ms": float(np.median(times)) * 1e3,
+         "p90_ms": float(np.percentile(times, 90)) * 1e3,
+         "tokens_per_s": 1.0 / float(np.median(times)), "n_tokens": n_tok,
+         "launches": counts}
+    # the host's cost of one combine all_reduce (one-rank NCCL group)
+    import torch.distributed as dist
+
+    buf = torch.zeros((1, spec.n_heads, spec.hd + 1), device=device)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    r["all_reduce_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    ids = rng.integers(0, spec.vocab, size=(1, 128))
+    reset_counts()
+    r["chained"] = eng.benchmark_chained(ids, log=lambda s: None)
+    r["chained"]["launches_eager_and_captured"] = launch_counts()
+    prof = profile_decode(eng, prompt)
+    if prof["device_ms"] > 0:
+        prof["device_busy_share"] = prof["device_ms"] / r["median_ms"]
+    r["profile"] = prof
+    c = r["chained"]
+    log(f"sp decode (sp=1, 32 layers, w4a8 + w8 head, int8 KV, max_len "
+        f"2048, B=1): median {r['median_ms']:.3f} ms/token "
+        f"({r['tokens_per_s']:.2f} tok/s), chained "
+        f"{c['per_token_s'] * 1e3:.3f} ms/token (full {c['full_run_s']:.4f} "
+        f"s, half {c['half_run_s']:.4f} s, below noise floor "
+        f"{c['below_noise_floor']}), one all_reduce {r['all_reduce_ms']:.4f} "
+        f"ms of host time, on {card}; launches " + json.dumps(counts))
+    log("decode profile sp " + json.dumps(prof))
+    # long context: a 1,024-token prompt through the ring prefill, then 64
+    # decoded tokens over ~1,100 filled slots
+    long_ids = rng.integers(0, spec.vocab, size=(1, 1024))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(torch.as_tensor(long_ids, device=device))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("sp ring prefill: non-finite logits")
+    times, cache, _ = timed_steps(eng, cache, logits.argmax(-1)[:, None], 64)
+    filled = int((cache.pos >= 0).sum())
+    assert cache.length == 1024 + 64 and filled == 1024 + 64
+    r["long"] = {"prompt": 1024, "new_tokens": 64, "filled_slots": filled,
+                 "prefill_s": prefill_s,
+                 "median_ms": float(np.median(times)) * 1e3}
+    log(f"sp long context: 1,024-token ring prefill {prefill_s:.3f} s, then "
+        f"64 tokens at {filled} filled slots: median "
+        f"{r['long']['median_ms']:.3f} ms/token on {card}")
+    del eng, cache, logits
+    torch.cuda.empty_cache()
+
+    # 2 layers on a bf16 cache: kernels against the plain versions, and
+    # the SP decode's logits against DecodeEngine's flat decode
+    small = llama7b_spec(2)
+    p2 = {**params, "layers": params["layers"][:2]}
+    del params
+    eng2 = SPEngine(small, p2, sp=1, max_len=128, cache_dtype=torch.bfloat16,
+                    fuse=True, a8=True, device=device)
+    prompt2 = rng.integers(0, small.vocab, size=(1, 64))
+    toks = greedy_check("2-layer SP decoding (bf16 KV)", eng2, prompt2, 16,
+                        "partial_wide")
+    flat = DecodeEngine(small, p2, max_len=128, batch=1,
+                        cache_dtype=torch.bfloat16, a8=True)
+    r.update(sp_vs_flat("2-layer SP decode", eng2, flat, prompt2, toks,
+                        {"partial_wide": 16 * 2, "norm_qkv": 16 * 3,
+                         "attn_mlp": 16 * 2})[0])
+    r["greedy_tokens"] = toks
+    report["sp"] = r
+
+
+def teacher_forced(eng, prompt, toks) -> tuple:
+    """The logits of the prefill and of one eager step per token of toks,
+    stacked in f32, and the launch counts of those steps alone."""
+    import torch
+
+    logits, cache = eng.prefill(torch.as_tensor(prompt, device=eng.device))
+    rows = [logits[0].float()]
+    reset_counts()
+    for t in toks:
+        logits, cache = eng.step(cache, torch.tensor([[t]], device=eng.device))
+        rows.append(logits[0].float())
+    torch.cuda.synchronize()
+    return torch.stack(rows), launch_counts()
+
+
+def sp_vs_flat(what, eng, flat, prompt, toks, want_counts) -> tuple:
+    """The SP decode's logits against DecodeEngine's flat decode on the
+    same weights and cache dtype, at the prefill and at every step of toks
+    (teacher-forced): the worst row's max |sp - flat| / max |flat| must
+    stay within TOL["logits_a8"]. The same reading with a planted fault,
+    the token's own k / v pair left out of the combine, must exceed it
+    (else the limit could not tell). The SP steps must launch exactly
+    want_counts. Returns (readings, those counts)."""
+    from gptq_tpu_torch.parallel import sp
+
+    def rel(got, want):
+        return float(((got - want).abs().amax(-1)
+                      / want.abs().amax(-1)).max())
+
+    want, _ = teacher_forced(flat, prompt, toks)
+    got, counts = teacher_forced(eng, prompt, toks)
+    expect(counts, want_counts, f"{what}: {len(toks)} steps")
+    combine = sp._sp_fresh_combine
+
+    def fresh_pair_skipped(spec, q, k, v, parts, my_turn, *rest):
+        return combine(spec, q, k, v, parts, False, *rest)
+
+    with mock.patch.object(sp, "_sp_fresh_combine", fresh_pair_skipped):
+        faulty, _ = teacher_forced(eng, prompt, toks)
+    out = {"vs_flat_rel": rel(got, want),
+           "fresh_pair_skipped_rel": rel(faulty, want),
+           "vs_flat_steps": len(toks)}
+    log(f"{what} vs DecodeEngine's flat decode (prefill + {len(toks)} "
+        f"teacher-forced steps): max |sp - flat| / max |flat| "
+        f"{out['vs_flat_rel']:.4g} (limit {TOL['logits_a8']}); with the "
+        f"fresh pair left out of the combine (planted fault) "
+        f"{out['fresh_pair_skipped_rel']:.4g}")
+    if not out["vs_flat_rel"] <= TOL["logits_a8"]:
+        raise AssertionError(f"{what} parts from the flat decode: {out}")
+    if not out["fresh_pair_skipped_rel"] > TOL["logits_a8"]:
+        raise AssertionError(f"{what}: the SP-vs-flat limit cannot see a "
+                             f"fresh pair left out: {out}")
+    return out, counts
+
+
+def sp_tiny(device, report):
+    """2 layers at TinyLlama-1.1B width (hd 64: #11) through SPEngine:
+    greedy tokens against the plain versions, and the logits against the
+    flat decode over 16 eager steps, whose #11 launches the kernels line
+    reports."""
+    import torch
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.engine.serving import SPEngine
+    from gptq_tpu_torch.pipeline import quantize_lm_head
+
+    spec = tinyllama_spec(2)
+    params = synth_packed_params(spec, device, seed=3)
+    assert quantize_lm_head(spec, params, bits=8)
+    eng = SPEngine(spec, params, sp=1, max_len=128,
+                   cache_dtype=torch.bfloat16, fuse=True, a8=True,
+                   device=device)
+    prompt = np.random.default_rng(22).integers(0, spec.vocab, size=(1, 64))
+    toks = greedy_check("2-layer SP decoding at TinyLlama width (hd 64, "
+                        "bf16 KV)", eng, prompt, 16, "partial")
+    flat = DecodeEngine(spec, params, max_len=128, batch=1,
+                        cache_dtype=torch.bfloat16, a8=True)
+    r, counts = sp_vs_flat("2-layer SP decode at TinyLlama width", eng, flat,
+                           prompt, toks, {"partial": 16 * 2,
+                                          "norm_qkv": 16 * 3,
+                                          "attn_mlp": 16 * 2})
+    report["sp_tiny"] = {"greedy_tokens": toks, "launches": counts, **r}
+
+
 def phase_moe(device, tmp, card, peaks, report):
     moe_quantize(device, tmp, report)
     import torch
@@ -2266,21 +2799,30 @@ def profile_decode(eng, prompt, steps=8) -> dict:
             ("bcq", ("bcq_mv_kernel", "bcq_mm_kernel")),
             ("stream", ("qstream_kernel",)),
             ("attention", ("attn_partial", "attn_combine")),
+            ("partial", ("attnp_split", "attnp_combine")),
             ("norm_qkv", ("norm_qkv_kernel",)), ("mlp", ("mlp_kernel",)),
             ("layer", ("layer_kernel",)))
     ms = {f: 0.0 for f, _ in fams}
     ms["other"] = 0.0
     n = dict.fromkeys(ms, 0.0)
+    host = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((e.self_cpu_time_total / 1e3 / steps, e.key,
+                         e.count / steps))
             continue
         fam = next((f for f, keys in fams if any(k in e.key for k in keys)),
                    "other")
         ms[fam] += e.device_time_total / 1e3 / steps
         n[fam] += e.count / steps
+    # the host side: the operators with the most self CPU time a step
+    # (under the profiler, which adds its own cost to each)
+    host_top = [{"op": k, "self_ms": t, "calls": c}
+                for t, k, c in sorted(host, reverse=True)[:8]]
     return {"steps": steps, "profiled_wall_ms": wall / steps * 1e3,
             "device_ms": sum(ms.values()),
-            "device_ms_by_family": ms, "device_events_per_step": n}
+            "device_ms_by_family": ms, "device_events_per_step": n,
+            "host_top": host_top}
 
 
 def main(argv=None) -> int:
@@ -2328,6 +2870,8 @@ def main(argv=None) -> int:
         bcq_checks(device, peaks, timer, report)
         stream_checks(device, peaks, timer, report)
         expert_checks(device, peaks, timer, report)
+        partial_checks(device, peaks, timer, report)
+        quant_tie_check(device, report)
     tmp = tempfile.mkdtemp(prefix="gptq_tpu_torch_smoke_")
     try:
         if "quantize" in phases:
@@ -2335,6 +2879,9 @@ def main(argv=None) -> int:
             phase_quantize_bcq(device, tmp, report)
         if "serve" in phases:
             phase_serve(device, tmp, card, report)
+        if "sp" in phases:
+            phase_sp(device, card, report)
+            torch.cuda.empty_cache()
         if "moe" in phases:
             phase_moe(device, tmp, card, peaks, report)
     finally:
@@ -2500,6 +3047,41 @@ def main(argv=None) -> int:
                          "4-bit g-1, M=1 bf16 x, index in device memory, "
                          "times summed; launches from the 8-layer CLI "
                          "serve"})
+        pr = report["partial_rows"]
+        yard = ("scaled_dot_product_attention over the layer's dequantized "
+                "bf16 cache with the pos mask: the normalised output, not "
+                "(m, l, acc)")
+
+        def partial_entry(name, line, row, launches, shape):
+            return {"name": name, "route": "cuda", "source": PARTIAL_SRC,
+                    "replaces": f"gptq_tpu/ops/attention.py:{line}",
+                    "launches": launches,
+                    "max_abs_err": report["partial_max_abs_err"],
+                    "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"], "library_note": yard,
+                    "shape": shape,
+                    "rows": [{k: r[k] for k in ("case", "cache", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "library_ms")}
+                             for r in pr if r["entry"] == row["entry"]]}
+
+        cut = "stacked cache of 2048 local slots, 1,100 valid (round-robin)"
+        kernels.append(partial_entry(
+            "decode_attention_partial_wide", 497,
+            next(r for r in pr if r["case"] == "llama-7B"
+                 and r["cache"] == "int8"),
+            report.get("sp", {}).get("launches", {}).get("partial_wide", 0),
+            "B=1, H=Hkv=32, hd=128, int8 " + cut + " of 32 layers; launches "
+            "from 132 eager steps of the 32-layer SPEngine(sp=1) decode"))
+        kernels.append(partial_entry(
+            "decode_attention_partial", 684,
+            next(r for r in pr if r["entry"] == "narrow"
+                 and r["cache"] == "int8"),
+            report.get("sp_tiny", {}).get("launches", {}).get("partial", 0),
+            "TinyLlama-1.1B: B=1, H=32, Hkv=4, hd=64, int8 " + cut + " of 22 "
+            "layers; launches from 16 eager steps of the 2-layer "
+            "TinyLlama-width SPEngine(sp=1) decode"))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

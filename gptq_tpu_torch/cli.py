@@ -9,6 +9,9 @@ gptq_tpu/cli.py, with the same flag names):
     python -m gptq_tpu_torch.cli dummy c4 --load q.npz --benchmark 128 \
         --faster-kernel --benchmark_batch 4
 
+    torchrun --nproc-per-node 2 -m gptq_tpu_torch.cli dummy c4 \
+        --load q.npz --benchmark 128 --faster-kernel --sp 2
+
 Runs on the GPU (`--device cuda`, the default, raises without one).
 `--lut_bench` prints the serving matmuls' latencies (ops/kernel_bench.py)
 at the flags' groupsize (and --wbits, if below 16). The benchmark takes
@@ -19,7 +22,12 @@ dispatch round trip costs more than 1 ms, else the per-token one. The
 result line names the protocol and carries the loaded checkpoint's
 quantization fields. GPTQ_TPU_LAYER_FUSION=on serves each decode layer
 in one launch (csrc/layer_fused.cu). An MoE (Mixtral-style) checkpoint
-serves the same way, its expert banks through csrc/qexpert.cu.
+serves the same way, its expert banks through csrc/qexpert.cu. `--sp N`
+(N > 1, under torchrun with N processes: N must equal WORLD_SIZE) serves
+through engine/serving.SPEngine, the KV cache sharded over the N ranks
+(one CUDA device each, cuda:LOCAL_RANK; gloo on the CPU), with the
+chained protocol; only rank 0 prints the result line, protocol
+`chained-sp{N}`.
 Quantizing from a model directory and the PPL evals over the HF datasets
 are not ported yet (ROADMAP queue 1): serving needs --load.
 """
@@ -63,6 +71,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lut_bench", action="store_true",
                    help="time the serving matmuls (uniform and BCQ) at "
                         "llama-7B width and exit")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ways: long-context serving with "
+                        "the KV cache sharded over N torchrun processes "
+                        "(ring-attention prefill + SPCache decode). int8 "
+                        "cache is the default at max_len >= 1024")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ways (not ported yet)")
+    p.add_argument("--max_len", type=int, default=0,
+                   help="serving cache capacity for --sp benchmarks "
+                        "(default: benchmark length + headroom)")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -101,7 +119,15 @@ def main(argv=None) -> int:
     from gptq_tpu_torch.models.common import fuse_serving
     from gptq_tpu_torch.pipeline import quantize_lm_head
 
+    if args.sp > 1 and args.ep > 1:
+        raise SystemExit("--sp and --ep are separate serving engines; "
+                         "pick one")
+    if args.ep > 1:
+        raise SystemExit("--ep: expert-parallel serving is not ported yet "
+                         "(ROADMAP item 18, the rest)")
     device = resolve_device(args.device)
+    if args.sp > 1:
+        device = _sp_device(args.sp, device)
     if args.lut_bench:
         from gptq_tpu_torch.ops.kernel_bench import bench_kernels
 
@@ -128,6 +154,8 @@ def main(argv=None) -> int:
             params = fuse_serving(spec, params, a8=True)
             print("--faster-kernel: serving with dynamic int8 activations")
         cache_dtype = torch.int8 if args.int8_kv else torch.bfloat16
+        if args.sp > 1:
+            return _serve_sp(args, spec, params, ids, quant, device)
         if args.benchmark_batch > 1:
             # batched lock-step decode: weight reads amortise over the batch
             n, nb = args.benchmark, args.benchmark_batch
@@ -157,6 +185,45 @@ def main(argv=None) -> int:
             protocol = "per-token"
         print(json.dumps({"benchmark": r, "protocol": protocol, "quant": quant,
                           "device": str(device),
+                          "kind": (torch.cuda.get_device_name(device)
+                                   if device.type == "cuda" else "cpu")}))
+    return 0
+
+
+def _sp_device(sp: int, device: torch.device) -> torch.device:
+    """This process's device under torchrun --nproc-per-node sp, and the
+    default process group (nccl on CUDA, gloo on the CPU) if none is up."""
+    import os
+
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != sp:
+        raise SystemExit(f"--sp {sp} runs under torchrun --nproc-per-node "
+                         f"{sp}: WORLD_SIZE is {world}")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method="env://")
+    return device
+
+
+def _serve_sp(args, spec, params, ids, quant, device) -> int:
+    """The --sp N benchmark: SPEngine's chained protocol on every rank;
+    rank 0 prints the result line."""
+    from gptq_tpu_torch.engine.serving import SPEngine
+
+    max_len = args.max_len or args.benchmark + args.sp + 8
+    eng = SPEngine(spec, params, sp=args.sp, max_len=max_len,
+                   cache_dtype=torch.int8 if args.int8_kv else None,
+                   fuse=True, a8=args.faster_kernel, device=device)
+    r = eng.benchmark_chained(ids, check=args.check,
+                              log=print if eng.rank == 0 else lambda s: None)
+    if eng.rank == 0:
+        print(json.dumps({"benchmark": r, "protocol": f"chained-sp{args.sp}",
+                          "quant": quant, "device": str(device),
                           "kind": (torch.cuda.get_device_name(device)
                                    if device.type == "cuda" else "cpu")}))
     return 0

@@ -39,7 +39,8 @@ class QuantConfig:
     seed: int = 0
     seqlen: int | None = None
 
-    # BCQ / shift (APoT) path (not ported yet: ROADMAP queue 1)
+    # BCQ / shift (APoT) path (quant/bcq.py, GPTQ lut mode, kernel #13;
+    # the columnwise solver waits: ROADMAP item 11)
     lut_eval: bool = False
     columnwise: bool = False
     bcq_round: int = 5

@@ -28,8 +28,10 @@ own fresh cache rows; model_forward then keeps the write-first path for
 the blocks that gate refuses. A cache's length may be a device tensor
 (the chained decode loop of engine/decode.py): positions, the cache
 writes and the kernels then read it on the device, so a CUDA graph can
-replay a step. Tensor / expert parallelism, alibi and the OPT / BLOOM /
-Gemma families are not ported yet (ROADMAP queue 1, items 13 and 18).
+replay a step. `attn_fn` replaces the attention of a block (the ring
+prefill and the SPCache decode of parallel/sp.py); it keeps the whole-
+layer route off. Tensor / expert parallelism and the OPT / BLOOM / Gemma
+families are not ported yet (ROADMAP queue 1, items 13 and 18).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from gptq_tpu_torch.config import resolve_device
@@ -50,7 +53,7 @@ from gptq_tpu_torch.ops.ffn import (attn_mlp_fusable, attn_mlp_fused,
                                     norm_qkv_fused)
 from gptq_tpu_torch.ops.layer_fused import decode_layer_fused, layer_fusable
 from gptq_tpu_torch.ops.pack import PackedWeight, fuse_packed
-from gptq_tpu_torch.ops.qmatmul import dequant_matmul
+from gptq_tpu_torch.ops.qmatmul import dequant_matmul, quantize_acts_int8
 
 NEG_INF = -1e9
 
@@ -195,6 +198,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return x * cos[:, :, None, :] + rot * sin[:, :, None, :]
 
 
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """BLOOM alibi slopes (HF formula; a copy of the JAX package's)."""
+    closest = 2 ** int(np.floor(np.log2(n_heads)))
+    base = 2.0 ** (-(2.0 ** -(np.log2(closest) - 3)))
+    slopes = base ** np.arange(1, closest + 1)
+    if closest != n_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(np.log2(2 * closest) - 3)))
+        extra = extra_base ** np.arange(1, 2 * (n_heads - closest) + 1, 2)
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
+
+
 @dataclass
 class KVCache:
     """Preallocated cache; `length` is the filled prefix: a host int, or a
@@ -241,12 +256,10 @@ def _write_slots(buf: torch.Tensor, rows: torch.Tensor, start, dim: int):
 
 
 def _quantize_kv(x: torch.Tensor):
-    """(..., hd) -> int8 values + (...) per-token-head scales. torch.round
-    rounds half to even, as jnp.round does."""
-    xf = x.to(torch.float32)
-    s = xf.abs().amax(dim=-1) / 127.0 + 1e-12
-    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
-    return q, s
+    """(..., hd) -> int8 values + (...) per-token-head scales (the
+    activation quantizer's rule: IEEE absmax / 127, round half to even)."""
+    q, s = quantize_acts_int8(x)
+    return q, s[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -580,7 +593,8 @@ def _qkv(spec: ArchSpec, p: dict, x: torch.Tensor, captures):
 def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
                   positions=None, mask=None, cache=None, cache_len=None,
                   capture: bool = False, rope=None, defer_write: bool = False,
-                  full_cache=None, moe_aux: list | None = None):
+                  full_cache=None, moe_aux: list | None = None,
+                  attn_fn=None):
     """One llama decoder block. Returns (out, new_kv, captures).
 
     With `cache` = (k, v, k_scale, v_scale) per-layer views, keys/values
@@ -593,11 +607,14 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     whole-layer route (_layer_fusion_ok) one decode_layer_fused launch
     runs the block and writes its fresh rows at cache_len. Without a
     cache, S = T (calibration / eval). `moe_aux`, a list, collects an MoE
-    layer's load-balancing loss."""
+    layer's load-balancing loss. `attn_fn(spec, q, k, v, mask)`, given,
+    replaces attention() (sequence-parallel ring prefill / SPCache decode)
+    and keeps the whole-layer route off; the fused norm_qkv and attn_mlp
+    routes stay as their gates decide."""
     captures = {} if capture else None
     B, T, _ = x.shape
     residual = x
-    layer_a8 = (None if defer_write else
+    layer_a8 = (None if attn_fn is not None or defer_write else
                 _layer_fusion_ok(spec, p, captures, B, T, cache, cache_len))
     if layer_a8 is not None:
         # the whole decoder layer in one launch (ln1 + q|k|v + rope +
@@ -667,7 +684,7 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
         new_kv = cache
     else:
         k_all, v_all = k, v
-    attn = attention(spec, q, k_all, v_all, mask)
+    attn = (attn_fn or attention)(spec, q, k_all, v_all, mask)
     return _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux)
 
 

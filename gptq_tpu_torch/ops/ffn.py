@@ -35,6 +35,7 @@ import torch
 
 from gptq_tpu_torch.ops import _build
 from gptq_tpu_torch.ops.pack import FIELD_SPLITS, PackedWeight, subblock, unpack_codes
+from gptq_tpu_torch.ops.qmatmul import quantize_acts_int8
 
 # kernel launches since the last reset, one count per wrapper
 # (chip_smoke.py reads and resets them)
@@ -99,22 +100,6 @@ def norm_qkv_fusable(pw: PackedWeight) -> bool:
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def quantize_acts_int8(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row dynamic int8 quantization of a phase's input, as the fused
-    kernels compute it: scale = absmax / 127 in IEEE division (the JAX
-    package's too), round half to even. The division is between tensors:
-    on CUDA PyTorch divides by a Python number as a product with its
-    reciprocal, one ulp off, which moves a code sitting on a .5 tie.
-    (ops/qmatmul.quantize_acts_int8 prepares the inputs of #1, #7, #8, #9
-    and #13 and of their plain versions alike and keeps its division;
-    ROADMAP section 3.)"""
-    xf = x2.to(torch.float32)
-    amax = xf.abs().amax(dim=1, keepdim=True)
-    sx = amax / torch.full_like(amax, 127.0) + 1e-12
-    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
-    return xq, sx
-
-
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """Round f32 values to bf16 and back (a rounding point of the kernels)."""
     return x.to(torch.bfloat16).to(torch.float32)
@@ -124,7 +109,8 @@ def _dequant_stored(pw: PackedWeight) -> torch.Tensor:
     """The dequantized (Kp, Np) f32 weight over the STORED dims."""
     if pw.fmt != "uniform":
         raise NotImplementedError(
-            f"fused kernels: fmt={pw.fmt!r} is not ported (ROADMAP kernel #13)")
+            f"fused kernels: fmt={pw.fmt!r} is not ported (the BCQ branch "
+            f"of #4-#6: ROADMAP section 2)")
     codes = unpack_codes(pw.words, pw.bits, pw.groupsize).to(torch.float32)
     g = pw.Kp // pw.scale.shape[0]
     s = torch.repeat_interleave(pw.scale, g, dim=0)
@@ -260,7 +246,8 @@ def _desc(pw: PackedWeight, bias, device, keep: list) -> _WeightDesc:
     every tensor the kernel reads is appended to `keep`."""
     if pw.fmt != "uniform":
         raise NotImplementedError(
-            f"fused kernels: fmt={pw.fmt!r} is not ported (ROADMAP kernel #13)")
+            f"fused kernels: fmt={pw.fmt!r} is not ported (the BCQ branch "
+            f"of #4-#6: ROADMAP section 2)")
     if pw.perm is not None or pw.bias is not None:
         raise ValueError("fused kernels take no act-order perm and no baked "
                          "bias (see _streamable)")

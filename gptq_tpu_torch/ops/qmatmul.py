@@ -54,11 +54,19 @@ def dequant(pw: PackedWeight) -> torch.Tensor:
     return (codes * s - z)[:pw.K, :pw.N]
 
 
-def quantize_acts_int8(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row dynamic int8 activation quantization: (xq int8, scale f32).
-    torch.round rounds half to even, as jnp.round does."""
-    xf = x2.to(torch.float32)
-    sx = xf.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+def quantize_acts_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic int8 quantization over the last dim: (xq int8, scale f32
+    with the last dim kept as 1). scale = absmax / 127 in IEEE division,
+    as the JAX package computes it; the division is between tensors,
+    because on CUDA PyTorch divides by a Python number as a product with
+    its reciprocal, one ulp off, which moves a code sitting on a .5 tie.
+    torch.round rounds half to even, as jnp.round does. It prepares the
+    int8 inputs of #1, #7, #8, #9 and #13 (kernel and plain version
+    alike), those of the plain versions of #4-#6 and #12, and the int8 KV
+    cache rows (models/common._quantize_kv)."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = amax / torch.full_like(amax, 127.0) + 1e-12
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 

@@ -7,7 +7,9 @@ zoff, alpha, bias, perm, bits, K, N, groupsize, fmt; an MoE expert bank
 as the dict of words, scale, zoff, bits, K, N, groupsize) and returns the
 port's tree of torch tensors, PackedWeights and PackedExperts on
 `device`. It imports nothing of the JAX package; the tests use it to run
-both packages on the same weights.
+both packages on the same weights. `sp_cache_from_jax` takes the JAX
+package's SPCache the same way and returns one rank's port SPCache, so
+the port's decode can continue from the JAX package's prefill.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from gptq_tpu_torch.config import resolve_device
 from gptq_tpu_torch.ops.pack import PackedExperts, PackedWeight
+from gptq_tpu_torch.parallel.sp import SPCache
 
 _PACKED_FIELDS = ("words", "scale", "zoff", "alpha", "bias", "perm", "bits",
                   "K", "N", "groupsize", "fmt")
@@ -97,3 +100,23 @@ def params_from_jax(tree, device="cuda"):
         return tensor_from_numpy(node, dev)
 
     return conv(tree)
+
+
+def sp_cache_from_jax(tree, rank: int, device="cuda") -> SPCache:
+    """One rank's SPCache from the JAX package's SPCache as a numpy tree
+    (to_numpy_tree of it: k / v (L, B, sp * ml, kvh, hd), pos (sp * ml,),
+    length, k_scale / v_scale or None, meta (Tc, ml)): the slots
+    [rank * ml, (rank + 1) * ml), their positions, the length and meta."""
+    dev = resolve_device(device)
+    Tc, ml = (int(x) for x in tree["meta"])
+    own = slice(rank * ml, (rank + 1) * ml)
+
+    def plane(name):
+        a = tree.get(name)
+        return None if a is None else tensor_from_numpy(np.asarray(a)[:, :, own],
+                                                        dev)
+
+    return SPCache(k=plane("k"), v=plane("v"),
+                   pos=tensor_from_numpy(np.asarray(tree["pos"])[own], dev),
+                   length=int(tree["length"]), k_scale=plane("k_scale"),
+                   v_scale=plane("v_scale"), meta=(Tc, ml))

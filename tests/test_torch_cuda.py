@@ -41,6 +41,28 @@ def _close(got, want, rtol):
     assert err <= rtol, err
 
 
+def tie_rows(n_rows=8, width=256, seed=0) -> np.ndarray:
+    """f32 rows whose entries sit on exact .5 ties of x / (absmax / 127)
+    in IEEE division, each row's absmax (its first entry) chosen so that
+    the product absmax * fl(1 / 127) is one ulp off absmax / 127: a
+    quantizer that divides by the Python number 127.0 on CUDA (a product
+    with the reciprocal there) rounds some of these codes the other way."""
+    f = np.float32
+    rng = np.random.default_rng(seed)
+    rows = []
+    while len(rows) < n_rows:
+        a = f(rng.uniform(1.0, 2.0))
+        s = a / f(127)
+        if s == a * (f(1) / f(127)):
+            continue
+        j = rng.integers(-126, 126, size=4 * width) + 0.5
+        x = (j * s).astype(f)
+        x = x[(x / s) == j.astype(f)][:width - 1]  # exact ties only
+        if len(x) == width - 1:
+            rows.append(np.concatenate([[a], x]).astype(f))
+    return np.stack(rows)
+
+
 def _packed(rng, bits, groupsize, K, N):
     """Random packed weight with an act-order perm and a bias; K and N pad
     like pack_quantized pads them, pad columns carry zero grids."""
@@ -104,6 +126,20 @@ def _bcq(rng, bits, groupsize, K, N):
 # #13: sums of f32 products in another order (a8: exact int32 partials in
 # the single-row kernel, f32 in the tiled one); bf16 outputs may round
 # one bf16 step apart
+def test_int8_quantizer_ties_match_the_cpu(cuda):
+    """The shared int8 quantizer (every a8 input and the int8 KV rows)
+    gives the CPU's codes and scales bit for bit on rows of exact .5 ties
+    (the CPU's are held to gptq_tpu's in test_torch_qmatmul.py)."""
+    x = torch.from_numpy(tie_rows())
+    q_cpu, s_cpu = tq.quantize_acts_int8(x)
+    q_gpu, s_gpu = tq.quantize_acts_int8(x.to(cuda))
+    assert torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+    kq_cpu, ks_cpu = tc._quantize_kv(x.reshape(8, 4, 64))
+    kq_gpu, ks_gpu = tc._quantize_kv(x.reshape(8, 4, 64).to(cuda))
+    assert torch.equal(kq_gpu.cpu(), kq_cpu)
+    assert torch.equal(ks_gpu.cpu(), ks_cpu)
+
+
 @pytest.mark.parametrize("bits,groupsize", [(2, -1), (3, 128), (4, 128),
                                             (3, 32), (3, 64), (2, 16)])
 @pytest.mark.parametrize("M", [1, 3, 70])
@@ -240,6 +276,62 @@ def test_attention_kernel_splits_and_empty_rows(cuda, S, lens, fresh):
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-3, atol=1e-3)
+
+
+def _partial_check(got, want):
+    """(m, l, acc) against the plain version: m where l > 0, -inf else."""
+    gm, gl, ga = (t.cpu().numpy() for t in got)
+    wm, wl, wa = (t.cpu().numpy() for t in want)
+    np.testing.assert_allclose(gl, wl, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(ga, wa, rtol=1e-3, atol=1e-3)
+    live = wl > 0
+    np.testing.assert_allclose(gm[live], wm[live], rtol=1e-3, atol=1e-3)
+    assert (gm[~live] == -np.inf).all() and (wm[~live] == -np.inf).all()
+
+
+@pytest.mark.parametrize("cache", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("Hkv", [8, 2, 1])  # G = 1, 4, 8
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("wide", [False, True])
+def test_partial_attention_kernel_matches_plain(cuda, cache, Hkv, hd, wide):
+    """#10 / #11 (one kernel) on a stacked cache whose valid slots are not
+    contiguous, with alibi slopes where the entry takes them."""
+    B, S, H = 2, 700, 8
+    rng = np.random.default_rng(Hkv * hd + wide)
+    k, v, ks, vs = _cache(rng, (2, B), S, Hkv, hd, cache == "int8")
+    pos = np.where(rng.random(S) < 0.6, rng.permutation(S), -1).astype(np.int32)
+    pos[S // 2:S // 2 + 300] = -1  # a whole split with nothing valid
+    dt = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}[cache]
+    q_ = torch.from_numpy(rng.normal(size=(B, H, hd)).astype(np.float32)).to(cuda)
+    k_, v_ = (torch.from_numpy(a).to(cuda).to(dt) for a in (k, v))
+    ks_, vs_ = (None if a is None else torch.from_numpy(a).to(cuda)
+                for a in (ks, vs))
+    slopes = (torch.from_numpy(np.asarray(tc.alibi_slopes(H))).to(cuda)
+              if wide or Hkv == H else None)
+    kw = dict(k_scale=ks_, v_scale=vs_, slopes=slopes, layer=1)
+    pos_ = torch.from_numpy(pos).to(cuda)
+    fn = ta.decode_attention_partial_wide if wide else ta.decode_attention_partial
+    before = (ta.partial_launches, ta.partial_wide_launches)
+    got = fn(q_, k_, v_, pos_, 0.09, **kw)
+    torch.cuda.synchronize()
+    assert (ta.partial_launches, ta.partial_wide_launches) == (
+        before[0] + (not wide), before[1] + wide)
+    _partial_check(got, ta.decode_attention_partial_wide_reference(
+        q_, k_, v_, pos_, 0.09, **kw))
+
+
+def test_partial_attention_kernel_empty_shard(cuda):
+    """A shard with no valid slot: m = -inf, l = 0, acc = 0."""
+    rng = np.random.default_rng(3)
+    k, v, ks, vs = _cache(rng, (1,), 256, 4, 128, True)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.normal(size=(1, 4, 128)).astype(np.float32), k, v,
+        np.full(256, -1, np.int32))]
+    m, l, acc = ta.decode_attention_partial_wide(
+        *args, 0.09, k_scale=torch.from_numpy(ks).to(cuda),
+        v_scale=torch.from_numpy(vs).to(cuda))
+    assert bool((m == float("-inf")).all()) and bool((l == 0).all())
+    assert bool((acc == 0).all())
 
 
 # Fused kernels against their plain versions: both round r2, the norms
@@ -661,3 +753,72 @@ def test_generate_chained_replays_graphs(cuda, monkeypatch, route, B):
         generator=torch.Generator(device=cuda).manual_seed(3))
         for _ in range(2)]
     np.testing.assert_array_equal(draws[0], draws[1])
+
+
+@pytest.fixture
+def one_rank_group(cuda):
+    """A one-rank NCCL process group (SPEngine at sp = 1)."""
+    import socket
+
+    import torch.distributed as dist
+
+    own = not dist.is_initialized()
+    if own:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0)
+    yield None
+    if own:
+        dist.destroy_process_group()
+
+
+def _eager_ppl(eng, ids) -> float:
+    """benchmark_chained's PPL step by step: the first sp ids prefill, each
+    later id feeds one guarded step, whose NLL of the next id counts."""
+    dev = eng.device
+    logits, cache = eng.prefill(torch.as_tensor(ids[None, :eng.sp], device=dev))
+    nll = []
+    for i in range(eng.sp, len(ids) - 1):
+        logits, cache = eng.step(cache, torch.tensor([[int(ids[i])]],
+                                                     device=dev))
+        lp = torch.log_softmax(logits[0].to(torch.float32), dim=-1)
+        nll.append(-float(lp[int(ids[i + 1])]))
+    return float(np.exp(np.mean(nll)))
+
+
+def test_sp_engine_graphs_replay_on_new_inputs(cuda, one_rank_group):
+    """SPEngine's captured chains at sp = 1: generate's tokens equal step-
+    by-step decoding, and a second benchmark_chained on other ids replays
+    the first call's graphs (none is captured anew) and reports the PPL of
+    its own ids, as an eager run gives it."""
+    from gptq_tpu_torch.engine.serving import SPEngine
+
+    spec, params = _serve_model(cuda)
+    eng = SPEngine(spec, params, sp=1, max_len=128, cache_dtype=torch.int8,
+                   fuse=True, a8=True, device=cuda)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, spec.vocab, size=(1, 7))
+    got = eng.generate(prompt, 10, chunk=4)
+    logits, cache = eng.prefill(torch.as_tensor(prompt, device=cuda))
+    want = []
+    for _ in range(10):
+        tok = logits.argmax(-1)[:, None]
+        want.append(int(tok))
+        logits, cache = eng.step(cache, tok)
+    assert got.tolist() == [want]
+    n_graphs = None
+    ppls = []
+    for _ in range(2):
+        ids = rng.integers(0, spec.vocab, size=24)
+        r = eng.benchmark_chained(ids, check=True, warmup=1, reps=1,
+                                  log=lambda s: None)
+        if n_graphs is None:
+            n_graphs = len(eng._graphs)
+        assert len(eng._graphs) == n_graphs  # the second call replays
+        eager = _eager_ppl(eng, ids)
+        print(f"ppl chained {r['ppl']:.6g} eager {eager:.6g}")
+        np.testing.assert_allclose(r["ppl"], eager, rtol=1e-4)
+        ppls.append(eager)
+    assert ppls[0] != ppls[1]

@@ -281,3 +281,10 @@ def test_entry_points_default_to_cuda(tmp_path):
 
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["dummy", "c4", "--load", path, "--benchmark", "2"])
+    from gptq_tpu_torch.engine.serving import SPEngine
+    from gptq_tpu_torch.parallel.sp import make_sp_cache_prefill
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        SPEngine(tspec, tp, sp=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_sp_cache_prefill(tspec, tp)

@@ -91,6 +91,24 @@ def test_quantize_acts_int8_rounds_half_even():
     np.testing.assert_array_equal(np.asarray(jx), tx.numpy())
 
 
+def test_quantize_acts_int8_tie_rows_match_jax():
+    """Rows of exact .5 ties (test_torch_cuda.tie_rows): the port's codes
+    equal gptq_tpu's bit for bit, and the rows do tell an IEEE absmax / 127
+    from a product with fl(1 / 127), the rounding a division by the
+    Python number 127.0 takes on CUDA."""
+    from test_torch_cuda import tie_rows
+
+    x = tie_rows()
+    jx, js = jq.quantize_acts_int8(jnp.asarray(x))
+    tx, ts = tq.quantize_acts_int8(torch.from_numpy(x))
+    np.testing.assert_array_equal(np.asarray(jx), tx.numpy())
+    np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+    amax = np.abs(x).max(axis=1, keepdims=True)
+    off = amax * (np.float32(1) / np.float32(127)) + np.float32(1e-12)
+    moved = np.clip(np.round(x / off), -127, 127).astype(np.int8)
+    assert (moved != tx.numpy()).any()
+
+
 def test_cpu_tensor_never_launches_the_kernel():
     rng = np.random.default_rng(1)
     _, tp = _weights(rng, 4, -1, 256, 64)
