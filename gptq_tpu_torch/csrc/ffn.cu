@@ -11,11 +11,15 @@
 //       out   = down(inner) + b_d + r2                            phase 3
 // with the JAX kernels' rounding points: every phase quantizes its whole
 // input row to int8 (a8: scale = absmax / 127, round half to even) or
-// rounds it to bf16 (a16), and the weight is uniform-grid packed codes
-// (2/3/4/8 bits, per-tensor or grouped grids; ops/pack.py layout).
+// rounds it to bf16 (a16), and each weight is uniform-grid packed codes
+// (2/3/4/8 bits, per-tensor or grouped grids; ops/pack.py layout) or BCQ
+// sign planes (the BCQ branch of the TPU kernels' _stream_matmul):
+//       W[k, n] = sum_b alpha[g(k), b, n] * (2 B_b[k, n] - 1)
+// with B_b (bits, Kp/32, Np) 1-bit fields and alpha (ng, bits, Np) f32.
 //
 // Bound on an H100: at decode (M <= 32 rows) every phase streams its
-// packed weight once, so the packed bytes over the memory rate.
+// packed weight once, so the packed bytes (codes and grids, or planes and
+// alphas) over the memory rate.
 //
 // Design (simple and right first):
 //   * a block owns tiles of 32 output columns (one per lane, so a warp's
@@ -42,6 +46,13 @@
 //     Hopper form of the TPU kernel's cross-phase DMA prefetch).
 //   * a block that owns gate column j also owns up column j + ffn, so
 //     act(g) * u is formed in its epilogue.
+//   * BCQ: the same tiles, staging and phases; the tile product
+//     (fused.cuh: bcq_planes_tile) runs plane_dot<1> over each plane's
+//     words and applies x . (2B - 1) = 2 (x . B) - sum(x): alpha once per
+//     (subblock, plane) on the partial, sum(x) from the staged subblock
+//     sums (exact int32 for a8, the row scale applied at the end). It is
+//     a separate non-inlined function, chosen per weight at run time, so
+//     the uniform tile (shared with layer_fused.cu) is unchanged.
 // The device code both kernels share with layer_fused.cu is in fused.cuh.
 
 #include "fused.cuh"
@@ -57,7 +68,7 @@ __global__ void __launch_bounds__(THREADS, TM == 1 ? 2 : 1)
 norm_qkv_kernel(RowSrc src, int M, WeightDesc wd, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Plan<TM, ST> pl(smem);
-  norm_rows<TM, ST>(src, M, wd, out, pl);
+  norm_rows<TM, ST, true>(src, M, wd, out, pl);
 }
 
 template <int TM, typename ST>
@@ -65,7 +76,7 @@ __global__ void __launch_bounds__(THREADS) mlp_kernel(MlpArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Plan<TM, ST> pl(smem);
   cg::grid_group grid = cg::this_grid();
-  mlp_phases<TM, ST>(a, pl, grid);
+  mlp_phases<TM, ST, true>(a, pl, grid);
 }
 
 // ---------------------------------------------------------------------------
@@ -124,8 +135,8 @@ cudaError_t mlp_rows(MlpArgs& a, cudaStream_t st) {
 extern "C" int norm_qkv_launch(const float* x, int M, int K, const float* nw,
                                const float* nb, int norm, float eps, int a8,
                                const WeightDesc* w, float* out, void* stream) {
-  if (M < 1 || M > MAX_ROWS || !weight_ok(w) || K != w->Kp || nw == nullptr ||
-      norm < 0 || norm > 2 || (norm == 2 && nb == nullptr))
+  if (M < 1 || M > MAX_ROWS || !weight_ok(w, true) || K != w->Kp ||
+      nw == nullptr || norm < 0 || norm > 2 || (norm == 2 && nb == nullptr))
     return (int)cudaErrorInvalidValue;
   const RowSrc src{x, nw, nb, K, norm, eps};
   cudaStream_t st = (cudaStream_t)stream;
@@ -143,7 +154,8 @@ extern "C" int mlp_launch(const float* x, const float* xres, const float* nw,
                           int glu, int a8, int M, const WeightDesc* o,
                           const WeightDesc* gu, const WeightDesc* dn,
                           float* r2, float* inner, float* out, void* stream) {
-  if (M < 1 || M > MAX_ROWS || !weight_ok(gu) || !weight_ok(dn) || act < 0 ||
+  if (M < 1 || M > MAX_ROWS || !weight_ok(gu, true) ||
+      !weight_ok(dn, true) || act < 0 ||
       act > 3 || (glu ? gu->Np != 2 * dn->Kp : gu->Np != dn->Kp))
     return (int)cudaErrorInvalidValue;
   MlpArgs a{};
@@ -157,7 +169,7 @@ extern "C" int mlp_launch(const float* x, const float* xres, const float* nw,
   a.glu = glu;
   a.has_o = o != nullptr;
   if (o != nullptr) {
-    if (!weight_ok(o) || o->Np != gu->Kp || dn->Np != o->Np ||
+    if (!weight_ok(o, true) || o->Np != gu->Kp || dn->Np != o->Np ||
         xres == nullptr || r2 == nullptr || nw == nullptr || norm < 0 ||
         norm > 2 || (norm == 2 && nb == nullptr))
       return (int)cudaErrorInvalidValue;

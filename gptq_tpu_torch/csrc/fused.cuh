@@ -16,16 +16,24 @@
 
 namespace cg = cooperative_groups;
 
-// One packed weight (mirrored by ops/ffn.py:_WeightDesc). w1 is the 1-bit
-// field of a 3-bit weight, else null; bias (Np f32) may be null.
+// One packed weight (mirrored by ops/ffn.py:_WeightDesc). Uniform grids
+// (fmt 0): w0 the first field, w1 the 1-bit field of a 3-bit weight, else
+// null, scale / zoff the grids. BCQ (fmt FMT_BCQ, ffn.cu only): w0 the
+// (bits, Kp/32, Np) sign planes, each a 1-bit field (bit set = +1), alpha
+// their (ng, bits, Np) scales, w1 / scale / zoff null. bias (Np f32) may
+// be null.
 struct WeightDesc {
   const int32_t* w0;
   const int32_t* w1;
   const float* scale;  // (ng, Np)
   const float* zoff;   // (ng, Np)
   const float* bias;
-  int bits, Kp, Np, ng, SB;
+  int bits, Kp, Np, ng, SB;  // bits: BCQ sign planes
+  const float* alpha;        // (ng, bits, Np)
+  int fmt;
 };
+
+constexpr int FMT_BCQ = 1;
 
 namespace {
 
@@ -251,16 +259,71 @@ __device__ __forceinline__ void field_tile(
   }
 }
 
+// The BCQ counterpart of field_tile: every sign plane's contribution to
+// column n over the staged chunk. With B in {0,1}, x . (2B - 1) =
+// 2 (x . B) - sum(x): plane_dot<1> gives x . B per (subblock, run of word
+// rows, plane), the subblock sum comes from xsum once per subblock, and
+// alpha[g, b, n] applies once to that partial (exact int32 for a8).
+template <int RT, typename ST>
+__device__ __forceinline__ void bcq_planes_tile(
+    const WeightDesc& wd, const ST* xs, int kt,
+    const typename Acc<ST>::type* xsum, int nsb, int s0, int G, int n,
+    int rows, float (&acc)[RT]) {
+  using AT = typename Acc<ST>::type;
+  const int Wsb = wd.SB / 32;
+  const int quarter = 4 * Wsb;
+  const int jc = Wsb < JC ? Wsb : JC;
+  const int nch = Wsb / jc;
+  const size_t plane = (size_t)(wd.Kp / 32) * wd.Np;
+  for (int it = threadIdx.x >> 5; it < nsb * nch * wd.bits; it += WARPS) {
+    const int b = it % wd.bits;
+    const int sc = it / wd.bits;
+    const int sl = sc / nch;
+    const int c = sc - sl * nch;
+    const int s = s0 + sl;
+    const int32_t* wp =
+        wd.w0 + b * plane + (size_t)(s * Wsb + c * jc) * wd.Np + n;
+    unsigned word[JC];
+#pragma unroll
+    for (int jj = 0; jj < JC; ++jj)
+      word[jj] = jj < jc ? (unsigned)__ldg(wp + (size_t)jj * wd.Np) : 0u;
+    AT dot[RT];
+#pragma unroll
+    for (int m = 0; m < RT; ++m) dot[m] = 0;
+#pragma unroll
+    for (int jj = 0; jj < JC; ++jj) {
+      if (jj < jc) {
+        const int xrow = sl * wd.SB + 4 * (c * jc + jj);
+#pragma unroll
+        for (int m = 0; m < RT; ++m)
+          if (RT == 1 || m < rows)
+            dot[m] = plane_dot<1>(word[jj], xs + m * kt, xrow, quarter,
+                                  dot[m]);
+      }
+    }
+    const int g = (s * wd.SB) / G;
+    const float a = __ldg(wd.alpha + ((size_t)g * wd.bits + b) * wd.Np + n);
+#pragma unroll
+    for (int m = 0; m < RT; ++m) {
+      const AT sx = (c == 0 && (RT == 1 || m < rows)) ? xsum[m * nsb + sl]
+                                                      : (AT)0;
+      acc[m] += a * (float)(2 * dot[m] - sx);
+    }
+  }
+}
+
 // res[m][l] = sum over k of the staged row m times dequant(W)[k, n0 + l],
 // for m < M (in units of the staged values: times sx gives the product).
 // Rows go in passes of RT (registers); a row longer than the stage is
 // staged chunk by chunk. `staged` is the chunk the stage holds (-1: none),
 // uniform in the block. Not inlined: one copy serves every call site.
-template <int TM, typename ST>
-__device__ __noinline__ void tile(const WeightDesc& wd, const RowSrc& s,
-                                  int M, int n0, int KT,
-                                  const Plan<TM, ST>& pl, int& staged,
-                                  float* res) {
+// BCQ selects the sign-plane product; the uniform instantiation is the
+// only one that layer_fused.cu references (see any_tile).
+template <int TM, typename ST, bool BCQ>
+__device__ __noinline__ void tile_impl(const WeightDesc& wd, const RowSrc& s,
+                                       int M, int n0, int KT,
+                                       const Plan<TM, ST>& pl, int& staged,
+                                       float* res) {
   constexpr int RT = Plan<TM, ST>::RT;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -284,29 +347,39 @@ __device__ __noinline__ void tile(const WeightDesc& wd, const RowSrc& s,
       const int s0 = k0 / wd.SB;
       const ST* xs = pl.xs + r0 * kt;
       const auto* xsum = pl.xsum + r0 * nsb;
-      switch (wd.bits) {
-        case 1:
-          field_tile<RT, ST, 1>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
-                                wd.scale, wd.zoff, wd.Np, n, true, rows, acc);
-          break;
-        case 2:
-          field_tile<RT, ST, 2>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
-                                wd.scale, wd.zoff, wd.Np, n, true, rows, acc);
-          break;
-        case 3:  // a 2-bit field and a 1-bit field shifted by 2
-          field_tile<RT, ST, 2>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
-                                wd.scale, wd.zoff, wd.Np, n, true, rows, acc);
-          field_tile<RT, ST, 1>(wd.w1, 2, xs, kt, xsum, nsb, s0, wd.SB, G,
-                                wd.scale, wd.zoff, wd.Np, n, false, rows, acc);
-          break;
-        case 4:
-          field_tile<RT, ST, 4>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
-                                wd.scale, wd.zoff, wd.Np, n, true, rows, acc);
-          break;
-        default:
-          field_tile<RT, ST, 8>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
-                                wd.scale, wd.zoff, wd.Np, n, true, rows, acc);
-          break;
+      if constexpr (BCQ) {
+        bcq_planes_tile<RT, ST>(wd, xs, kt, xsum, nsb, s0, G, n, rows, acc);
+      } else {
+        switch (wd.bits) {
+          case 1:
+            field_tile<RT, ST, 1>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
+                                  wd.scale, wd.zoff, wd.Np, n, true, rows,
+                                  acc);
+            break;
+          case 2:
+            field_tile<RT, ST, 2>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
+                                  wd.scale, wd.zoff, wd.Np, n, true, rows,
+                                  acc);
+            break;
+          case 3:  // a 2-bit field and a 1-bit field shifted by 2
+            field_tile<RT, ST, 2>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
+                                  wd.scale, wd.zoff, wd.Np, n, true, rows,
+                                  acc);
+            field_tile<RT, ST, 1>(wd.w1, 2, xs, kt, xsum, nsb, s0, wd.SB, G,
+                                  wd.scale, wd.zoff, wd.Np, n, false, rows,
+                                  acc);
+            break;
+          case 4:
+            field_tile<RT, ST, 4>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
+                                  wd.scale, wd.zoff, wd.Np, n, true, rows,
+                                  acc);
+            break;
+          default:
+            field_tile<RT, ST, 8>(wd.w0, 0, xs, kt, xsum, nsb, s0, wd.SB, G,
+                                  wd.scale, wd.zoff, wd.Np, n, true, rows,
+                                  acc);
+            break;
+        }
       }
     }
     // sum the warps' partials of this pass's rows
@@ -325,13 +398,32 @@ __device__ __noinline__ void tile(const WeightDesc& wd, const RowSrc& s,
   }
 }
 
+// the tile product of one weight: ANY (ffn.cu) also takes BCQ weights,
+// the sign-plane tile being a separate function so that it adds nothing
+// to the uniform one's registers; without ANY (layer_fused.cu) only the
+// uniform tile is compiled
+template <int TM, typename ST, bool ANY>
+__device__ __forceinline__ void any_tile(const WeightDesc& wd,
+                                         const RowSrc& s, int M, int n0,
+                                         int KT, const Plan<TM, ST>& pl,
+                                         int& staged, float* res) {
+  if constexpr (ANY) {
+    if (wd.fmt == FMT_BCQ) {
+      tile_impl<TM, ST, true>(wd, s, M, n0, KT, pl, staged, res);
+      return;
+    }
+  }
+  tile_impl<TM, ST, false>(wd, s, M, n0, KT, pl, staged, res);
+}
+
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(__cvta_generic_to_global(p)));
 }
 
 // pull the word lines of the tile at column n0 into L2
 __device__ void prefetch_tile(const WeightDesc& wd, int n0) {
-  const int fb0 = wd.bits == 3 ? 2 : wd.bits;
+  // BCQ: bits planes of Kp/32 word rows, one after another
+  const int fb0 = wd.fmt != FMT_BCQ && wd.bits == 3 ? 2 : wd.bits;
   const int rows0 = wd.Kp * fb0 / 32;
   for (int r = threadIdx.x; r < rows0; r += THREADS)
     prefetch_l2(wd.w0 + (size_t)r * wd.Np + n0);
@@ -353,8 +445,8 @@ __device__ __forceinline__ float act_fn(int act, float g) {
 }
 
 // out = norm(x) @ dequant(W) (+ b) over the 32-column tiles that fall to
-// this block (the body of the norm_qkv kernel)
-template <int TM, typename ST>
+// this block (the body of the norm_qkv kernel); ANY: see any_tile
+template <int TM, typename ST, bool ANY = false>
 __device__ __forceinline__ void norm_rows(const RowSrc& src, int M,
                                           const WeightDesc& wd,
                                           float* __restrict__ out,
@@ -363,7 +455,7 @@ __device__ __forceinline__ void norm_rows(const RowSrc& src, int M,
   const int KT = chunk_rows(wd.Kp, wd.SB, TM, Plan<TM, ST>::ELEMS);
   int staged = -1;
   for (int t = blockIdx.x; t < wd.Np / COLS; t += gridDim.x) {
-    tile<TM, ST>(wd, src, M, t * COLS, KT, pl, staged, pl.res0);
+    any_tile<TM, ST, ANY>(wd, src, M, t * COLS, KT, pl, staged, pl.res0);
     for (int i = threadIdx.x; i < M * COLS; i += THREADS) {
       const int m = i / COLS;
       const int n = t * COLS + (i - m * COLS);
@@ -390,8 +482,8 @@ struct MlpArgs {
 
 // The MLP kernel's phases, run by every block of a cooperative grid:
 // with a.has_o the o + residual phase, then gate|up + act, then down
-// (+ r2), a grid barrier between each two.
-template <int TM, typename ST>
+// (+ r2), a grid barrier between each two. ANY: see any_tile.
+template <int TM, typename ST, bool ANY = false>
 __device__ __forceinline__ void mlp_phases(const MlpArgs& a,
                                            const Plan<TM, ST>& pl,
                                            cg::grid_group& grid) {
@@ -406,7 +498,7 @@ __device__ __forceinline__ void mlp_phases(const MlpArgs& a,
     int staged = -1;
     const int H = a.o.Np;
     for (int t = blockIdx.x; t < H / COLS; t += gridDim.x) {
-      tile<TM, ST>(a.o, s1, M, t * COLS, KT, pl, staged, pl.res0);
+      any_tile<TM, ST, ANY>(a.o, s1, M, t * COLS, KT, pl, staged, pl.res0);
       for (int i = threadIdx.x; i < M * COLS; i += THREADS) {
         const int m = i / COLS;
         const int n = t * COLS + (i - m * COLS);
@@ -427,9 +519,10 @@ __device__ __forceinline__ void mlp_phases(const MlpArgs& a,
     const int KT = chunk_rows(a.gu.Kp, a.gu.SB, TM, Plan<TM, ST>::ELEMS);
     int staged = -1;
     for (int t = blockIdx.x; t < half / COLS; t += gridDim.x) {
-      tile<TM, ST>(a.gu, s2, M, t * COLS, KT, pl, staged, pl.res0);
+      any_tile<TM, ST, ANY>(a.gu, s2, M, t * COLS, KT, pl, staged, pl.res0);
       if (a.glu)
-        tile<TM, ST>(a.gu, s2, M, half + t * COLS, KT, pl, staged, pl.res1);
+        any_tile<TM, ST, ANY>(a.gu, s2, M, half + t * COLS, KT, pl, staged,
+                              pl.res1);
       for (int i = threadIdx.x; i < M * COLS; i += THREADS) {
         const int m = i / COLS;
         const int n = t * COLS + (i - m * COLS);
@@ -458,7 +551,7 @@ __device__ __forceinline__ void mlp_phases(const MlpArgs& a,
     int staged = -1;
     const int N = a.dn.Np;
     for (int t = blockIdx.x; t < N / COLS; t += gridDim.x) {
-      tile<TM, ST>(a.dn, s3, M, t * COLS, KT, pl, staged, pl.res0);
+      any_tile<TM, ST, ANY>(a.dn, s3, M, t * COLS, KT, pl, staged, pl.res0);
       for (int i = threadIdx.x; i < M * COLS; i += THREADS) {
         const int m = i / COLS;
         const int n = t * COLS + (i - m * COLS);
@@ -472,18 +565,21 @@ __device__ __forceinline__ void mlp_phases(const MlpArgs& a,
   }
 }
 
-bool weight_ok(const WeightDesc* w) {
-  if (w == nullptr || w->w0 == nullptr || w->scale == nullptr ||
-      w->zoff == nullptr)
-    return false;
-  if (w->bits != 1 && w->bits != 2 && w->bits != 3 && w->bits != 4 &&
-      w->bits != 8)
-    return false;
-  if ((w->bits == 3) != (w->w1 != nullptr)) return false;
+// a descriptor the kernels can take; BCQ sign planes only where the
+// caller compiled the BCQ tile (bcq_ok: ffn.cu)
+bool weight_ok(const WeightDesc* w, bool bcq_ok = false) {
+  if (w == nullptr || w->w0 == nullptr) return false;
   if (w->SB < 32 || w->SB > 512 || w->Kp % w->SB || w->Np % COLS ||
       w->ng < 1 || w->Kp % w->ng || (w->Kp / w->ng) % w->SB)
     return false;
-  return true;
+  if (w->fmt == FMT_BCQ)
+    return bcq_ok && w->alpha != nullptr && w->w1 == nullptr &&
+           w->bits >= 1 && w->bits <= 8;
+  if (w->fmt != 0 || w->scale == nullptr || w->zoff == nullptr) return false;
+  if (w->bits != 1 && w->bits != 2 && w->bits != 3 && w->bits != 4 &&
+      w->bits != 8)
+    return false;
+  return (w->bits == 3) == (w->w1 != nullptr);
 }
 
 template <typename K>

@@ -34,12 +34,18 @@ def _unpack_signs(words: torch.Tensor, groupsize: int = -1) -> torch.Tensor:
     return 2.0 * planes.to(torch.float32) - 1.0
 
 
-def bcq_dequant(pw: PackedWeight) -> torch.Tensor:
-    """Materialize (K, N) = sum_b alpha_b * B_b in f32."""
+def bcq_dequant_stored(pw: PackedWeight) -> torch.Tensor:
+    """Materialize (Kp, Np) = sum_b alpha_b * B_b in f32 over the stored
+    (padded) dims."""
     signs = _unpack_signs(pw.words[0], pw.groupsize)  # (bits, Kp, Np)
     g = pw.Kp // pw.alpha.shape[0]
     a = torch.repeat_interleave(pw.alpha, g, dim=0).permute(1, 0, 2)
-    return torch.sum(signs * a, dim=0)[:pw.K, :pw.N]
+    return torch.sum(signs * a, dim=0)
+
+
+def bcq_dequant(pw: PackedWeight) -> torch.Tensor:
+    """Materialize (K, N) = sum_b alpha_b * B_b in f32."""
+    return bcq_dequant_stored(pw)[:pw.K, :pw.N]
 
 
 def bcq_matmul_reference(x: torch.Tensor, pw: PackedWeight,

@@ -19,7 +19,10 @@ from the unfused path: norm_qkv casts x to bf16 at entry and rounds the
 norm to bf16; attn_mlp casts xres to bf16 and rounds r2, the norm and the
 activation to bf16, and returns down + r2 in f32; ffn reads m as f32.
 Every a8 phase quantizes its own whole input row (quantize_acts_int8);
-every a16 phase rounds its input to bf16.
+every a16 phase rounds its input to bf16. A weight is uniform-grid codes
+or BCQ sign planes (the TPU kernels' BCQ branch); the plain versions
+dequantize either over the stored dims, the kernels take either through
+the one descriptor.
 
 The fusability gates are written exactly as the JAX package's, so both
 packages route the same weights the same way: uniform grids, no act-order
@@ -34,6 +37,7 @@ import ctypes
 import torch
 
 from gptq_tpu_torch.ops import _build
+from gptq_tpu_torch.ops.bcq_matmul import bcq_dequant_stored
 from gptq_tpu_torch.ops.pack import FIELD_SPLITS, PackedWeight, subblock, unpack_codes
 from gptq_tpu_torch.ops.qmatmul import quantize_acts_int8
 
@@ -106,11 +110,10 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _dequant_stored(pw: PackedWeight) -> torch.Tensor:
-    """The dequantized (Kp, Np) f32 weight over the STORED dims."""
-    if pw.fmt != "uniform":
-        raise NotImplementedError(
-            f"fused kernels: fmt={pw.fmt!r} is not ported (the BCQ branch "
-            f"of #4-#6: ROADMAP section 2)")
+    """The dequantized (Kp, Np) f32 weight over the STORED dims: codes *
+    scale - zoff, or for BCQ sum_b alpha[g(k), b, n] * (2 B_b[k, n] - 1)."""
+    if pw.fmt == "bcq":
+        return bcq_dequant_stored(pw)
     codes = unpack_codes(pw.words, pw.bits, pw.groupsize).to(torch.float32)
     g = pw.Kp // pw.scale.shape[0]
     s = torch.repeat_interleave(pw.scale, g, dim=0)
@@ -238,42 +241,61 @@ class _WeightDesc(ctypes.Structure):
                 ("scale", ctypes.c_void_p), ("zoff", ctypes.c_void_p),
                 ("bias", ctypes.c_void_p), ("bits", ctypes.c_int),
                 ("Kp", ctypes.c_int), ("Np", ctypes.c_int),
-                ("ng", ctypes.c_int), ("SB", ctypes.c_int)]
+                ("ng", ctypes.c_int), ("SB", ctypes.c_int),
+                ("alpha", ctypes.c_void_p), ("fmt", ctypes.c_int)]
+
+
+_FMTS = {"uniform": 0, "bcq": 1}  # WeightDesc.fmt (csrc/fused.cuh)
 
 
 def _desc(pw: PackedWeight, bias, device, keep: list) -> _WeightDesc:
     """Validate a packed weight for the fused kernels and describe it;
     every tensor the kernel reads is appended to `keep`."""
-    if pw.fmt != "uniform":
-        raise NotImplementedError(
-            f"fused kernels: fmt={pw.fmt!r} is not ported (the BCQ branch "
-            f"of #4-#6: ROADMAP section 2)")
+    if pw.fmt not in _FMTS:
+        raise ValueError(f"fused kernels: fmt={pw.fmt!r}")
     if pw.perm is not None or pw.bias is not None:
         raise ValueError("fused kernels take no act-order perm and no baked "
                          "bias (see _streamable)")
-    fields = FIELD_SPLITS[pw.bits]
-    words = [w.contiguous() for w in pw.words]
-    scale, zoff = pw.scale.contiguous(), pw.zoff.contiguous()
-    ng = scale.shape[0]
     sb = subblock(pw.Kp, pw.groupsize)
-    if (len(words) != len(fields) or scale.dtype != torch.float32
-            or zoff.dtype != torch.float32 or zoff.shape != scale.shape
-            or scale.shape[1] != pw.Np or pw.Kp % ng or (pw.Kp // ng) % sb
-            or pw.Np % 32
-            or any(w.dtype != torch.int32 or w.shape != (pw.Kp * fb // 32, pw.Np)
-                   for (fb, _), w in zip(fields, words))):
-        raise ValueError(f"fused kernels: packed weight of K={pw.Kp} "
+    if pw.fmt == "bcq":
+        words = [w.contiguous() for w in pw.words]
+        grids = [pw.alpha.contiguous()]
+        ng = grids[0].shape[0]
+        bad = (len(words) != 1 or not 1 <= pw.bits <= 8
+               or words[0].dtype != torch.int32
+               or words[0].shape != (pw.bits, pw.Kp // 32, pw.Np)
+               or grids[0].dtype != torch.float32
+               or grids[0].shape != (ng, pw.bits, pw.Np))
+    else:
+        fields = FIELD_SPLITS[pw.bits]
+        words = [w.contiguous() for w in pw.words]
+        grids = [pw.scale.contiguous(), pw.zoff.contiguous()]
+        ng = grids[0].shape[0]
+        bad = (len(words) != len(fields)
+               or any(g.dtype != torch.float32 or g.shape != (ng, pw.Np)
+                      for g in grids)
+               or any(w.dtype != torch.int32
+                      or w.shape != (pw.Kp * fb // 32, pw.Np)
+                      for (fb, _), w in zip(fields, words)))
+    if bad or pw.Kp % ng or (pw.Kp // ng) % sb or pw.Np % 32:
+        raise ValueError(f"fused kernels: {pw.fmt} packed weight of K={pw.Kp} "
                          f"N={pw.Np} bits={pw.bits} has malformed fields")
     b = None if bias is None else _vec(bias, pw.Np).contiguous()
-    for t in (*words, scale, zoff, b):
+    for t in (*words, *grids, b):
         if t is not None and t.device != device:
             raise ValueError("fused kernels: weights and activations must lie "
                              "on the same CUDA device")
-    keep.extend(t for t in (*words, scale, zoff, b) if t is not None)
+    keep.extend(t for t in (*words, *grids, b) if t is not None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    bcq = pw.fmt == "bcq"
     return _WeightDesc(
-        words[0].data_ptr(), words[1].data_ptr() if len(words) > 1 else None,
-        scale.data_ptr(), zoff.data_ptr(), None if b is None else b.data_ptr(),
-        pw.bits, pw.Kp, pw.Np, ng, sb)
+        words[0].data_ptr(), ptr(words[1]) if len(words) > 1 else None,
+        None if bcq else grids[0].data_ptr(),
+        None if bcq else grids[1].data_ptr(), ptr(b), pw.bits, pw.Kp, pw.Np,
+        ng, sb, grids[0].data_ptr() if bcq else None, _FMTS[pw.fmt])
 
 
 def _norm_vecs(w, b, kind: str, K: int, device, keep: list):

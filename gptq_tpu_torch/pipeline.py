@@ -14,16 +14,20 @@ packs its sign planes for ops/bcq_matmul.py. The Hessian-free modes
 and skip the calibration capture. quantize_lm_head packs the output
 projection (per-channel RTN) for the fused head. On an MoE model the
 attention linears quantize here and the expert stacks through
-models/moe.gptq_quantize_experts. Mixed precision and the mid-run resume
-journal are not ported yet (ROADMAP queue 1).
+models/moe.gptq_quantize_experts. With `resume_dir`, quantize_model keeps
+a journal of finished layers and an interrupted run restarts at the first
+unfinished one. Mixed precision is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from gptq_tpu_torch.config import QuantConfig
@@ -96,13 +100,17 @@ class QuantResult:
 
 @torch.no_grad()
 def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
-                   cfg: QuantConfig,
-                   log: Callable[[str], None] = print) -> QuantResult:
+                   cfg: QuantConfig, log: Callable[[str], None] = print,
+                   resume_dir: str | None = None) -> QuantResult:
     """Quantize every per-block linear in place (params mutated) with GPTQ,
     or with the Hessian-free RTN (cfg.nearest) / whole-weight BCQ
     (cfg.bcq) modes.
 
-    calib_ids: (nsamples, seqlen) token ids on the params' device."""
+    calib_ids: (nsamples, seqlen) token ids on the params' device. With
+    `resume_dir`, each finished layer is journaled there (_resume_save)
+    and the layers already journaled are restored and replayed to rebuild
+    the next layer's inputs, so an interrupted run restarts at the first
+    unfinished layer."""
     arch = get_arch(spec.arch)
     nsamples, T = calib_ids.shape
     dev = calib_ids.device
@@ -119,7 +127,17 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
     losses: dict[str, float] = {}
     times: dict[str, float] = {}
 
+    start = 0
+    if resume_dir is not None:
+        start = _resume_load(resume_dir, spec, params, quantizers, losses,
+                             log)
+        for i in range(start):
+            inps, _ = _layer_scan(spec, params["layers"][i], inps, positions,
+                                  mask, (), capture=False)
+
     for i, bp in enumerate(params["layers"]):
+        if i < start:
+            continue
         t_layer = time.time()
         for names in groups:
             # only the linears this layer has: an MoE layer carries router /
@@ -171,7 +189,66 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
                               capture=False)
         times[f"layer{i}"] = time.time() - t_layer
         log(f"layer {i} done in {times[f'layer{i}']:.2f}s")
+        if resume_dir is not None:
+            _resume_save(resume_dir, i, bp, quantizers, losses, arch)
     return QuantResult(quantizers=quantizers, losses=losses, times=times)
+
+
+def _resume_save(resume_dir: str, i: int, bp: dict, quantizers: dict,
+                 losses: dict, arch) -> None:
+    """Journal finished layer i as `layer_{i}.npz` (written to a .tmp file,
+    then renamed): its linears' quantized weights, its quantizers' arrays
+    and, in a JSON entry, their other fields and the losses. numpy arrays
+    only: nothing is pickled."""
+    os.makedirs(resume_dir, exist_ok=True)
+    prefix = f"{arch.hf_prefix}.{i}."
+    arrays = {f"w/{key}": bp[key]["w"].detach().cpu().numpy()
+              for key in arch.linears.values() if key in bp}
+    meta = {"quantizers": {}, "losses": {k: v for k, v in losses.items()
+                                         if k.startswith(prefix)}}
+    for name, q in quantizers.items():
+        if not name.startswith(prefix):
+            continue
+        meta["quantizers"][name] = {
+            f: v for f, v in q.items() if not isinstance(v, torch.Tensor)}
+        for f, v in q.items():
+            if isinstance(v, torch.Tensor):
+                arrays[f"q/{name}/{f}"] = v.detach().cpu().numpy()
+    arrays["meta"] = np.array(json.dumps(meta))
+    path = os.path.join(resume_dir, f"layer_{i}.npz")
+    with open(path + ".tmp", "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(path + ".tmp", path)
+
+
+def _resume_load(resume_dir: str, spec: ArchSpec, params: dict,
+                 quantizers: dict, losses: dict, log) -> int:
+    """Restore the journaled layers 0, 1, ... into params, quantizers and
+    losses; returns the first layer not journaled."""
+    i = 0
+    while os.path.exists(path := os.path.join(resume_dir,
+                                              f"layer_{i}.npz")):
+        bp = params["layers"][i]
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["meta"]))
+            for name in z.files:
+                if name.startswith("w/"):
+                    w = bp[name[2:]]["w"]
+                    bp[name[2:]]["w"] = torch.from_numpy(z[name]).to(
+                        device=w.device, dtype=w.dtype)
+            dev = params["embed"]["tokens"].device
+            for qname, q in meta["quantizers"].items():
+                q = dict(q)
+                for name in z.files:
+                    if name.startswith(f"q/{qname}/"):
+                        q[name.rsplit("/", 1)[1]] = torch.from_numpy(
+                            z[name]).to(dev)
+                quantizers[qname] = q
+        losses.update(meta["losses"])
+        i += 1
+    if i:
+        log(f"resumed: layers 0..{i - 1} already quantized")
+    return i
 
 
 def pack_model(spec: ArchSpec, params: dict, quantizers: dict,

@@ -442,6 +442,75 @@ def test_ffn_kernel_matches_plain(cuda, bits, groupsize, M, a8):
     _close(got.cpu().numpy(), want.cpu().numpy(), rtol=FUSED_RTOL)
 
 
+def _fusable_bcq(rng, bits, groupsize, K, N, parts=1):
+    ws = [dataclasses.replace(_bcq(rng, bits, groupsize, K, N), bias=None,
+                              perm=None) for _ in range(parts)]
+    return ws[0] if parts == 1 else tpack.fuse_packed(ws)
+
+
+# the BCQ branch of the three kernels: the same limits as the uniform one
+@pytest.mark.parametrize("bits,groupsize", [(2, -1), (3, 128)])
+@pytest.mark.parametrize("M", [1, 5, 32])
+@pytest.mark.parametrize("a8", [False, True])
+def test_norm_qkv_bcq_kernel_matches_plain(cuda, bits, groupsize, M, a8):
+    rng = np.random.default_rng(M * 10 + bits + 500)
+    pw = _fusable_bcq(rng, bits, groupsize, 512, 256, parts=3).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(M, 512)).astype(np.float32)).to(cuda)
+    w1 = _vec(rng, 512, cuda, base=1.0)
+    kw = dict(eps=1e-5, a8=a8, b_qkv=_vec(rng, pw.Np, cuda))
+    before = tf.norm_qkv_launches
+    got = tf.norm_qkv_fused(x, w1, pw, **kw)
+    torch.cuda.synchronize()
+    assert tf.norm_qkv_launches == before + 1
+    want = tf.norm_qkv_fused_reference(x, w1, pw, **kw)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=FUSED_RTOL)
+
+
+@pytest.mark.parametrize("bits,groupsize", [(2, -1), (3, 128)])
+@pytest.mark.parametrize("M", [1, 7, 32])
+@pytest.mark.parametrize("a8", [False, True])
+def test_attn_mlp_bcq_kernel_matches_plain(cuda, bits, groupsize, M, a8):
+    rng = np.random.default_rng(M * 10 + bits + 600)
+    H, F = 512, 1536
+    o = _fusable_bcq(rng, bits, groupsize, H, H).to(cuda)
+    gu = _fusable_bcq(rng, bits, groupsize, H, F, parts=2).to(cuda)
+    dn = _fusable_bcq(rng, bits, groupsize, F, H).to(cuda)
+    attn, xres = (torch.from_numpy(rng.normal(size=(M, H)).astype(np.float32))
+                  .to(cuda) for _ in range(2))
+    kw = dict(eps=1e-5, a8=a8, b_o=_vec(rng, H, cuda))
+    w2 = _vec(rng, H, cuda, base=1.0)
+    before = tf.attn_mlp_launches
+    got = tf.attn_mlp_fused(attn, xres, w2, o, gu, dn, **kw)
+    torch.cuda.synchronize()
+    assert tf.attn_mlp_launches == before + 1
+    want = tf.attn_mlp_fused_reference(attn, xres, w2, o, gu, dn, **kw)
+    _close(got.cpu().numpy(), want.cpu().numpy(),
+           rtol=FLIP_RTOL if a8 and M > 1 else FUSED_RTOL)
+    # the residual on its own: down's alphas zeroed, the output is r2
+    dn0 = dataclasses.replace(dn, alpha=torch.zeros_like(dn.alpha))
+    got0 = tf.attn_mlp_fused(attn, xres, w2, o, gu, dn0, **kw).cpu()
+    want0 = tf.attn_mlp_fused_reference(attn, xres, w2, o, gu, dn0, **kw).cpu()
+    bound = 2.0**-7 * want0.abs() + 1e-5 * want0.abs().max()
+    assert bool(((got0 - want0).abs() <= bound).all())
+    assert not bool((want0.abs() <= bound).all())
+
+
+@pytest.mark.parametrize("bits,groupsize", [(2, -1), (3, 128)])
+@pytest.mark.parametrize("M", [1, 32])
+@pytest.mark.parametrize("a8", [False, True])
+def test_ffn_bcq_kernel_matches_plain(cuda, bits, groupsize, M, a8):
+    rng = np.random.default_rng(M + bits + 700)
+    gu = _fusable_bcq(rng, bits, groupsize, 512, 1536, parts=2).to(cuda)
+    dn = _fusable_bcq(rng, bits, groupsize, 1536, 512).to(cuda)
+    m = torch.from_numpy(rng.normal(size=(M, 512)).astype(np.float32)).to(cuda)
+    before = tf.ffn_launches
+    got = tf.ffn_fused(m, gu, dn, act="silu", a8=a8)
+    torch.cuda.synchronize()
+    assert tf.ffn_launches == before + 1
+    want = tf.ffn_fused_reference(m, gu, dn, act="silu", a8=a8)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=FUSED_RTOL)
+
+
 def test_fused_kernels_refuse_what_they_cannot_serve(cuda):
     rng = np.random.default_rng(0)
     pw = _fusable(rng, 4, -1, 512, 256).to(cuda)
@@ -450,6 +519,10 @@ def test_fused_kernels_refuse_what_they_cannot_serve(cuda):
         tf.norm_qkv_fused(x, torch.ones(512, device=cuda), pw)
     with pytest.raises(ValueError, match="width"):
         tf.norm_qkv_fused(x[:1, :256], torch.ones(256, device=cuda), pw)
+    bcq = _fusable_bcq(rng, 3, 128, 512, 256).to(cuda)
+    short = dataclasses.replace(bcq, alpha=bcq.alpha[:, :2])  # 2 of 3 planes
+    with pytest.raises(ValueError, match="malformed"):
+        tf.norm_qkv_fused(x[:1], torch.ones(512, device=cuda), short)
 
 
 def _bank(rng, bits, groupsize, K, N, E=4):

@@ -56,9 +56,23 @@ def packed_pair(rng, K, N, bits, groupsize, perm=False, bias=False):
     return jp, tp
 
 
-def fused_pair(rng, K, N, bits, groupsize, parts=2):
+def bcq_pair(rng, K, N, bits, groupsize):
+    """The same random BCQ weight (sign planes and alphas) in both
+    packages, packed by each package's pack_bcq."""
+    g = K if groupsize <= 0 else groupsize
+    B = np.where(rng.random((N, K // g, g, bits)) < 0.5, -1.0, 1.0
+                 ).astype(np.float32)
+    alpha = (rng.random((N, K // g, bits)) * 0.02 + 0.005).astype(np.float32)
+    return (jpack.pack_bcq(jnp.asarray(B), jnp.asarray(alpha),
+                           groupsize=groupsize),
+            tpack.pack_bcq(torch.from_numpy(B), torch.from_numpy(alpha),
+                           groupsize=groupsize))
+
+
+def fused_pair(rng, K, N, bits, groupsize, parts=2, fmt="uniform"):
     """`parts` weights of one input fused along N in both packages."""
-    pairs = [packed_pair(rng, K, N, bits, groupsize) for _ in range(parts)]
+    make = bcq_pair if fmt == "bcq" else packed_pair
+    pairs = [make(rng, K, N, bits, groupsize) for _ in range(parts)]
     return (jpack.fuse_packed([j for j, _ in pairs]),
             tpack.fuse_packed([t for _, t in pairs]))
 
@@ -254,6 +268,74 @@ def test_ffn_plain_matches_jax_kernel(act, a8, bits, groupsize, monkeypatch):
 
     def port():
         return tf.ffn_fused(tm, tg, td, act=act, a8=a8).numpy()
+
+    before = _launches()
+    assert port().shape == (1, 2, H)
+    assert _launches() == before
+    _check(port, np.asarray(want), a8, monkeypatch)
+
+
+BCQ_CASES = [(2, -1, True), (3, 128, False), (3, -1, True), (2, 128, False),
+             (3, 128, True)]  # bits, groupsize, a8
+
+
+@pytest.mark.parametrize("bits,groupsize,a8", BCQ_CASES)
+def test_norm_qkv_bcq_plain_matches_jax_kernel(bits, groupsize, a8,
+                                               monkeypatch):
+    # the BCQ branch of _norm_qkv_kernel (sign planes, per-plane DMA)
+    rng = np.random.default_rng(100 + bits * 7 + a8)
+    jw, tw = fused_pair(rng, H, H, bits, groupsize, parts=3, fmt="bcq")
+    assert tw.fmt == "bcq" and tf.norm_qkv_fusable(tw)
+    assert jf.norm_qkv_fusable(jw)
+    jx, tx = _jt(_x(rng, 2, 3, H))
+    jw1, tw1 = _jt((rng.random(H) + 0.5).astype(np.float32))
+    want = jf.norm_qkv_fused(jx, jw1, jw, eps=1e-5, a8=a8, interpret=True)
+
+    def port():
+        return tf.norm_qkv_fused(tx, tw1, tw, eps=1e-5, a8=a8).numpy()
+
+    before = _launches()
+    assert port().shape == (2, 3, tw.Np)
+    assert _launches() == before
+    _check(port, np.asarray(want), a8, monkeypatch)
+
+
+@pytest.mark.parametrize("bits,groupsize,a8", BCQ_CASES)
+def test_attn_mlp_bcq_plain_matches_jax_kernel(bits, groupsize, a8,
+                                               monkeypatch):
+    rng = np.random.default_rng(200 + bits * 11 + a8)
+    jo, to = bcq_pair(rng, H, H, bits, groupsize)
+    jg, tg = fused_pair(rng, H, F, bits, groupsize, fmt="bcq")
+    jd, td = bcq_pair(rng, F, H, bits, groupsize)
+    assert jf.attn_mlp_fusable(jo, jg, jd) and tf.attn_mlp_fusable(to, tg, td)
+    ja, ta = _jt(_x(rng, 1, 4, H))
+    jr, tr = _jt(_x(rng, 1, 4, H))
+    jw2, tw2 = _jt((rng.random(H) + 0.5).astype(np.float32))
+    jbo, tbo = _jt(_x(rng, H) * 0.1)
+    want = jf.attn_mlp_fused(ja, jr, jw2, jo, jg, jd, eps=1e-5, a8=a8,
+                             b_o=jbo, interpret=True)
+
+    def port():
+        return tf.attn_mlp_fused(ta, tr, tw2, to, tg, td, eps=1e-5, a8=a8,
+                                 b_o=tbo).numpy()
+
+    before = _launches()
+    assert port().shape == (1, 4, H)
+    assert _launches() == before
+    _check(port, np.asarray(want), a8, monkeypatch)
+
+
+@pytest.mark.parametrize("bits,groupsize,a8", BCQ_CASES)
+def test_ffn_bcq_plain_matches_jax_kernel(bits, groupsize, a8, monkeypatch):
+    rng = np.random.default_rng(300 + bits * 13 + a8)
+    jg, tg = fused_pair(rng, H, F, bits, groupsize, fmt="bcq")
+    jd, td = bcq_pair(rng, F, H, bits, groupsize)
+    assert jf.ffn_fusable(jg, jd) and tf.ffn_fusable(tg, td)
+    jm, tm = _jt(_x(rng, 1, 2, H))
+    want = jf.ffn_fused(jm, jg, jd, a8=a8, interpret=True)
+
+    def port():
+        return tf.ffn_fused(tm, tg, td, a8=a8).numpy()
 
     before = _launches()
     assert port().shape == (1, 2, H)
