@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # every phase, one GPU
 
 Phases, in order (any failure exits non-zero; there is no CPU fallback):
-  1. build   - nvcc builds the eight kernel libraries from csrc/ (qmatmul,
+  1. build   - nvcc builds the nine kernel libraries from csrc/ (qmatmul,
                attention, ffn, bcq_matmul, qstream, qexpert, layer_fused,
-               attention_partial; in parallel).
+               attention_partial, qmma; in parallel) and prints each
+               kernel's ptxas line (registers, spills, shared memory).
   2. kernels - each kernel's wrapper against its plain PyTorch version on
                the card at llama-7B shapes, with stated tolerances, and
                timed beside its plain version, a one-call PyTorch
@@ -31,7 +32,12 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                a BLOOM-style G = 1 case with slopes, each timed beside its
                plain version and SDPA over the dequantized cache. The
                shared int8 quantizer on rows of exact .5 ties: the card's
-               codes equal the CPU's bit for bit.
+               codes equal the CPU's bit for bit. The tensor-core kernels
+               of #1 and #13 (csrc/qmma.cu, from 2 rows up):
+               #1 at M = 2048 over one llama-7B layer's four linears with
+               bf16, f32 and int8 (a8) x, #13 at M = 512 and 2048 the
+               same way, and the crossover rows (M 2-128: the CUDA-core
+               loop against the tensor-core kernel on one weight).
   3. quantize - GPTQ (4-bit, groupsize 128, act-order, static groups,
                true-sequential) of a 2-layer llama-7B-width model from
                seeded weights on 16 x 512 synthetic tokens, pack, a
@@ -143,6 +149,7 @@ BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
 STREAM_SRC = "gptq_tpu_torch/csrc/qstream.cu"
 MOE_SRC = "gptq_tpu_torch/csrc/qexpert.cu"
 LAYER_SRC = "gptq_tpu_torch/csrc/layer_fused.cu"
+MMA_SRC = "gptq_tpu_torch/csrc/qmma.cu"
 PARTIAL_SRC = "gptq_tpu_torch/csrc/attention_partial.cu"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
 # bf16 x times codes in another order; attention: f32 math, other order;
@@ -379,17 +386,48 @@ def qmm_checks(device, peaks, timer, report):
     weights.append(("w3g128p", packed_linear(gen, 4096, 4096, 3, 128, device,
                                              perm=True)))
     weights.append(("w8g-1", packed_linear(gen, 4096, 4096, 8, -1, device)))
+    # groups shallower than a tensor-core stage (64 K rows at a16, 128 at
+    # a8) keep csrc/qmatmul.cu's CUDA-core loop at many rows: 2-bit g16
+    # always, g64 at a8 (from a generator of their own, so the weights and
+    # inputs above stay what they were)
+    gen_s = torch.Generator(device=device)
+    gen_s.manual_seed(11)
+    weights.append(("w4g64", packed_linear(gen_s, 4096, 12288, 4, 64,
+                                           device)))
+    weights.append(("w2g16", packed_linear(gen_s, 4096, 4096, 2, 16, device)))
+
+    def want_route(tag, M, a8):
+        if M == 1:
+            return "single_row"
+        if tag == "w2g16" or (tag == "w4g64" and a8):
+            return "shallow"
+        return "mma"
+
     rows = []
     worst = 0.0
     modes = (("a16", torch.bfloat16), ("a16", torch.float32),
              ("a8", torch.float32))
     for tag, pw in weights:
-        for M in (1, 2048):
-            x32 = torch.randn((M, pw.K), generator=gen, device=device)
+        # M = 4: batched decode (the smallest row counts go to the tensor
+        # cores too)
+        for M in (1, 4, 2048):
+            g = gen_s if tag in ("w4g64", "w2g16") or M == 4 else gen
+            x32 = torch.randn((M, pw.K), generator=g, device=device)
             for act, xdt in modes:
                 a8 = act == "a8"
                 x = x32.to(xdt)
+                route = Q.qmm_route(M, pw.bits, pw.groupsize, xdt, a8=a8,
+                                    Np=pw.Np)
+                if route != want_route(tag, M, a8):
+                    raise AssertionError(f"qmm {tag} M={M} {act}: route "
+                                         f"{route}")
+                before = (Q.launches, Q.mma_launches)
                 got = Q.dequant_matmul(x, pw, a8=a8).float()
+                mma = route == "mma"
+                if (Q.launches, Q.mma_launches) != (before[0] + (not mma),
+                                                    before[1] + mma):
+                    raise AssertionError(f"qmm {tag} M={M} {act}: route "
+                                         f"{route} launched another kernel")
                 want = Q.dequant_matmul_reference(x, pw, a8=a8).float()
                 torch.cuda.synchronize()
                 diff = (got - want).abs()
@@ -402,13 +440,18 @@ def qmm_checks(device, peaks, timer, report):
                     raise AssertionError(
                         f"qmm {tag} K={pw.K} N={pw.N} M={M} {act} {xdt}: "
                         f"rel err {rel:.3g} > {tol}")
-                if xdt == torch.float32:  # bf16 outputs add their rounding
+                # bf16 outputs add their rounding; the tensor-core rows
+                # are qmm_mma's (mma_worst)
+                if xdt == torch.float32 and route != "mma":
                     worst = max(worst, err)
                 row = {"w": tag, "K": pw.K, "N": pw.N, "M": M, "a8": a8,
-                       "x": str(xdt).replace("torch.", ""),
+                       "x": str(xdt).replace("torch.", ""), "route": route,
                        "max_abs_err": err, "rel_err": rel}
-                if (tag in ("w4g-1", "w4g128p") and xdt == torch.bfloat16
-                        or (a8 and M == 1 and tag in ("w4g-1", "w4g128p"))):
+                # M = 1: bf16 and a8 (decode); M = 2048: every x type
+                # (prefill: a8; PPL eval: f32)
+                if tag in ("w4g-1", "w4g128p") and (
+                        M == 2048 or (M == 1 and (xdt == torch.bfloat16
+                                                  or a8))):
                     row.update(matmul_times(
                         pw, x, a8, peaks, timer, kernel=Q._qmm_cuda,
                         prepare=Q._prepare, wrapper=Q.dequant_matmul,
@@ -1384,37 +1427,62 @@ def close_check(what, got, want, tol, bf16_out) -> float:
 
 def bcq_checks(device, peaks, timer, report):
     """#13 against bcq_matmul_reference at llama-7B shapes: bits 2/3/4,
-    groupsize -1 and 128, M 1 and 32, a8 / bf16 / f32; timed at the decode
-    shape (3-bit g128 a8, M = 1, the four linears of one layer) and at the
-    PPL eval's M = 512."""
+    groupsize -1 and 128, M 1, 4 and 32, a8 / bf16 / f32, each call's
+    route and launch checked; timed at the decode shape (3-bit g128 a8,
+    M = 1, the four linears of one layer) and at the PPL eval's M = 512;
+    one weight the tensor-core kernel does not take (8 planes, g16) at
+    M = 512 through the CUDA-core loop."""
     import torch
 
     from gptq_tpu_torch.ops import bcq_matmul as B
 
     gen = torch.Generator(device=device)
     gen.manual_seed(4)
+    # M = 4 and the shallow weight draw from a generator of their own, so
+    # the weights and inputs of the other cases stay what they were
+    gen_s = torch.Generator(device=device)
+    gen_s.manual_seed(12)
     rows, worst, dec = [], 0.0, []
     modes = (("a8", torch.float32), ("a16", torch.bfloat16),
              ("a16", torch.float32))
+
+    def checked(what, x, pw, a8, want_route):
+        """bcq_matmul(x) within tolerance of the plain version, through
+        the kernel want_route names; returns max |got - want|."""
+        M = x.shape[0]
+        route = B.bcq_route(M, pw.bits, pw.groupsize, pw.Np)
+        if route != want_route:
+            raise AssertionError(f"{what}: route {route}")
+        before = (B.launches, B.mma_launches)
+        got = B.bcq_matmul(x, pw, a8=a8)
+        mma = route == "mma"
+        if (B.launches, B.mma_launches) != (before[0] + (not mma),
+                                            before[1] + mma):
+            raise AssertionError(f"{what}: route {route} launched another "
+                                 f"kernel")
+        return close_check(what, got, B.bcq_matmul_reference(x, pw, a8=a8),
+                           TOL["qmm_a8" if a8 else "qmm_a16"],
+                           x.dtype == torch.bfloat16)
+
     for K, N in SHAPES_7B:
         for bits in (2, 3, 4):
             for gs in (-1, 128):
                 pw = bcq_linear(gen, K, N, bits, gs, device)
-                for M in (1, 32):
-                    x32 = torch.randn((M, K), generator=gen, device=device)
+                for M in (1, 4, 32):
+                    x32 = torch.randn((M, K), generator=gen_s if M == 4
+                                      else gen, device=device)
                     for act, xdt in modes:
                         a8 = act == "a8"
                         x = x32.to(xdt)
-                        err = close_check(
+                        route = "single_row" if M == 1 else "mma"
+                        err = checked(
                             f"bcq_matmul K={K} N={N} w{bits} g{gs} M={M} "
-                            f"{act} {xdt}", B.bcq_matmul(x, pw, a8=a8),
-                            B.bcq_matmul_reference(x, pw, a8=a8),
-                            TOL["qmm_a8" if a8 else "qmm_a16"],
-                            xdt == torch.bfloat16)
-                        if xdt == torch.float32:
+                            f"{act} {xdt}", x, pw, a8, route)
+                        # the tensor-core rows are bcq_mma's (mma_worst)
+                        if xdt == torch.float32 and route != "mma":
                             worst = max(worst, err)
                         row = {"K": K, "N": N, "bits": bits, "g": gs, "M": M,
-                               "act": act, "x": str(xdt)[6:],
+                               "act": act, "x": str(xdt)[6:], "route": route,
                                "max_abs_err": err}
                         if bits == 3 and gs == 128 and M == 1 and a8:
                             row.update(matmul_times(
@@ -1426,28 +1494,97 @@ def bcq_checks(device, peaks, timer, report):
                             dec.append(row)
                         rows.append(row)
                 del pw
-        log(f"bcq_matmul K={K} N={N}: 36 cases within tolerance")
-    # the PPL eval's 512-row blocks go through the tiled kernel (bf16 x,
-    # as the torch.matmul yardstick runs)
+        log(f"bcq_matmul K={K} N={N}: 54 cases within tolerance")
+    pw = bcq_linear(gen_s, 4096, 4096, 8, 16, device)
+    x32 = torch.randn((512, 4096), generator=gen_s, device=device)
+    for act, xdt in modes:
+        a8 = act == "a8"
+        err = checked(f"bcq_matmul 4096x4096 w8 g16 M=512 {act} {xdt}",
+                      x32.to(xdt), pw, a8, "shallow")
+        if xdt == torch.float32:
+            worst = max(worst, err)
+        rows.append({"K": 4096, "N": 4096, "bits": 8, "g": 16, "M": 512,
+                     "act": act, "x": str(xdt)[6:], "route": "shallow",
+                     "max_abs_err": err})
+    log("bcq_matmul 4096x4096 w8 g16 M=512 (CUDA-core loop): 3 cases within "
+        "tolerance")
+    del pw
+    # the PPL eval's and the prefill's rows go through the tensor-core
+    # kernel: M = 512 and 2048, each x type
     pw = bcq_linear(gen, 4096, 12288, 3, 128, device)
-    x = torch.randn((512, 4096), generator=gen,
-                    device=device).to(torch.bfloat16)
-    row = {"K": 4096, "N": 12288, "bits": 3, "g": 128, "M": 512,
-           "act": "a16", "x": "bfloat16",
-           "max_abs_err": close_check("bcq_matmul M=512",
-                                      B.bcq_matmul(x, pw),
-                                      B.bcq_matmul_reference(x, pw),
-                                      TOL["qmm_a16"], True)}
-    row.update(matmul_times(pw, x, False, peaks, timer, kernel=B._bcq_cuda,
-                            prepare=B._prepare, wrapper=B.bcq_matmul,
-                            plain=B.bcq_matmul_reference, dense=B.bcq_dequant))
-    log("bcq_matmul timing " + json.dumps(row))
+    big = []
+    for M in (512, 2048):
+        x32 = torch.randn((M, 4096), generator=gen, device=device)
+        for act, xdt in modes:
+            a8 = act == "a8"
+            x = x32.to(xdt)
+            err = checked(f"bcq_matmul M={M} {act} {xdt}", x, pw, a8,
+                          "mma")
+            row = {"K": 4096, "N": 12288, "bits": 3, "g": 128, "M": M,
+                   "act": act, "x": str(xdt)[6:],
+                   "route": B.bcq_route(M, 3, 128, pw.Np),
+                   "max_abs_err": err}
+            row.update(matmul_times(
+                pw, x, a8, peaks, timer, kernel=B._bcq_cuda,
+                prepare=B._prepare, wrapper=B.bcq_matmul,
+                plain=B.bcq_matmul_reference, dense=B.bcq_dequant))
+            log("bcq_matmul timing " + json.dumps(row))
+            big.append(row)
     for r in dec:
         log("bcq_matmul timing " + json.dumps(r))
     report["bcq_rows"] = rows
     report["bcq_decode"] = dec
-    report["bcq_m512"] = row
+    report["bcq_mma"] = big
+    report["bcq_m512"] = next(r for r in big
+                              if r["M"] == 512 and r["x"] == "bfloat16")
     report["bcq_max_abs_err"] = worst
+
+
+def mma_crossover(device, peaks, timer, report):
+    """The crossover rows of #1 and #13: the CUDA-core loop against the
+    tensor-core kernel at M = 2-8 and 16-128 on one weight each
+    (4096x12288: w4 g-1, and 3-bit g128 BCQ), bf16 / f32 / a8 x, each
+    route's output held against the plain product. qmm_route and
+    bcq_route send every M >= 2 to the tensor cores on this reading."""
+    import torch
+
+    from gptq_tpu_torch.ops import bcq_matmul as B
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    weights = {"qmm": (Q, Q._qmm_cuda, Q.dequant,
+                       packed_linear(gen, 4096, 12288, 4, -1, device)),
+               "bcq": (B, B._bcq_cuda, B.bcq_dequant,
+                       bcq_linear(gen, 4096, 12288, 3, 128, device))}
+    rows = []
+    for M in (2, 3, 4, 5, 6, 7, 8, 16, 32, 64, 128):
+        x32 = torch.randn((M, 4096), generator=gen, device=device)
+        for act, xdt in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                         ("a8", torch.float32)):
+            a8 = act == "a8"
+            for name, (mod, kernel, dense, pw) in weights.items():
+                x2, _ = mod._prepare(x32.to(xdt), pw, a8)
+                want = torch.matmul(x2.float(), dense(pw))
+                row = {"kernel": name, "M": M, "x": act}
+                for route, key in (("shallow", "loop_ms"), ("mma", "mma_ms")):
+                    close_check(f"crossover {name} M={M} {act} {route}",
+                                kernel(x2, pw, route)[:, :pw.N], want,
+                                TOL["qmm_a8" if a8 else "qmm_a16"], False)
+                    row[key] = timer(lambda: kernel(x2, pw, route))
+                rows.append(row)
+                log("mma crossover " + json.dumps(row))
+    for name in weights:
+        mine = [r for r in rows if r["kernel"] == name]
+        # the smallest M from which the tensor-core kernel wins every row
+        frm = min((r["M"] for r in mine
+                   if all(q["mma_ms"] < q["loop_ms"] for q in mine
+                          if q["M"] >= r["M"])), default=None)
+        log(f"mma crossover {name}: the tensor-core kernel is faster for "
+            f"every x type at every M measured from M = {frm} (the routes "
+            f"send M >= 2 to it)")
+        report[f"mma_crossover_from_{name}"] = frm
+    report["mma_crossover"] = rows
 
 
 def matmul_times(pw, x, a8, peaks, timer, kernel, prepare, wrapper, plain,
@@ -1476,10 +1613,11 @@ def matmul_times(pw, x, a8, peaks, timer, kernel, prepare, wrapper, plain,
                                                              else 0)
     nbytes = words + grids + x_bytes + M * pw.Np * 4
     # the least work: one product with the dequantized weight, at the peak
-    # of the activations' type
+    # of the activations' type; an f32 x as its split's two bf16 passes
     ops = 2 * M * pw.Kp * pw.Np
-    kind = ("int8" if a8 else "bf16" if x.dtype == torch.bfloat16
-            else "f32")
+    kind = "int8" if a8 else "bf16"
+    if not a8 and x.dtype != torch.bfloat16:
+        ops *= 2
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = ops / peaks[kind] * 1e3
     out.update({"bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
@@ -1739,15 +1877,17 @@ def phase_quantize(device, tmp, report):
                 assert torch.equal(wa, wb), f"words differ after load {i}.{key}"
             assert torch.equal(a.perm, b.perm)
     test = synthetic_stream(spec.vocab, 4 * 512, seed=2)
-    Q.launches = 0
+    reset_counts()
     ppl_packed = eval_ppl(spec, loaded, test, 512, log=lambda s: None)
     torch.cuda.synchronize()
-    qmm_eval = Q.launches
-    assert qmm_eval == 4 * 7 * spec.n_layers, qmm_eval
+    # 512-row windows: every linear on the tensor cores
+    qmm_eval = launch_counts()["qmm_mma"]
+    expect(launch_counts(), {"qmm_mma": 4 * 7 * spec.n_layers},
+           "PPL eval of the packed model")
     ppl_dense = eval_ppl(spec, dense_twin(loaded), test, 512,
                          log=lambda s: None)
     rel = abs(ppl_packed / ppl_dense - 1.0)
-    log(f"ppl: packed {ppl_packed:.4f} (qmm kernel, {qmm_eval} launches) vs "
+    log(f"ppl: packed {ppl_packed:.4f} (qmm_mma kernel, {qmm_eval} launches) vs "
         f"dense-dequantized {ppl_dense:.4f}: rel diff {rel:.2e}")
     if not (math.isfinite(ppl_packed) and rel < 0.005):
         raise AssertionError(f"packed vs dense PPL differ by {rel:.3g}")
@@ -1798,10 +1938,11 @@ def plain_versions():
     return stack
 
 
-def greedy_check(what, eng, prompt, n_new, kernel_name, want=None) -> list:
+def greedy_check(what, eng, prompt, n_new, kernel_name, want=None,
+                 families=()) -> list:
     """Greedy tokens of kernel decoding (which must launch kernel_name, and
-    exactly the counts `want` where given) against plain decoding (which
-    must launch nothing).
+    exactly the counts `want` where given, `families` as expect() takes
+    them) against plain decoding (which must launch nothing).
 
     The tie rule: where the two decodings first part, the step passes only
     if the plain version's logits of the two tokens, taken along its
@@ -1821,7 +1962,7 @@ def greedy_check(what, eng, prompt, n_new, kernel_name, want=None) -> list:
         raise AssertionError(f"{what}: kernel decoding launched no "
                              f"{kernel_name}")
     if want is not None:
-        expect(counts, want, what)
+        expect(counts, want, what, families)
     plain = plain_generate(eng, prompt, n_new, f"{what}: plain decoding")
     log(f"{what}: greedy tokens, kernels {kern[0].tolist()} vs plain "
         f"{plain[0].tolist()}")
@@ -1947,12 +2088,13 @@ def phase_quantize_bcq(device, tmp, report):
     ppl_packed = eval_ppl(spec, loaded, test, 512, log=lambda s: None)
     torch.cuda.synchronize()
     n_eval = launch_counts()
-    expect(n_eval, {"bcq": 4 * 7 * spec.n_layers}, "BCQ PPL eval")
+    # 512-row windows: every linear on the tensor cores
+    expect(n_eval, {"bcq_mma": 4 * 7 * spec.n_layers}, "BCQ PPL eval")
     ppl_dense = eval_ppl(spec, dense_twin(loaded), test, 512,
                          log=lambda s: None)
     rel = abs(ppl_packed / ppl_dense - 1.0)
-    log(f"ppl (BCQ): packed {ppl_packed:.4f} (bcq_matmul kernel, "
-        f"{n_eval['bcq']} launches) vs dense-dequantized {ppl_dense:.4f}: "
+    log(f"ppl (BCQ): packed {ppl_packed:.4f} (bcq_mma kernel, "
+        f"{n_eval['bcq_mma']} launches) vs dense-dequantized {ppl_dense:.4f}: "
         f"rel diff {rel:.2e}")
     if not (math.isfinite(ppl_packed) and rel < 0.005):
         raise AssertionError(f"BCQ packed vs dense PPL differ by {rel:.3g}")
@@ -1999,8 +2141,9 @@ def launch_counts() -> dict:
     from gptq_tpu_torch.ops import layer_fused as LF
     from gptq_tpu_torch.ops import qmatmul as Q
 
-    return {"qmm": Q.launches, "stream": Q.stream_launches,
-            "bcq": B.launches, "attention": A.launches,
+    return {"qmm": Q.launches, "qmm_mma": Q.mma_launches,
+            "stream": Q.stream_launches, "bcq": B.launches,
+            "bcq_mma": B.mma_launches, "attention": A.launches,
             "norm_qkv": Fz.norm_qkv_launches,
             "attn_mlp": Fz.attn_mlp_launches, "ffn": Fz.ffn_launches,
             "expert": Q.expert_launches, "select": Q.select_launches,
@@ -2016,13 +2159,26 @@ def reset_counts() -> None:
     from gptq_tpu_torch.ops import qmatmul as Q
 
     Q.launches = Q.stream_launches = B.launches = A.launches = 0
+    Q.mma_launches = B.mma_launches = 0
     Fz.norm_qkv_launches = Fz.attn_mlp_launches = Fz.ffn_launches = 0
     Q.expert_launches = Q.select_launches = LF.launches = 0
     A.partial_launches = A.partial_wide_launches = 0
 
 
-def expect(counts: dict, want: dict, what: str) -> None:
-    """Every kernel's count equals `want` (a missing name: 0)."""
+# the tensor-core kernel of a family: #1's (qmm) and #13's (bcq)
+MMA_OF = {"qmm_mma": "qmm", "bcq_mma": "bcq"}
+
+
+def expect(counts: dict, want: dict, what: str, families=()) -> None:
+    """Every kernel's count equals `want` (a missing name: 0). A family
+    named in `families` ("qmm", "bcq") is counted as one, its CUDA-core
+    and tensor-core kernels summed: only where the token routing decides
+    how many rows each launch takes (MoE experts), so that the split
+    between the two cannot be known ahead."""
+    counts = dict(counts)
+    for mma, fam in MMA_OF.items():
+        if fam in families:
+            counts[fam] = counts.get(fam, 0) + counts.pop(mma, 0)
     bad = {k: (v, want.get(k, 0)) for k, v in counts.items()
            if v != want.get(k, 0)}
     if bad:
@@ -2148,7 +2304,10 @@ def phase_serve(device, tmp, card, report):
         req_s.append(time.perf_counter() - t0)
         assert toks.shape == (1, 64) and (toks >= 0).all() \
             and (toks < spec.vocab).all()
-        expect(launch_counts(), {"qmm": 4 * L + 1, "norm_qkv": (L + 1) * 64,
+        # the 64-row prefill: each layer's four linears and the head on
+        # the tensor cores; the decode steps on the fused kernels
+        expect(launch_counts(), {"qmm_mma": 4 * L + 1,
+                                 "norm_qkv": (L + 1) * 64,
                                  "attn_mlp": L * 64, "attention": L * 64},
                "requests")
     log(f"requests: 4 x (64 prompt + 64 new) in "
@@ -2193,9 +2352,10 @@ def phase_serve(device, tmp, card, report):
     eng_ffn.generate(rng.integers(0, small.vocab, size=(1, 16)), 8)
     torch.cuda.synchronize()
     ffn_counts = launch_counts()
-    # 9 forwards (a 16-row prefill, 8 steps), each 2 layers + the head
-    expect(ffn_counts, {"norm_qkv": 9 * 3, "ffn": 9 * 2, "qmm": 9 * 2,
-                        "attention": 8 * 2}, "ffn route")
+    # 9 forwards (a 16-row prefill, 8 steps), each 2 layers + the head;
+    # the o projection takes the tensor cores in the prefill, qmv after
+    expect(ffn_counts, {"norm_qkv": 9 * 3, "ffn": 9 * 2, "qmm_mma": 2,
+                        "qmm": 8 * 2, "attention": 8 * 2}, "ffn route")
     log("ffn route (2 layers, act-order o): launches " + json.dumps(ffn_counts))
     report["ffn_route_launches"] = ffn_counts
 
@@ -2217,7 +2377,7 @@ def phase_serve(device, tmp, card, report):
     with env_var("GPTQ_TPU_LAYER_FUSION", "on"):
         layer_toks = greedy_check(
             "2-layer decoding (layer route, bf16 KV)", eng2b, prompt, 16,
-            "layer", want={"qmm": 4 * 2 + 1, "layer": 2 * 16,
+            "layer", want={"qmm_mma": 4 * 2 + 1, "layer": 2 * 16,
                            "norm_qkv": 16})
     fused_toks = greedy_check("2-layer decoding (fused, bf16 KV)", eng2b,
                               prompt, 16, "attn_mlp")
@@ -2513,13 +2673,16 @@ def moe_quantize(device, tmp, report):
     torch.cuda.synchronize()
     counts = launch_counts()
     # 512-row windows: each expert's projections go through #1 (N > 32),
-    # 24 a layer, beside q, k, v and o
-    expect(counts, {"qmm": 4 * (4 + 3 * spec.n_experts)}, "MoE PPL eval")
+    # 24 a layer, beside q, k, v and o; the rows an expert gets decide
+    # which of #1's kernels it takes, so the family counts as one
+    expect(counts, {"qmm": 4 * (4 + 3 * spec.n_experts)}, "MoE PPL eval",
+           families=("qmm",))
     ppl_dense = eval_ppl(spec, moe_dense_twin(loaded), test, 512,
                          log=lambda s: None)
     rel = abs(ppl_packed / ppl_dense - 1.0)
     log(f"ppl (MoE, w4 g-1): packed {ppl_packed:.4f} ({counts['qmm']} qmm "
-        f"launches) vs dense-dequantized {ppl_dense:.4f}: rel diff "
+        f"+ {counts['qmm_mma']} qmm_mma launches) vs dense-dequantized "
+        f"{ppl_dense:.4f}: rel diff "
         f"{rel:.2e}")
     if not (math.isfinite(ppl_packed) and rel < 0.005):
         raise AssertionError(f"MoE packed vs dense PPL differ by {rel:.3g}")
@@ -2616,17 +2779,21 @@ def moe_serve(device, tmp, card, peaks, report):
     for T in (16, 32, 48):
         prompt = rng.integers(0, small.vocab, size=(1, T))
         dec = moe_decode_counts(L2, n_new)
-        if T <= 32:  # prefill through #8: 3 launches a layer
+        if T <= 32:  # prefill through #8: 3 launches a layer, o on the
+            # tensor cores
             want = {"norm_qkv": dec["norm_qkv"] + L2 + 1,
-                    "qmm": dec["qmm"] + L2, "expert": 3 * L2,
+                    "qmm": dec["qmm"], "qmm_mma": L2, "expert": 3 * L2,
                     "select": dec["select"], "attention": dec["attention"]}
+            fams = ()
         else:  # per-expert #1: 3E a layer, beside q|k|v, o and the head
+            # (the rows each expert gets pick its kernel: one family)
             want = {"norm_qkv": dec["norm_qkv"],
                     "qmm": dec["qmm"] + L2 * (2 + 3 * E) + 1,
                     "select": dec["select"], "attention": dec["attention"]}
+            fams = ("qmm",)
         toks = greedy_check(f"2-layer MoE request T={T} (f32 activations "
                             f"and cache)", eng2, prompt, n_new,
-                            "expert" if T <= 32 else "qmm", want)
+                            "expert" if T <= 32 else "qmm", want, fams)
         reqs[T] = {"launches": want, "tokens": toks}
     moe["requests"] = reqs
     del eng2, p2
@@ -2815,21 +2982,36 @@ def sp_serve(device, card, report):
     log("decode profile sp " + json.dumps(prof))
     # long context: a 1,024-token prompt through the ring prefill, then 64
     # decoded tokens over ~1,100 filled slots
-    long_ids = rng.integers(0, spec.vocab, size=(1, 1024))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = eng.prefill(torch.as_tensor(long_ids, device=device))
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("sp ring prefill: non-finite logits")
+    long_ids = torch.as_tensor(rng.integers(0, spec.vocab, size=(1, 1024)),
+                               device=device)
+    # one prefill to warm up (its wall time kept apart: it is the first at
+    # 1,024 rows), then the median of three; each launches exactly each
+    # layer's four packed linears and the head on the tensor cores
+    pre_s, pre_counts = [], None
+    for i in range(4):
+        cache = logits = None
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = eng.prefill(long_ids)
+        torch.cuda.synchronize()
+        pre_s.append(time.perf_counter() - t0)
+        pre_counts = {k: v for k, v in launch_counts().items() if v}
+        expect(pre_counts, {"qmm_mma": 4 * L + 1}, f"sp ring prefill {i}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("sp ring prefill: non-finite logits")
+    prefill_s = float(np.median(pre_s[1:]))
+    log("sp ring prefill launches (each prefill) " + json.dumps(pre_counts))
     times, cache, _ = timed_steps(eng, cache, logits.argmax(-1)[:, None], 64)
     filled = int((cache.pos >= 0).sum())
     assert cache.length == 1024 + 64 and filled == 1024 + 64
     r["long"] = {"prompt": 1024, "new_tokens": 64, "filled_slots": filled,
-                 "prefill_s": prefill_s,
+                 "prefill_s": prefill_s, "prefill_warmup_s": pre_s[0],
+                 "prefill_runs_s": pre_s[1:], "prefill_launches": pre_counts,
                  "median_ms": float(np.median(times)) * 1e3}
-    log(f"sp long context: 1,024-token ring prefill {prefill_s:.3f} s, then "
+    log(f"sp long context: 1,024-token ring prefill {prefill_s:.3f} s (median "
+        f"of {', '.join(f'{t:.4f}' for t in pre_s[1:])} s after a warm-up "
+        f"prefill of {pre_s[0]:.4f} s), then "
         f"64 tokens at {filled} filled slots: median "
         f"{r['long']['median_ms']:.3f} ms/token on {card}")
     del eng, cache, logits
@@ -3161,11 +3343,13 @@ def phase_cli(device, tmp, report):
             "w4", [hf, "c4", "--wbits", "4", "--groupsize", "128",
                    "--act-order", "--true-sequential", "--eval_pack",
                    "--quant_lm_head", "8", "--save", q4, *common],
-            lambda w: {"qmm": w * (7 * L + 1)})
+            # 2,048-row windows: every linear and the head on the tensor
+            # cores, none on the CUDA-core kernel
+            lambda w: {"qmm_mma": w * (7 * L + 1)})
         out["b3"] = cli_quantize(
             "lut b3", [hf, "c4", "--wbits", "3", "--groupsize", "128",
                        "--lut_eval", "--eval_pack", "--save", qb, *common],
-            lambda w: {"bcq": w * 7 * L})
+            lambda w: {"bcq_mma": w * 7 * L})
         for tag, path in (("w4", q4), ("b3", qb)):
             ppl = out[tag]["ppl"]["wikitext2"]
             ref = dense_ppl(spec, path, tok, device)
@@ -3219,7 +3403,7 @@ def profile_decode(eng, prompt, steps=8) -> dict:
             tok = logits.argmax(-1)[:, None]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fams = (("qmm", ("qmm_kernel", "qmv_kernel")),
+    fams = (("qmm", ("qmm_kernel", "qmv_kernel")), ("mma", ("qmma_kernel",)),
             ("select", ("qsel_kernel",)), ("expert", ("qexpert_kernel",)),
             ("bcq", ("bcq_mv_kernel", "bcq_mm_kernel")),
             ("stream", ("qstream_kernel",)),
@@ -3280,9 +3464,15 @@ def main(argv=None) -> int:
     built = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + json.dumps({k: round(v["seconds"], 1) for k, v in built.items()}))
-    for name, r in built.items():
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+    for name in _build.SOURCES:
+        # each kernel's ptxas lines (name, registers, spills, smem), from
+        # this build or the log kept beside an earlier one
+        path = _build._lib_path(name)[:-3] + ".log"
+        text = built[name]["log"] if name in built else (
+            open(path).read() if os.path.exists(path) else "")
+        for line in text.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"  {name}: {line.strip()}")
 
     report = {}
@@ -3290,7 +3480,8 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         for check in (qmm_checks, attn_checks, fused_checks,
                       fused_bcq_checks, layer_checks, bcq_checks,
-                      stream_checks, expert_checks, partial_checks):
+                      stream_checks, expert_checks, partial_checks,
+                      mma_crossover):
             t0 = time.perf_counter()
             check(device, peaks, timer, report)
             log(f"{check.__name__}: {time.perf_counter() - t0:.1f} s")
@@ -3451,6 +3642,68 @@ def main(argv=None) -> int:
                       "bound_by")},
             "shape": layer + "; 3-bit BCQ groupsize 128, a8 (m512: "
                              "4096x12288, M=512, bf16 x)"})
+        cli = report.get("cli", {})
+
+        def mma_sum(rows):
+            """One llama-7B layer's four linears at M = 2048, summed."""
+            out = {k: summed(rows, k) for k in ("ms", "wrapper_ms",
+                                                "plain_ms", "bound_ms",
+                                                "library_ms")}
+            out["bound_by"] = rows[0]["bound_by"]
+            return out
+
+        def mma_worst(rows):
+            return max(r["max_abs_err"] for r in rows
+                       if r["route"] == "mma" and r["x"] == "float32")
+
+        qr = [r for r in report["qmm_rows"] if r["M"] == 2048 and "ms" in r]
+        q = {(w, x, a8): mma_sum([r for r in qr if r["w"] == w
+                                  and r["x"] == x and r["a8"] == a8])
+             for w in ("w4g-1", "w4g128p")
+             for x, a8 in (("bfloat16", False), ("float32", False),
+                           ("float32", True))}
+        kernels.append({
+            "name": "qmm_mma", "route": "cuda", "source": MMA_SRC,
+            "replaces": "gptq_tpu/ops/qmatmul.py:156",
+            # the cli phase's PPL evals: 2,048-row windows, f32 x
+            "launches": cli.get("w4", {}).get("launches", {})
+            .get("qmm_mma", 0),
+            "max_abs_err": mma_worst(report["qmm_rows"]),
+            **q[("w4g-1", "bfloat16", False)],
+            "f32": q[("w4g-1", "float32", False)],
+            "a8": q[("w4g-1", "float32", True)],
+            "g128_actorder": {"bf16": q[("w4g128p", "bfloat16", False)],
+                              "f32": q[("w4g128p", "float32", False)],
+                              "a8": q[("w4g128p", "float32", True)]},
+            "sp_prefill_launches": report.get("sp", {}).get("long", {})
+            .get("prefill_launches", {}).get("qmm_mma", 0),
+            "shape": "one llama-7B layer's four packed linears (K x N: "
+                     "4096x12288, 4096x4096, 4096x22528, 11264x4096), w4 "
+                     "g-1, M=2048 bf16 x (f32: split into two bf16 halves; "
+                     "a8: int8 x), times summed; launches from the cli "
+                     "phase's PPL evals"})
+        bm = report["bcq_mma"]
+
+        def bcq_row(M, x, act):
+            r = next(r for r in bm if r["M"] == M and r["x"] == x
+                     and r["act"] == act)
+            return {k: r[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+
+        kernels.append({
+            "name": "bcq_mma", "route": "cuda", "source": MMA_SRC,
+            "replaces": "gptq_tpu/ops/bcq_matmul.py:70",
+            "launches": cli.get("b3", {}).get("launches", {})
+            .get("bcq_mma", 0),
+            "max_abs_err": mma_worst(bm + report["bcq_rows"]),
+            **bcq_row(512, "bfloat16", "a16"),
+            "rows": {f"M{M} {x}": bcq_row(M, "bfloat16" if x == "bf16"
+                                          else "float32",
+                                          "a8" if x == "a8" else "a16")
+                     for M in (512, 2048) for x in ("bf16", "f32", "a8")},
+            "shape": "4096x12288 3-bit BCQ g128, M=512 bf16 x (rows: M 512 "
+                     "/ 2048 at bf16, f32 and a8 x); launches from the cli "
+                     "phase's lut PPL evals"})
         if "expert_rows" in report:
             moe = report.get("moe", {})
             ex = {r["w"]: r for r in report["expert_rows"]

@@ -3,11 +3,15 @@ gptq_tpu/ops/bcq_matmul.py).
 
     y[m,n] = sum_g sum_b alpha[g,b,n] * sum_{k in g} (2*bit_b[k,n] - 1) x[m,k]
 
-`bcq_matmul` on a CUDA tensor launches the hand-written kernel in
-csrc/bcq_matmul.cu (the counterpart of the Pallas `_bcq_kernel`); on a
-CPU tensor it runs `bcq_matmul_reference`, the plain PyTorch version
-(the JAX package's `impl="xla"` path). There is no fallback from the
-kernel to the plain version on the card: a launch that fails raises.
+`bcq_matmul` on a CUDA tensor launches the hand-written kernels that
+are the counterpart of the Pallas `_bcq_kernel`, chosen by `bcq_route`
+from the row count: csrc/bcq_matmul.cu on CUDA cores for one row
+(decode), csrc/qmma.cu on the tensor cores (wgmma, sm_90a) for more
+(batched decode, prefill, PPL eval), and csrc/bcq_matmul.cu's loop for
+the weights the tensor-core kernel does not take. On a CPU tensor
+it runs `bcq_matmul_reference`, the plain PyTorch version (the JAX
+package's `impl="xla"` path). There is no fallback from a kernel to the
+plain version on the card: a launch that fails raises.
 """
 
 from __future__ import annotations
@@ -19,10 +23,34 @@ import torch
 from gptq_tpu_torch.ops import _build
 from gptq_tpu_torch.ops.pack import PackedWeight, subblock, unpack_field
 # the act-order gather, int8 activations, row scale and bias: as qmatmul
-from gptq_tpu_torch.ops.qmatmul import _X_KIND, _finish, _prepare
+from gptq_tpu_torch.ops.qmatmul import (_X_KIND, _finish, _lib as _qlib,
+                                        _mma_ready, _prepare, mma_x)
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): csrc/bcq_matmul.cu, csrc/qmma.cu's BCQ kernel
 launches = 0
+mma_launches = 0
+
+
+def bcq_route(M: int, bits: int, groupsize: int, Np: int = 128) -> str:
+    """The kernel of #13 for M rows against `bits` sign planes:
+    "single_row" (M = 1: bcq_mv_kernel where groups cover whole
+    subblocks, else the CUDA-core loop), "mma" (M >= 2: csrc/qmma.cu; the
+    grid is applied inside the dequantized weight, so groups of any
+    multiple of 8 rows that divides or is divided by the kernel's 64-row
+    stage; chip_smoke's crossover rows on an H100 find it faster than
+    the loop from M = 2 up, PERF.md), or "shallow" (M >= 2 with
+    other groups, more than 8 planes, a stage's alphas too many for
+    shared memory, or an Np its 16-byte loads cannot take: the CUDA-core
+    tiled kernel of bcq_matmul.cu). The activations' type does not
+    matter: int8 x takes the bf16 form."""
+    if M <= 1:
+        return "single_row"
+    g = groupsize if groupsize > 0 else 64
+    if (g % 8 or (g % 64 and 64 % g) or Np % 4 or not 1 <= bits <= 8
+            or (g < 64 and bits * (2 + 64 // g) > 42)):
+        return "shallow"
+    return "mma"
 
 
 def _unpack_signs(words: torch.Tensor, groupsize: int = -1) -> torch.Tensor:
@@ -59,8 +87,32 @@ def bcq_matmul_reference(x: torch.Tensor, pw: PackedWeight,
     return _finish(y, sx, pw, lead, x.dtype)
 
 
-def _bcq_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
-    """Launch csrc/bcq_matmul.cu on x2 (M, K) -> (M, Np) f32."""
+def _bcq_mma(x2: torch.Tensor, pw: PackedWeight, words: torch.Tensor,
+             alpha: torch.Tensor, ng: int) -> torch.Tensor:
+    """Launch csrc/qmma.cu's BCQ kernel on x2 (M, Kp) -> (M, Np) f32: bf16
+    x as it is, f32 x as split_bf16's halves, int8 x as bf16 (exact)."""
+    global mma_launches
+    if x2.dtype != torch.float32:
+        x2 = x2.to(torch.bfloat16)
+    xa, xb = mma_x(x2, pw.Kp, pw.groupsize, 1)
+    M = x2.shape[0]
+    out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
+    err = _qlib("qmma").bcq_mma_launch(
+        xa.data_ptr(), None if xb is None else xb.data_ptr(), M, pw.Kp,
+        _mma_ready(words).data_ptr(), pw.bits,
+        subblock(pw.Kp, pw.groupsize), _mma_ready(alpha).data_ptr(), ng,
+        out.data_ptr(), pw.Np,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(err, "bcq_mma_launch")
+    mma_launches += 1
+    return out
+
+
+def _bcq_cuda(x2: torch.Tensor, pw: PackedWeight,
+              route: str | None = None) -> torch.Tensor:
+    """Launch #13 on x2 (M, K) -> (M, Np) f32: the kernel bcq_route picks
+    (csrc/qmma.cu for "mma", csrc/bcq_matmul.cu otherwise), or the one
+    `route` names (chip_smoke's crossover rows time both)."""
     global launches
     if pw.fmt != "bcq":
         raise ValueError(f"bcq_matmul: fmt={pw.fmt!r} is not a BCQ weight")
@@ -83,6 +135,10 @@ def _bcq_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
             or not 1 <= pw.bits <= 8):
         raise ValueError(f"bcq_matmul: BCQ weight of K={pw.Kp} N={pw.Np} "
                          f"bits={pw.bits} has malformed planes or alphas")
+    if route is None:
+        route = bcq_route(M, pw.bits, pw.groupsize, pw.Np)
+    if route == "mma":
+        return _bcq_mma(x2, pw, words, alpha, ng)
     out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
     err = _lib().bcq_launch(
         x2.data_ptr(), _X_KIND[x2.dtype], M, pw.Kp, words.data_ptr(),

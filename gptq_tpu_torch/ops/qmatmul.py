@@ -4,8 +4,12 @@ dequant_matmul, and the expert-bank functions dequant_experts,
 expert_dequant_matmul, expert_dequant_matmul_select).
 
 `dequant_matmul` routes by GPTQ_TPU_MATMUL_IMPL, as in the JAX package:
-  * `pallas` (the default): on a CUDA tensor the hand-written kernel in
-    csrc/qmatmul.cu (the counterpart of the Pallas `_qmm_kernel`);
+  * `pallas` (the default): on a CUDA tensor the hand-written kernels
+    that are the counterpart of the Pallas `_qmm_kernel`, chosen by
+    `qmm_route` from the row count: csrc/qmatmul.cu on CUDA cores for one
+    row (decode), csrc/qmma.cu on the tensor cores (wgmma, sm_90a) for
+    more (batched decode, prefill, PPL eval), and csrc/qmatmul.cu's loop
+    for the weights the tensor-core kernel does not take;
   * `streamed`: single-field (2/4/8-bit) weights take csrc/qstream.cu
     (the counterpart of `_stream_kernel`), which walks K itself; a 3-bit
     weight takes the `pallas` route;
@@ -29,6 +33,7 @@ MoE layer then serves each selection through dequant_matmul).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -38,8 +43,10 @@ from gptq_tpu_torch.ops.pack import (FIELD_SPLITS, PackedExperts,
                                      PackedWeight, subblock, unpack_codes)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): csrc/qmatmul.cu, csrc/qstream.cu and csrc/qexpert.cu's two
+# them): csrc/qmatmul.cu, csrc/qmma.cu's uniform kernel, csrc/qstream.cu
+# and csrc/qexpert.cu's two
 launches = 0
+mma_launches = 0
 stream_launches = 0
 expert_launches = 0
 select_launches = 0
@@ -104,8 +111,129 @@ def dequant_matmul_reference(x: torch.Tensor, pw: PackedWeight,
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
-    """Launch csrc/qmatmul.cu on x2 (M, K) -> (M, Np) f32."""
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (f32) -> (x_hi, x_lo) in bf16: x_hi = bf16(x), x_lo = bf16(x -
+    x_hi), so |x - x_hi - x_lo| <= 2^-17 |x|. The tensor-core kernels
+    (csrc/qmma.cu) take an f32 x as these two bf16 operands, both against
+    the same exact codes: f32 accuracy at the bf16 rate (TF32 keeps 2^-11)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def group_sums(x2: torch.Tensor, ng: int) -> torch.Tensor:
+    """x2 (M, Kp) summed over each of ng equal groups of K -> (M, ng) f32
+    (int8 rows summed exactly in int32)."""
+    g = x2.reshape(x2.shape[0], ng, x2.shape[1] // ng)
+    if x2.dtype == torch.int8:
+        return g.sum(-1, dtype=torch.int32).to(torch.float32)
+    return g.sum(-1, dtype=torch.float32)
+
+
+def mma_stage_rows(dtype: torch.dtype) -> int:
+    """K rows of one stage of the tensor-core kernel: 128 bytes of x a
+    row, 128 int8 or 64 bf16 (an f32 x goes in as two bf16 halves)."""
+    return 128 if dtype == torch.int8 else 64
+
+
+@functools.lru_cache(maxsize=64)
+def _row_order(Kp: int, sb: int, fbmin: int, stage: int,
+               device: torch.device):
+    if sb <= stage:
+        return None
+    J = stage * fbmin // 32           # finest field's words a stage, a plane
+    quarter = sb * fbmin // 8         # rows a plane of a subblock
+    kt = torch.arange(Kp // stage, device=device).view(-1, 1)
+    p = torch.arange(stage, device=device).view(1, -1)
+    s, j0 = kt // (sb // stage), (kt % (sb // stage)) * J
+    e, q = p // (4 * J), p % (4 * J)
+    return (s * sb + e * quarter + 4 * j0 + q).reshape(-1)
+
+
+def mma_row_order(Kp: int, sb: int, fbmin: int, stage: int,
+                  device="cpu") -> torch.Tensor | None:
+    """The K order in which the tensor-core kernel (csrc/qmma.cu) takes x's
+    columns, or None for the natural order. A stage of `stage` K rows reads
+    every code of the words it loads: where a subblock of `sb` rows is
+    deeper than a stage, stage kt of subblock s is the word window [j0, j0
+    + J) in each of the finest field's E = 8 / fbmin sub-byte planes, so
+    its K-slot e * 4J + q is row s * sb + e * (sb * fbmin / 8) + 4 * j0 +
+    q. The wrapper gathers x's columns in this order, so the kernel loads
+    each stage of x as one contiguous box."""
+    return _row_order(Kp, sb, fbmin, stage, torch.device(device))
+
+
+def qmm_route(M: int, bits: int, groupsize: int, dtype: torch.dtype,
+              a8: bool = False, Np: int = 128) -> str:
+    """The kernel of #1 for an (M, K) x of `dtype` (int8 with a8) against
+    a uniform weight of `bits` and `groupsize` (-1: one group):
+      * "single_row": M = 1, decode: csrc/qmatmul.cu's qmm_launch, which
+        takes qmv_kernel where groups cover whole subblocks;
+      * "mma": M >= 2: the tensor-core kernel of csrc/qmma.cu. chip_smoke's
+        crossover rows (4096x12288 w4 g-1) on an H100 find it faster than
+        the CUDA-core loop from M = 2 up for bf16, f32 and int8 x
+        (PERF.md);
+      * "shallow": M >= 2, but groups shallower than an MMA stage (a
+        multiple of 64 K rows at a16, 128 at a8), or an Np that its
+        16-byte loads cannot take: the CUDA-core loop of qmatmul.cu."""
+    if M <= 1:
+        return "single_row"
+    stage = mma_stage_rows(torch.int8 if a8 else dtype)
+    if ((groupsize > 0 and groupsize % stage) or Np % 4
+            or bits not in (2, 3, 4, 8)):
+        return "shallow"
+    return "mma"
+
+
+def _mma_ready(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous on a 16-byte boundary, as the tensor-core kernels'
+    16-byte copies need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def mma_x(x2: torch.Tensor, Kp: int, groupsize: int, fbmin: int):
+    """x2 (M, Kp) in the tensor-core kernel's K order (mma_row_order), as
+    the operands it takes: (x_a, x_b), x_b the low half of a split f32 x
+    or None. A group covers whole subblocks, so the order keeps every
+    group's columns together (group_sums is the same before and after)."""
+    order = mma_row_order(Kp, subblock(Kp, groupsize), fbmin,
+                          mma_stage_rows(x2.dtype), x2.device)
+    if order is not None:
+        x2 = x2.index_select(1, order)
+    if x2.dtype == torch.float32:
+        xa, xb = split_bf16(x2)
+    else:
+        xa, xb = x2, None
+    return _mma_ready(xa), None if xb is None else _mma_ready(xb)
+
+
+def _qmm_mma(x2: torch.Tensor, pw: PackedWeight, words, scale, zoff,
+             ng: int) -> torch.Tensor:
+    """Launch csrc/qmma.cu's uniform kernel on x2 (M, Kp) f32 / bf16 /
+    int8 -> (M, Np) f32."""
+    global mma_launches
+    M = x2.shape[0]
+    xsum = group_sums(x2, ng)
+    xa, xb = mma_x(x2, pw.Kp, pw.groupsize, 1 if pw.bits == 3 else pw.bits)
+    words = [_mma_ready(w) for w in words]
+    out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
+    err = _lib("qmma").qmma_launch(
+        xa.data_ptr(), None if xb is None else xb.data_ptr(),
+        2 if xa.dtype == torch.int8 else 1, M, pw.Kp, words[0].data_ptr(),
+        words[1].data_ptr() if len(words) > 1 else None, pw.bits,
+        subblock(pw.Kp, pw.groupsize), _mma_ready(scale).data_ptr(),
+        _mma_ready(zoff).data_ptr(), xsum.data_ptr(), ng, out.data_ptr(),
+        pw.Np, torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(err, "qmma_launch")
+    mma_launches += 1
+    return out
+
+
+def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight,
+              route: str | None = None) -> torch.Tensor:
+    """Launch #1 on x2 (M, K) -> (M, Np) f32: the kernel qmm_route picks
+    (csrc/qmma.cu for "mma", csrc/qmatmul.cu otherwise), or the one
+    `route` names (chip_smoke's crossover rows time both)."""
     global launches
     if pw.fmt != "uniform":
         raise ValueError(f"dequant_matmul: fmt={pw.fmt!r} weights are served "
@@ -132,6 +260,10 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
                    for (fb, _), w in zip(fields, words))):
         raise ValueError(f"dequant_matmul: packed weight of K={pw.Kp} "
                          f"N={pw.Np} bits={pw.bits} has malformed fields")
+    if route is None:
+        route = qmm_route(M, pw.bits, pw.groupsize, x2.dtype, Np=pw.Np)
+    if route == "mma":
+        return _qmm_mma(x2, pw, words, scale, zoff, ng)
     out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
     lib = _lib()
     (fb0, sh0), w0 = fields[0], words[0]
@@ -153,6 +285,16 @@ def _lib(name="qmatmul"):
     if name == "qmatmul":
         f, types = lib.qmm_launch, [vp, i, i, i, vp, i, i, vp, i, i, i, vp,
                                     vp, i, vp, i, vp]
+    elif name == "qmma":
+        for f, types in ((lib.qmma_launch,
+                          [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, vp,
+                           i, vp]),
+                         (lib.bcq_mma_launch,
+                          [vp, vp, i, i, vp, i, i, vp, i, vp, i, vp])):
+            if f.argtypes is None:
+                f.argtypes = types
+                f.restype = ctypes.c_int
+        return lib
     elif name == "qexpert":
         for f, types in ((lib.qexpert_launch,
                           [vp, i, i, i, i, i, vp, vp, i, i, vp, vp, i, vp, i,

@@ -81,19 +81,87 @@ def _packed(rng, bits, groupsize, K, N):
         bits=bits, K=K, N=N, groupsize=groupsize)
 
 
+# the tensor cores from two rows up: the fewest, a whole 8-row MMA slab,
+# and across one 128-row output tile
+MMA_ROWS = [2, 8, 129, 300]
+
+
+def _counted(module, mma):
+    """The (CUDA-core, tensor-core) launch counts of #1 or #13 after one
+    launch of the kernel named by `mma`, from the counts now."""
+    before = (module.launches, module.mma_launches)
+    return (before[0] + (not mma), before[1] + mma)
+
+
+def _qmm_mma_expected(M, groupsize, a8):
+    """#1 takes the tensor-core kernel from two rows up where its groups
+    cover whole 128-byte stages (64 bf16 or 128 int8 K rows)."""
+    stage = 128 if a8 else 64
+    return M >= 2 and (groupsize == -1 or groupsize % stage == 0)
+
+
 @pytest.mark.parametrize("bits,groupsize", [(4, -1), (4, 128), (3, 128),
                                             (8, -1), (2, 16)])
-@pytest.mark.parametrize("M", [1, 3, 70])
+@pytest.mark.parametrize("M", [1, 3, 70] + MMA_ROWS)
 @pytest.mark.parametrize("a8", [False, True])
 def test_qmm_kernel_matches_plain(cuda, bits, groupsize, M, a8):
     rng = np.random.default_rng(M + bits)
     pw = _packed(rng, bits, groupsize, 480, 200).to(cuda)
     x = torch.from_numpy(rng.normal(size=(M, 480)).astype(np.float32)).to(cuda)
-    before = tq.launches
+    want_counts = _counted(tq, _qmm_mma_expected(M, groupsize, a8))
     got = tq.dequant_matmul(x, pw, a8=a8)
     torch.cuda.synchronize()
-    assert tq.launches == before + 1
+    assert (tq.launches, tq.mma_launches) == want_counts
     want = tq.dequant_matmul_reference(x, pw, a8=a8)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("bits,groupsize", [(4, -1), (3, 128), (8, -1)])
+def test_qmm_mma_bf16_x(cuda, bits, groupsize):
+    # bf16 x on the tensor cores: one MMA a k-step, the codes as 2^bits + c
+    rng = np.random.default_rng(300 + bits)
+    pw = _packed(rng, bits, groupsize, 1024, 384).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(300, 1024)).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    want_counts = _counted(tq, True)
+    got = tq.dequant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert (tq.launches, tq.mma_launches) == want_counts
+    want = tq.dequant_matmul_reference(x, pw)
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    bound = 2.0 ** -7 * np.abs(want) + 1e-4 * np.abs(want).max()
+    assert np.all(np.abs(got - want) <= bound)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_qmm_mma_k_past_the_last_stage(cuda, a8):
+    # K = 544 is no multiple of a stage's 64 (a16) or 128 (a8) K rows: the
+    # last stage loads zeros past Kp
+    rng = np.random.default_rng(544)
+    pw = _packed(rng, 4, -1, 544, 200).to(cuda)
+    assert pw.Kp % 64 and pw.Kp % 128
+    x = torch.from_numpy(rng.normal(size=(150, 544)).astype(np.float32)).to(
+        cuda)
+    want_counts = _counted(tq, True)
+    got = tq.dequant_matmul(x, pw, a8=a8)
+    torch.cuda.synchronize()
+    assert (tq.launches, tq.mma_launches) == want_counts
+    want = tq.dequant_matmul_reference(x, pw, a8=a8)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
+def test_qmm_mma_8bit_a8(cuda):
+    # the 8-bit field's stored code - 128 meets int8 x in the s8 MMA; the
+    # fold adds 128 * xsum back
+    rng = np.random.default_rng(8)
+    pw = _packed(rng, 8, 128, 1024, 256).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(256, 1024)).astype(np.float32)).to(
+        cuda)
+    want_counts = _counted(tq, True)
+    got = tq.dequant_matmul(x, pw, a8=True)
+    torch.cuda.synchronize()
+    assert (tq.launches, tq.mma_launches) == want_counts
+    want = tq.dequant_matmul_reference(x, pw, a8=True)
     _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
 
 
@@ -142,7 +210,7 @@ def test_int8_quantizer_ties_match_the_cpu(cuda):
 
 @pytest.mark.parametrize("bits,groupsize", [(2, -1), (3, 128), (4, 128),
                                             (3, 32), (3, 64), (2, 16)])
-@pytest.mark.parametrize("M", [1, 3, 70])
+@pytest.mark.parametrize("M", [1, 3, 70] + MMA_ROWS)
 @pytest.mark.parametrize("act", ["f32", "bf16", "a8"])
 def test_bcq_kernel_matches_plain(cuda, bits, groupsize, M, act):
     rng = np.random.default_rng(M * 7 + bits + groupsize)
@@ -151,10 +219,11 @@ def test_bcq_kernel_matches_plain(cuda, bits, groupsize, M, act):
     if act == "bf16":
         x = x.to(torch.bfloat16)
     a8 = act == "a8"
-    before = tbm.launches
+    # #13's tensor-core kernel takes every group length here
+    want_counts = _counted(tbm, M >= 2)
     got = tbm.bcq_matmul(x, pw, a8=a8)
     torch.cuda.synchronize()
-    assert tbm.launches == before + 1
+    assert (tbm.launches, tbm.mma_launches) == want_counts
     want = tbm.bcq_matmul_reference(x, pw, a8=a8)
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     if act == "bf16":
