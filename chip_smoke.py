@@ -150,6 +150,7 @@ STREAM_SRC = "gptq_tpu_torch/csrc/qstream.cu"
 MOE_SRC = "gptq_tpu_torch/csrc/qexpert.cu"
 LAYER_SRC = "gptq_tpu_torch/csrc/layer_fused.cu"
 MMA_SRC = "gptq_tpu_torch/csrc/qmma.cu"
+MOE_MMA_SRC = "gptq_tpu_torch/csrc/qexpert_mma.cu"
 PARTIAL_SRC = "gptq_tpu_torch/csrc/attention_partial.cu"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
 # bf16 x times codes in another order; attention: f32 math, other order;
@@ -1685,10 +1686,14 @@ def expert_checks(device, peaks, timer, report):
     """#8 and #9 against their plain versions at Mixtral-8x7B shapes: the
     gate / up bank (8 x 4096 -> 14336, x shared) and the down bank
     (8 x 14336 -> 4096, x per expert); #8 at M 2 / 16 / 32, f32 and bf16
-    x, 4-bit g-1 and g128, and one case each at 2, 3 and 8 bits; #9 at
-    M = 1 on each projection for expert indices held in a device tensor.
-    Timed at the path's shapes: #8 at a 16-token prefill, #9 at decode,
-    bf16 x."""
+    x, 4-bit g-1 and g128, and one case each at 2, 3 and 8 bits, on the
+    kernel expert_route picks (the tensor-core csrc/qexpert_mma.cu, or
+    csrc/qexpert.cu's CUDA-core loop for the 3-bit g128 bank, whose
+    128-row subblocks hold no stage window); #9 at M = 1 on each
+    projection for expert indices held in a device tensor. Timed at the
+    path's shapes: #8 on the 4-bit g-1 banks at M 2 / 16 / 32, bf16 and
+    f32 x, beside the CUDA-core loop on the same bank (forced), #9 at
+    decode, bf16 x."""
     import torch
 
     from gptq_tpu_torch.ops import qmatmul as Q
@@ -1714,21 +1719,30 @@ def expert_checks(device, peaks, timer, report):
                               device=device)
             for dt in dts:
                 x = x32.to(torch.bfloat16) if dt == "bf16" else x32
-                before = Q.expert_launches
+                route = Q.expert_route(M, bits, gs, x.dtype, pe.Kp, pe.Np)
+                if (route == "mma") != (tag != "down w3g128"):
+                    raise AssertionError(f"expert matmul {tag}: route "
+                                         f"{route}")
+                before = (Q.expert_launches, Q.expert_mma_launches)
                 got = Q.expert_dequant_matmul(x, pe)
-                if Q.expert_launches != before + 1:
+                mma = route == "mma"
+                if (Q.expert_launches, Q.expert_mma_launches) != (
+                        before[0] + (not mma), before[1] + mma):
                     raise AssertionError("expert_dequant_matmul did not "
-                                         "launch kernel #8")
+                                         f"launch kernel #8's {route} "
+                                         "kernel")
+                want = Q.expert_dequant_matmul_reference(x, pe)
                 err = close_check(f"expert matmul {tag} M={M} {dt}", got,
-                                  Q.expert_dequant_matmul_reference(x, pe),
-                                  tol, False)
+                                  want, tol, False)
                 worst = max(worst, err)
                 row = {"w": tag, "K": K, "N": N, "M": M, "x": dt,
-                       "per_x": per_x, "max_abs_err": err}
-                if M == 16 and dt == "bf16" and bits == 4 and gs == -1:
-                    row.update(expert_times(pe, x, peaks, timer))
+                       "per_x": per_x, "route": route, "max_abs_err": err}
+                if bits == 4 and gs == -1:
+                    row.update(expert_times(pe, x, peaks, timer,
+                                            plain=M == 16 and dt == "bf16"))
                 rows.append(row)
                 log("expert matmul " + json.dumps(row))
+                del got, want
         if tag in ("gate w4g-1", "down w4g-1", "gate w4g128"):
             banks[tag] = pe
         del pe
@@ -1764,19 +1778,24 @@ def expert_checks(device, peaks, timer, report):
     report["expert_max_abs_err"] = worst
 
 
-def expert_times(pe, x, peaks, timer) -> dict:
-    """Device times of #8 on one bank: the bare launch, the plain version
-    and torch.bmm on the dequantized bf16 bank, beside the byte bound
-    (the whole bank read once) and the operation bound at the bf16
-    tensor-core peak; `cuda_core_ms`: the operations at the f32 CUDA-core
-    peak, which bound a kernel on CUDA cores."""
+def expert_times(pe, x, peaks, timer, plain=True) -> dict:
+    """Device times of #8 on one bank: the bare launch of the kernel the
+    route picks, of the CUDA-core loop on the same bank (`loop_ms`), the
+    plain version (where `plain`) and torch.bmm on the dequantized bf16
+    bank, beside the byte bound (the whole bank read once) and the
+    operation bound at the bf16 tensor-core peak; `cuda_core_ms`: the
+    operations at the f32 CUDA-core peak, which bound a kernel on CUDA
+    cores."""
     import torch
 
     from gptq_tpu_torch.ops import qmatmul as Q
 
     E, M = pe.E, x.shape[-2]
     out = {"ms": timer(lambda: Q._expert_cuda(x, pe)),
-           "plain_ms": timer(lambda: Q.expert_dequant_matmul_reference(x, pe))}
+           "loop_ms": timer(lambda: Q._expert_cuda(x, pe, route="shallow"))}
+    if plain:
+        out["plain_ms"] = timer(
+            lambda: Q.expert_dequant_matmul_reference(x, pe))
     wd = Q.dequant_experts(pe).to(torch.bfloat16)  # (E, K, N)
     xb = x.to(torch.bfloat16)
     xe = xb if xb.dim() == 3 else xb.expand(E, M, pe.K)
@@ -2147,6 +2166,7 @@ def launch_counts() -> dict:
             "norm_qkv": Fz.norm_qkv_launches,
             "attn_mlp": Fz.attn_mlp_launches, "ffn": Fz.ffn_launches,
             "expert": Q.expert_launches, "select": Q.select_launches,
+            "expert_mma": Q.expert_mma_launches,
             "layer": LF.launches, "partial": A.partial_launches,
             "partial_wide": A.partial_wide_launches}
 
@@ -2162,6 +2182,7 @@ def reset_counts() -> None:
     Q.mma_launches = B.mma_launches = 0
     Fz.norm_qkv_launches = Fz.attn_mlp_launches = Fz.ffn_launches = 0
     Q.expert_launches = Q.select_launches = LF.launches = 0
+    Q.expert_mma_launches = 0
     A.partial_launches = A.partial_wide_launches = 0
 
 
@@ -2779,10 +2800,11 @@ def moe_serve(device, tmp, card, peaks, report):
     for T in (16, 32, 48):
         prompt = rng.integers(0, small.vocab, size=(1, T))
         dec = moe_decode_counts(L2, n_new)
-        if T <= 32:  # prefill through #8: 3 launches a layer, o on the
-            # tensor cores
+        if T <= 32:  # prefill through #8 on the tensor cores: 3 launches
+            # a layer, o on the tensor cores too
             want = {"norm_qkv": dec["norm_qkv"] + L2 + 1,
-                    "qmm": dec["qmm"], "qmm_mma": L2, "expert": 3 * L2,
+                    "qmm": dec["qmm"], "qmm_mma": L2,
+                    "expert_mma": 3 * L2,
                     "select": dec["select"], "attention": dec["attention"]}
             fams = ()
         else:  # per-expert #1: 3E a layer, beside q|k|v, o and the head
@@ -2793,10 +2815,32 @@ def moe_serve(device, tmp, card, peaks, report):
             fams = ("qmm",)
         toks = greedy_check(f"2-layer MoE request T={T} (f32 activations "
                             f"and cache)", eng2, prompt, n_new,
-                            "expert" if T <= 32 else "qmm", want, fams)
+                            "expert_mma" if T <= 32 else "qmm", want,
+                            fams)
         reqs[T] = {"launches": want, "tokens": toks}
+    # the CUDA-core #8 on the banks expert_route sends to it: 3-bit g128
+    # experts, whose 128-row subblocks hold no stage window
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    h, f = small.hidden, small.ffn
+    p3 = {**p2, "layers": [
+        {**lp, "experts": {n: packed_bank(gen, E, K, N, 3, 128, device)
+                           for n, K, N in (("gate", h, f), ("up", h, f),
+                                           ("down", f, h))}}
+        for lp in p2["layers"]]}
+    eng3 = DecodeEngine(small, p3, max_len=128, batch=1,
+                        cache_dtype=torch.float32, a8=False)
+    dec = moe_decode_counts(L2, n_new)
+    want = {"norm_qkv": dec["norm_qkv"] + L2 + 1, "qmm": dec["qmm"],
+            "qmm_mma": L2, "expert": 3 * L2, "select": dec["select"],
+            "attention": dec["attention"]}
+    toks = greedy_check("2-layer MoE request T=16, 3-bit g128 experts (the "
+                        "CUDA-core #8)", eng3,
+                        rng.integers(0, small.vocab, size=(1, 16)), n_new,
+                        "expert", want)
+    reqs["16 w3g128"] = {"launches": want, "tokens": toks}
     moe["requests"] = reqs
-    del eng2, p2
+    del eng2, eng3, p2, p3
 
     # one layer's decode FFN under the sync debug mode: the routing and the
     # expert index never reach the host
@@ -2846,7 +2890,13 @@ def moe_serve(device, tmp, card, peaks, report):
         0, spec.vocab, size=(1, 16)))
     if prof["device_ms"] > 0:
         prof["device_busy_share"] = prof["device_ms"] / r32["median_ms"]
+    # the MoE layer's routing glue: the kernels of no family, a layer
+    prof["other_kernels_per_layer"] = (prof["device_events_per_step"]["other"]
+                                       / spec.n_layers)
     r32["profile"] = prof
+    r32["prefill"] = moe_prefill_times(eng, spec, device)
+    log("moe prefill (32 layers, Mixtral-8x7B width, w4a8, B=1; #8 on the "
+        "tensor cores) " + json.dumps(r32["prefill"]))
     log(f"decode moe (32 layers, Mixtral-8x7B width, w4a8 + w8 head + int8 "
         f"KV, B=1, in-process benchmark_decode): median "
         f"{r32['median_ms']:.3f} ms/token, {r32['tokens_per_s']:.2f} tok/s "
@@ -2856,6 +2906,34 @@ def moe_serve(device, tmp, card, peaks, report):
     moe["decode32"] = r32
     del eng, fused, params
     torch.cuda.empty_cache()
+
+
+def moe_prefill_times(eng, spec, device) -> dict:
+    """Seconds of one prefill of T = 16 and 32 tokens on the engine's
+    32-layer MoE model (host clock to a synchronize; the median of 3 after
+    a warm-up), with one prefill's launches: each layer's experts take #8
+    on the tensor cores, 3 launches a layer."""
+    import torch
+
+    out = {}
+    for T in (16, 32):
+        ids = torch.as_tensor(np.random.default_rng(17 + T).integers(
+            0, spec.vocab, size=(1, T)), device=device)
+        eng.prefill(ids)
+        torch.cuda.synchronize()
+        reset_counts()
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.prefill(ids)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        per = {k: v // 3 for k, v in launch_counts().items() if v}
+        if per.get("expert_mma") != 3 * spec.n_layers or "expert" in per:
+            raise AssertionError(f"MoE prefill T={T}: launches {per}")
+        out[T] = {"median_s": sorted(runs)[1], "runs_s": runs,
+                  "launches": per}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3405,10 +3483,11 @@ def profile_decode(eng, prompt, steps=8) -> dict:
         wall = time.perf_counter() - t0
     fams = (("qmm", ("qmm_kernel", "qmv_kernel")), ("mma", ("qmma_kernel",)),
             ("select", ("qsel_kernel",)), ("expert", ("qexpert_kernel",)),
+            ("expert_mma", ("qexpert_mma_kernel", "xprep_kernel")),
             ("bcq", ("bcq_mv_kernel", "bcq_mm_kernel")),
             ("stream", ("qstream_kernel",)),
             ("attention", ("attn_partial", "attn_combine")),
-            ("partial", ("attnp_split", "attnp_combine")),
+            ("partial", ("attnp_tile",)),
             ("norm_qkv", ("norm_qkv_kernel",)), ("mlp", ("mlp_kernel",)),
             ("layer", ("layer_kernel",)))
     ms = {f: 0.0 for f, _ in fams}
@@ -3706,8 +3785,10 @@ def main(argv=None) -> int:
                      "phase's lut PPL evals"})
         if "expert_rows" in report:
             moe = report.get("moe", {})
-            ex = {r["w"]: r for r in report["expert_rows"]
-                  if "ms" in r and "e" not in r}
+            ex_all = [r for r in report["expert_rows"]
+                      if "ms" in r and "e" not in r]
+            ex = {r["w"]: r for r in ex_all
+                  if r["M"] == 16 and r["x"] == "bf16"}
             se = {r["w"]: r for r in report["expert_rows"]
                   if "ms" in r and "e" in r}
             # one layer's 16-token prefill: gate and up share x (the gate
@@ -3715,20 +3796,43 @@ def main(argv=None) -> int:
             pre = [ex["gate w4g-1"], ex["gate w4g-1"], ex["down w4g-1"]]
             # one layer's decode: top-2 x (gate, up, down)
             dec = [se["gate w4g-1"], se["up w4g-1"], se["down w4g-1"]] * 2
+            reqs = moe.get("requests", {})
             kernels.append({
-                "name": "expert_matmul", "route": "cuda", "source": MOE_SRC,
+                "name": "expert_matmul_mma", "route": "cuda",
+                "source": MOE_MMA_SRC,
                 "replaces": "gptq_tpu/ops/qmatmul.py:177",
-                "launches": sum(r["launches"].get("expert", 0) for r in
-                                moe.get("requests", {}).values()),
+                "launches": sum(r["launches"].get("expert_mma", 0)
+                                for r in reqs.values()),
                 "max_abs_err": report["expert_max_abs_err"],
                 "ms": summed(pre, "ms"), "plain_ms": summed(pre, "plain_ms"),
                 "bound_ms": summed(pre, "bound_ms"), "bound_by": "bytes",
                 "library_ms": summed(pre, "library_ms"),
                 "cuda_core_ms": summed(pre, "cuda_core_ms"),
+                "rows": {f"M{r['M']} {r['x']} {r['w'][:4]}":
+                         {k: r[k] for k in ("ms", "loop_ms", "library_ms",
+                                            "bound_ms", "cuda_core_ms")}
+                         for r in ex_all},
                 "shape": "one Mixtral-8x7B layer's three banks at a 16-token "
                          "prefill (8 x 4096x14336 gate / up, x shared; 8 x "
                          "14336x4096 down, x per expert), 4-bit g-1, bf16 x, "
-                         "times summed; launches from the 2-layer requests"})
+                         "times summed (rows: each bank at M 2 / 16 / 32, "
+                         "bf16 and f32 x); launches from the 2-layer "
+                         "requests at T = 16 / 32"})
+            kernels.append({
+                "name": "expert_matmul", "route": "cuda", "source": MOE_SRC,
+                "replaces": "gptq_tpu/ops/qmatmul.py:177",
+                "launches": sum(r["launches"].get("expert", 0)
+                                for r in reqs.values()),
+                "max_abs_err": report["expert_max_abs_err"],
+                "ms": summed(pre, "loop_ms"),
+                "plain_ms": summed(pre, "plain_ms"),
+                "bound_ms": summed(pre, "bound_ms"), "bound_by": "bytes",
+                "library_ms": summed(pre, "library_ms"),
+                "cuda_core_ms": summed(pre, "cuda_core_ms"),
+                "shape": "the CUDA-core #8 (expert_route's \"shallow\" "
+                         "banks), timed on the same three 4-bit g-1 banks "
+                         "at M = 16, bf16 x, times summed; launches from "
+                         "the 2-layer request on 3-bit g128 experts"})
             kernels.append({
                 "name": "expert_select", "route": "cuda", "source": MOE_SRC,
                 "replaces": "gptq_tpu/ops/qmatmul.py:730",

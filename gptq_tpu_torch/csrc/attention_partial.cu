@@ -22,38 +22,69 @@
 // gives m = -inf, l = 0, acc = 0. The caller hands in the chosen layer of
 // a stacked cache as a base pointer (a view, no copy).
 //
-// Design: the split-and-combine of attention.cu, masked by content.
-//   * attnp_split: a block per (batch row, kv head, split of `chunk`
-//     slots). Each of its 4 warps takes whole slots, TB at a time: lane i
-//     holds dims [i*ND, i*ND + ND) of q, so a warp reads one cache row with
-//     one coalesced load. A slot with pos < 0 is neither loaded nor
-//     counted, so an empty stretch of the shard costs only its pos words.
-//     Each warp keeps its own online-softmax state for the G query heads
-//     of the kv head; the 4 states merge in shared memory into the split's
-//     (m, l, acc), written to scratch.
-//   * attnp_combine: a warp per (batch row, query head) merges the
-//     splits' states into the unnormalised (m, l, acc).
-// A state with m = -inf has weight 0 in every merge (never exp(-inf + inf)).
+// Bound on an H100: the valid slots' cache bytes over the memory rate; at
+// the shapes of sequence-parallel decode (a few MB a layer) what bounds it
+// is latency: the dependent steps from the launch to the last store.
+//
+// Design: slot-parallel scores over tiles of listed slots staged in
+// shared memory; at these sizes every step of the chain from launch to
+// the last store is a latency, so the design keeps the chain short.
+//   * a block of 8 warps (Cfg) per (batch row, kv head, group of gh
+//     of its G query heads, split); the splits of one (row, kv head, head
+//     group), at most 8, are one thread block cluster (the head groups and
+//     splits give the card its blocks: ops/attention.partial_grid). Split
+//     j takes the shard's 32-slot tiles j, j + nsplit, ... (a valid
+//     stretch spreads over the splits), 16 at a time.
+//   * the block reads those tiles' pos words (beside q, in one trip) and
+//     compacts the valid slots into a list (warp ballots, slot order): a
+//     slot with pos < 0 is neither loaded nor counted.
+//   * the listed slots' K and V rows (16-byte cp.async vectors, rows padded
+//     by 16 bytes so 8 lanes reading 8 rows hit 8 bank groups) and their
+//     scales stream through a ring of compute tiles (32-128 slots: Cfg),
+//     each issued a ring's depth ahead; one block barrier a tile.
+//   * warp w owns head w % gp (gh rounded up to a power of two) and one
+//     of warps / gp runs of each tile's slots, with its own online softmax
+//     state: lanes score whole slots (or 2-32 lanes a slot, dims split,
+//     where its run is short) against q in shared memory, so no score
+//     needs a reduction across the warp; one max and one sum a tile (two
+//     warp reductions); then P.V with lane l owning dims l * hd / 32 ..
+//   * the runs' states merge in shared memory into the split's, and the
+//     cluster's rank 0 merges the splits' states (read from the other
+//     blocks' shared memory, in split order) into the outputs: one
+//     launch, no global round trip, the same result whichever block ends
+//     last. A state with m = -inf weighs 0.
 // hd (64, 128 or 256) is a template constant; G <= 8 is a runtime value.
-// Bound on an H100: the valid slots' cache bytes over the memory rate.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "cache_row.cuh"
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAXG = 8;  // query heads per kv head
+constexpr int MAXG = 8;      // query heads per kv head
+constexpr int TS = 32;       // slots of a shard tile (a warp's ballot)
+constexpr int MAXA = 16;     // shard tiles a batch lists
+constexpr int MAXV = MAXA * TS;
+constexpr int MAXNS = 8;     // ring depth
+constexpr int MAXSPLIT = 8;  // splits: a portable cluster
+constexpr int SMEM_LIMIT = 232448;  // a block's shared memory
 constexpr unsigned FULL = 0xffffffffu;
+
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -62,231 +93,462 @@ __device__ __forceinline__ float rescale(float m, float M) {
   return M == -INFINITY ? 0.f : __expf(m - M);
 }
 
-template <typename CT, int ND>  // ND = hd / 32 dims per lane
-__global__ void __launch_bounds__(THREADS)
-attnp_split(const float* __restrict__ q, const CT* __restrict__ kc,
-            const CT* __restrict__ vc, const float* __restrict__ ksc,
-            const float* __restrict__ vsc, const int* __restrict__ pos,
-            const float* __restrict__ slopes, int S, int H, int Hkv,
-            int chunk, float sm_scale, float* __restrict__ pml,
-            float* __restrict__ pacc) {
-  constexpr int hd = ND * 32;
-  constexpr int TB = 32 / ND;  // slots a warp loads per round
-  __shared__ float s_m[WARPS][MAXG], s_l[WARPS][MAXG];
-  __shared__ float s_acc[WARPS][MAXG][hd];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n (< MAXNS) of this thread's groups are pending
+__device__ __forceinline__ void cp_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+  }
+}
 
-  const int bh = blockIdx.x;  // b * Hkv + h
+// a 32-bit word of a staged row as floats: 4 int8, 2 bf16 or 1 f32
+__device__ __forceinline__ void widen(uint32_t w, float* f, int8_t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = (float)((int)(w << (24 - 8 * j)) >> 24);
+}
+__device__ __forceinline__ void widen(uint32_t w, float* f, __nv_bfloat16) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xFFFF0000u);
+}
+__device__ __forceinline__ void widen(uint32_t w, float* f, float) {
+  f[0] = __uint_as_float(w);
+}
+
+// 4 (2) consecutive elements of a staged row as floats
+template <typename CT>
+__device__ __forceinline__ float4 load4(const unsigned char* p) {
+  float f[4];
+  if constexpr (sizeof(CT) == 1) {
+    widen(*reinterpret_cast<const uint32_t*>(p), f, CT());
+  } else if constexpr (sizeof(CT) == 2) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    widen(w.x, f, CT());
+    widen(w.y, f + 2, CT());
+  } else {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  return make_float4(f[0], f[1], f[2], f[3]);
+}
+template <typename CT>
+__device__ __forceinline__ float2 load2(const unsigned char* p) {
+  if constexpr (sizeof(CT) == 1) {
+    const uint32_t w = *reinterpret_cast<const uint16_t*>(p);
+    return make_float2((float)(int8_t)(w & 0xFF), (float)(int8_t)(w >> 8));
+  } else if constexpr (sizeof(CT) == 2) {
+    float f[2];
+    widen(*reinterpret_cast<const uint32_t*>(p), f, CT());
+    return make_float2(f[0], f[1]);
+  } else {
+    return *reinterpret_cast<const float2*>(p);
+  }
+}
+
+// part `part` of the dot of q (f32, shared memory) and a staged row of hd
+// elements split over `parts` lanes: the row's 16-byte vectors part, part
+// + parts, ... (interleaved, so the lanes of a slot read neighbouring
+// vectors: no bank conflict)
+template <typename CT>
+__device__ __forceinline__ float row_dot(const float* q,
+                                         const unsigned char* row, int hd,
+                                         int part, int parts) {
+  constexpr int PW = 4 / sizeof(CT);  // elements a word
+  constexpr int PV = 4 * PW;          // elements a 16-byte vector
+  float d0 = 0.f, d1 = 0.f;
+  for (int i = part * PV; i < hd; i += parts * PV) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + i * sizeof(CT));
+    float e[PV];
+    widen(raw.x, e, CT());
+    widen(raw.y, e + PW, CT());
+    widen(raw.z, e + 2 * PW, CT());
+    widen(raw.w, e + 3 * PW, CT());
+#pragma unroll
+    for (int j = 0; j < PV; j += 4) {
+      const float4 qv = *reinterpret_cast<const float4*>(q + i + j);
+      d0 += qv.x * e[j] + qv.y * e[j + 1];
+      d1 += qv.z * e[j + 2] + qv.w * e[j + 3];
+    }
+  }
+  return d0 + d1;
+}
+
+// A launch's shape for a cache type and head dim: 8 warps (two blocks an
+// SM), compute tiles of N listed slots whose K and V rows fit 36 KB (32,
+// 64 or 128), a ring of tiles within 72 KB (at least two).
+template <typename CT, int HD>
+struct Cfg {
+  static constexpr int WARPS = 8, THREADS = 32 * WARPS;
+  static constexpr int RS = HD * sizeof(CT) + 16;  // a staged row's bytes
+  static constexpr int FIT = 36 * 1024 / (2 * RS);
+  static constexpr int N = FIT >= 128 ? 128 : FIT >= 64 ? 64 : 32;
+  static constexpr int BYTES = 2 * N * RS + 2 * N * 4;  // rows, scales
+  static constexpr int RING = 72 * 1024;
+};
+
+template <typename CT, int HD>
+__global__ void __launch_bounds__(Cfg<CT, HD>::THREADS)
+attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
+           const CT* __restrict__ vc, const float* __restrict__ ksc,
+           const float* __restrict__ vsc, const int* __restrict__ pos,
+           const float* __restrict__ slopes, int S, int H, int Hkv, int gh,
+           float sm_scale, int ns, float* __restrict__ m_out,
+           float* __restrict__ l_out, float* __restrict__ acc_out) {
+  using T = Cfg<CT, HD>;
+  constexpr int RS = T::RS, N = T::N, ND = HD / 32;
+  constexpr int WARPS = T::WARPS, THREADS = T::THREADS;
+  __shared__ __align__(16) float s_q[MAXG * HD];
+  __shared__ int s_idx[MAXV];
+  __shared__ float s_pos[MAXV];
+  __shared__ float s_p[WARPS][N];  // a warp's p * vs of a tile
+  __shared__ float s_wm[WARPS], s_wl[WARPS];
+  __shared__ __align__(16) float s_wacc[WARPS][HD];
+  // this split's state, which rank 0 of the cluster reads
+  __shared__ float s_m[MAXG], s_l[MAXG];
+  __shared__ __align__(16) float s_acc[MAXG * HD];
+  __shared__ float s_slope[MAXG];
+  __shared__ int s_cnt[MAXA];
+  extern __shared__ __align__(16) unsigned char ring[];
+
+  const int ngrp = H / Hkv / gh;  // head groups a kv head
+  const int bh = blockIdx.x / ngrp;  // b * Hkv + h
   const int b = bh / Hkv;
   const int h = bh - b * Hkv;
-  const int split = blockIdx.y;
-  const int G = H / Hkv;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c0 = split * chunk;
-  const int c1 = min(S, c0 + chunk);
+  const int hq0 = h * (H / Hkv) + (blockIdx.x - bh * ngrp) * gh;  // 1st head
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int G = gh;  // the block's query heads
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  float qr[MAXG][ND], acc[MAXG][ND], m[MAXG], l[MAXG], slope[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-    slope[g] = (slopes != nullptr && g < G) ? slopes[h * G + g] : 0.f;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      acc[g][i] = 0.f;
-      qr[g][i] = g < G ? q[((size_t)b * H + (size_t)h * G + g) * hd + lane * ND + i] * sm_scale
-                       : 0.f;
-    }
-  }
+  for (int i = tid; i < G * HD; i += THREADS)
+    s_q[i] = q[((size_t)b * H + hq0) * HD + i] * sm_scale;
+  if (tid < G) s_slope[tid] = slopes != nullptr ? slopes[hq0 + tid] : 0.f;
 
-  const size_t rs = (size_t)Hkv * hd;  // elements between two slots' rows
-  const CT* kb = kc + ((size_t)b * S * Hkv + h) * hd;
-  const CT* vb = vc + ((size_t)b * S * Hkv + h) * hd;
+  const size_t rs = (size_t)Hkv * HD;  // elements between two slots' rows
+  const CT* kb = kc + ((size_t)b * S * Hkv + h) * HD;
+  const CT* vb = vc + ((size_t)b * S * Hkv + h) * HD;
   const float* ksb = ksc != nullptr ? ksc + (size_t)b * S * Hkv + h : nullptr;
   const float* vsb = vsc != nullptr ? vsc + (size_t)b * S * Hkv + h : nullptr;
+  constexpr int VR = HD * sizeof(CT) / 16;  // 16-byte vectors a row
 
-  for (int t0 = c0 + warp * TB; t0 < c1; t0 += WARPS * TB) {
-    float kr[TB][ND], vr[TB][ND], kscl[TB], vscl[TB], kpos[TB];
-    bool ok[TB];
+  // warp w: head g = w % gp and the sub-th of nsub = WARPS / gp runs of each
+  // tile's slots (gp: G up to a power of two), with its own online state;
+  // lane l owns dims l * ND .. l * ND + ND - 1 of its P.V
+  const int gp = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
+  const int nsub = WARPS / gp, g = warp % gp, sub = warp / gp;
+  const bool live = g < G;
+  const float* qg = s_q + g * HD;
+  float* sp = s_p[warp];
+  float m_run = -INFINITY, l_run = 0.f, acc[ND];
 #pragma unroll
-    for (int j = 0; j < TB; ++j) {
-      const int t = t0 + j;
-      const int p = t < c1 ? pos[t] : -1;
-      ok[j] = p >= 0;
-      kpos[j] = (float)max(p, 0);
-      if (ok[j]) {
-        load_slice<CT, ND>(kb + t * rs, lane, kr[j]);
-        load_slice<CT, ND>(vb + t * rs, lane, vr[j]);
-        kscl[j] = ksb != nullptr ? ksb[(size_t)t * Hkv] : 1.f;
-        vscl[j] = vsb != nullptr ? vsb[(size_t)t * Hkv] : 1.f;
-      } else {
+  for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+
+  // the split's shard tiles, 16 a batch
+  const int nt = (S + TS - 1) / TS;
+  const int na = split < nt ? (nt - 1 - split) / nsplit + 1 : 0;
+  for (int a0 = 0; a0 < na; a0 += MAXA) {
+    // the batch's pos words, then its valid slots in slot order
+    int pv[MAXA / WARPS];
 #pragma unroll
-        for (int i = 0; i < ND; ++i) kr[j][i] = vr[j][i] = 0.f;
-        kscl[j] = vscl[j] = 0.f;
-      }
+    for (int r = 0; r < MAXA / WARPS; ++r) {
+      const int a = a0 + r * WARPS + warp;
+      const int t = (split + a * nsplit) * TS + lane;
+      pv[r] = a < na && t < S ? pos[t] : -1;
+    }
+    unsigned mask[MAXA / WARPS];
+#pragma unroll
+    for (int r = 0; r < MAXA / WARPS; ++r) {
+      mask[r] = __ballot_sync(FULL, pv[r] >= 0);
+      if (lane == 0) s_cnt[r * WARPS + warp] = __popc(mask[r]);
+    }
+    __syncthreads();  // also: the last batch's tiles are consumed
+    int nv = 0, off[MAXA / WARPS];  // list offsets of this warp's tiles
+#pragma unroll
+    for (int a = 0; a < MAXA; ++a) {
+      if (a % WARPS == warp) off[a / WARPS] = nv;
+      nv += s_cnt[a];
     }
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) break;
-      float s[TB];
+    for (int r = 0; r < MAXA / WARPS; ++r)
+      if (pv[r] >= 0) {
+        const int i = off[r] + __popc(mask[r] & ((1u << lane) - 1u));
+        s_idx[i] = (split + (a0 + r * WARPS + warp) * nsplit) * TS + lane;
+        s_pos[i] = (float)pv[r];
+      }
+    __syncthreads();
+
+    const int ntile = (nv + N - 1) / N;
+    // tile u's copies into ring slot u % ns: K rows, V rows, k / v scales
+    auto issue = [&](int u) {
+      if (u < ntile) {
+        unsigned char* st = ring + (u % ns) * T::BYTES;
+        for (int i = tid; i < 2 * N * VR; i += THREADS) {
+          const int kv = i / (N * VR), r = (i / VR) % N, v = i % VR;
+          const int li = u * N + r;
+          if (li < nv) {
+            const CT* src = (kv ? vb : kb) + (size_t)s_idx[li] * rs;
+            cp_async16(st + (kv * N + r) * RS + v * 16,
+                       reinterpret_cast<const unsigned char*>(src) + v * 16);
+          }
+        }
+        for (int i = tid; ksb != nullptr && i < 2 * N; i += THREADS) {
+          const int kv = i / N, r = i % N, li = u * N + r;
+          if (li < nv)
+            cp_async4(st + 2 * N * RS + (kv * N + r) * 4,
+                      (kv ? vsb : ksb) + (size_t)s_idx[li] * Hkv);
+        }
+      }
+      cp_commit();  // one group a tile, empty or not
+    };
+    for (int u = 0; u < ns - 1; ++u) issue(u);
+
+    for (int u = 0; u < ntile; ++u) {
+      cp_wait(ns - 2);  // tile u's group is done
+      __syncthreads();  // its copies landed; tile u - 1 is consumed
+      issue(u + ns - 1);
+      if (!live) continue;
+      const unsigned char* st = ring + (u % ns) * T::BYTES;
+      const float* sk = reinterpret_cast<const float*>(st + 2 * N * RS);
+      const int n = min(N, nv - u * N);  // valid slots of the tile
+      const int run = (n + nsub - 1) / nsub, r0 = sub * run;
+      const int mine = max(0, min(run, n - r0));  // my slots r0 .. r0 + mine
+      if (mine == 0) continue;  // warp-uniform
+      // lps lanes a slot split its 16-byte vectors (a power of two, at
+      // most the row's vectors), so a warp's lanes cover its run
+      int lps = 1;
+      while (lps < 32 && mine * lps * 2 <= 32 &&
+             32 * lps <= HD * (int)sizeof(CT))
+        lps <<= 1;
+      const int per = 32 / lps;  // slots a warp pass
+      const int part = lane % lps;
       float mx = -INFINITY;
+      float sv[N / 32];
 #pragma unroll
-      for (int j = 0; j < TB; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < ND; ++i) dot += qr[g][i] * kr[j][i];
-        dot = warp_sum(dot);
-        s[j] = ok[j] ? dot * kscl[j] + slope[g] * kpos[j] : -INFINITY;
-        mx = fmaxf(mx, s[j]);
+      for (int j = 0; j < N / 32; ++j) {
+        sv[j] = -INFINITY;
+        if (per * j >= mine) continue;  // warp-uniform
+        const int k = lane / lps + per * j;  // my k-th slot
+        float sc = 0.f;
+        if (k < mine)
+          sc = row_dot<CT>(qg, st + (r0 + k) * RS, HD, part, lps);
+        for (int o = 1; o < lps; o <<= 1) sc += __shfl_xor_sync(FULL, sc, o);
+        if (k < mine)
+          sv[j] = sc * (ksb != nullptr ? sk[r0 + k] : 1.f) +
+                  s_slope[g] * s_pos[u * N + r0 + k];
+        mx = fmaxf(mx, sv[j]);
       }
-      const float m_new = fmaxf(m[g], mx);
-      if (m_new == -INFINITY) continue;  // no valid slot yet (warp-uniform)
-      const float alpha = __expf(m[g] - m_new);  // 0 while m[g] = -inf
-      l[g] *= alpha;
+      const float m_new = fmaxf(m_run, warp_max(mx));  // finite: mine >= 1
+      const float alpha = __expf(m_run - m_new);       // 0 while m = -inf
+      float ps = 0.f;
 #pragma unroll
-      for (int i = 0; i < ND; ++i) acc[g][i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < TB; ++j) {
-        const float p = ok[j] ? __expf(s[j] - m_new) : 0.f;
-        l[g] += p;
-        const float pv = p * vscl[j];  // the v scale folds into p
-#pragma unroll
-        for (int i = 0; i < ND; ++i) acc[g][i] += pv * vr[j][i];
+      for (int j = 0; j < N / 32; ++j) {
+        if (per * j >= mine) continue;
+        const int k = lane / lps + per * j;
+        if (k < mine && part == 0) {
+          const float p = __expf(sv[j] - m_new);
+          ps += p;
+          sp[k] = p * (vsb != nullptr ? sk[N + r0 + k] : 1.f);
+        }
       }
-      m[g] = m_new;
+      l_run = l_run * alpha + warp_sum(ps);
+      m_run = m_new;
+      __syncwarp();
+      // P.V over my run: this lane's ND dims
+      float a[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) a[i] = 0.f;
+      const unsigned char* vrow =
+          st + N * RS + r0 * RS + lane * ND * sizeof(CT);
+#pragma unroll 4
+      for (int k = 0; k < mine; ++k) {
+        const float pk = sp[k];
+        const unsigned char* vr = vrow + k * RS;
+        if constexpr (ND == 2) {
+          const float2 vv = load2<CT>(vr);
+          a[0] += pk * vv.x;
+          a[1] += pk * vv.y;
+        } else {
+#pragma unroll
+          for (int i = 0; i < ND; i += 4) {
+            const float4 vv = load4<CT>(vr + i * sizeof(CT));
+            a[i] += pk * vv.x;
+            a[i + 1] += pk * vv.y;
+            a[i + 2] += pk * vv.z;
+            a[i + 3] += pk * vv.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[i] = acc[i] * alpha + a[i];
+      __syncwarp();  // sp is read before the next tile writes it
     }
   }
 
-  // merge the warps' states into this split's (m, l, acc)
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      s_m[warp][g] = m[g];
-      s_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < ND; ++i) s_acc[warp][g][lane * ND + i] = acc[g][i];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * hd; idx += THREADS) {
-    const int g = idx / hd;
-    const int d = idx - g * hd;
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, s_m[w][g]);
-    float a = 0.f, ll = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float e = rescale(s_m[w][g], M);
-      a += s_acc[w][g][d] * e;
-      ll += s_l[w][g] * e;
-    }
-    const size_t o = ((size_t)bh * gridDim.y + split) * G + g;
-    pacc[o * hd + d] = a;
-    if (d == 0) {
-      pml[2 * o] = M;
-      pml[2 * o + 1] = ll;
-    }
-  }
-}
-
-template <int ND>
-__global__ void __launch_bounds__(THREADS)
-attnp_combine(const float* __restrict__ pml, const float* __restrict__ pacc,
-              int B, int H, int Hkv, int nsplit, float* __restrict__ m_out,
-              float* __restrict__ l_out, float* __restrict__ acc_out) {
-  constexpr int hd = ND * 32;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);  // b * H + hq
-  if (row >= B * H) return;  // whole warps leave together
-  const int b = row / H;
-  const int hq = row - b * H;
-  const int G = H / Hkv;
-  const int h = hq / G;
-  const int g = hq - h * G;
-  const size_t o0 = ((size_t)b * Hkv + h) * nsplit * G + g;  // split s at o0 + s * G
-
-  float M = -INFINITY;
-  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, pml[2 * (o0 + (size_t)s * G)]);
-  float l = 0.f, a[ND];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) a[i] = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const size_t o = o0 + (size_t)s * G;
-    const float e = rescale(pml[2 * o], M);
-    l += pml[2 * o + 1] * e;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) a[i] += pacc[o * hd + lane * ND + i] * e;
-  }
+  // the runs' states of each head merge (run order) into this split's
   if (lane == 0) {
-    m_out[row] = M;
-    l_out[row] = l;
+    s_wm[warp] = live ? m_run : -INFINITY;
+    s_wl[warp] = l_run;
   }
 #pragma unroll
-  for (int i = 0; i < ND; ++i) acc_out[(size_t)row * hd + lane * ND + i] = a[i];
+  for (int i = 0; i < ND; ++i) s_wacc[warp][lane * ND + i] = acc[i];
+  __syncthreads();
+  for (int it = tid; it < G * HD; it += THREADS) {
+    const int hg = it / HD, d = it - hg * HD;
+    float M = -INFINITY;
+    for (int k = 0; k < nsub; ++k) M = fmaxf(M, s_wm[k * gp + hg]);
+    float l = 0.f, v = 0.f;
+    for (int k = 0; k < nsub; ++k) {
+      const float e = rescale(s_wm[k * gp + hg], M);
+      l += s_wl[k * gp + hg] * e;
+      v += s_wacc[k * gp + hg][d] * e;
+    }
+    s_acc[it] = v;
+    if (d == 0) {
+      s_m[hg] = M;
+      s_l[hg] = l;
+    }
+  }
+  // the splits' states merge in the cluster's rank 0 (split order)
+  cg::cluster_group cl = cg::this_cluster();
+  if (nsplit > 1) cl.sync();  // every split's state is in its smem
+  else __syncthreads();
+  if (split == 0) {
+    for (int it = tid; it < G * HD; it += THREADS) {
+      const int hg = it / HD, d = it - hg * HD;
+      float mk[MAXSPLIT], lk[MAXSPLIT], ak[MAXSPLIT];
+      float M = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < MAXSPLIT; ++k)  // all loads in flight at once
+        if (k < nsplit) {
+          mk[k] = *cl.map_shared_rank(s_m + hg, k);
+          lk[k] = *cl.map_shared_rank(s_l + hg, k);
+          ak[k] = *cl.map_shared_rank(s_acc + it, k);
+          M = fmaxf(M, mk[k]);
+        }
+      float l = 0.f, v = 0.f;
+#pragma unroll
+      for (int k = 0; k < MAXSPLIT; ++k)
+        if (k < nsplit) {
+          const float e = rescale(mk[k], M);
+          v += ak[k] * e;
+          l += lk[k] * e;
+        }
+      const size_t row = (size_t)b * H + hq0 + hg;
+      acc_out[row * HD + d] = v;
+      if (d == 0) {
+        m_out[row] = M;
+        l_out[row] = l;
+      }
+    }
+  }
+  if (nsplit > 1) cl.sync();  // rank 0 is done reading the others' smem
 }
 
-template <typename CT, int ND>
-void launch_nd(const void* q, const void* k, const void* v, const void* ks,
-               const void* vs, const void* pos, const void* slopes, int B,
-               int S, int H, int Hkv, float sm_scale, int nsplit, int chunk,
-               void* pml, void* pacc, void* m, void* l, void* acc,
-               cudaStream_t st) {
-  attnp_split<CT, ND><<<dim3(B * Hkv, nsplit), THREADS, 0, st>>>(
-      (const float*)q, (const CT*)k, (const CT*)v, (const float*)ks,
-      (const float*)vs, (const int*)pos, (const float*)slopes, S, H, Hkv,
-      chunk, sm_scale, (float*)pml, (float*)pacc);
-  attnp_combine<ND><<<(B * H + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-      (const float*)pml, (const float*)pacc, B, H, Hkv, nsplit, (float*)m,
+template <typename CT, int HD>
+int launch_hd(const void* q, const void* k, const void* v, const void* ks,
+              const void* vs, const void* pos, const void* slopes, int B,
+              int S, int H, int Hkv, int gh, float sm_scale, int nsplit,
+              void* m, void* l, void* acc, cudaStream_t st) {
+  using T = Cfg<CT, HD>;
+  auto kern = attnp_tile<CT, HD>;
+  static int room = 0;  // dynamic shared memory a block may take
+  if (room == 0) {
+    cudaFuncAttributes fa{};
+    cudaFuncGetAttributes(&fa, kern);
+    room = SMEM_LIMIT - (int)fa.sharedSizeBytes;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         room);  // a failure shows at the launch
+  }
+  // as many tiles as fit the ring, at least two
+  int ns = (T::RING < room ? T::RING : room) / T::BYTES;
+  ns = ns < 2 ? 2 : ns > MAXNS ? MAXNS : ns;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H / gh, nsplit);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = ns * T::BYTES;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = nsplit;  // the splits of one (row, kv head)
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, (const float*)q, (const CT*)k, (const CT*)v,
+      (const float*)ks, (const float*)vs, (const int*)pos,
+      (const float*)slopes, S, H, Hkv, gh, sm_scale, ns, (float*)m,
       (float*)l, (float*)acc);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename CT>
-bool launch(const void* q, const void* k, const void* v, const void* ks,
-            const void* vs, const void* pos, const void* slopes, int B, int S,
-            int H, int Hkv, int hd, float sm_scale, int nsplit, int chunk,
-            void* pml, void* pacc, void* m, void* l, void* acc,
-            cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* pos, const void* slopes, int B, int S,
+           int H, int Hkv, int gh, int hd, float sm_scale, int nsplit,
+           void* m, void* l, void* acc, cudaStream_t st) {
+  auto go = [&](auto hd_tag) {
+    constexpr int HD = decltype(hd_tag)::value;
+    return launch_hd<CT, HD>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, gh,
+                             sm_scale, nsplit, m, l, acc, st);
+  };
   switch (hd) {
-    case 64: launch_nd<CT, 2>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, sm_scale, nsplit, chunk, pml, pacc, m, l, acc, st); return true;
-    case 128: launch_nd<CT, 4>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, sm_scale, nsplit, chunk, pml, pacc, m, l, acc, st); return true;
-    case 256: launch_nd<CT, 8>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, sm_scale, nsplit, chunk, pml, pacc, m, l, acc, st); return true;
-    default: return false;
+    case 64: return go(std::integral_constant<int, 64>());
+    case 128: return go(std::integral_constant<int, 128>());
+    case 256: return go(std::integral_constant<int, 256>());
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // cache_kind: 0 = f32, 1 = bf16, 2 = int8 (k_scale / v_scale required).
-// k / v / ks / vs point at one layer's (B, S, Hkv[, hd]) planes; slopes
-// (H f32) may be null. The cache splits into nsplit runs of `chunk` slots
-// (nsplit * chunk >= S); pml (B*Hkv*nsplit*G*2 floats) and pacc
-// (B*Hkv*nsplit*G*hd floats) are the caller's scratch for the splits'
-// states. Outputs: m, l (B*H floats) and acc (B*H*hd floats).
-// Returns cudaGetLastError() after the launches.
+// k / v / ks / vs point at one layer's (B, S, Hkv[, hd]) planes, 16-byte
+// aligned rows; slopes (H f32) may be null. A block takes gh of a kv
+// head's G query heads (gh divides G); nsplit (1..8) splits of each
+// (batch row, kv head, head group) form one cluster, split j reading the
+// 32-slot shard tiles j, j + nsplit, ... Outputs: m, l (B*H floats) and
+// acc (B*H*hd floats). Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for what the kernel does not take, launching
+// nothing).
 extern "C" int attnp_launch(const void* q, const void* k, const void* v,
                             int cache_kind, const void* ks, const void* vs,
                             const void* pos, const void* slopes, int B, int S,
-                            int H, int Hkv, int hd, float sm_scale,
-                            int nsplit, int chunk, void* pml, void* pacc,
-                            void* m, void* l, void* acc, void* stream) {
+                            int H, int Hkv, int gh, int hd, float sm_scale,
+                            int nsplit, void* m, void* l, void* acc,
+                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (H % Hkv || H / Hkv > MAXG || nsplit < 1 || (long long)nsplit * chunk < S)
+  if (Hkv < 1 || H % Hkv || H / Hkv > MAXG || gh < 1 || (H / Hkv) % gh ||
+      nsplit < 1 || nsplit > MAXSPLIT || ((uintptr_t)k & 15) ||
+      ((uintptr_t)v & 15))
     return (int)cudaErrorInvalidValue;
-  bool ok;
   if (cache_kind == 0)
-    ok = launch<float>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, hd,
-                       sm_scale, nsplit, chunk, pml, pacc, m, l, acc, st);
-  else if (cache_kind == 1)
-    ok = launch<__nv_bfloat16>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, hd,
-                               sm_scale, nsplit, chunk, pml, pacc, m, l, acc,
-                               st);
-  else if (cache_kind == 2 && ks != nullptr && vs != nullptr)
-    ok = launch<int8_t>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, hd,
-                        sm_scale, nsplit, chunk, pml, pacc, m, l, acc, st);
-  else
-    ok = false;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch<float>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, gh, hd,
+                         sm_scale, nsplit, m, l, acc, st);
+  if (cache_kind == 1)
+    return launch<__nv_bfloat16>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv,
+                                 gh, hd, sm_scale, nsplit, m, l, acc, st);
+  if (cache_kind == 2 && ks != nullptr && vs != nullptr)
+    return launch<int8_t>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, gh, hd,
+                          sm_scale, nsplit, m, l, acc, st);
+  return (int)cudaErrorInvalidValue;
 }
+

@@ -76,12 +76,13 @@ def _aux(E: int, onehot: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     return E * torch.sum(onehot[:, 0].mean(dim=0) * probs.mean(dim=0))
 
 
-def route(spec, router_w: torch.Tensor, x: torch.Tensor):
+def route(spec, router_w: torch.Tensor, x: torch.Tensor, aux: bool = True):
     """(dispatch, combine, aux) for x of shape (N, D).
 
     dispatch: (N, E, C) 0/1, token n in slot c of expert e; combine: (N, E,
     C) f32, dispatch times the renormalized top-k probability, 0 for a
-    dropped assignment; aux: the load-balancing loss."""
+    dropped assignment; aux: the load-balancing loss, None unless asked
+    for (its kernels run only then)."""
     N = x.shape[0]
     E, k = spec.n_experts, spec.expert_top_k
     C = expert_capacity(spec, N)
@@ -98,19 +99,21 @@ def route(spec, router_w: torch.Tensor, x: torch.Tensor):
     dc = (kept[..., None] * slot).reshape(k, N, E, C)
     dispatch = dc.sum(dim=0)
     combine = (dc * topv.T[..., None, None]).sum(dim=0)
-    return dispatch, combine, _aux(E, onehot, probs)
+    return dispatch, combine, _aux(E, onehot, probs) if aux else None
 
 
-def route_weights(spec, router_w: torch.Tensor, x: torch.Tensor):
+def route_weights(spec, router_w: torch.Tensor, x: torch.Tensor,
+                  aux: bool = True):
     """(w, aux) for the dropless path: w (N, E) holds each token's
-    renormalized top-k probability at its selected experts, 0 elsewhere."""
+    renormalized top-k probability at its selected experts, 0 elsewhere;
+    aux as route's."""
     E, k = spec.n_experts, spec.expert_top_k
     probs = _probs(router_w, x)
     topv, topi = select_top_k(probs, k)
     topv = topv / topv.sum(dim=-1, keepdim=True)
     onehot = _one_hot(topi, E)  # (N, k, E)
     w = torch.sum(onehot * topv[..., None], dim=1)
-    return w, _aux(E, onehot, probs)
+    return w, _aux(E, onehot, probs) if aux else None
 
 
 def _f32mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -126,7 +129,8 @@ def moe_ffn(spec, p: dict, x: torch.Tensor, ep_axis=None, ep_size: int = 1,
     p: {"router": {"w": (E, D)}, "experts": {"gate": (E, F, D), "up":
     (E, F, D), "down": (E, D, F)}} dense, int8 codes with "<name>_scale"
     (E, rows) entries, or PackedExperts banks. `aux_out`, a list, collects
-    this layer's load-balancing loss."""
+    this layer's load-balancing loss; without it the loss is not computed
+    (XLA drops the unused loss from the JAX package's graph)."""
     if ep_axis is not None or ep_size != 1:
         raise NotImplementedError(
             "expert parallelism (ep_axis / ep_size) is not ported: it waits "
@@ -138,10 +142,12 @@ def moe_ffn(spec, p: dict, x: torch.Tensor, ep_axis=None, ep_size: int = 1,
     cdt = x.dtype
     act = activation if activation is not None else torch.nn.functional.silu
     dropless = expert_capacity(spec, N) >= N
+    want_aux = aux_out is not None
     if dropless:
-        w, aux = route_weights(spec, p["router"]["w"], xt)
+        w, aux = route_weights(spec, p["router"]["w"], xt, aux=want_aux)
     else:
-        dispatch, combine, aux = route(spec, p["router"]["w"], xt)
+        dispatch, combine, aux = route(spec, p["router"]["w"], xt,
+                                       aux=want_aux)
     if aux_out is not None:
         aux_out.append(aux)
 
@@ -361,7 +367,7 @@ def gptq_quantize_experts(spec, params: dict, calib_ids: torch.Tensor, cfg,
 
     def dispatched(router_w, m):
         """(E, C, D) f32 token slots of each expert for one sample."""
-        dispatch, _, _ = route(spec, router_w, m)
+        dispatch, _, _ = route(spec, router_w, m, aux=False)
         return torch.einsum("nec,nd->ecd", dispatch, m.to(torch.float32))
 
     def solve(ex, name, e, states, li, grids):

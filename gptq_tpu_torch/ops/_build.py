@@ -29,7 +29,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD = os.path.join(PKG_DIR, "build")
 SOURCES = ("qmatmul", "attention", "ffn", "bcq_matmul", "qstream", "qexpert",
-           "layer_fused", "attention_partial", "qmma")
+           "layer_fused", "attention_partial", "qmma", "qexpert_mma")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -106,6 +106,15 @@ def load(name: str) -> ctypes.CDLL:
     if not os.path.exists(path):
         build_all((name,))
     return ctypes.CDLL(path)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the wrappers size their
+    grids by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -37,7 +37,6 @@ them; that is the entries' contract, not a limit of the one kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -115,17 +114,12 @@ def _lib():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _splits(B: int, Hkv: int, S: int, device) -> tuple[int, int]:
     """(nsplit, chunk): cut the S cache slots into runs of `chunk` (a
     multiple of _TILE) so that B * Hkv * nsplit blocks give every SM about
     two, and no run is shorter than a tile."""
     tiles = -(-S // _TILE)
-    want = -(-2 * _sm_count(device) // (B * Hkv))
+    want = -(-2 * _build.sm_count(device) // (B * Hkv))
     chunk = -(-tiles // max(1, min(want, tiles))) * _TILE
     return -(-S // chunk), chunk
 
@@ -274,10 +268,34 @@ def _partial_lib():
     f = lib.attnp_launch
     if f.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp, vp, vp, i, vp, vp, vp, vp, i, i, i, i, i,
-                      ctypes.c_float, i, i, vp, vp, vp, vp, vp, vp]
+        f.argtypes = [vp, vp, vp, i, vp, vp, vp, vp, i, i, i, i, i, i,
+                      ctypes.c_float, i, vp, vp, vp, vp]
         f.restype = ctypes.c_int
     return lib
+
+
+PARTIAL_TILE = 32    # csrc/attention_partial.cu: slots of a shard tile
+PARTIAL_SPLITS = 8   # splits at most: one thread block cluster
+
+
+def partial_grid(B: int, Hkv: int, G: int, S: int, sms: int):
+    """(gh, nsplit) of the partial kernel over a shard of S slots: each
+    block takes gh of a kv head's G query heads and one of nsplit splits
+    of the shard. Splits come first, enough that the B * Hkv * nsplit
+    blocks give every SM one, at most PARTIAL_SPLITS (the splits of a
+    (batch row, kv head, head group) are one cluster, which merges their
+    states in shared memory) and no more than the shard's 32-slot tiles
+    (split j takes tiles j, j + nsplit, ...: the SP shard fills its slots
+    from the front, so striding keeps the valid ones spread). Then the
+    heads split while the blocks still number at most one an SM: shorter
+    chains for a block at the cost of rereading the same K and V rows
+    from L2."""
+    tiles = -(-S // PARTIAL_TILE)
+    nsplit = max(1, min(-(-sms // (B * Hkv)), PARTIAL_SPLITS, tiles))
+    gh = G
+    while gh % 2 == 0 and B * Hkv * (2 * G // gh) * nsplit <= sms:
+        gh //= 2
+    return gh, nsplit
 
 
 def _partial_cuda(q, k, v, pos, sm_scale, k_scale, v_scale, slopes, layer):
@@ -315,12 +333,8 @@ def _partial_cuda(q, k, v, pos, sm_scale, k_scale, v_scale, slopes, layer):
     qf = q.to(torch.float32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     sl = None if slopes is None else slopes.to(torch.float32).contiguous()
-    nsplit, chunk = _splits(B, Hkv, S, q.device)
-    G = H // Hkv
-    pml = torch.empty((B * Hkv * nsplit * G * 2,), dtype=torch.float32,
-                      device=q.device)
-    pacc = torch.empty((B * Hkv * nsplit * G * hd,), dtype=torch.float32,
-                       device=q.device)
+    gh, nsplit = partial_grid(B, Hkv, H // Hkv, S,
+                              _build.sm_count(q.device))
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
     acc = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
@@ -331,8 +345,8 @@ def _partial_cuda(q, k, v, pos, sm_scale, k_scale, v_scale, slopes, layer):
     err = _partial_lib().attnp_launch(
         qf.data_ptr(), k.data_ptr(), v.data_ptr(), _CACHE_KIND[k.dtype],
         ptr(k_scale), ptr(v_scale), pos.data_ptr(), ptr(sl), B, S, H, Hkv,
-        hd, float(sm_scale), nsplit, chunk, pml.data_ptr(), pacc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        gh, hd, float(sm_scale), nsplit, m.data_ptr(), l.data_ptr(),
+        acc.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attnp_launch")
     return m, l, acc

@@ -34,7 +34,6 @@ import torch
 
 from gptq_tpu_torch.ops import _build
 from gptq_tpu_torch.ops import ffn as _ffn
-from gptq_tpu_torch.ops.attention import _sm_count
 from gptq_tpu_torch.ops.pack import PackedWeight
 
 NEG_INF = -1e9
@@ -227,7 +226,7 @@ def _layer_cuda(x, k_cache, v_cache, length, cos, sin, w_ln1, w_ln2, qkv,
         raise ValueError(f"decode_layer_fused: rope tables of {cs.numel()} "
                          f"entries for hd={hd}")
     G = H // Hkv
-    nsplit = max(1, min(S, _sm_count(dev) // Hkv))
+    nsplit = max(1, min(S, _build.sm_count(dev) // Hkv))
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)

@@ -22,9 +22,12 @@ kernel to the plain version on the card: a launch that fails raises.
 Both compute y[m,n] = sum_k x[m,k] * (scale[g(k),n] * c[k,n] - zoff[g(k),n]).
 
 The expert-bank functions serve a PackedExperts bank (models/moe.py):
-`expert_dequant_matmul` runs every expert's matmul in one launch of
-csrc/qexpert.cu's batched kernel (#8), `expert_dequant_matmul_select` one
-selected expert's, whose index the kernel reads from device memory (#9).
+`expert_dequant_matmul` runs every expert's matmul in one launch of #8,
+`expert_dequant_matmul_select` one selected expert's, whose index the
+kernel reads from device memory (#9, csrc/qexpert.cu). #8's kernel is
+chosen by `expert_route`: csrc/qexpert_mma.cu on the tensor cores where
+the bank's subblocks hold a stage window, csrc/qexpert.cu's CUDA-core
+loop otherwise.
 A CPU tensor runs their plain versions; `xla` runs the batched plain
 version on the card too (the select has no `xla` form of its own: the
 MoE layer then serves each selection through dequant_matmul).
@@ -43,13 +46,14 @@ from gptq_tpu_torch.ops.pack import (FIELD_SPLITS, PackedExperts,
                                      PackedWeight, subblock, unpack_codes)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): csrc/qmatmul.cu, csrc/qmma.cu's uniform kernel, csrc/qstream.cu
-# and csrc/qexpert.cu's two
+# them): csrc/qmatmul.cu, csrc/qmma.cu's uniform kernel, csrc/qstream.cu,
+# csrc/qexpert.cu's two and csrc/qexpert_mma.cu
 launches = 0
 mma_launches = 0
 stream_launches = 0
 expert_launches = 0
 select_launches = 0
+expert_mma_launches = 0
 
 
 def dequant(pw: PackedWeight) -> torch.Tensor:
@@ -295,6 +299,10 @@ def _lib(name="qmatmul"):
                 f.argtypes = types
                 f.restype = ctypes.c_int
         return lib
+    elif name == "qexpert_mma":
+        f, types = lib.qexpert_mma_launch, [vp, i, vp, vp, vp, i, i, i, i, vp,
+                                            vp, i, i, vp, vp, i, i, i, vp, vp,
+                                            vp, i, vp]
     elif name == "qexpert":
         for f, types in ((lib.qexpert_launch,
                           [vp, i, i, i, i, i, vp, vp, i, i, vp, vp, i, vp, i,
@@ -475,8 +483,113 @@ def _kernel_x(x: torch.Tensor, Kp: int) -> torch.Tensor:
     return x.contiguous()
 
 
-def _expert_cuda(x: torch.Tensor, pe: PackedExperts) -> torch.Tensor:
-    """Launch #8 on x (M, K) or (E, M, K) -> (E, M, Np) f32."""
+EXPERT_BN = 128  # csrc/qexpert_mma.cu: output columns a block
+
+
+def _fbmin(bits: int) -> int:
+    """The finest field of a uniform weight (a 3-bit one's 1-bit field)."""
+    return 1 if bits == 3 else bits
+
+
+def expert_window(bits: int, sb: int) -> int:
+    """J, the word rows of the finest field that one stage of the
+    tensor-core #8 takes from each of its planes: 16, or 8 where a
+    subblock's plane holds fewer words or the weight is 3-bit (three
+    windows of words a stage, and eight planes of x)."""
+    return 16 if bits != 3 and (sb * _fbmin(bits) // 32) % 16 == 0 else 8
+
+
+def expert_route(M: int, bits: int, groupsize: int, dtype: torch.dtype,
+                 Kp: int = 4096, Np: int = 128) -> str:
+    """The kernel of #8 for M rows of x of `dtype` against a bank of
+    `bits` and `groupsize` (-1: one group) stored as Kp x Np:
+      * "mma": csrc/qexpert_mma.cu on the tensor cores, where a subblock's
+        plane of the finest field holds at least 8 word rows (a stage
+        window) and Np % 4 == 0; every x dtype alike (f32 as two bf16
+        halves, bf16, int8), as a stage is counted in words, not in x's
+        bytes;
+      * "shallow": csrc/qexpert.cu's CUDA-core kernel (2-bit groups under
+        128 rows, 3-bit groups under 256, 4-bit under 64).
+    M must lie in 1..32 (the MoE layer serves more rows per expert with
+    #1)."""
+    if not 1 <= M <= 32:
+        raise ValueError(f"#8 takes 1..32 rows, got {M}")
+    if (bits not in (2, 3, 4, 8) or Np % 4
+            or subblock(Kp, groupsize) * _fbmin(bits) < 256):
+        return "shallow"
+    return "mma"
+
+
+def expert_splits(E: int, Np: int, nk: int, sms: int) -> int:
+    """K splits of the tensor-core #8 over its nk stages: one while the
+    (column tile, expert) blocks number at least two an SM, else as many
+    as make them do (the down bank's 8 x 32 tiles), each keeping 4 stages."""
+    base = E * -(-Np // EXPERT_BN)
+    if base >= 2 * sms:
+        return 1
+    return max(1, min(-(-2 * sms // base), nk // 4))
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """n int32 zeros on `device` for the split-K tickets of
+    csrc/qexpert_mma.cu, which leaves them zero after each launch: one
+    buffer a device, kept."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def _expert_mma(x: torch.Tensor, pe: PackedExperts, words, scale, zoff,
+                ng: int, sb: int) -> torch.Tensor:
+    """Launch csrc/qexpert_mma.cu on x (M, Kp) or (E, M, Kp) -> (E, M, Np)
+    f32: its pass over x (the stage sums, an f32 x's bf16 halves), then the
+    tensor-core kernel."""
+    global expert_mma_launches
+    per_x = x.dim() == 3
+    E, M, Kp, Np = pe.E, x.shape[-2], pe.Kp, pe.Np
+    J = expert_window(pe.bits, sb)
+    nk = Kp * _fbmin(pe.bits) // (32 * J)
+    x = _mma_ready(x)
+    dev = x.device
+    hi = lo = None
+    if x.dtype == torch.float32:  # the halves of the split
+        hi = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+        lo = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+    xst = torch.empty((E if per_x else 1, nk, -(-M // 8) * 8),
+                      dtype=torch.float32, device=dev)
+    words = [_mma_ready(w) for w in words]
+    ks = expert_splits(E, Np, nk, _build.sm_count(dev))
+    ws = cnt = None
+    if ks > 1:
+        ws = torch.empty((ks, E, M, Np), dtype=torch.float32, device=dev)
+        cnt = _tickets(dev, E * -(-Np // EXPERT_BN))
+    out = torch.empty((E, M, Np), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _lib("qexpert_mma").qexpert_mma_launch(
+        x.data_ptr(), _X_KIND[x.dtype], ptr(hi), ptr(lo), xst.data_ptr(),
+        int(per_x), E, M, Kp, words[0].data_ptr(),
+        words[1].data_ptr() if len(words) > 1 else None, pe.bits, sb,
+        _mma_ready(scale).data_ptr(), _mma_ready(zoff).data_ptr(), ng, J, ks,
+        ptr(ws), ptr(cnt), out.data_ptr(), Np,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "qexpert_mma_launch")
+    expert_mma_launches += 1
+    return out
+
+
+def _expert_cuda(x: torch.Tensor, pe: PackedExperts,
+                 route: str | None = None) -> torch.Tensor:
+    """Launch #8 on x (M, K) or (E, M, K) -> (E, M, Np) f32: the kernel
+    expert_route picks (csrc/qexpert_mma.cu for "mma", csrc/qexpert.cu
+    otherwise), or the one `route` names (chip_smoke times both)."""
     global expert_launches
     what = "expert_dequant_matmul"
     per_x = x.dim() == 3
@@ -490,6 +603,10 @@ def _expert_cuda(x: torch.Tensor, pe: PackedExperts) -> torch.Tensor:
                          f"got {M}")
     x = _kernel_x(x, pe.Kp)
     words, scale, zoff, ng, sb = _check_bank(x, pe, what)
+    if route is None:
+        route = expert_route(M, pe.bits, pe.groupsize, x.dtype, pe.Kp, pe.Np)
+    if route == "mma":
+        return _expert_mma(x, pe, words, scale, zoff, ng, sb)
     out = torch.empty((E, M, pe.Np), dtype=torch.float32, device=x.device)
     err = _lib("qexpert").qexpert_launch(
         x.data_ptr(), _X_KIND[x.dtype], int(per_x), E, M, pe.Kp,

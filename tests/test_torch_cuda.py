@@ -389,6 +389,29 @@ def test_partial_attention_kernel_matches_plain(cuda, cache, Hkv, hd, wide):
         q_, k_, v_, pos_, 0.09, **kw))
 
 
+@pytest.mark.parametrize("B,S,Hkv,valid", [
+    (1, 2048, 32, 1100),   # llama-7B: 5 splits of <= 13 tiles
+    (1, 8192, 8, 5000),    # 16 tiles a split
+    (5, 300, 32, 300),     # 160 blocks: one split, no combine
+])
+def test_partial_attention_kernel_split_sizes(cuda, B, S, Hkv, valid):
+    """The partial kernel over the grids partial_grid gives: many
+    tiles a split, the most a split takes, and a single split."""
+    rng = np.random.default_rng(S + B)
+    H, hd = 32, 128
+    k, v, ks, vs = _cache(rng, (B,), S, Hkv, hd, True)
+    pos = np.full(S, -1, np.int32)
+    pos[:valid] = np.arange(valid)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.normal(size=(B, H, hd)).astype(np.float32), k, v, pos)]
+    kw = dict(k_scale=torch.from_numpy(ks).to(cuda),
+              v_scale=torch.from_numpy(vs).to(cuda))
+    got = ta.decode_attention_partial_wide(*args, 0.09, **kw)
+    torch.cuda.synchronize()
+    _partial_check(got, ta.decode_attention_partial_wide_reference(
+        *args, 0.09, **kw))
+
+
 def test_partial_attention_kernel_empty_shard(cuda):
     """A shard with no valid slot: m = -inf, l = 0, acc = 0."""
     rng = np.random.default_rng(3)
@@ -622,13 +645,45 @@ def test_expert_kernel_matches_plain(cuda, bits, groupsize, M, per_x, act):
     K = 480 if groupsize < 0 else 512  # 480: stored padded to 512
     pe = _bank(rng, bits, groupsize, K, 200).to(cuda)
     x = _acts(rng, (4, M, K) if per_x else (M, K), act, cuda)
-    before = tq.expert_launches
+    mma = tq.expert_route(M, bits, groupsize, x.dtype, pe.Kp, pe.Np) == "mma"
+    assert mma == (bits != 3)  # 3-bit g128: 128-row subblocks, "shallow"
+    before = (tq.expert_launches, tq.expert_mma_launches)
     got = tq.expert_dequant_matmul(x, pe)
     torch.cuda.synchronize()
-    assert tq.expert_launches == before + 1
+    assert (tq.expert_launches, tq.expert_mma_launches) == (
+        before[0] + (not mma), before[1] + mma)
     assert got.shape == (4, M, 200) and got.dtype == torch.float32
     want = tq.expert_dequant_matmul_reference(x, pe)
     _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("bits,groupsize,K,N", [(4, -1, 2048, 512),
+                                                (4, 128, 2048, 512),
+                                                (3, -1, 2048, 256),
+                                                (8, 64, 1024, 256)])
+@pytest.mark.parametrize("M", [2, 16, 32])
+@pytest.mark.parametrize("act", ["f32", "bf16", "int8"])
+def test_expert_kernels_both_routes_and_k_splits(cuda, bits, groupsize, K, N,
+                                                 M, act):
+    """The tensor-core #8 and the CUDA-core one on the same banks, per
+    expert x (the down bank's form): few column tiles, so the tensor-core
+    kernel splits K (ops/qmatmul.expert_splits) and the last split of a
+    tile sums the partials; a second launch gives the same bits."""
+    rng = np.random.default_rng(K + N + M + bits)
+    pe = _bank(rng, bits, groupsize, K, N, E=8).to(cuda)
+    x = _acts(rng, (8, M, K), act, cuda)
+    sb = tpack.subblock(pe.Kp, groupsize)
+    nk = pe.Kp * (1 if bits == 3 else bits) // (32 * tq.expert_window(bits, sb))
+    assert tq.expert_splits(8, pe.Np, nk, torch.cuda.get_device_properties(
+        cuda).multi_processor_count) > 1
+    want = tq.expert_dequant_matmul_reference(x, pe).cpu().numpy()
+    got = tq._expert_cuda(x, pe, route="mma")
+    again = tq._expert_cuda(x, pe, route="mma")
+    loop = tq._expert_cuda(x, pe, route="shallow")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got[..., :pe.N].cpu().numpy(), want, rtol=1e-4)
+    _close(loop[..., :pe.N].cpu().numpy(), want, rtol=1e-4)
 
 
 @pytest.mark.parametrize("bits,groupsize", [(4, -1), (4, 128), (3, 128),

@@ -238,6 +238,27 @@ def test_moe_ffn_select_counts_and_xla_route(monkeypatch):
     _close(got_xla.numpy(), want, 1e-5)
 
 
+@pytest.mark.parametrize("capacity,T", [(2.0, 16), (2.0, 1), (1.0, 8)])
+def test_moe_ffn_computes_the_aux_loss_only_when_collected(monkeypatch,
+                                                          capacity, T):
+    """Without aux_out moe_ffn never calls _aux (its kernels would run for
+    nothing on every decode step) and returns the same output; with it the
+    loss is computed once (test_moe_ffn_matches holds it to JAX's), on the
+    dropless and the capacity path."""
+    _, tspec = _specs(expert_capacity=capacity)
+    _, tp = _moe_layer("dense", seed=3)
+    x = np.random.default_rng(T).normal(size=(1, T, 48)).astype(np.float32)
+    calls = []
+    real = tm._aux
+    monkeypatch.setattr(tm, "_aux", lambda *a: calls.append(1) or real(*a))
+    got = tm.moe_ffn(tspec, tp, _t(x))
+    assert calls == []
+    taux = []
+    with_aux = tm.moe_ffn(tspec, tp, _t(x), aux_out=taux)
+    assert len(calls) == 1 and len(taux) == 1
+    assert torch.equal(got, with_aux)
+
+
 @pytest.mark.parametrize("kind", ["dense", "int8"])
 def test_moe_ffn_capacity_path_matches(kind):
     # capacity 1.0: C = N / 2 slots per expert, so the GShard dispatch

@@ -193,6 +193,134 @@ def test_partial_narrow_refuses_slopes_with_gqa():
     assert m.shape == l.shape == (1, 4) and acc.shape == (1, 4, 64)
 
 
+def _merge(states):
+    """Online-softmax states (m, l, acc) merged in order, weight exp(m_s -
+    M) (0 where M = -inf)."""
+    M = torch.stack([st[0] for st in states]).amax(dim=0)
+    w = [torch.where(M == float("-inf"), torch.zeros_like(M),
+                     torch.exp(st[0] - M)) for st in states]
+    return (M, sum(wi * st[1] for wi, st in zip(w, states)),
+            sum(wi[..., None] * st[2] for wi, st in zip(w, states)))
+
+
+def partial_tiles(q, k, v, pos, sm, ks=None, vs=None, slopes=None,
+                  nsplit=1):
+    """csrc/attention_partial.cu's algorithm in torch (f32): split j of a
+    (batch row, kv head) lists the valid slots of the 32-slot shard tiles
+    j, j + nsplit, ... in slot order and walks them in compute tiles of N
+    slots (32 / 64 / 128: K and V rows within 36 KB); in each tile the
+    slots fall into 16 / gp runs (gp: G up to a power of two), each run
+    keeping its own online state per head (a whole-row dot per slot, one
+    max and one sum a tile); the runs' states merge into the split's, the
+    splits' states into the output."""
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    gp = 1 << (G - 1).bit_length()
+    nsub = 16 // gp
+    rs = hd * k.element_size() + 16
+    fit = 36 * 1024 // (2 * rs)
+    N = 128 if fit >= 128 else 64 if fit >= 64 else 32
+    T = ta.PARTIAL_TILE
+    kf, vf = k.float(), v.float()
+    m_out = torch.empty((B, H))
+    l_out = torch.empty((B, H))
+    acc_out = torch.empty((B, H, hd))
+    for b in range(B):
+        for h in range(Hkv):
+            qs = q[b, h * G:(h + 1) * G].float() * sm  # (G, hd)
+            sl = (slopes[h * G:(h + 1) * G].float() if slopes is not None
+                  else torch.zeros(G))
+            splits = []
+            for j in range(nsplit):
+                slots = [t for a in range(j, -(-S // T), nsplit)
+                         for t in range(a * T, min(S, a * T + T))
+                         if pos[t] >= 0]
+                runs = [(torch.full((G,), float("-inf")), torch.zeros(G),
+                         torch.zeros((G, hd))) for _ in range(nsub)]
+                for u in range(0, len(slots), N):
+                    tile = slots[u:u + N]
+                    run = -(-len(tile) // nsub)
+                    for r in range(nsub):
+                        mine = tile[r * run:(r + 1) * run]
+                        if not mine:
+                            continue
+                        idx = torch.tensor(mine)
+                        s = qs @ kf[b, idx, h].T  # (G, n): a row a slot
+                        if ks is not None:
+                            s = s * ks[b, idx, h]
+                        s = s + sl[:, None] * pos[idx].float()
+                        m, l, acc = runs[r]
+                        m_new = torch.maximum(m, s.amax(dim=1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[:, None])
+                        pv = p * (vs[b, idx, h] if vs is not None else 1.0)
+                        runs[r] = (m_new, l * alpha + p.sum(dim=1),
+                                   acc * alpha[:, None] + pv @ vf[b, idx, h])
+                splits.append(_merge(runs))
+            M, L, A = _merge(splits)
+            sel = slice(h * G, (h + 1) * G)
+            m_out[b, sel], l_out[b, sel], acc_out[b, sel] = M, L, A
+    return m_out, l_out, acc_out
+
+
+# (entry, cache, S, H, Hkv, hd, slopes, valid, nsplit): G = 1, 4, 8;
+# `sparse` leaves whole tiles empty, `empty` the whole shard
+TILE_CASES = [
+    ("narrow", "int8", 200, 4, 4, 64, True, "sparse", 3),
+    ("narrow", "bf16", 96, 8, 1, 64, False, "full", 2),
+    ("narrow", "f32", 64, 4, 4, 128, False, "empty", 2),
+    ("wide", "int8", 160, 8, 2, 128, True, "sparse", 4),
+    ("wide", "f32", 96, 8, 1, 128, False, "sparse", 1),
+    ("wide", "bf16", 128, 4, 1, 64, True, "full", 3),
+]
+
+
+@pytest.mark.parametrize("case", TILE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_partial_tile_algorithm_matches_jax(case):
+    entry, kind, S, H, Hkv, hd, use_slopes, valid, nsplit = case
+    q, k, v, ks, vs, pos, slopes = _partial_case(5, kind, 1, S, H, Hkv, hd,
+                                                 valid=valid)
+    if valid == "sparse":  # and a whole empty tile in the front half
+        pos[32:64] = -1
+    slopes = slopes if use_slopes else None
+    sm = 1.0 / np.sqrt(hd)
+    tt = {n: _to_torch(a, kind) for n, a in
+          dict(q=q, k=k, v=v, ks=ks, vs=vs, pos=pos, slopes=slopes).items()}
+    got = partial_tiles(tt["q"], tt["k"], tt["v"], tt["pos"], sm,
+                        tt["ks"], tt["vs"], tt["slopes"], nsplit)
+    jj = {n: _to_jax(a, kind) for n, a in
+          dict(q=q, k=k, v=v, ks=ks, vs=vs, pos=pos, slopes=slopes).items()}
+    if entry == "wide":  # the wide Pallas kernel rounds to bf16
+        want = ja.decode_attention_partial_wide(
+            jj["q"], jj["k"], jj["v"], jj["pos"], float(sm), k_scale=jj["ks"],
+            v_scale=jj["vs"], slopes=jj["slopes"], interpret=True)
+        _check_state(got, want, 2e-2)
+    else:
+        want = ja.decode_attention_partial(
+            jj["q"], jj["k"], jj["v"], jj["pos"], float(sm), k_scale=jj["ks"],
+            v_scale=jj["vs"], slopes=jj["slopes"], interpret=True)
+        _check_state(got, want, 1e-5)
+    # and the plain version the card's kernel is held to
+    _check_state(got, ta.decode_attention_partial_wide_reference(
+        tt["q"], tt["k"], tt["v"], tt["pos"], sm, k_scale=tt["ks"],
+        v_scale=tt["vs"], slopes=tt["slopes"]), 1e-5)
+
+
+@pytest.mark.parametrize("B,Hkv,G,S,sms,grid", [
+    (1, 32, 1, 2048, 132, (1, 5)),  # llama-7B: a block an SM
+    (1, 4, 8, 2048, 132, (2, 8)),   # TinyLlama: a cluster of 8, 4 head groups
+    (1, 8, 4, 2048, 132, (2, 8)),   # Mixtral GQA 4
+    (1, 1, 1, 64, 132, (1, 2)),     # a short shard: a split a tile
+    (4, 32, 1, 8192, 132, (1, 2)),
+    (8, 32, 4, 2048, 132, (4, 1)),  # 256 (row, kv head) blocks: no split
+])
+def test_partial_grid(B, Hkv, G, S, sms, grid):
+    gh, nsplit = ta.partial_grid(B, Hkv, G, S, sms)
+    assert (gh, nsplit) == grid and G % gh == 0 and 1 <= nsplit <= 8
+
+
 # ---------------------------------------------------------------------------
 # sp = 1 in this process
 # ---------------------------------------------------------------------------
