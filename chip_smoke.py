@@ -5,9 +5,10 @@
 
 Phases, in order (any failure exits non-zero; there is no CPU fallback):
   1. build   - nvcc builds the nine kernel libraries from csrc/ (qmatmul,
-               attention, ffn, bcq_matmul, qstream, qexpert, layer_fused,
-               attention_partial, qmma; in parallel) and prints each
-               kernel's ptxas line (registers, spills, shared memory).
+               ffn, bcq_matmul, qstream, qexpert, layer_fused,
+               attention_partial, qmma, qexpert_mma; in parallel) and
+               prints each kernel's ptxas line (registers, spills, shared
+               memory).
   2. kernels - each kernel's wrapper against its plain PyTorch version on
                the card at llama-7B shapes, with stated tolerances, and
                timed beside its plain version, a one-call PyTorch
@@ -23,9 +24,14 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                at Mixtral-8x7B shapes. The whole-layer kernel (#12) at
                llama-7B width, a8 and a16, on bf16 caches of 256 and 2048
                slots and an f32 one, with the near-tie rule of
-               tests/test_torch_ffn.py, its cache write bit for bit, timed
-               beside its plain version and the fused route's launches
-               over the same layer. The partial-attention kernel (#10 /
+               tests/test_torch_ffn.py, its cache write bit for bit, two
+               launches bit for bit, timed beside its plain version and
+               the fused route's launches over the same layer, with a
+               `layer timeline` line (each phase's split from the
+               kernel's %globaltimer stamps). Decode attention (#3, the
+               decode mode of attention_partial.cu) is timed beside SDPA
+               on int8 caches of 256 and 2048 slots, a bf16 one, Mixtral's
+               GQA 4 layout and a batch of 4. The partial-attention kernel (#10 /
                #11, one kernel) on stacked caches of 2048 local slots with
                1,100 valid: llama-7B (int8, bf16, f32), Mixtral GQA 4
                (with and without alibi slopes), TinyLlama-1.1B (hd 64) and
@@ -143,7 +149,6 @@ import numpy as np
 
 PHASES = ("build", "kernels", "quantize", "serve", "sp", "moe", "cli")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
-ATTN_SRC = "gptq_tpu_torch/csrc/attention.cu"
 FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
 BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
 STREAM_SRC = "gptq_tpu_torch/csrc/qstream.cu"
@@ -542,27 +547,47 @@ def attn_checks(device, peaks, timer, report):
     report["attn_rows"] = rows
     report["attn_max_abs_err"] = worst
     # timing at the serving shape: B = 1, llama-7B heads, int8 cache of the
-    # CLI benchmark (max_len 256, 128 filled) and a long-context 2048 one
+    # CLI benchmark (max_len 256, 128 filled) and a long-context 2048 one;
+    # then a bf16 cache, Mixtral's GQA 4 head layout (32 query heads on 8
+    # kv heads) and a batch of 4 rows
     times = []
-    for S, length in ((256, 128), (2048, 2048)):
-        times.append(attn_times(gen, device, peaks, timer, S, length))
+    for S, length, cache, Hkv, B in ((256, 128, "int8", 32, 1),
+                                     (2048, 2048, "int8", 32, 1),
+                                     (2048, 2048, "bf16", 32, 1),
+                                     (2048, 2048, "int8", 8, 1),
+                                     (256, 128, "int8", 32, 4)):
+        times.append(attn_times(gen, device, peaks, timer, S, length, cache,
+                                Hkv, B))
         log("attention timing " + json.dumps(times[-1]))
     report["attn_times"] = times
 
 
-def attn_times(gen, device, peaks, timer, S, length) -> dict:
+def attn_times(gen, device, peaks, timer, S, length, cache="int8", Hkv=32,
+               B=1) -> dict:
+    """#3 (one launch of attention_partial.cu's decode mode) beside its
+    plain version and SDPA over the same (dequantized, bf16) cache prefix
+    and fresh column, every row at `length`; bound: the filled slots'
+    bytes (and scales) plus q, the fresh pair and the output."""
     import torch
 
     from gptq_tpu_torch.ops import attention as A
 
-    B, H, Hkv, hd = 1, 32, 32, 128
+    H, hd = 32, 128
+    G = H // Hkv
     q = torch.randn((B, H, hd), generator=gen, device=device)
-    k = torch.randint(-127, 128, (B, S, Hkv, hd), generator=gen,
-                      device=device, dtype=torch.int8)
-    v = torch.randint(-127, 128, (B, S, Hkv, hd), generator=gen,
-                      device=device, dtype=torch.int8)
-    ks = torch.rand((B, S, Hkv), generator=gen, device=device) * 0.02
-    vs = torch.rand((B, S, Hkv), generator=gen, device=device) * 0.02
+    if cache == "int8":
+        k = torch.randint(-127, 128, (B, S, Hkv, hd), generator=gen,
+                          device=device, dtype=torch.int8)
+        v = torch.randint(-127, 128, (B, S, Hkv, hd), generator=gen,
+                          device=device, dtype=torch.int8)
+        ks = torch.rand((B, S, Hkv), generator=gen, device=device) * 0.02
+        vs = torch.rand((B, S, Hkv), generator=gen, device=device) * 0.02
+    else:
+        k = torch.randn((B, S, Hkv, hd), generator=gen, device=device).to(
+            torch.bfloat16)
+        v = torch.randn((B, S, Hkv, hd), generator=gen, device=device).to(
+            torch.bfloat16)
+        ks = vs = None
     fk = torch.randn((B, Hkv, hd), generator=gen, device=device)
     fv = torch.randn((B, Hkv, hd), generator=gen, device=device)
     sm = 1.0 / math.sqrt(hd)
@@ -570,21 +595,29 @@ def attn_times(gen, device, peaks, timer, S, length) -> dict:
     ms = timer(lambda: A.decode_attention(q, k, v, length, sm, **kw))
     plain_ms = timer(lambda: A.decode_attention_reference(q, k, v, length, sm,
                                                           **kw))
+
     # yardstick: SDPA over the dequantized bf16 cache prefix + fresh row
-    kd = torch.cat([k[:, :length].float() * ks[:, :length, :, None],
-                    fk[:, None]], dim=1).to(torch.bfloat16).transpose(1, 2)
-    vd = torch.cat([v[:, :length].float() * vs[:, :length, :, None],
-                    fv[:, None]], dim=1).to(torch.bfloat16).transpose(1, 2)
+    def dq(c, sc):
+        c = c[:, :length].float()
+        return c * sc[:, :length, :, None] if sc is not None else c
+
+    kd = torch.cat([dq(k, ks), fk[:, None]], dim=1).to(torch.bfloat16)
+    vd = torch.cat([dq(v, vs), fv[:, None]], dim=1).to(torch.bfloat16)
+    kd = kd.transpose(1, 2).contiguous()  # (B, Hkv, L, hd): each kv head
+    vd = vd.transpose(1, 2).contiguous()  # read once, as the kernel does
     qd = q[:, :, None].to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = timer(lambda: sdpa(qd, kd, vd, scale=sm))
-    nbytes = (length * Hkv * hd * 2 + length * Hkv * 4 * 2
+    lib_ms = timer(lambda: sdpa(qd, kd, vd, scale=sm, enable_gqa=G > 1))
+    item = k.element_size()
+    nbytes = (B * (length * Hkv * hd * item * 2
+                   + (length * Hkv * 4 * 2 if ks is not None else 0))
               + (B * H * hd + 2 * B * Hkv * hd + B * H * hd) * 4 + B * 4)
     ops = 4 * B * H * (length + 1) * hd
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = ops / peaks["f32"] * 1e3
-    return {"S": S, "length": length, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+    return {"S": S, "length": length, "cache": cache, "Hkv": Hkv, "B": B,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -1321,10 +1354,18 @@ def layer_checks(device, peaks, timer, report):
                     and torch.equal(c_k[1, 0, length], f)):
                 raise AssertionError(f"{what}: the cache write is not the "
                                      f"kernel's roped fresh row alone")
+        # two launches on the same inputs: the same bits (the K-split
+        # pieces are summed in a fixed order, whichever block ends last)
+        again = [c.clone() for c in cache0]
+        got2 = LF.decode_layer_fused(x, *again, lens, *args, a8=a8, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, got2)
+                and all(torch.equal(a, b) for a, b in zip(kern, again))):
+            raise AssertionError(f"{what}: two launches differ")
         row = {"S": S, "filled": length, "a8": a8,
                "cache": str(cdt).replace("torch.", ""), "max_abs_err": err,
                "rel_err": rel, "near_tie_flips": flips,
-               "cache_row": "bit-exact"}
+               "cache_row": "bit-exact", "reproducible": True}
         if S == 256 and a8 and cdt == torch.bfloat16:
             # the residual alone: down's grid zeroed leaves y = r2, held per
             # element to one bf16 step (random weights make the down
@@ -1347,15 +1388,51 @@ def layer_checks(device, peaks, timer, report):
         if cdt == torch.bfloat16 and a8:
             row.update(layer_times(timer, peaks, spec, x, cache0, lens, args,
                                    kw, flags))
+            row["timeline"] = layer_timeline(x, cache0, lens, args, kw)
+            log(f"layer timeline S={S} filled={length} "
+                + json.dumps(row["timeline"]))
         rows.append(row)
         log("layer " + json.dumps(row))
+    # every launch above ran to its end: the barrier and ticket words are
+    # back to zero (but the barrier's generation)
+    if not LF.sync_clean(device):
+        raise AssertionError("layer: the kernel left barrier or ticket words "
+                             "set")
     report["layer_rows"] = rows
     report["layer_max_abs_err"] = worst
 
 
+def layer_timeline(x, cache0, lens, args, kw, runs=5) -> dict:
+    """#12's per-phase split from the kernel's %globaltimer stamps
+    (ops/layer_fused.timeline_split): `runs` launches, each after an L2
+    flush as in device_ms, and the split of the one with the median
+    total."""
+    import torch
+
+    from gptq_tpu_torch.ops import _build
+    from gptq_tpu_torch.ops import layer_fused as LF
+
+    kc, vc = (c.clone() for c in cache0)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=x.device)
+    splits = []
+    for _ in range(runs):
+        stamps = torch.zeros((_build.sm_count(x.device), LF.STAMPS),
+                             dtype=torch.int64, device=x.device)
+        flush.zero_()
+        LF._layer_cuda(x, kc, vc, lens, *args, kw["n_heads"],
+                       kw["n_kv_heads"], kw["head_dim"], kw["act"],
+                       kw["norm"], kw["eps"], kw["sm_scale"], True,
+                       kw["layer"], stamps=stamps)
+        torch.cuda.synchronize()
+        splits.append(LF.timeline_split(stamps.cpu()))
+    splits.sort(key=lambda r: r["total_us"])
+    return splits[len(splits) // 2]
+
+
 def layer_times(timer, peaks, spec, x, cache0, lens, args, kw, flags) -> dict:
     """Device times of one decoder layer at one token: the bare kernel
-    launch, the wrapper, the plain version and the port's fused route
+    launch, the wrapper (and its host time a call), the plain version and
+    the port's fused route
     (block_forward on the deferred-write path: norm_qkv, the rope glue,
     the attention kernel with the fresh pair, attn_mlp), beside the bound:
     the packed weights and the filled cache slots read, the fresh rows
@@ -1376,6 +1453,16 @@ def layer_times(timer, peaks, spec, x, cache0, lens, args, kw, flags) -> dict:
         kw["sm_scale"], True, 1))
     wrapper_ms = timer(lambda: LF.decode_layer_fused(x, kc, vc, lens, *args,
                                                      a8=True, **kw))
+    # the wrapper's host time a call: 100 calls queued back to back with
+    # no synchronisation (the device runs behind), after a warm-up
+    for _ in range(3):
+        LF.decode_layer_fused(x, kc, vc, lens, *args, a8=True, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        LF.decode_layer_fused(x, kc, vc, lens, *args, a8=True, **kw)
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
     plain_ms = timer(lambda: LF.decode_layer_fused_reference(
         x, kc, vc, lens, *args, a8=True, **kw))
     p = {"ln1": {"w": w1}, "ln2": {"w": w2},
@@ -1401,8 +1488,9 @@ def layer_times(timer, peaks, spec, x, cache0, lens, args, kw, flags) -> dict:
     attn_ops = 4 * nh * (length + 1) * hd
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = (mm_ops / peaks["int8"] + attn_ops / peaks["f32"]) * 1e3
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "fused_route_ms": fused_route_ms, "bytes": nbytes,
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "wrapper_host_us": host_us,
+            "plain_ms": plain_ms, "fused_route_ms": fused_route_ms,
+            "bytes": nbytes,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -2510,6 +2598,13 @@ def serve_chained(device, spec, params, card, report):
                                  f"generate: {got[0].tolist()} vs "
                                  f"{want[0].tolist()}")
         out[route]["chained_tokens_equal"] = True
+    # the layer route's graph replays left the kernel's barrier and ticket
+    # words zero (but the barrier's generation)
+    from gptq_tpu_torch.ops import layer_fused as LF
+
+    if not LF.sync_clean(device):
+        raise AssertionError("chained: the layer kernel left barrier or "
+                             "ticket words set")
     report["chained"] = out
 
 
@@ -3486,7 +3581,7 @@ def profile_decode(eng, prompt, steps=8) -> dict:
             ("expert_mma", ("qexpert_mma_kernel", "xprep_kernel")),
             ("bcq", ("bcq_mv_kernel", "bcq_mm_kernel")),
             ("stream", ("qstream_kernel",)),
-            ("attention", ("attn_partial", "attn_combine")),
+            ("attention", ("attnd_tile",)),
             ("partial", ("attnp_tile",)),
             ("norm_qkv", ("norm_qkv_kernel",)), ("mlp", ("mlp_kernel",)),
             ("layer", ("layer_kernel",)))
@@ -3517,8 +3612,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--checks", default="",
+                    help="comma-separated subset of the kernels phase's "
+                         "checks, by function name (default: all; a subset "
+                         "prints no kernels line)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    checks = set(filter(None, args.checks.split(",")))
 
     import torch
 
@@ -3561,10 +3661,13 @@ def main(argv=None) -> int:
                       fused_bcq_checks, layer_checks, bcq_checks,
                       stream_checks, expert_checks, partial_checks,
                       mma_crossover):
+            if checks and check.__name__ not in checks:
+                continue
             t0 = time.perf_counter()
             check(device, peaks, timer, report)
             log(f"{check.__name__}: {time.perf_counter() - t0:.1f} s")
-        quant_tie_check(device, report)
+        if not checks:
+            quant_tie_check(device, report)
     tmp = tempfile.mkdtemp(prefix="gptq_tpu_torch_smoke_")
     try:
         for phase, run in (
@@ -3584,7 +3687,7 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = []
-    if "kernels" in phases:
+    if "kernels" in phases and not checks:
         serve = report.get("serve", {})
         fused_launches = serve.get("fused", {}).get("launches", {})
 
@@ -3638,7 +3741,7 @@ def main(argv=None) -> int:
              "shape": "one llama-7B layer's four packed linears (K x N: "
                       "4096x12288, 4096x4096, 4096x22528, 11264x4096), "
                       "w4a8 groupsize -1, M=1; times summed"},
-            {"name": "decode_attention", "route": "cuda", "source": ATTN_SRC,
+            {"name": "decode_attention", "route": "cuda", "source": PARTIAL_SRC,
              "replaces": "gptq_tpu/ops/attention.py:253",
              # the head-loop kernel computes the same function (hd % 128 != 0)
              "also_replaces": "gptq_tpu/ops/attention.py:40",
@@ -3647,8 +3750,10 @@ def main(argv=None) -> int:
              "ms": at["ms"], "plain_ms": at["plain_ms"],
              "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
              "library_ms": at["library_ms"],
+             "rows": report["attn_times"],
              "shape": f"B=1, H=Hkv=32, hd=128, int8 cache S={at['S']}, "
-                      f"{at['length']} filled + fresh pair"},
+                      f"{at['length']} filled + fresh pair (rows: S=2048 "
+                      f"int8 and bf16, Mixtral GQA 4, B=4)"},
             fused_entry("norm_qkv", 483, timed("norm_qkv", "q|k|v w4g-1"),
                         fused_launches.get("norm_qkv", 0),
                         "ln1 + q|k|v 4096x12288 w4a8 g-1, M=1 (head 4096x32256 "
@@ -3674,8 +3779,10 @@ def main(argv=None) -> int:
             # no one PyTorch call computes a decoder layer
             "library_ms": None, "fused_route_ms": lr[0]["fused_route_ms"],
             "wrapper_ms": lr[0]["wrapper_ms"],
+            "timeline": lr[0]["timeline"],
             "long": {k: lr[1][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "fused_route_ms")},
+                                           "bound_by", "fused_route_ms",
+                                           "timeline")},
             "shape": "one llama-7B layer (q|k|v 4096x12288, o 4096x4096, "
                      "gate|up 4096x22528, down 11264x4096), w4a8 g-1, bf16 "
                      "cache S=256 with 128 filled (long: S=2048, 1,100 "

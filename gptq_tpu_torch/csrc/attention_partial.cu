@@ -1,11 +1,24 @@
-// Partial (unnormalised) single-token decode attention over a KV-cache
-// shard whose slots carry global positions: the per-shard half of
-// sequence-parallel decode. int8 cache with per-token-head scales, or a
+// Single-token decode attention off the KV cache, in two modes of one
+// kernel body (attn_tile; kernels attnp_tile and attnd_tile). int8 cache with per-token-head scales, or a
 // bf16 / f32 cache.
 //
+// Partial mode: the unnormalised state over a cache shard whose slots
+// carry global positions, the per-shard half of sequence-parallel decode.
 // Replaces gptq_tpu/ops/attention.py:_attn_partial_wide_kernel
 // (decode_attention_partial_wide) and :_attn_partial_kernel
-// (decode_attention_partial). The two Pallas kernels compute one function
+// (decode_attention_partial).
+//
+// Decode mode (DEC, entry attnd_launch, kernel attnd_tile): replaces
+// gptq_tpu/ops/attention.py:_attn_kernel (decode_attention) and
+// :_attn_kernel_wide (decode_attention_wide), which compute one function:
+// the slots t < len[b] of each row (no pos words, no slopes), the fresh
+// column (q . fresh_k, f32) merged by the cluster's rank 0 after the
+// splits, then out = acc / l (zeros for a row with nothing to attend),
+// in the same one launch. Bound: the filled slots' bytes over the memory
+// rate (0.34 us at 128 int8 slots of llama-7B width): it is latency
+// bound, as the partial mode, and takes the same design.
+//
+// Partial mode, in full. The two Pallas kernels compute one function
 // (the wide one only lays the heads out for the MXU and rounds its
 // operands to bf16), so one kernel ports both, in f32. For query head hq
 // of batch row b, with kv head h = hq / G (GQA), over the slots t with
@@ -63,6 +76,8 @@
 
 #include <type_traits>
 
+#include "attn_rows.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -76,15 +91,9 @@ constexpr int MAXSPLIT = 8;  // splits: a portable cluster
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory
 constexpr unsigned FULL = 0xffffffffu;
 
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -93,12 +102,6 @@ __device__ __forceinline__ float rescale(float m, float M) {
   return M == -INFINITY ? 0.f : __expf(m - M);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
@@ -119,19 +122,6 @@ __device__ __forceinline__ void cp_wait(int n) {
     case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
   }
-}
-
-// a 32-bit word of a staged row as floats: 4 int8, 2 bf16 or 1 f32
-__device__ __forceinline__ void widen(uint32_t w, float* f, int8_t) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) f[j] = (float)((int)(w << (24 - 8 * j)) >> 24);
-}
-__device__ __forceinline__ void widen(uint32_t w, float* f, __nv_bfloat16) {
-  f[0] = __uint_as_float(w << 16);
-  f[1] = __uint_as_float(w & 0xFFFF0000u);
-}
-__device__ __forceinline__ void widen(uint32_t w, float* f, float) {
-  f[0] = __uint_as_float(w);
 }
 
 // 4 (2) consecutive elements of a staged row as floats
@@ -163,33 +153,6 @@ __device__ __forceinline__ float2 load2(const unsigned char* p) {
   }
 }
 
-// part `part` of the dot of q (f32, shared memory) and a staged row of hd
-// elements split over `parts` lanes: the row's 16-byte vectors part, part
-// + parts, ... (interleaved, so the lanes of a slot read neighbouring
-// vectors: no bank conflict)
-template <typename CT>
-__device__ __forceinline__ float row_dot(const float* q,
-                                         const unsigned char* row, int hd,
-                                         int part, int parts) {
-  constexpr int PW = 4 / sizeof(CT);  // elements a word
-  constexpr int PV = 4 * PW;          // elements a 16-byte vector
-  float d0 = 0.f, d1 = 0.f;
-  for (int i = part * PV; i < hd; i += parts * PV) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + i * sizeof(CT));
-    float e[PV];
-    widen(raw.x, e, CT());
-    widen(raw.y, e + PW, CT());
-    widen(raw.z, e + 2 * PW, CT());
-    widen(raw.w, e + 3 * PW, CT());
-#pragma unroll
-    for (int j = 0; j < PV; j += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(q + i + j);
-      d0 += qv.x * e[j] + qv.y * e[j + 1];
-      d1 += qv.z * e[j + 2] + qv.w * e[j + 3];
-    }
-  }
-  return d0 + d1;
-}
 
 // A launch's shape for a cache type and head dim: 8 warps (two blocks an
 // SM), compute tiles of N listed slots whose K and V rows fit 36 KB (32,
@@ -204,14 +167,20 @@ struct Cfg {
   static constexpr int RING = 72 * 1024;
 };
 
-template <typename CT, int HD>
-__global__ void __launch_bounds__(Cfg<CT, HD>::THREADS)
-attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
+// DEC (decode_attention, #2 / #3): the valid slots are t < lens[b]
+// (no pos words, no slopes), and rank 0 merges the fresh column (fk / fv,
+// null without it) into the splits' state and writes the normalised
+// output to acc_out (m_out / l_out unused).
+template <typename CT, int HD, bool DEC>
+__device__ __forceinline__ void
+attn_tile(const float* __restrict__ q, const CT* __restrict__ kc,
            const CT* __restrict__ vc, const float* __restrict__ ksc,
            const float* __restrict__ vsc, const int* __restrict__ pos,
            const float* __restrict__ slopes, int S, int H, int Hkv, int gh,
            float sm_scale, int ns, float* __restrict__ m_out,
-           float* __restrict__ l_out, float* __restrict__ acc_out) {
+           float* __restrict__ l_out, float* __restrict__ acc_out,
+           const int* __restrict__ lens, const float* __restrict__ fk,
+           const float* __restrict__ fv) {
   using T = Cfg<CT, HD>;
   constexpr int RS = T::RS, N = T::N, ND = HD / 32;
   constexpr int WARPS = T::WARPS, THREADS = T::THREADS;
@@ -225,6 +194,8 @@ attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
   __shared__ float s_m[MAXG], s_l[MAXG];
   __shared__ __align__(16) float s_acc[MAXG * HD];
   __shared__ float s_slope[MAXG];
+  __shared__ float s_sf[MAXG];  // DEC: the fresh column's scores
+  __shared__ __align__(16) float s_fk[DEC ? HD : 1], s_fv[DEC ? HD : 1];
   __shared__ int s_cnt[MAXA];
   extern __shared__ __align__(16) unsigned char ring[];
 
@@ -237,9 +208,27 @@ attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
   const int G = gh;  // the block's query heads
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int i = tid; i < G * HD; i += THREADS)
-    s_q[i] = q[((size_t)b * H + hq0) * HD + i] * sm_scale;
+  if constexpr (DEC) {
+    // q (unscaled: sm_scale goes on the scores) and split 0's fresh pair
+    // come in by cp.async, in one group ahead of the tiles', so their trip
+    // overlaps the cache rows'
+    const float* qb = q + ((size_t)b * H + hq0) * HD;
+    for (int i = 4 * tid; i < G * HD; i += 4 * THREADS)
+      cp_async16(s_q + i, qb + i);
+    if (split == 0 && fk != nullptr)
+      for (int i = 4 * tid; i < 2 * HD; i += 4 * THREADS) {
+        const float* f = (i < HD ? fk : fv) + ((size_t)b * Hkv + h) * HD;
+        cp_async16((i < HD ? s_fk : s_fv) + i % HD, f + i % HD);
+      }
+    cp_commit();
+  } else {
+    for (int i = tid; i < G * HD; i += THREADS)
+      s_q[i] = q[((size_t)b * H + hq0) * HD + i] * sm_scale;
+  }
   if (tid < G) s_slope[tid] = slopes != nullptr ? slopes[hq0 + tid] : 0.f;
+  // the valid slots: pos[t] >= 0, or (DEC) t < len
+  const int len = DEC ? min(max(lens[b], 0), S) : S;
+  const float qs = DEC ? sm_scale : 1.f;  // the scale still on the scores
 
   const size_t rs = (size_t)Hkv * HD;  // elements between two slots' rows
   const CT* kb = kc + ((size_t)b * S * Hkv + h) * HD;
@@ -261,7 +250,7 @@ attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
   for (int i = 0; i < ND; ++i) acc[i] = 0.f;
 
   // the split's shard tiles, 16 a batch
-  const int nt = (S + TS - 1) / TS;
+  const int nt = (len + TS - 1) / TS;
   const int na = split < nt ? (nt - 1 - split) / nsplit + 1 : 0;
   for (int a0 = 0; a0 < na; a0 += MAXA) {
     // the batch's pos words, then its valid slots in slot order
@@ -270,7 +259,7 @@ attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
     for (int r = 0; r < MAXA / WARPS; ++r) {
       const int a = a0 + r * WARPS + warp;
       const int t = (split + a * nsplit) * TS + lane;
-      pv[r] = a < na && t < S ? pos[t] : -1;
+      pv[r] = a >= na || t >= len ? -1 : DEC ? t : pos[t];
     }
     unsigned mask[MAXA / WARPS];
 #pragma unroll
@@ -350,7 +339,7 @@ attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
           sc = row_dot<CT>(qg, st + (r0 + k) * RS, HD, part, lps);
         for (int o = 1; o < lps; o <<= 1) sc += __shfl_xor_sync(FULL, sc, o);
         if (k < mine)
-          sv[j] = sc * (ksb != nullptr ? sk[r0 + k] : 1.f) +
+          sv[j] = sc * (ksb != nullptr ? sk[r0 + k] : 1.f) * qs +
                   s_slope[g] * s_pos[u * N + r0 + k];
         mx = fmaxf(mx, sv[j]);
       }
@@ -401,6 +390,16 @@ attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
     }
   }
 
+  if constexpr (DEC) {  // q . fresh k (q, fk: in smem once waited for)
+    cp_wait(0);
+    __syncthreads();
+    if (split == 0 && fk != nullptr && warp < G) {
+      float d = 0.f;
+      for (int i = lane; i < HD; i += 32) d += s_q[warp * HD + i] * s_fk[i];
+      d = warp_sum(d);
+      if (lane == 0) s_sf[warp] = d * sm_scale;
+    }
+  }
   // the runs' states of each head merge (run order) into this split's
   if (lane == 0) {
     s_wm[warp] = live ? m_run : -INFINITY;
@@ -451,23 +450,57 @@ attnp_tile(const float* __restrict__ q, const CT* __restrict__ kc,
           l += lk[k] * e;
         }
       const size_t row = (size_t)b * H + hq0 + hg;
-      acc_out[row * HD + d] = v;
-      if (d == 0) {
-        m_out[row] = M;
-        l_out[row] = l;
+      if constexpr (DEC) {  // the fresh column, then normalise
+        if (fk != nullptr) {
+          const float sf = s_sf[hg], M2 = fmaxf(M, sf);
+          const float e = rescale(M, M2), ef = __expf(sf - M2);
+          l = l * e + ef;
+          v = v * e + ef * s_fv[d];
+        }
+        acc_out[row * HD + d] = l > 0.f ? v / l : 0.f;  // nothing: zeros
+      } else {
+        acc_out[row * HD + d] = v;
+        if (d == 0) {
+          m_out[row] = M;
+          l_out[row] = l;
+        }
       }
     }
   }
   if (nsplit > 1) cl.sync();  // rank 0 is done reading the others' smem
 }
 
-template <typename CT, int HD>
-int launch_hd(const void* q, const void* k, const void* v, const void* ks,
-              const void* vs, const void* pos, const void* slopes, int B,
-              int S, int H, int Hkv, int gh, float sm_scale, int nsplit,
-              void* m, void* l, void* acc, cudaStream_t st) {
+// the two modes as kernels of their own names (a profile tells them apart)
+#define ATTN_KERNEL(NAME, DEC)                                               \
+  template <typename CT, int HD>                                             \
+  __global__ void __launch_bounds__(Cfg<CT, HD>::THREADS) NAME(              \
+      const float* __restrict__ q, const CT* __restrict__ kc,                \
+      const CT* __restrict__ vc, const float* __restrict__ ksc,              \
+      const float* __restrict__ vsc, const int* __restrict__ pos,            \
+      const float* __restrict__ slopes, int S, int H, int Hkv, int gh,       \
+      float sm_scale, int ns, float* __restrict__ m_out,                     \
+      float* __restrict__ l_out, float* __restrict__ acc_out,                \
+      const int* __restrict__ lens, const float* __restrict__ fk,            \
+      const float* __restrict__ fv) {                                        \
+    attn_tile<CT, HD, DEC>(q, kc, vc, ksc, vsc, pos, slopes, S, H, Hkv, gh,  \
+                           sm_scale, ns, m_out, l_out, acc_out, lens, fk,    \
+                           fv);                                              \
+  }
+ATTN_KERNEL(attnp_tile, false)
+ATTN_KERNEL(attnd_tile, true)
+#undef ATTN_KERNEL
+
+// the pointers of one launch (DEC: lens, fk, fv; else pos, slopes, m, l)
+struct Ptrs {
+  const void *q, *k, *v, *ks, *vs, *pos, *slopes, *lens, *fk, *fv;
+  void *m, *l, *acc;
+};
+
+template <typename CT, int HD, bool DEC>
+int launch_hd(const Ptrs& p, int B, int S, int H, int Hkv, int gh,
+              float sm_scale, int nsplit, cudaStream_t st) {
   using T = Cfg<CT, HD>;
-  auto kern = attnp_tile<CT, HD>;
+  auto kern = DEC ? attnd_tile<CT, HD> : attnp_tile<CT, HD>;
   static int room = 0;  // dynamic shared memory a block may take
   if (room == 0) {
     cudaFuncAttributes fa{};
@@ -492,28 +525,40 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kern, (const float*)q, (const CT*)k, (const CT*)v,
-      (const float*)ks, (const float*)vs, (const int*)pos,
-      (const float*)slopes, S, H, Hkv, gh, sm_scale, ns, (float*)m,
-      (float*)l, (float*)acc);
+      &cfg, kern, (const float*)p.q, (const CT*)p.k, (const CT*)p.v,
+      (const float*)p.ks, (const float*)p.vs, (const int*)p.pos,
+      (const float*)p.slopes, S, H, Hkv, gh, sm_scale, ns, (float*)p.m,
+      (float*)p.l, (float*)p.acc, (const int*)p.lens, (const float*)p.fk,
+      (const float*)p.fv);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename CT>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* pos, const void* slopes, int B, int S,
-           int H, int Hkv, int gh, int hd, float sm_scale, int nsplit,
-           void* m, void* l, void* acc, cudaStream_t st) {
-  auto go = [&](auto hd_tag) {
+template <bool DEC>
+int launch(const Ptrs& p, int cache_kind, int B, int S, int H, int Hkv,
+           int gh, int hd, float sm_scale, int nsplit, cudaStream_t st) {
+  if (Hkv < 1 || H % Hkv || H / Hkv > MAXG || gh < 1 || (H / Hkv) % gh ||
+      nsplit < 1 || nsplit > MAXSPLIT || ((uintptr_t)p.k & 15) ||
+      ((uintptr_t)p.v & 15) || (cache_kind == 2) != (p.ks != nullptr) ||
+      (p.ks == nullptr) != (p.vs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto go = [&](auto ct_tag, auto hd_tag) {
+    using CT = decltype(ct_tag);
     constexpr int HD = decltype(hd_tag)::value;
-    return launch_hd<CT, HD>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, gh,
-                             sm_scale, nsplit, m, l, acc, st);
+    return launch_hd<CT, HD, DEC>(p, B, S, H, Hkv, gh, sm_scale, nsplit, st);
   };
-  switch (hd) {
-    case 64: return go(std::integral_constant<int, 64>());
-    case 128: return go(std::integral_constant<int, 128>());
-    case 256: return go(std::integral_constant<int, 256>());
+  auto by_hd = [&](auto ct_tag) {
+    switch (hd) {
+      case 64: return go(ct_tag, std::integral_constant<int, 64>());
+      case 128: return go(ct_tag, std::integral_constant<int, 128>());
+      case 256: return go(ct_tag, std::integral_constant<int, 256>());
+      default: return (int)cudaErrorInvalidValue;
+    }
+  };
+  switch (cache_kind) {
+    case 0: return by_hd(float());
+    case 1: return by_hd(__nv_bfloat16());
+    case 2: return by_hd(int8_t());
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -535,20 +580,27 @@ extern "C" int attnp_launch(const void* q, const void* k, const void* v,
                             int H, int Hkv, int gh, int hd, float sm_scale,
                             int nsplit, void* m, void* l, void* acc,
                             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv < 1 || H % Hkv || H / Hkv > MAXG || gh < 1 || (H / Hkv) % gh ||
-      nsplit < 1 || nsplit > MAXSPLIT || ((uintptr_t)k & 15) ||
-      ((uintptr_t)v & 15))
-    return (int)cudaErrorInvalidValue;
-  if (cache_kind == 0)
-    return launch<float>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, gh, hd,
-                         sm_scale, nsplit, m, l, acc, st);
-  if (cache_kind == 1)
-    return launch<__nv_bfloat16>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv,
-                                 gh, hd, sm_scale, nsplit, m, l, acc, st);
-  if (cache_kind == 2 && ks != nullptr && vs != nullptr)
-    return launch<int8_t>(q, k, v, ks, vs, pos, slopes, B, S, H, Hkv, gh, hd,
-                          sm_scale, nsplit, m, l, acc, st);
-  return (int)cudaErrorInvalidValue;
+  const Ptrs p{q, k, v, ks, vs, pos, slopes, nullptr, nullptr, nullptr,
+               m, l, acc};
+  return launch<false>(p, cache_kind, B, S, H, Hkv, gh, hd, sm_scale, nsplit,
+                       (cudaStream_t)stream);
 }
 
+// decode_attention (#2 / #3) on the same tiles: the slots t < lens[b]
+// (B int32) of each row, the fresh column fk / fv ((B, Hkv, hd) f32, both
+// null without it) merged by rank 0, out the normalised (B, H, hd) f32
+// attention (zeros for a row with nothing to attend). Grid and returns as
+// attnp_launch.
+extern "C" int attnd_launch(const void* q, const void* k, const void* v,
+                            int cache_kind, const void* ks, const void* vs,
+                            const void* lens, const void* fk, const void* fv,
+                            int B, int S, int H, int Hkv, int gh, int hd,
+                            float sm_scale, int nsplit, void* out,
+                            void* stream) {
+  if ((fk == nullptr) != (fv == nullptr) || lens == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Ptrs p{q, k, v, ks, vs, nullptr, nullptr, lens, fk, fv,
+               nullptr, nullptr, out};
+  return launch<true>(p, cache_kind, B, S, H, Hkv, gh, hd, sm_scale, nsplit,
+                      (cudaStream_t)stream);
+}

@@ -16,320 +16,267 @@
 //
 // Bound on an H100: the packed weight bytes (~103 MB per llama-7B layer at
 // 4 bits, groupsize -1) plus the len cache slots read, over the memory
-// rate.
+// rate: 0.031 ms at 128 filled slots.
 //
-// Design (simple and right first): one cooperative launch of co-resident
-// blocks (occupancy API) with grid-wide barriers between its phases:
-//   1. ln1 + q|k|v: the norm_qkv kernel's body (fused.cuh: norm_rows);
-//      each block then pulls its first tile of o into L2.
-//   2. split flash decoding: an item per (kv head, split) covers
-//      ceil(len / nsplit) of the filled slots, len read from device memory,
-//      so one launch serves every position and a CUDA graph can replay it.
-//      An item ropes the G query heads of its kv head from the q|k|v row;
-//      its 16 warps take whole slots, each keeping the online-softmax
-//      state of up to 4 query heads (more heads take another pass over the
-//      slots); the warps' states merge in shared memory into the split's
-//      unnormalised (m, l, acc). The item of split 0 also writes the kv
-//      head's fresh rows at slot len: attention reads only slots < len, so
-//      no block reads the slot being written.
-//   3. combine: a warp per query head merges the splits' states with the
-//      fresh column (recomputed from the q|k|v row, rounded to the cache
-//      dtype as written) and normalises, into the f32 attention row.
-//   4-6. the MLP kernel's phases (fused.cuh: mlp_phases): o + residual,
-//      ln2 + gate|up + act, down + residual.
+// Design: the weights do not depend on the activations, so only the
+// arithmetic waits for a phase's input; the weight stream is its own warp
+// (layer_stream.cuh holds the device code):
+//   * one persistent block an SM (cooperative launch: all resident), 16
+//     consumer warps and a producer warp. A static plan (ops/layer_fused.
+//     layer_plan, a host function of the weights' shapes and the SM count)
+//     gives every block a near-equal share of every weight's packed words:
+//     runs of 16 KB stages (128 columns x 32 word rows of one field), so
+//     the narrow weights (o, down) are cut in K as well as in columns.
+//   * the producer warp keeps a ring of up to 8 stages (128 KB) full with
+//     TMA (a tensor map of each field's (word rows, Np) plane, encoded on
+//     the host by layer_maps, which the wrapper keeps for each weight); the
+//     consumers release a stage as they read it. It holds o's stages
+//     until the block has o's input row (the attention and the boundary's
+//     trips then meet a quiet memory system) and lets gate|up's and down's
+//     run on through their boundaries; a phase starts with one stage
+//     alone, then goes on 8 deep.
+//   * the consumers meet on a barrier of their own between phases (named
+//     bar.sync, then a release / acquire on a generation counter that is
+//     never reset from the host); the grid barrier of cooperative groups
+//     would need the producer, which runs ahead.
+//   * each phase: the consumers stage the input row once per block (its
+//     norm, int8 scale or bf16 rounding, group sums; every block computes
+//     the same bits), then take the stages from the ring: a lane dots four
+//     columns' words with the staged row (qdot.cuh's byteplane algebra:
+//     dp4a for a8), the group scale applied per warp and stage; a run's
+//     partials are summed over the warps, and the partials of a chunk cut
+//     in K are summed in piece order by the block that ends the chunk last
+//     (a ticket it resets), so that two launches give the same bits. That
+//     block applies the zero points, the int8 scale and the phase's
+//     epilogue (r2 = bf16(x + o); gate|up chunk pairs: the GLU output).
+//   * attention: an item per (kv head, split) covers ceil(len / nsplit) of
+//     the filled slots (len read from device memory: one launch serves
+//     every position and a CUDA graph replays it); its first K / V tiles
+//     are asked for by cp.async before the barrier ahead of the phase, two
+//     in flight; each warp keeps its own online state over a run of each
+//     tile's slots, lanes scoring whole slots, so a score needs no
+//     reduction over the warp; split 0 writes the fresh rows at slot len
+//     (no block reads that slot) and folds the fresh column into its
+//     state. The kv head's last split (a ticket) merges the splits' states
+//     in split order into the attention row: no combine phase and no
+//     barrier of its own.
+// Measured on an H100 (PERF.md §6): 0.106 ms at 128 filled slots
+// against 0.184 for the design this replaced (a cooperative grid of
+// 32-column tiles, 4-byte loads, five grid.sync()s); the kernel's own
+// %globaltimer timeline shows the phase boundaries' latency, not the
+// stream, as what is left.
 // The rope products are rounded one at a time (__fmul_rn / __fadd_rn), as
 // PyTorch computes x * cos + rotate_half(x) * sin: the written row is the
 // cache-dtype rounding of the plain rope of the kernel's own q|k|v row. The
 // cache is read in place in its stacked layout (the caller passes the
 // layer's base). Slot len must lie below S; at len >= S (a full cache)
-// the fresh rows are not written.
+// the fresh rows are not written. An optional buffer receives each block's
+// %globaltimer at the phase boundaries (ops/layer_fused.timeline_split).
 
-#include "cache_row.cuh"
-#include "fused.cuh"
+#include <string.h>
+
+#include "layer_stream.cuh"
 
 namespace {
 
-constexpr int GB = 4;  // query heads of one pass over a split's slots
-constexpr int MAX_HD = 256;
-constexpr float NEG_INF = -1e9f;
-// the attention phase's shared memory: each warp's (m, l, acc) of GB heads
-constexpr size_t ATTN_SMEM = sizeof(float) * WARPS * GB * (MAX_HD + 2);
+constexpr int SMEM_LIMIT = 232448;  // a block's shared memory
 
-struct LayerArgs {
-  MlpArgs mlp;       // o, gate|up, down: mlp.x is attn, mlp.xres is x
-  WeightDesc qkv;
-  const float* x;    // (hidden,) f32 block input
-  const float* ln1;  // (hidden,) norm weight
-  const float* cs;   // (hd,) rope tables of this position
-  const float* sn;
-  const int* len;    // (1,) int32: slots already cached
-  void* kc;          // (S, Hkv, hd) this layer's cache, bf16 or f32
-  void* vc;
-  float* qkvo;  // (qkv.Np,) scratch: the q|k|v row
-  float* pml;   // (Hkv * nsplit * G * 2,) the splits' (m, l)
-  float* pacc;  // (Hkv * nsplit * G * hd,) the splits' unnormalised outputs
-  float* attn;  // (H * hd,) the attention row (= mlp.x)
-  int S, H, Hkv, hd, nsplit, norm1;
-  float eps, sm_scale;
-};
-
-template <typename CT>
-__device__ __forceinline__ CT to_cache(float v);
-template <>
-__device__ __forceinline__ float to_cache<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_cache<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// element d of the roped head at offset off of the q|k|v row
-__device__ __forceinline__ float rope_at(const LayerArgs& a, int off, int d) {
-  const int half = a.hd >> 1;
-  const float* r = a.qkvo + off;
-  if (d < half)
-    return __fsub_rn(__fmul_rn(r[d], a.cs[d]), __fmul_rn(r[d + half], a.sn[d]));
-  return __fadd_rn(__fmul_rn(r[d], a.cs[d]), __fmul_rn(r[d - half], a.sn[d]));
-}
-
-// phase 2: the (kv head, split) items that fall to this block
-template <typename CT, int ND>
-__device__ __noinline__ void attn_items(const LayerArgs& a, float* sm) {
-  constexpr int hd = ND * 32;
-  constexpr int TB = 16 / ND;  // slots a warp loads per round
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int G = a.H / a.Hkv;
-  const int len_raw = *a.len;
-  const int len = min(max(len_raw, 0), a.S);
-  const int per = (len + a.nsplit - 1) / a.nsplit;
-  const int koff = a.H * hd;
-  const int voff = koff + a.Hkv * hd;
-  const size_t rs = (size_t)a.Hkv * hd;  // elements between two slots
-  float* s_m = sm;                       // [WARPS][GB]
-  float* s_l = sm + WARPS * GB;          // [WARPS][GB]
-  float* s_acc = sm + 2 * WARPS * GB;    // [WARPS][GB][hd]
-
-  for (int item = blockIdx.x; item < a.Hkv * a.nsplit; item += gridDim.x) {
-    const int h = item / a.nsplit;
-    const int split = item - h * a.nsplit;
-    if (split == 0 && len_raw >= 0 && len_raw < a.S) {
-      CT* kw = (CT*)a.kc + ((size_t)len_raw * a.Hkv + h) * hd;
-      CT* vw = (CT*)a.vc + ((size_t)len_raw * a.Hkv + h) * hd;
-      for (int d = threadIdx.x; d < hd; d += THREADS) {
-        kw[d] = to_cache<CT>(rope_at(a, koff + h * hd, d));
-        vw[d] = to_cache<CT>(a.qkvo[voff + h * hd + d]);
-      }
+template <typename ST, typename CT>
+__global__ void __launch_bounds__(LTHREADS, 1)
+    layer_kernel(const __grid_constant__ LArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.off_bar);
+  uint64_t* empty = full + a.ns;
+  uint64_t* gates = empty + a.ns;  // the producer's, one a phase
+  int* pl = reinterpret_cast<int*>(gates + 4);  // consume's piece list
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.ns; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], NCW);
     }
-    const int c0 = split * per;
-    const int c1 = min(len, c0 + per);
-    const CT* kb = (const CT*)a.kc + (size_t)h * hd;
-    const CT* vb = (const CT*)a.vc + (size_t)h * hd;
-    for (int g0 = 0; g0 < G; g0 += GB) {
-      const int gn = min(GB, G - g0);
-      float qr[GB][ND], acc[GB][ND], m[GB], l[GB];
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        m[g] = NEG_INF;
-        l[g] = 0.f;
-#pragma unroll
-        for (int i = 0; i < ND; ++i) {
-          acc[g][i] = 0.f;
-          qr[g][i] = g < gn ? __fmul_rn(rope_at(a, (h * G + g0 + g) * hd,
-                                                lane * ND + i),
-                                        a.sm_scale)
-                            : 0.f;
-        }
-      }
-      for (int t0 = c0 + warp * TB; t0 < c1; t0 += WARPS * TB) {
-        float kr[TB][ND], vr[TB][ND];
-#pragma unroll
-        for (int j = 0; j < TB; ++j) {
-          if (t0 + j < c1) {
-            load_slice<CT, ND>(kb + (size_t)(t0 + j) * rs, lane, kr[j]);
-            load_slice<CT, ND>(vb + (size_t)(t0 + j) * rs, lane, vr[j]);
-          } else {
-#pragma unroll
-            for (int i = 0; i < ND; ++i) kr[j][i] = vr[j][i] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < GB; ++g) {
-          if (g >= gn) break;
-          float s[TB];
-          float mx = NEG_INF;
-#pragma unroll
-          for (int j = 0; j < TB; ++j) {
-            float dot = 0.f;
-#pragma unroll
-            for (int i = 0; i < ND; ++i) dot += qr[g][i] * kr[j][i];
-            dot = warp_sum(dot);
-            s[j] = t0 + j < c1 ? dot : NEG_INF;
-            mx = fmaxf(mx, s[j]);
-          }
-          const float m_new = fmaxf(m[g], mx);
-          const float alpha = __expf(m[g] - m_new);
-          l[g] *= alpha;
-#pragma unroll
-          for (int i = 0; i < ND; ++i) acc[g][i] *= alpha;
-#pragma unroll
-          for (int j = 0; j < TB; ++j) {
-            const float p = t0 + j < c1 ? __expf(s[j] - m_new) : 0.f;
-            l[g] += p;
-#pragma unroll
-            for (int i = 0; i < ND; ++i) acc[g][i] += p * vr[j][i];
-          }
-          m[g] = m_new;
-        }
-      }
-      // merge the warps' states into this split's (m, l, acc)
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        if (g >= gn) break;
-        if (lane == 0) {
-          s_m[warp * GB + g] = m[g];
-          s_l[warp * GB + g] = l[g];
-        }
-#pragma unroll
-        for (int i = 0; i < ND; ++i)
-          s_acc[(warp * GB + g) * hd + lane * ND + i] = acc[g][i];
-      }
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < gn * hd; idx += THREADS) {
-        const int g = idx / hd;
-        const int d = idx - g * hd;
-        float M = NEG_INF;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) M = fmaxf(M, s_m[w * GB + g]);
-        float acc_d = 0.f, ll = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
-          const float e = __expf(s_m[w * GB + g] - M);
-          acc_d += s_acc[(w * GB + g) * hd + d] * e;
-          ll += s_l[w * GB + g] * e;
-        }
-        const size_t o = (size_t)item * G + g0 + g;
-        a.pacc[o * hd + d] = acc_d;
-        if (d == 0) {
-          a.pml[2 * o] = M;
-          a.pml[2 * o + 1] = ll;
-        }
-      }
-      __syncthreads();
-    }
+    for (int w = 0; w < 4; ++w) mbar_init(&gates[w], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-// phase 3: a warp per query head merges the splits and the fresh column
-template <typename CT, int ND>
-__device__ __noinline__ void combine_heads(const LayerArgs& a) {
-  constexpr int hd = ND * 32;
-  const int lane = threadIdx.x & 31;
-  const int G = a.H / a.Hkv;
-  const int koff = a.H * hd;
-  const int voff = koff + a.Hkv * hd;
-  for (int hq = blockIdx.x * WARPS + (threadIdx.x >> 5); hq < a.H;
-       hq += gridDim.x * WARPS) {
-    const int h = hq / G;
-    const int g = hq - h * G;
-    float vf[ND];
-    float dot = 0.f;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      const int d = lane * ND + i;
-      const float q = __fmul_rn(rope_at(a, hq * hd, d), a.sm_scale);
-      const float kf = to_f(to_cache<CT>(rope_at(a, koff + h * hd, d)));
-      vf[i] = to_f(to_cache<CT>(a.qkvo[voff + h * hd + d]));
-      dot += q * kf;
-    }
-    const float sf = warp_sum(dot);
-    const size_t o0 = (size_t)h * a.nsplit * G + g;  // split s: o0 + s * G
-    float M = sf;
-    for (int s = 0; s < a.nsplit; ++s)
-      M = fmaxf(M, a.pml[2 * (o0 + (size_t)s * G)]);
-    float l = 0.f, acc[ND];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
-    for (int s = 0; s < a.nsplit; ++s) {
-      const size_t o = o0 + (size_t)s * G;
-      const float e = __expf(a.pml[2 * o] - M);
-      l += a.pml[2 * o + 1] * e;
-#pragma unroll
-      for (int i = 0; i < ND; ++i) acc[i] += a.pacc[o * hd + lane * ND + i] * e;
-    }
-    const float e = __expf(sf - M);
-    l += e;
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-      a.attn[(size_t)hq * hd + lane * ND + i] = (acc[i] + e * vf[i]) / l;
+  __syncthreads();
+  if (threadIdx.x >= CTHREADS) {  // the producer warp
+    produce(a, smem, full, empty, gates);
+    return;
   }
+  Stage<ST> s{reinterpret_cast<float*>(smem + a.off_uni),
+              reinterpret_cast<ST*>(smem + a.off_xs),
+              reinterpret_cast<float*>(smem + a.off_red),
+              reinterpret_cast<float*>(smem + a.off_xg), gates, 1.f};
+  int* items = reinterpret_cast<int*>(smem + a.off_it);
+  {
+    const int i0 = a.first[blockIdx.x] * ITEM;
+    const int n = a.first[blockIdx.x + 1] * ITEM - i0;
+    for (int i = threadIdx.x; i < n; i += CTHREADS) items[i] = a.items[i0 + i];
+  }  // read after the staging's barriers
+  const int len = *a.len;  // slots cached (read here: its trip overlaps)
+  int item = 0, k = 0;
+  unsigned gen = threadIdx.x == 0 ? ld_acquire(a.sync + 1) : 0;  // grid_bar
+  stamp(a, 0);
+  stage_row<ST>(a, 0, s);  // ln1 + q|k|v
+  consume<ST>(a, 0, item, k, smem, full, empty, s, pl, items);
+  unsigned char* uni = smem + a.off_uni;  // rope, fresh rows, split states
+  attn_prefetch<CT>(a, uni, len);
+  stamp(a, 1);
+  grid_bar(a, ++gen);
+  stamp(a, 2);
+  if (a.hd == 64)
+    attn_phase<CT, 64>(a, uni, len);
+  else if (a.hd == 128)
+    attn_phase<CT, 128>(a, uni, len);
+  else
+    attn_phase<CT, 256>(a, uni, len);
+  stamp(a, 3);
+  grid_bar(a, ++gen);
+  stamp(a, 4);
+  stage_row<ST>(a, 1, s);  // the attention row
+  consume<ST>(a, 1, item, k, smem, full, empty, s, pl, items);  // o + residual
+  stamp(a, 5);
+  grid_bar(a, ++gen);
+  stamp(a, 6);
+  stage_row<ST>(a, 2, s);  // ln2 + gate|up
+  consume<ST>(a, 2, item, k, smem, full, empty, s, pl, items);
+  stamp(a, 7);
+  grid_bar(a, ++gen);
+  stamp(a, 8);
+  stage_row<ST>(a, 3, s);  // act * up, down + residual
+  consume<ST>(a, 3, item, k, smem, full, empty, s, pl, items);
+  stamp(a, 9);
 }
 
 template <typename ST, typename CT>
-__global__ void __launch_bounds__(THREADS) layer_kernel(LayerArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Plan<1, ST> pl(smem);
-  cg::grid_group grid = cg::this_grid();
-
-  // phase 1: ln1 + q|k|v
-  const RowSrc s0{a.x, a.ln1, nullptr, a.qkv.Kp, a.norm1, a.eps};
-  norm_rows<1, ST>(s0, 1, a.qkv, a.qkvo, pl);
-  if (blockIdx.x < a.mlp.o.Np / COLS) prefetch_tile(a.mlp.o, blockIdx.x * COLS);
-  __threadfence();
-  grid.sync();
-
-  // phase 2: rope, the fresh rows, the splits' attention states
-  float* sm = reinterpret_cast<float*>(smem);
-  if (a.hd == 64)
-    attn_items<CT, 2>(a, sm);
-  else if (a.hd == 128)
-    attn_items<CT, 4>(a, sm);
-  else
-    attn_items<CT, 8>(a, sm);
-  __threadfence();
-  grid.sync();
-
-  // phase 3: the attention row
-  if (a.hd == 64)
-    combine_heads<CT, 2>(a);
-  else if (a.hd == 128)
-    combine_heads<CT, 4>(a);
-  else
-    combine_heads<CT, 8>(a);
-  __threadfence();
-  grid.sync();
-
-  // phases 4-6: o + residual, ln2 + gate|up + act, down + residual
-  mlp_phases<1, ST>(a.mlp, pl, grid);
+int attn_bytes(int hd) {
+  return hd == 64    ? ATile<CT, 64>::BYTES
+         : hd == 128 ? ATile<CT, 128>::BYTES
+                     : ATile<CT, 256>::BYTES;
 }
 
+int align16(int v) { return (v + 15) & ~15; }
+
 template <typename ST, typename CT>
-cudaError_t layer_run(LayerArgs& a, cudaStream_t st) {
+int layer_run(LArgs& a, int blocks, cudaStream_t st) {
   auto kern = layer_kernel<ST, CT>;
-  const size_t plan = Plan<1, ST>::BYTES;
-  const size_t smem = plan > ATTN_SMEM ? plan : ATTN_SMEM;
-  static int resident = 0;
-  cudaError_t err = resident_blocks(kern, smem, resident);
-  if (err != cudaSuccess) return err;
-  int tiles = a.qkv.Np / COLS;
-  const int widths[3] = {a.mlp.o.Np, a.mlp.gu.Np / 2, a.mlp.dn.Np};
-  for (int w : widths)
-    if (w / COLS > tiles) tiles = w / COLS;
-  if (a.Hkv * a.nsplit > tiles) tiles = a.Hkv * a.nsplit;
-  const int grid = tiles < resident ? tiles : resident;
-  return coop_launch(kern, grid, smem, st, a);
+  int kmax = 0, ngmax = 1;
+  for (const WeightDesc& w : a.wd) {
+    kmax = w.Kp > kmax ? w.Kp : kmax;
+    ngmax = w.ng > ngmax ? w.ng : ngmax;
+  }
+  if (kmax / 32 > NCW * CC) return (int)cudaErrorInvalidValue;  // 32s' sums
+  const int uni = align16(kmax * 4 > attn_bytes<ST, CT>(a.hd)
+                              ? kmax * 4
+                              : attn_bytes<ST, CT>(a.hd));
+  a.off_uni = 0;  // after the ring, below
+  a.off_xs = uni;
+  a.off_red = a.off_xs + align16(kmax * (int)sizeof(ST));
+  a.off_xg = a.off_red + NCW * CC * 4;
+  a.off_it = a.off_xg + align16(ngmax * 4);
+  a.off_bar = a.off_it + align16(a.max_items * ITEM * 4);
+  const int tail = 32 + (PLE + 1) * MAXP * 4;  // the gates, the piece list
+  const int rest = a.off_bar + 2 * MAX_STAGES * 8 + tail;
+  int ns = (SMEM_LIMIT - rest) / STAGE_BYTES;
+  ns = ns > MAX_STAGES ? MAX_STAGES : ns;
+  if (ns < 2) return (int)cudaErrorInvalidValue;
+  a.ns = ns;
+  const int ring = ns * STAGE_BYTES;
+  a.off_uni += ring;
+  a.off_xs += ring;
+  a.off_red += ring;
+  a.off_xg += ring;
+  a.off_it += ring;
+  a.off_bar += ring;
+  const size_t smem = (size_t)a.off_bar + 2 * ns * 8 + tail;
+  static int per_sm = -1;  // depends on the kernel and the card only
+  cudaError_t err;
+  if (per_sm < 0) {
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             SMEM_LIMIT)) != cudaSuccess)
+      return (int)err;
+    int dev = 0, sms = 0, n = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n, kern, LTHREADS, SMEM_LIMIT)) != cudaSuccess)
+      return (int)err;
+    per_sm = n * sms;  // blocks resident at the largest plan
+  }
+  if (blocks > per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(LTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, kern, a)) != cudaSuccess)
+    return (int)err;
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+static_assert(sizeof(CUtensorMap) == 128, "layer_maps writes 2 x 128 bytes");
+
+// the TMA maps of a weight's fields: (word rows, Np) int32 planes, boxes of
+// CC columns x RR rows (or the whole field where it is shorter)
+bool weight_maps(const WeightDesc& w, CUtensorMap* maps) {
+  const int32_t* base[2] = {w.w0, w.w1};
+  memset(maps, 0, 2 * sizeof(CUtensorMap));
+  for (int f = 0; f < (w.bits == 3 ? 2 : 1); ++f) {
+    const int rows = w.Kp * (w.bits == 3 ? (f ? 1 : 2) : w.bits) / 32;
+    const cuuint64_t dims[2] = {(cuuint64_t)w.Np, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)w.Np * 4};
+    const cuuint32_t box[2] = {CC, (cuuint32_t)(rows < RR ? rows : RR)};
+    if (!aligned16(base[f]) ||
+        !tmap(&maps[f], CU_TENSOR_MAP_DATA_TYPE_INT32, 2, base[f], dims,
+              strides, box, false))
+      return false;
+  }
+  return true;
 }
 
 }  // namespace
+
+// The TMA maps of one weight of the layer (uniform grid, Np a multiple of
+// 128): its fields' two maps (the second zero below 3 bits), 2 x 128 bytes
+// into `out`, for layer_launch. They are a function of the fields'
+// addresses and the weight's (bits, Kp, Np) alone, so a caller may keep
+// them as long as those hold. Returns 0, or cudaErrorInvalidValue.
+extern "C" int layer_maps(const WeightDesc* w, void* out) {
+  CUtensorMap maps[2];
+  if (!weight_ok(w) || w->fmt != 0 || w->Np % CC || out == nullptr ||
+      !weight_maps(*w, maps))
+    return (int)cudaErrorInvalidValue;
+  memcpy(out, maps, sizeof(maps));
+  return 0;
+}
 
 // One decoder layer for one token. x, ln1, ln2: (hidden,) f32; norm: 0
 // rmsnorm, 1 rmsnorm1p; cs, sn: (hd,) f32 rope tables of the position len;
 // len: (1,) int32 in device memory; kc, vc: this layer's (S, Hkv, hd) cache
 // (cache_kind 0 = f32, 1 = bf16), written at slot len; act: 0 silu, 1 gelu,
-// 2 gelu_tanh, 3 relu; the four weights: q|k|v (hidden x >= (H + 2 Hkv)
-// hd), o (H hd x hidden), gate|up (hidden x 2 F), down (F x hidden).
-// Scratch (the caller's): qkvo (qkv.Np), pml (Hkv nsplit G 2), pacc
-// (Hkv nsplit G hd), attn (H hd), r2 (hidden), inner (F); out: (hidden,)
-// f32. Returns the cooperative launch's cudaError_t.
+// 2 gelu_tanh, 3 relu; the four weights (uniform grids, Np a multiple of
+// 128): q|k|v (hidden x >= (H + 2 Hkv) hd), o (H hd x hidden), gate|up
+// (hidden x 2 F), down (F x hidden), and each one's maps from layer_maps.
+// items / first: the plan of `blocks` blocks (ops/layer_fused.layer_plan),
+// no block with more than max_items items, nor more than MAXP pieces of
+// chunks cut in K in one phase (max_cut). Scratch (the caller's): qkvo
+// (qkv.Np), pml (Hkv nsplit G 2), pacc (Hkv nsplit G hd), attn (H hd), r2
+// (hidden), gu (2 F), inner (F), part (the plan's pieces x 128); sync: 2 +
+// the plan's tickets uint32 (the grid barrier's count, its generation,
+// the tickets), zero before the first launch and, but the generation, left
+// zero by every launch that runs to its end; launches that share them
+// must not overlap (one stream); stamps: null or (blocks, NSTAMP) int64.
+// out: (hidden,) f32.
+// Returns the cooperative launch's cudaError_t (cudaErrorInvalidValue for
+// what the kernel does not take, launching nothing).
 extern "C" int layer_launch(const float* x, const float* ln1,
                             const float* ln2, int norm, float eps,
                             const float* cs, const float* sn, const int* len,
@@ -337,40 +284,46 @@ extern "C" int layer_launch(const float* x, const float* ln1,
                             int Hkv, int hd, float sm_scale, int act, int a8,
                             const WeightDesc* qkv, const WeightDesc* o,
                             const WeightDesc* gu, const WeightDesc* dn,
+                            const void* m_qkv, const void* m_o,
+                            const void* m_gu, const void* m_dn,
+                            const int* items, const int* first, int blocks,
+                            int max_items, int max_cut,
                             float* qkvo, float* pml, float* pacc, int nsplit,
-                            float* attn, float* r2, float* inner, float* out,
-                            void* stream) {
-  if (!weight_ok(qkv) || !weight_ok(o) || !weight_ok(gu) || !weight_ok(dn))
-    return (int)cudaErrorInvalidValue;
+                            float* attn, float* r2, float* gbuf, float* inner,
+                            float* out, float* part, unsigned* sync,
+                            long long* stamps, void* stream) {
+  const WeightDesc* ws[4] = {qkv, o, gu, dn};
+  const void* ms[4] = {m_qkv, m_o, m_gu, m_dn};
+  for (const void* m : ms)
+    if (m == nullptr) return (int)cudaErrorInvalidValue;
+  for (const WeightDesc* w : ws)
+    if (!weight_ok(w) || w->fmt != 0 || w->Np % CC || !aligned16(w->scale) ||
+        !aligned16(w->zoff))
+      return (int)cudaErrorInvalidValue;
   const int hidden = qkv->Kp;
-  if (H < 1 || Hkv < 1 || H % Hkv || (hd != 64 && hd != 128 && hd != 256) ||
+  if (H < 1 || Hkv < 1 || H % Hkv || H / Hkv > LMAXG ||
+      (hd != 64 && hd != 128 && hd != 256) ||
       qkv->Np < (H + 2 * Hkv) * hd || o->Kp != H * hd || o->Np != hidden ||
       gu->Kp != hidden || gu->Np != 2 * dn->Kp || dn->Np != hidden ||
       norm < 0 || norm > 1 || act < 0 || act > 3 || cache_kind < 0 ||
-      cache_kind > 1 || S < 1 || nsplit < 1 || x == nullptr ||
-      ln1 == nullptr || ln2 == nullptr || cs == nullptr || sn == nullptr ||
-      len == nullptr || kc == nullptr || vc == nullptr)
+      cache_kind > 1 || S < 1 || nsplit < 1 || Hkv * nsplit > blocks ||
+      blocks < 1 || max_items < 0 || max_cut < 0 || max_cut > MAXP ||
+      x == nullptr || ln1 == nullptr || ln2 == nullptr ||
+      cs == nullptr || sn == nullptr || len == nullptr || items == nullptr ||
+      first == nullptr || sync == nullptr || !aligned16(kc) ||
+      !aligned16(vc))
     return (int)cudaErrorInvalidValue;
-  LayerArgs a{};
-  a.mlp.o = *o;
-  a.mlp.gu = *gu;
-  a.mlp.dn = *dn;
-  a.mlp.x = attn;
-  a.mlp.xres = x;
-  a.mlp.nw = ln2;
-  a.mlp.nb = nullptr;
-  a.mlp.r2 = r2;
-  a.mlp.inner = inner;
-  a.mlp.out = out;
-  a.mlp.M = 1;
-  a.mlp.norm = norm;
-  a.mlp.act = act;
-  a.mlp.glu = 1;
-  a.mlp.has_o = 1;
-  a.mlp.eps = eps;
-  a.qkv = *qkv;
+  LArgs a{};
+  for (int w = 0; w < 4; ++w) {
+    a.wd[w] = *ws[w];
+    memcpy(&a.maps[2 * w], ms[w], 2 * sizeof(CUtensorMap));
+  }
+  a.items = items;
+  a.first = first;
+  a.max_items = max_items;
   a.x = x;
   a.ln1 = ln1;
+  a.ln2 = ln2;
   a.cs = cs;
   a.sn = sn;
   a.len = len;
@@ -380,18 +333,26 @@ extern "C" int layer_launch(const float* x, const float* ln1,
   a.pml = pml;
   a.pacc = pacc;
   a.attn = attn;
+  a.r2 = r2;
+  a.gu = gbuf;
+  a.inner = inner;
+  a.out = out;
+  a.part = part;
+  a.sync = sync;
+  a.stamps = stamps;
   a.S = S;
   a.H = H;
   a.Hkv = Hkv;
   a.hd = hd;
   a.nsplit = nsplit;
-  a.norm1 = norm;
+  a.norm = norm;
+  a.act = act;
   a.eps = eps;
   a.sm_scale = sm_scale;
   cudaStream_t st = (cudaStream_t)stream;
   if (a8)
-    return (int)(cache_kind ? layer_run<int8_t, __nv_bfloat16>(a, st)
-                            : layer_run<int8_t, float>(a, st));
-  return (int)(cache_kind ? layer_run<__nv_bfloat16, __nv_bfloat16>(a, st)
-                          : layer_run<__nv_bfloat16, float>(a, st));
+    return cache_kind ? layer_run<int8_t, __nv_bfloat16>(a, blocks, st)
+                      : layer_run<int8_t, float>(a, blocks, st);
+  return cache_kind ? layer_run<__nv_bfloat16, __nv_bfloat16>(a, blocks, st)
+                    : layer_run<__nv_bfloat16, float>(a, blocks, st);
 }

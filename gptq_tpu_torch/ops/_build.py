@@ -28,7 +28,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD = os.path.join(PKG_DIR, "build")
-SOURCES = ("qmatmul", "attention", "ffn", "bcq_matmul", "qstream", "qexpert",
+SOURCES = ("qmatmul", "ffn", "bcq_matmul", "qstream", "qexpert",
            "layer_fused", "attention_partial", "qmma", "qexpert_mma")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -2,8 +2,11 @@
 gptq_tpu/ops/attention.py: decode_attention, decode_attention_int8 and
 decode_attention_wide, whose Pallas kernels compute one function).
 
-`decode_attention` on CUDA tensors launches csrc/attention.cu; on CPU
-tensors it runs `decode_attention_reference`, the plain PyTorch version.
+`decode_attention` on CUDA tensors launches csrc/attention_partial.cu in
+its decode mode (the partial entries' slot-parallel tiles over the slots
+below each row's length, the fresh column merged and the output
+normalised in the same launch); on CPU tensors it runs
+`decode_attention_reference`, the plain PyTorch version.
 
     scores[b, hq, t] = sm_scale * ks[b, t, h] * (q[b, hq] . k[b, t, h])
     out[b, hq]       = softmax(scores masked to t < length[b]) @ (vs * v)
@@ -100,84 +103,79 @@ def decode_attention_reference(q, k, v, length, sm_scale: float,
 
 
 _CACHE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_TILE = 64  # cache slots: the unit a split's length is counted in
 
 
-def _lib():
-    lib = _build.load("attention")
-    f = lib.attn_launch
-    if f.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp, vp, vp, i, ll, vp, vp, ll, vp, vp, vp, i, i, i, i,
-                      i, ctypes.c_float, i, i, vp, vp, vp, vp]
-        f.restype = ctypes.c_int
-    return lib
+def _check_cache(what, q, k, v, k_scale, v_scale):
+    """The cache layouts csrc/attention_partial.cu takes: one layer's
+    contiguous (B, S, Hkv, hd) K and V planes of one dtype (int8 with its
+    (B, S, Hkv) scale planes), G <= 8 query heads a kv head, hd 64 / 128 /
+    256, every tensor on the queries' device."""
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k.dtype not in _CACHE_KIND or v.dtype != k.dtype:
+        raise ValueError(f"{what}: cache dtype {k.dtype}")
+    if (k.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError(f"{what}: an int8 cache needs its scale planes (and "
+                         f"only an int8 cache takes them)")
+    if H % Hkv or H // Hkv > 8 or hd not in (64, 128, 256):
+        raise ValueError(f"{what}: H={H} Hkv={Hkv} hd={hd} not supported "
+                         f"(G <= 8, hd in 64 / 128 / 256)")
+    if k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape:
+        raise ValueError(f"{what}: cache {tuple(k.shape)} / {tuple(v.shape)} "
+                         f"for {B} query rows")
+    for t in (k, v, k_scale, v_scale):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{what}: every tensor must lie on the queries' "
+                             f"CUDA device")
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what}: cache tensors must be contiguous")
 
 
-def _splits(B: int, Hkv: int, S: int, device) -> tuple[int, int]:
-    """(nsplit, chunk): cut the S cache slots into runs of `chunk` (a
-    multiple of _TILE) so that B * Hkv * nsplit blocks give every SM about
-    two, and no run is shorter than a tile."""
-    tiles = -(-S // _TILE)
-    want = -(-2 * _build.sm_count(device) // (B * Hkv))
-    chunk = -(-tiles // max(1, min(want, tiles))) * _TILE
-    return -(-S // chunk), chunk
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    decode mode reads q and the fresh pair by 16-byte cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _attention_cuda(q, k, v, length, sm_scale, k_scale, v_scale, fresh_k,
                     fresh_v, layer) -> torch.Tensor:
+    """One launch of csrc/attention_partial.cu in its decode mode (the
+    slots below each row's length, the fresh column merged by the
+    cluster's rank 0, the output normalised); a stacked cache's layer is
+    a view of it (a base pointer, no copy)."""
     global launches
-    stacked = layer is not None
-    if k.dim() != (5 if stacked else 4):
+    if k.dim() != (5 if layer is not None else 4):
         raise ValueError(f"decode_attention: cache of shape {tuple(k.shape)} "
                          f"with layer={layer}")
+    k, v, k_scale, v_scale = _select_layer(layer, k, v, k_scale, v_scale)
+    _check_cache("decode_attention", q, k, v, k_scale, v_scale)
     B, H, hd = q.shape
-    S, Hkv = k.shape[-3], k.shape[-2]
-    if k.dtype not in _CACHE_KIND or v.dtype != k.dtype:
-        raise ValueError(f"decode_attention: cache dtype {k.dtype}")
-    if (k.dtype == torch.int8) != (k_scale is not None):
-        raise ValueError("decode_attention: an int8 cache needs its scale "
-                         "planes (and only an int8 cache takes them)")
-    if H % Hkv or H // Hkv > 8 or hd not in (64, 128, 256):
-        raise ValueError(f"decode_attention: H={H} Hkv={Hkv} hd={hd} not "
-                         f"supported (G <= 8, hd in 64 / 128 / 256)")
-    if k.shape[-4] != B or v.shape != k.shape:
-        raise ValueError(f"decode_attention: cache {tuple(k.shape)} / "
-                         f"{tuple(v.shape)} for {B} query rows")
-    for t in (k, v, k_scale, v_scale, fresh_k, fresh_v):
-        if t is not None and t.device != q.device:
-            raise ValueError("decode_attention: every tensor must lie on "
-                             "the queries' CUDA device")
-    for t in (k, v, k_scale, v_scale):
-        if t is not None and not t.is_contiguous():
-            raise ValueError("decode_attention: cache tensors must be "
-                             "contiguous")
-    layer_off = int(layer) * B * S * Hkv * hd if stacked else 0
-    scale_off = int(layer) * B * S * Hkv if stacked else 0
-    qf = q.to(torch.float32).contiguous()
+    S, Hkv = k.shape[1], k.shape[2]
     fk = fv = None
     if fresh_k is not None:
-        fk = fresh_k.to(torch.float32).contiguous()
-        fv = fresh_v.to(torch.float32).contiguous()
+        if fresh_k.shape != (B, Hkv, hd) or fresh_v.shape != (B, Hkv, hd):
+            raise ValueError(f"decode_attention: fresh pair of shapes "
+                             f"{tuple(fresh_k.shape)}, "
+                             f"{tuple(fresh_v.shape)}")
+        if fresh_k.device != q.device or fresh_v.device != q.device:
+            raise ValueError("decode_attention: every tensor must lie on the "
+                             "queries' CUDA device")
+        fk = _aligned(fresh_k.to(torch.float32).contiguous())
+        fv = _aligned(fresh_v.to(torch.float32).contiguous())
+    qf = _aligned(q.to(torch.float32).contiguous())
     lens = _lens(length, B, q.device)
+    gh, nsplit = partial_grid(B, Hkv, H // Hkv, S, _build.sm_count(q.device))
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    nsplit, chunk = _splits(B, Hkv, S, q.device)
-    # each split's (m, l) and unnormalised output per query head
-    pml = torch.empty((B * H * nsplit * 2,), dtype=torch.float32,
-                      device=q.device)
-    pacc = torch.empty((B * H * nsplit * hd,), dtype=torch.float32,
-                       device=q.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = _lib().attn_launch(
+    err = _partial_lib().attnd_launch(
         qf.data_ptr(), k.data_ptr(), v.data_ptr(), _CACHE_KIND[k.dtype],
-        layer_off, ptr(k_scale), ptr(v_scale), scale_off, ptr(fk), ptr(fv),
-        lens.data_ptr(), B, S, H, Hkv, hd, float(sm_scale), nsplit, chunk,
-        pml.data_ptr(), pacc.data_ptr(), out.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale), lens.data_ptr(), _ptr(fk), _ptr(fv), B,
+        S, H, Hkv, gh, hd, float(sm_scale), nsplit, out.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "attn_launch")
+    _build.check(err, "attnd_launch")
     launches += 1
     return out
 
@@ -265,12 +263,14 @@ def decode_attention_partial_reference(q, k, v, pos, sm_scale: float,
 
 def _partial_lib():
     lib = _build.load("attention_partial")
-    f = lib.attnp_launch
-    if f.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp, vp, vp, i, vp, vp, vp, vp, i, i, i, i, i, i,
-                      ctypes.c_float, i, vp, vp, vp, vp]
-        f.restype = ctypes.c_int
+    if lib.attnp_launch.argtypes is None:
+        vp, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.attnp_launch.argtypes = [vp, vp, vp, i, vp, vp, vp, vp, i, i, i,
+                                     i, i, i, fl, i, vp, vp, vp, vp]
+        lib.attnp_launch.restype = ctypes.c_int
+        lib.attnd_launch.argtypes = [vp, vp, vp, i, vp, vp, vp, vp, vp, i, i,
+                                     i, i, i, i, fl, i, vp, vp]
+        lib.attnd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -305,31 +305,16 @@ def _partial_cuda(q, k, v, pos, sm_scale, k_scale, v_scale, slopes, layer):
         raise ValueError(f"decode_attention_partial: cache of shape "
                          f"{tuple(k.shape)} with layer={layer}")
     k, v, k_scale, v_scale = _select_layer(layer, k, v, k_scale, v_scale)
+    _check_cache("decode_attention_partial", q, k, v, k_scale, v_scale)
     B, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    if k.dtype not in _CACHE_KIND or v.dtype != k.dtype:
-        raise ValueError(f"decode_attention_partial: cache dtype {k.dtype}")
-    if (k.dtype == torch.int8) != (k_scale is not None):
-        raise ValueError("decode_attention_partial: an int8 cache needs its "
-                         "scale planes (and only an int8 cache takes them)")
-    if H % Hkv or H // Hkv > 8 or hd not in (64, 128, 256):
-        raise ValueError(f"decode_attention_partial: H={H} Hkv={Hkv} hd={hd} "
-                         f"not supported (G <= 8, hd in 64 / 128 / 256)")
-    if k.shape[0] != B or v.shape != k.shape or pos.shape != (S,):
-        raise ValueError(f"decode_attention_partial: cache {tuple(k.shape)} "
-                         f"/ {tuple(v.shape)}, pos {tuple(pos.shape)} for "
-                         f"{B} query rows")
-    if slopes is not None and slopes.shape != (H,):
+    if pos.shape != (S,) or pos.device != q.device:
+        raise ValueError(f"decode_attention_partial: pos of shape "
+                         f"{tuple(pos.shape)} on {pos.device} for {S} slots")
+    if slopes is not None and (slopes.shape != (H,)
+                               or slopes.device != q.device):
         raise ValueError(f"decode_attention_partial: slopes of shape "
                          f"{tuple(slopes.shape)} for {H} heads")
-    for t in (k, v, k_scale, v_scale, pos, slopes):
-        if t is not None and t.device != q.device:
-            raise ValueError("decode_attention_partial: every tensor must "
-                             "lie on the queries' CUDA device")
-    for t in (k, v, k_scale, v_scale):
-        if t is not None and not t.is_contiguous():
-            raise ValueError("decode_attention_partial: cache tensors must "
-                             "be contiguous")
     qf = q.to(torch.float32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     sl = None if slopes is None else slopes.to(torch.float32).contiguous()
@@ -338,13 +323,9 @@ def _partial_cuda(q, k, v, pos, sm_scale, k_scale, v_scale, slopes, layer):
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
     acc = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = _partial_lib().attnp_launch(
         qf.data_ptr(), k.data_ptr(), v.data_ptr(), _CACHE_KIND[k.dtype],
-        ptr(k_scale), ptr(v_scale), pos.data_ptr(), ptr(sl), B, S, H, Hkv,
+        _ptr(k_scale), _ptr(v_scale), pos.data_ptr(), _ptr(sl), B, S, H, Hkv,
         gh, hd, float(sm_scale), nsplit, m.data_ptr(), l.data_ptr(),
         acc.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)

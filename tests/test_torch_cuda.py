@@ -347,6 +347,62 @@ def test_attention_kernel_splits_and_empty_rows(cuda, S, lens, fresh):
                                rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("cache", ["int8", "bf16"])
+def test_attention_kernel_lengths_on_tile_and_split_edges(cuda, cache):
+    """#3's decode mode lists the slots t < len of each row's 32-slot tiles
+    j, j + nsplit, ... (nsplit from ta.partial_grid: 5 here): lengths on
+    and next to tile edges and whole split rounds, one row empty."""
+    S, H, Hkv, hd = 512, 8, 4, 128
+    lens = [1, 31, 32, 33, 160, 161, 512, 0]
+    B = len(lens)
+    assert ta.partial_grid(B, Hkv, H // Hkv, S, 132)[1] == 5
+    rng = np.random.default_rng(61)
+    k, v, ks, vs = _cache(rng, (B,), S, Hkv, hd, cache == "int8")
+    dt = torch.int8 if cache == "int8" else torch.bfloat16
+    k_, v_ = (torch.from_numpy(a).to(cuda).to(dt) for a in (k, v))
+    ks_, vs_ = (None if a is None else torch.from_numpy(a).to(cuda)
+                for a in (ks, vs))
+    q_, fk_, fv_ = (torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(cuda) for shape in ((B, H, hd), (B, Hkv, hd),
+                                            (B, Hkv, hd)))
+    lens_ = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for fk, fv in ((fk_, fv_), (None, None)):
+        kw = dict(k_scale=ks_, v_scale=vs_, fresh_k=fk, fresh_v=fv)
+        got = ta.decode_attention(q_, k_, v_, lens_, 0.09, **kw)
+        want = ta.decode_attention_reference(q_, k_, v_, lens_, 0.09, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-3)
+        if fk is None:
+            assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_attention_kernel_long_gqa4(cuda, B):
+    """#3 at Mixtral's head layout (32 query heads on 8 kv heads: G = 4,
+    the heads split over blocks) over a 2048-slot int8 cache."""
+    S, H, Hkv, hd = 2048, 32, 8, 128
+    rng = np.random.default_rng(62 + B)
+    k, v, ks, vs = _cache(rng, (2, B), S, Hkv, hd, True)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.normal(size=(B, H, hd)).astype(np.float32), k, v)]
+    lens = torch.from_numpy(rng.integers(1000, S + 1, size=B).astype(
+        np.int32)).to(cuda)
+    kw = dict(k_scale=torch.from_numpy(ks).to(cuda),
+              v_scale=torch.from_numpy(vs).to(cuda), layer=1,
+              fresh_k=torch.from_numpy(rng.normal(size=(B, Hkv, hd)).astype(
+                  np.float32)).to(cuda),
+              fresh_v=torch.from_numpy(rng.normal(size=(B, Hkv, hd)).astype(
+                  np.float32)).to(cuda))
+    before = ta.launches
+    got = ta.decode_attention(*args, lens, 0.088, **kw)
+    torch.cuda.synchronize()
+    assert ta.launches == before + 1
+    want = ta.decode_attention_reference(*args, lens, 0.088, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
 def _partial_check(got, want):
     """(m, l, acc) against the plain version: m where l > 0, -inf else."""
     gm, gl, ga = (t.cpu().numpy() for t in got)
@@ -770,14 +826,15 @@ def test_moe_decode_selects_without_a_host_sync(cuda):
 # the whole-layer kernel (#12) and the chained decode's CUDA graphs
 # ---------------------------------------------------------------------------
 
-def _layer_weights(rng, cuda, hidden, Hkv, hd, F):
-    """q|k|v (hidden x (hidden + 2 Hkv hd)), o, gate|up and down, 4-bit g-1."""
+def _layer_weights(rng, cuda, hidden, Hkv, hd, F, bits=4, groupsize=-1):
+    """q|k|v (hidden x (hidden + 2 Hkv hd)), o, gate|up and down."""
     kvw = Hkv * hd
-    qkv = tpack.fuse_packed([_fusable(rng, 4, -1, hidden, n)
+    qkv = tpack.fuse_packed([_fusable(rng, bits, groupsize, hidden, n)
                              for n in (hidden, kvw, kvw)])
-    return [w.to(cuda) for w in (qkv, _fusable(rng, 4, -1, hidden, hidden),
-                                 _fusable(rng, 4, -1, hidden, F, parts=2),
-                                 _fusable(rng, 4, -1, F, hidden))]
+    return [w.to(cuda) for w in (
+        qkv, _fusable(rng, bits, groupsize, hidden, hidden),
+        _fusable(rng, bits, groupsize, hidden, F, parts=2),
+        _fusable(rng, bits, groupsize, F, hidden))]
 
 
 @pytest.mark.parametrize("cache", ["bf16", "f32"])
@@ -845,6 +902,103 @@ def test_layer_kernel_matches_plain(cuda, hd, S, length, a8, G, cache):
         d = (got_c[1, 0, length].float() - plain_c[1, 0, length].float()).abs()
         ref = plain_c[1, 0, length].float().abs()
         assert bool((d <= 2.0**-7 * ref + FUSED_RTOL * ref.max()).all())
+
+
+def _layer_case(cuda, rng, bits, groupsize, S, hidden=1024, H=8, Hkv=4,
+                F=1536):
+    """A layer the layer route admits (layer_fusable) and its inputs."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    hd = hidden // H
+    ws = _layer_weights(rng, cuda, hidden, Hkv, hd, F, bits, groupsize)
+    kvw = Hkv * hd
+
+    class _Splits:
+        parts = ((hidden, hidden), (kvw, kvw), (kvw, kvw))
+
+    assert tl.layer_fusable(ws[0], _Splits, *ws[1:], hidden, H, Hkv)
+    spec = tc.ArchSpec(arch="llama", n_layers=2, hidden=hidden, n_heads=H,
+                       n_kv_heads=Hkv, ffn=F, vocab=8, max_pos=S, pos="rope")
+    x = torch.from_numpy(rng.normal(size=(1, 1, hidden)).astype(np.float32)
+                         ).to(cuda)
+    w1, w2 = _vec(rng, hidden, cuda, base=1.0), _vec(rng, hidden, cuda,
+                                                     base=1.0)
+    kv0 = [torch.from_numpy(rng.normal(size=(2, 1, S, Hkv, hd)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16) for _ in range(2)]
+    kw = dict(n_heads=H, n_kv_heads=Hkv, sm_scale=hd ** -0.5, layer=1)
+    return spec, ws, x, w1, w2, kv0, kw
+
+
+@pytest.mark.parametrize("bits,groupsize,F", [
+    (3, -1, 1472),  # gate|up's half not a whole number of 128-column chunks
+    (4, 128, 1536), (3, 128, 1536)])
+@pytest.mark.parametrize("a8", [False, True])
+def test_layer_kernel_3bit_and_grouped_long(cuda, bits, groupsize, F, a8):
+    """#12 on the 3-bit (two fields) and g128 weights layer_fusable admits,
+    over a 2048-slot bf16 cache with 1,100 filled; two launches on the
+    same inputs give the same bits."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+    import chip_smoke
+
+    rng = np.random.default_rng(70 + bits + (groupsize > 0) + 5 * a8)
+    S, length = 2048, 1100
+    spec, ws, x, w1, w2, kv0, kw = _layer_case(cuda, rng, bits, groupsize, S,
+                                               F=F)
+    lens = torch.tensor(length, dtype=torch.int32, device=cuda)
+    cos, sin = tc.rope_tables(spec, lens.reshape(1, 1))
+    args = (cos, sin, w1, w2, *ws)
+    runs = []
+    for _ in range(2):
+        kern = [c.clone() for c in kv0]
+        runs.append((tl.decode_layer_fused(x, *kern, lens, *args, a8=a8, **kw),
+                     kern))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    plain = [c.clone() for c in kv0]
+    err, rel, flips = chip_smoke.tie_check(
+        "layer", runs[0][0], lambda: tl.decode_layer_fused_reference(
+            x, *plain, lens, *args, a8=a8, **kw), FUSED_RTOL)
+    print(f"rel err {rel:.3g} after {flips} near-tie flips")
+    rest = torch.ones(S, dtype=torch.bool, device=cuda)
+    rest[length] = False
+    for got_c, c0 in zip(runs[0][1], kv0):
+        assert torch.equal(got_c[:, :, rest], c0[:, :, rest])
+
+
+def test_layer_kernel_graph_replays_at_two_lengths(cuda):
+    """#12 captured once in a CUDA graph over a device length: replays at
+    two lengths equal eager launches (its barrier and ticket counters are
+    never reset from the host) and write their own slot; the counters end
+    at zero."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    rng = np.random.default_rng(80)
+    S = 512
+    spec, ws, x, w1, w2, kv0, kw = _layer_case(cuda, rng, 4, -1, S)
+    lens = torch.tensor(100, dtype=torch.int32, device=cuda)
+    cos, sin = tc.rope_tables(spec, lens.reshape(1, 1))
+    args = (cos, sin, w1, w2, *ws)
+    live = [c.clone() for c in kv0]
+    tl.decode_layer_fused(x, *live, lens, *args, a8=True, **kw)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = tl.decode_layer_fused(x, *live, lens, *args, a8=True, **kw)
+    for length in (137, 300):
+        lens.fill_(length)
+        for c, c0 in zip(live, kv0):
+            c.copy_(c0)
+        graph.replay()
+        eager = [c.clone() for c in kv0]
+        want = tl.decode_layer_fused(x, *eager, lens, *args, a8=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        assert all(torch.equal(a, b) for a, b in zip(live, eager))
+        assert not torch.equal(live[0][1, 0, length], kv0[0][1, 0, length])
+    # the replays and eager launches each left the barrier and ticket words
+    # of their stream zero (but the barrier's generation)
+    assert tl.sync_clean(cuda)
 
 
 def _serve_model(cuda, n_layers=2, hidden=1024, H=8, Hkv=4, F=1024,

@@ -278,3 +278,163 @@ def test_model_decode_on_the_layer_route_matches_jax(a8, layer_route,
     rel = np.abs(tlog - jlog).max() / np.abs(jlog).max()
     assert rel < (0.05 if a8 else 0.02), rel
 
+
+
+# ---------------------------------------------------------------------------
+# the card kernel's static plan (layer_plan) and its K-split arithmetic
+# ---------------------------------------------------------------------------
+
+LLAMA7B = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096)]
+
+
+@pytest.mark.parametrize("bits,blocks", [(4, 132), (3, 132), (8, 132), (4, 7)])
+def test_layer_plan_covers_every_word_once(bits, blocks):
+    """Every field's word rows of every chunk are streamed exactly once,
+    in pieces whose slots run in row order; at llama-7B widths on an
+    H100's 132 SMs each block streams within 2% of the mean bytes."""
+    shapes = tuple((bits, K, N) for K, N in LLAMA7B)
+    plan = tl.layer_plan(shapes, blocks)
+    items = plan["items"].tolist()
+    first = plan["first"].tolist()
+    assert first[0] == 0 and first[-1] == len(items)
+    seen, pieces, tickets = {}, {}, set()
+    for b in range(blocks):
+        its = items[first[b]:first[b + 1]]
+        assert [it[0] & 3 for it in its] == sorted(it[0] & 3 for it in its)
+        for it in its:
+            head, c, r0, r1, slot, pc0, ticket, pair = it
+            w, f = head & 3, head >> 2 & 1
+            assert r0 % tl.STAGE_ROWS == 0 and r0 < r1
+            seen.setdefault((w, f, c), []).append((r0, r1))
+            pieces.setdefault((w, c), set()).add(slot)
+            tickets.add((w, ticket))
+        assert sum((it[3] - it[2]) * tl.CHUNK * 4 for it in its) == plan["bytes"][b]
+    for w, (b_, K, N) in enumerate(shapes):
+        for c in range(N // tl.CHUNK):
+            for f, (fb, _) in enumerate(tpack.FIELD_SPLITS[bits]):
+                spans = sorted(seen[w, f, c])
+                assert spans[0][0] == 0 and spans[-1][1] == K * fb // 32
+                assert all(a[1] == b2[0] for a, b2 in zip(spans, spans[1:]))
+            slots = sorted(pieces[w, c])
+            assert slots == list(range(slots[0], slots[0] + len(slots)))
+    assert len({t for _, t in tickets}) == plan["tickets"]
+    # the pieces each block lists in a phase, counted as the kernel's
+    # consume does (a gate|up pair's pieces together), fit its list
+    listed = max(
+        sum(1 for it in items[first[b]:first[b + 1]]
+            if it[0] & 3 == w and it[0] & 16
+            and (it[0] >> 8) + (it[7] >> 20 if it[0] & 32 else 0) > 1)
+        for b in range(blocks) for w in range(4))
+    assert plan["max_cut"] == listed <= tl.MAX_PIECES
+    if blocks == 132:
+        mean = sum(plan["bytes"]) / blocks
+        assert max(abs(v - mean) for v in plan["bytes"]) <= 0.02 * mean
+
+
+@pytest.mark.parametrize("blocks", [132, 7])
+def test_layer_plan_refuses_a_long_piece_list(blocks, monkeypatch):
+    """A plan whose block would list more pieces of cut chunks in one phase
+    than the kernel's list holds is refused on the host."""
+    shapes = tuple((4, K, N) for K, N in LLAMA7B)
+    need = tl.layer_plan(shapes, blocks)["max_cut"]
+    monkeypatch.setattr(tl, "MAX_PIECES", need - 1)
+    with pytest.raises(ValueError, match="pieces of cut chunks"):
+        tl.layer_plan(shapes, blocks)
+
+
+def _split_phase(plan, weights):
+    """ops/ffn._phase as the card kernel computes it: the staged row (int8
+    codes or bf16), each word row's codes against its staged elements
+    (qdot.cuh's byteplane order) times its group's scale (a field's shift
+    folded in), each piece of a chunk summed over its rows, the pieces in
+    piece order, then the zero points through the staged row's group sums
+    and the int8 scale."""
+    items = plan["items"].tolist()
+    which = {id(pw): w for w, pw in enumerate(weights)}
+
+    def phase(x, pw, a8, bias=None):
+        w = which[id(pw)]
+        if a8:
+            xq, sx = tl._ffn.quantize_acts_int8(x)
+            xs, sx = xq.to(torch.float32)[0], sx.reshape(-1)[0]
+        else:
+            xs, sx = tl._ffn._bf16(x)[0], 1.0
+        Kp, Np = pw.Kp, pw.Np
+        ng = pw.scale.shape[0]
+        SB = tpack.subblock(Kp, pw.groupsize)
+        contrib = []  # per field: (word rows, Np) its rows' products
+        for (fb, sh), words in zip(tpack.FIELD_SPLITS[pw.bits], pw.words):
+            codes = tpack.unpack_field(words, fb, Kp, pw.groupsize).float()
+            E, wsb = 8 // fb, SB * fb // 32
+            gr = torch.arange(Kp * fb // 32)
+            s, j = gr // wsb, gr % wsb
+            lane = (torch.arange(E)[:, None] * (SB // E)
+                    + torch.arange(4)[None]).reshape(-1)
+            k = (s * SB + 4 * j)[:, None] + lane[None]  # (rows, 32 / fb)
+            dots = (xs[k][..., None] * codes[k]).sum(dim=1)
+            contrib.append(dots * pw.scale[(s * SB) // (Kp // ng)] * 2.0 ** sh)
+        v = torch.zeros(Np)
+        part = {}
+        for it in items:
+            if it[0] & 3 != w:
+                continue
+            f, c = it[0] >> 2 & 1, it[1]
+            cols = slice(c * tl.CHUNK, (c + 1) * tl.CHUNK)
+            seg = contrib[f][it[2]:it[3], cols].sum(dim=0)
+            part[it[4]] = part.get(it[4], 0) + seg
+            part.setdefault(("chunk", it[4]), c)
+        for slot in sorted(k for k in part if not isinstance(k, tuple)):
+            c = part["chunk", slot]
+            v[c * tl.CHUNK:(c + 1) * tl.CHUNK] += part[slot]
+        groups = xs.reshape(ng, Kp // ng).sum(dim=1)
+        y = (v - (pw.zoff * groups[:, None]).sum(dim=0)) * sx
+        return y[None]
+
+    return phase
+
+
+@pytest.mark.parametrize("bits,groupsize,blocks,a8", [
+    (3, 128, 3, True), (4, -1, 8, False)])
+def test_k_split_replay_matches_jax_kernel(bits, groupsize, blocks, a8,
+                                           monkeypatch):
+    """The card kernel's K-split phases (layer_plan's pieces over `blocks`
+    blocks: down is cut in K at these widths, and o too where 3-bit
+    weights make two stages of it) inside the plain layer, held to the JAX
+    kernel in interpret mode with the near-tie rule of
+    test_torch_ffn._check."""
+    S, length, G = 32, 9, 2
+    Hkv = H // G
+    rng = np.random.default_rng(40 + bits + blocks)
+    L = _layer(rng, Hkv, bits=bits, groupsize=groupsize)
+    ws = [L[n][1] for n in ("qkv", "o", "gu", "dn")]
+    plan = tl.layer_plan(tuple((pw.bits, pw.Kp, pw.Np) for pw in ws), blocks)
+    cuts = {(it[0] & 3, it[1]) for it in plan["items"].tolist()
+            if it[0] >> 8 > 1}
+    # down cut in K (and, 3-bit: o, whose two fields make two stages)
+    assert {w for w, _ in cuts} >= ({1, 3} if bits == 3 else {3})
+    x = (rng.normal(size=(1, 1, HIDDEN)) * 0.5).astype(np.float32)
+    kv = rng.normal(size=(2, 1, S, Hkv, HD)).astype(np.float32)
+    w1, w2 = ((rng.random(HIDDEN) + 0.5).astype(np.float32) for _ in range(2))
+
+    class _Spec:
+        rope_theta = 10000.0
+        hd = HD
+
+    cos, sin = (np.array(t) for t in
+                jc.rope_tables(_Spec, jnp.asarray([[length]])))
+    kw = dict(n_heads=H, n_kv_heads=Hkv, sm_scale=HD ** -0.5, a8=a8)
+    jy, _, _ = jl.decode_layer_fused(
+        jnp.asarray(x), jnp.asarray(kv[0], jnp.bfloat16),
+        jnp.asarray(kv[1], jnp.bfloat16), jnp.asarray(length),
+        jnp.asarray(cos), jnp.asarray(sin), jnp.asarray(w1), jnp.asarray(w2),
+        *(L[n][0] for n in ("qkv", "o", "gu", "dn")), interpret=True, **kw)
+    monkeypatch.setattr(tl._ffn, "_phase", _split_phase(plan, ws))
+
+    def port():
+        tk, tv = (torch.from_numpy(c).to(torch.bfloat16) for c in kv)
+        return tl.decode_layer_fused_reference(
+            torch.from_numpy(x), tk, tv, torch.tensor(length),
+            torch.from_numpy(cos), torch.from_numpy(sin),
+            torch.from_numpy(w1), torch.from_numpy(w2), *ws, **kw).numpy()
+
+    _check(port, np.asarray(jy), a8, monkeypatch)
