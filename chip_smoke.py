@@ -43,7 +43,10 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                #1 at M = 2048 over one llama-7B layer's four linears with
                bf16, f32 and int8 (a8) x, #13 at M = 512 and 2048 the
                same way, and the crossover rows (M 2-128: the CUDA-core
-               loop against the tensor-core kernel on one weight).
+               loop against the tensor-core kernel on one weight). At one
+               row #1 and #13 are csrc/gemv.cuh's streamed kernels
+               (qgemv_kernel, bcq_gemv_kernel), timed with the wrapper's
+               host time a call.
   3. quantize - GPTQ (4-bit, groupsize 128, act-order, static groups,
                true-sequential) of a 2-layer llama-7B-width model from
                seeded weights on 16 x 512 synthetic tokens, pack, a
@@ -80,9 +83,9 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                against the plain versions and the fused route on the same
                cache; the CLI's --benchmark_batch 4 (generate_chained);
                the chained protocol (benchmark_decode_chained, one CUDA
-               graph per chain) on 32 layers of the layer route and of the
-               fused route, and 2-layer generate_chained tokens against
-               generate on each.
+               graph per chain) on 32 layers of the layer route, the
+               fused route, the unfused route and the BCQ route, and
+               2-layer generate_chained tokens against generate on each.
   5. sp      - sequence-parallel serving (engine/serving.SPEngine) on a
                one-rank NCCL process group: the serve phase's 32-layer
                checkpoint at sp = 1 (fused, a8, 8-bit head, int8 cache,
@@ -112,7 +115,8 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                under torch.cuda.set_sync_debug_mode("error"); and the
                whole 32-layer model (~23.6 GB) through
                engine.decode.benchmark_decode, with its profile and byte
-               bound.
+               bound, and through benchmark_decode_chained (its step
+               captured in a CUDA graph, which no host sync survives).
   7. cli     - quantize from a model directory through
                gptq_tpu_torch.cli: a 2-layer LLaMA-7B-width HF directory
                written here (config.json and an F16 model.safetensors
@@ -157,6 +161,7 @@ LAYER_SRC = "gptq_tpu_torch/csrc/layer_fused.cu"
 MMA_SRC = "gptq_tpu_torch/csrc/qmma.cu"
 MOE_MMA_SRC = "gptq_tpu_torch/csrc/qexpert_mma.cu"
 PARTIAL_SRC = "gptq_tpu_torch/csrc/attention_partial.cu"
+GEMV_SRC = "gptq_tpu_torch/csrc/gemv.cuh"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
 # bf16 x times codes in another order; attention: f32 math, other order;
 # fused kernels (relative to max|plain|): they round to bf16 (and, a8,
@@ -1517,8 +1522,9 @@ def close_check(what, got, want, tol, bf16_out) -> float:
 def bcq_checks(device, peaks, timer, report):
     """#13 against bcq_matmul_reference at llama-7B shapes: bits 2/3/4,
     groupsize -1 and 128, M 1, 4 and 32, a8 / bf16 / f32, each call's
-    route and launch checked; timed at the decode shape (3-bit g128 a8,
-    M = 1, the four linears of one layer) and at the PPL eval's M = 512;
+    route and launch checked; timed at the decode shape (3-bit g128 a8 and
+    bf16 x, M = 1, the four linears of one layer) and at the PPL eval's
+    M = 512;
     one weight the tensor-core kernel does not take (8 planes, g16) at
     M = 512 through the CUDA-core loop."""
     import torch
@@ -1531,7 +1537,7 @@ def bcq_checks(device, peaks, timer, report):
     # the weights and inputs of the other cases stay what they were
     gen_s = torch.Generator(device=device)
     gen_s.manual_seed(12)
-    rows, worst, dec = [], 0.0, []
+    rows, worst, dec, dec_bf16 = [], 0.0, [], []
     modes = (("a8", torch.float32), ("a16", torch.bfloat16),
              ("a16", torch.float32))
 
@@ -1573,14 +1579,15 @@ def bcq_checks(device, peaks, timer, report):
                         row = {"K": K, "N": N, "bits": bits, "g": gs, "M": M,
                                "act": act, "x": str(xdt)[6:], "route": route,
                                "max_abs_err": err}
-                        if bits == 3 and gs == 128 and M == 1 and a8:
+                        if bits == 3 and gs == 128 and M == 1 and (
+                                a8 or xdt == torch.bfloat16):
                             row.update(matmul_times(
                                 pw, x, a8, peaks, timer,
                                 kernel=B._bcq_cuda, prepare=B._prepare,
                                 wrapper=B.bcq_matmul,
                                 plain=B.bcq_matmul_reference,
                                 dense=B.bcq_dequant))
-                            dec.append(row)
+                            (dec if a8 else dec_bf16).append(row)
                         rows.append(row)
                 del pw
         log(f"bcq_matmul K={K} N={N}: 54 cases within tolerance")
@@ -1619,10 +1626,11 @@ def bcq_checks(device, peaks, timer, report):
                 plain=B.bcq_matmul_reference, dense=B.bcq_dequant))
             log("bcq_matmul timing " + json.dumps(row))
             big.append(row)
-    for r in dec:
+    for r in dec + dec_bf16:
         log("bcq_matmul timing " + json.dumps(r))
     report["bcq_rows"] = rows
     report["bcq_decode"] = dec
+    report["bcq_decode_bf16"] = dec_bf16
     report["bcq_mma"] = big
     report["bcq_m512"] = next(r for r in big
                               if r["M"] == 512 and r["x"] == "bfloat16")
@@ -1679,9 +1687,10 @@ def mma_crossover(device, peaks, timer, report):
 def matmul_times(pw, x, a8, peaks, timer, kernel, prepare, wrapper, plain,
                  dense, extra=None) -> dict:
     """Device times of one packed matmul: the bare kernel launch, the
-    wrapper, the plain version and torch.matmul on the dequantized bf16
-    weight (the one-call PyTorch yardstick), beside the byte / operation
-    bound of its inputs and output. `extra`: more named calls to time."""
+    wrapper (at one row also its host time a call), the plain version and
+    torch.matmul on the dequantized bf16 weight (the one-call PyTorch
+    yardstick), beside the byte / operation bound of its inputs and
+    output. `extra`: more named calls to time."""
     import torch
 
     M = x.shape[0]
@@ -1689,6 +1698,16 @@ def matmul_times(pw, x, a8, peaks, timer, kernel, prepare, wrapper, plain,
     ms = timer(lambda: kernel(x2, pw))
     out = {"ms": ms, "wrapper_ms": timer(lambda: wrapper(x, pw, a8=a8)),
            "plain_ms": timer(lambda: plain(x, pw, a8=a8))}
+    if M == 1:  # decode: the wrapper's host time a call (100 calls queued
+        # back to back with no synchronisation, the device behind)
+        for _ in range(3):
+            wrapper(x, pw, a8=a8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            wrapper(x, pw, a8=a8)
+        out["wrapper_host_us"] = (time.perf_counter() - t0) / 100 * 1e6
+        torch.cuda.synchronize()
     wd = dense(pw).to(torch.bfloat16)
     xb = x.to(torch.bfloat16)
     out["library_ms"] = timer(lambda: torch.matmul(xb, wd))
@@ -2492,7 +2511,7 @@ def phase_serve(device, tmp, card, report):
                               prompt, 16, "attn_mlp")
     report["layer_vs_fused"] = route_check(eng2b, prompt, layer_toks,
                                            fused_toks)
-    serve_chained(device, spec, params, card, report)
+    serve_chained(device, spec, params, dense_head, card, report)
     del params, p2, p_ffn, eng, unfused_eng, eng2, eng_ffn, dense_head
     del layer_eng, eng2b
     torch.cuda.empty_cache()
@@ -2547,56 +2566,77 @@ def route_check(eng, prompt, layer_toks, fused_toks) -> dict:
     return seen
 
 
-def serve_chained(device, spec, params, card, report):
-    """The chained protocol: engine.decode.benchmark_decode_chained (a
-    128-token chain and a 64-token one, each one CUDA graph) on the
-    32-layer model on the layer route (bf16 KV) and on the default fused
-    route (int8 KV); then generate_chained against generate on 2 layers of
-    each route. params carry the 8-bit head. The counters count only
-    eager calls and each captured launch once (launch_counts), so the
-    chained runs' counts are printed and not asserted."""
+def chained_run(route, spec, served, ids, cdt, card, layer="off",
+                mode="auto") -> dict:
+    """benchmark_decode_chained (a 128-token chain and a 64-token one, each
+    one CUDA graph) on one route, its result logged. The counters count
+    only eager calls and each captured launch once (launch_counts), so the
+    counts are printed and not asserted."""
     import torch
 
-    from gptq_tpu_torch.engine.decode import (DecodeEngine,
-                                              benchmark_decode_chained)
+    from gptq_tpu_torch.engine.decode import benchmark_decode_chained
+
+    with env_var("GPTQ_TPU_LAYER_FUSION", layer), fusion_mode(mode):
+        reset_counts()
+        t0 = time.perf_counter()
+        r = benchmark_decode_chained(spec, served, ids, cache_dtype=cdt,
+                                     log=lambda s: None)
+        torch.cuda.synchronize()
+        r["wall_s"] = time.perf_counter() - t0
+        r["launches_eager_and_captured"] = launch_counts()
+    log(f"chained {route} ({str(cdt).replace('torch.', '')} KV, "
+        f"{spec.n_layers} layers, {ids.shape[-1]} tokens): per_token "
+        f"{r['per_token_s'] * 1e3:.3f} ms ({r['tokens_per_s']:.2f} tok/s), "
+        f"full_run {r['full_run_s']:.4f} s, half_run {r['half_run_s']:.4f} "
+        f"s, dispatch_rtt {r['dispatch_rtt_s'] * 1e3:.4f} ms, below noise "
+        f"floor {r['below_noise_floor']} on {card}; "
+        + json.dumps(r["launches_eager_and_captured"]))
+    return r
+
+
+def chained_tokens(route, spec, params, prompt, cdt, layer="off",
+                   mode="auto") -> None:
+    """generate_chained's greedy tokens equal generate's on one route."""
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+
+    with env_var("GPTQ_TPU_LAYER_FUSION", layer), fusion_mode(mode):
+        eng = DecodeEngine(spec, params, max_len=64, batch=1, cache_dtype=cdt,
+                           a8=True)
+        want = eng.generate(prompt, 24)
+        got = eng.generate_chained(prompt, 24, chunk=8)
+    log(f"2-layer generate_chained ({route}): {got[0].tolist()}")
+    if not np.array_equal(got, want):
+        raise AssertionError(f"generate_chained ({route}) parts from "
+                             f"generate: {got[0].tolist()} vs "
+                             f"{want[0].tolist()}")
+
+
+def serve_chained(device, spec, params, dense_head, card, report):
+    """The chained protocol on the 32-layer model: the layer route (bf16
+    KV), the default fused route (int8 KV), both with the 8-bit head in
+    params, and the unfused route (int8 KV, the dense head, #1 at one row
+    128 times a step); then generate_chained against generate on 2 layers
+    of each route."""
+    import torch
+
     from gptq_tpu_torch.models.common import fuse_serving
 
     served = fuse_serving(spec, params, a8=True)
+    unfused = {**params, "lm_head": dense_head}
     ids = np.random.default_rng(11).integers(0, spec.vocab, size=(1, 128))
-    routes = (("layer", "on", torch.bfloat16), ("fused", "off", torch.int8))
-    out = {}
-    for route, layer, cdt in routes:
-        with env_var("GPTQ_TPU_LAYER_FUSION", layer), fusion_mode("auto"):
-            reset_counts()
-            t0 = time.perf_counter()
-            r = benchmark_decode_chained(spec, served, ids, cache_dtype=cdt,
-                                         log=lambda s: None)
-            torch.cuda.synchronize()
-            r["wall_s"] = time.perf_counter() - t0
-            r["launches_eager_and_captured"] = launch_counts()
-        out[route] = r
-        log(f"chained {route} ({str(cdt).replace('torch.', '')} KV, 32 "
-            f"layers, 128 tokens): per_token {r['per_token_s'] * 1e3:.3f} ms"
-            f" ({r['tokens_per_s']:.2f} tok/s), full_run "
-            f"{r['full_run_s']:.4f} s, half_run {r['half_run_s']:.4f} s, "
-            f"dispatch_rtt {r['dispatch_rtt_s'] * 1e3:.4f} ms, below noise "
-            f"floor {r['below_noise_floor']} on {card}; "
-            + json.dumps(r["launches_eager_and_captured"]))
+    routes = (("layer", "on", "auto", torch.bfloat16, served),
+              ("fused", "off", "auto", torch.int8, served),
+              ("unfused", "off", "off", torch.int8,
+               fuse_serving(spec, unfused, a8=True)))
+    out = {route: chained_run(route, spec, p, ids, cdt, card, layer, mode)
+           for route, layer, mode, cdt, p in routes}
     # 2 layers: the chained tokens equal the per-token ones on each route
     small = llama7b_spec(2)
-    p2 = {**params, "layers": params["layers"][:2]}
     prompt = np.random.default_rng(12).integers(0, small.vocab, size=(1, 20))
-    for route, layer, cdt in routes:
-        with env_var("GPTQ_TPU_LAYER_FUSION", layer), fusion_mode("auto"):
-            eng = DecodeEngine(small, p2, max_len=64, batch=1, cache_dtype=cdt,
-                               a8=True)
-            want = eng.generate(prompt, 24)
-            got = eng.generate_chained(prompt, 24, chunk=8)
-        log(f"2-layer generate_chained ({route}): {got[0].tolist()}")
-        if not np.array_equal(got, want):
-            raise AssertionError(f"generate_chained ({route}) parts from "
-                                 f"generate: {got[0].tolist()} vs "
-                                 f"{want[0].tolist()}")
+    for route, layer, mode, cdt, _ in routes:
+        p2 = unfused if route == "unfused" else params
+        chained_tokens(route, small, {**p2, "layers": p2["layers"][:2]},
+                       prompt, cdt, layer, mode)
         out[route]["chained_tokens_equal"] = True
     # the layer route's graph replays left the kernel's barrier and ticket
     # words zero (but the barrier's generation)
@@ -2611,7 +2651,9 @@ def serve_chained(device, spec, params, card, report):
 def serve_bcq(device, tmp, card, report):
     """The BCQ route: a 32-layer 3-bit g128 BCQ checkpoint through the CLI;
     every packed linear launches #13 (the fused kernels take uniform
-    weights only), 128 per step, plus 32 attention launches."""
+    weights only), 128 per step, plus 32 attention launches; its profile,
+    2-layer greedy tokens against the plain versions, the chained protocol
+    and 2-layer generate_chained against generate."""
     import torch
 
     from gptq_tpu_torch.engine.decode import DecodeEngine
@@ -2660,6 +2702,20 @@ def serve_bcq(device, tmp, card, report):
     prompt = np.random.default_rng(9).integers(0, small.vocab, size=(1, 64))
     r["greedy_tokens"] = greedy_check("2-layer BCQ decoding (w3a8, int8 KV)",
                                       eng2, prompt, 16, "bcq")
+    # the chained protocol (#13 at one row 128 times a step), and 2-layer
+    # generate_chained against generate
+    del eng, eng2
+    from gptq_tpu_torch.models.common import fuse_serving
+
+    ids = np.random.default_rng(11).integers(0, spec.vocab, size=(1, 128))
+    r["chained"] = chained_run("bcq", spec, fuse_serving(spec, params,
+                                                         a8=True),
+                               ids, torch.int8, card)
+    chained_tokens("bcq", small, {**params, "layers": params["layers"][:2]},
+                   np.random.default_rng(12).integers(0, small.vocab,
+                                                      size=(1, 20)),
+                   torch.int8)
+    r["chained"]["chained_tokens_equal"] = True
 
 
 def serve_streamed(device, tmp, report):
@@ -2837,7 +2893,8 @@ def moe_serve(device, tmp, card, peaks, report):
     """The 8-layer Mixtral checkpoint through the CLI, with exact launch
     counts and a profile; requests through #8 and per-expert #1 on 2
     layers, greedy tokens against the plain versions; the whole 32-layer
-    model in-process; one layer's decode FFN without a host sync."""
+    model in-process, per token and chained (a CUDA graph a chain); one
+    layer's decode FFN without a host sync."""
     import torch
 
     from gptq_tpu_torch.engine.decode import DecodeEngine, benchmark_decode
@@ -2998,8 +3055,13 @@ def moe_serve(device, tmp, card, peaks, report):
         f"on {card}; {alloc:.1f} GiB on the card; byte bound "
         f"{r32['bound_ms']:.3f} ms/token ({nbytes / 1e9:.3f} GB per step)")
     log("decode profile moe32 " + json.dumps(prof))
+    # the chained protocol: each chain one CUDA graph, whose capture fails
+    # on any host synchronisation of the step (the routing, the expert
+    # indices and their selections stay on the card)
+    del eng
+    r32["chained"] = chained_run("moe", spec, fused, ids, torch.int8, card)
     moe["decode32"] = r32
-    del eng, fused, params
+    del fused, params
     torch.cuda.empty_cache()
 
 
@@ -3576,10 +3638,10 @@ def profile_decode(eng, prompt, steps=8) -> dict:
             tok = logits.argmax(-1)[:, None]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fams = (("qmm", ("qmm_kernel", "qmv_kernel")), ("mma", ("qmma_kernel",)),
+    fams = (("qmm", ("qmm_kernel", "qgemv_kernel")), ("mma", ("qmma_kernel",)),
             ("select", ("qsel_kernel",)), ("expert", ("qexpert_kernel",)),
             ("expert_mma", ("qexpert_mma_kernel", "xprep_kernel")),
-            ("bcq", ("bcq_mv_kernel", "bcq_mm_kernel")),
+            ("bcq", ("bcq_gemv_kernel", "bcq_mm_kernel")),
             ("stream", ("qstream_kernel",)),
             ("attention", ("attnd_tile",)),
             ("partial", ("attnp_tile",)),
@@ -3723,12 +3785,21 @@ def main(argv=None) -> int:
                     "wrapper_ms": row["wrapper_ms"], "shape": shape,
                     "bcq": bcq_branch(name)}
 
+        def summed(rows, key):
+            vals = [r[key] for r in rows]
+            return None if None in vals else sum(vals)
+
         dec = [r for r in report["qmm_rows"]
                if r["w"] == "w4g-1" and r["M"] == 1 and r["a8"]]
+        dec_bf16 = [r for r in report["qmm_rows"]
+                    if r["w"] == "w4g-1" and r["M"] == 1 and "ms" in r
+                    and r["x"] == "bfloat16"]
         at = report["attn_times"][0]
         kernels = [
             {"name": "qmm", "route": "cuda", "source": QMM_SRC,
              "replaces": "gptq_tpu/ops/qmatmul.py:156",
+             # M = 1: qgemv_kernel of csrc/gemv.cuh (PR 11)
+             "device_code": GEMV_SRC,
              # on the unfused route (the fused one launches no qmm at decode)
              "launches": serve.get("unfused", {}).get("launches", {})
              .get("qmm", 0),
@@ -3738,9 +3809,15 @@ def main(argv=None) -> int:
              "bound_ms": sum(r["bound_ms"] for r in dec),
              "bound_by": "bytes",
              "library_ms": sum(r["library_ms"] for r in dec),
+             "wrapper_ms": sum(r["wrapper_ms"] for r in dec),
+             "wrapper_host_us": sum(r["wrapper_host_us"] for r in dec),
+             "per_linear_ms": [r["ms"] for r in dec],
+             "bf16": {k: summed(dec_bf16, k) for k in
+                      ("ms", "plain_ms", "bound_ms", "library_ms")},
              "shape": "one llama-7B layer's four packed linears (K x N: "
                       "4096x12288, 4096x4096, 4096x22528, 11264x4096), "
-                      "w4a8 groupsize -1, M=1; times summed"},
+                      "w4a8 groupsize -1, M=1; times summed (bf16: bf16 "
+                      "x, a16)"},
             {"name": "decode_attention", "route": "cuda", "source": PARTIAL_SRC,
              "replaces": "gptq_tpu/ops/attention.py:253",
              # the head-loop kernel computes the same function (hd % 128 != 0)
@@ -3792,10 +3869,6 @@ def main(argv=None) -> int:
         kernels[2].update({f"head_{k}": head[k] for k in
                            ("ms", "plain_ms", "bound_ms", "unfused_ms")})
 
-        def summed(rows, key):
-            vals = [r[key] for r in rows]
-            return None if None in vals else sum(vals)
-
         layer = ("one llama-7B layer's four packed linears (K x N: "
                  "4096x12288, 4096x4096, 4096x22528, 11264x4096), M=1, "
                  "times summed")
@@ -3816,6 +3889,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": "bcq_matmul", "route": "cuda", "source": BCQ_SRC,
             "replaces": "gptq_tpu/ops/bcq_matmul.py:70",
+            # M = 1: bcq_gemv_kernel of csrc/gemv.cuh (PR 11)
+            "device_code": GEMV_SRC,
             "launches": serve.get("bcq", {}).get("launches", {})
             .get("bcq", 0),
             "max_abs_err": report["bcq_max_abs_err"],
@@ -3823,6 +3898,10 @@ def main(argv=None) -> int:
             "bound_ms": summed(bd, "bound_ms"), "bound_by": "bytes",
             "library_ms": summed(bd, "library_ms"),
             "wrapper_ms": summed(bd, "wrapper_ms"),
+            "wrapper_host_us": summed(bd, "wrapper_host_us"),
+            "per_linear_ms": [r["ms"] for r in bd],
+            "bf16": {k: summed(report["bcq_decode_bf16"], k) for k in
+                     ("ms", "plain_ms", "bound_ms", "library_ms")},
             "m512": {k: report["bcq_m512"][k] for k in
                      ("ms", "plain_ms", "library_ms", "bound_ms",
                       "bound_by")},

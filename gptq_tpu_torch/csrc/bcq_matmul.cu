@@ -12,139 +12,33 @@
 //
 // Bound on an H100: at decode (M = 1) the sign-plane and alpha bytes over
 // the memory rate; at M = 512 (the PPL eval) the multiply-adds. What the
-// two kernels below do about it:
-//   * decode (M == 1, groups covering whole subblocks): bcq_mv_kernel,
-//     word-centric like qmatmul.cu's qmv_kernel. The activation row is
-//     staged once in shared memory with one sum per subblock; one output
-//     column per lane, so a warp's word loads are one 128-byte line; a
-//     word of plane b holds the {0,1} bits of 32 rows of one subblock
-//     (4 contiguous rows per sub-byte plane e), which plane_dot<1>
-//     (qdot.cuh) takes 4 at a time (dp4a for int8 x). The signs never
-//     materialize: with B in {0,1}, x . (2B - 1) = 2 (x . B) - sum(x), so
-//     alpha applies once per (subblock, plane) on the partial, as the TPU
-//     kernel applies it per group (exact int32 partials for a8).
+// kernels do about it:
+//   * decode (M == 1, groups covering whole subblocks, Np a multiple of
+//     4): bcq_gemv_kernel of gemv.cuh, the streamed single-row design it
+//     shares with #1's qgemv_kernel. The signs never materialize: with B
+//     in {0,1}, x . (2B - 1) = 2 (x . B) - sum(x), so 2 alpha applies to
+//     each exact partial of a plane (int32 for a8) and alpha times the
+//     group's x sum is subtracted once, after a chunk's pieces are summed.
 //   * everything else (M > 1, small groups): bcq_mm_kernel, a plain
 //     CUDA-core tiled product: each 32-row K tile of the weight is
 //     dequantized into shared memory (sum_b alpha * sign per element, any
 //     group length), the x tile beside it, and each thread accumulates a
-//     4 x 4 block of outputs. Tensor cores are later work.
+//     4 x 4 block of outputs. The model's rows from 2 up take the tensor
+//     cores (csrc/qmma.cu) where their groups allow.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "qdot.cuh"
+#include "gemv.cuh"  // the single-row kernel
 
 namespace {
-
-constexpr int COLS = 32;    // output columns per single-row block
-constexpr int VWARPS = 32;  // most warps per single-row block
-constexpr int WARPS = 8;
-
-template <typename T>
-struct Acc { using type = float; };
-template <>
-struct Acc<int8_t> { using type = int; };
-
-template <typename XT>
-struct Stage { using type = float; };
-template <>
-struct Stage<int8_t> { using type = int8_t; };
 
 __device__ __forceinline__ float load_x(const float* p) { return *p; }
 __device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ int load_x(const int8_t* p) { return (int)*p; }
-
-// ---------------------------------------------------------------------------
-// single-row path (decode)
-// ---------------------------------------------------------------------------
-
-template <typename XT>
-__global__ void __launch_bounds__(VWARPS * 32)
-bcq_mv_kernel(const XT* __restrict__ x, int Kp,
-              const int32_t* __restrict__ w, int bits, int SB,
-              const float* __restrict__ alpha, int ng,
-              float* __restrict__ out, int Np) {
-  using ST = typename Stage<XT>::type;
-  using AT = typename Acc<XT>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  ST* xs = reinterpret_cast<ST*>(smem);
-  AT* xsum = reinterpret_cast<AT*>(smem + ((Kp * sizeof(ST) + 15) & ~15));
-  __shared__ float red[VWARPS][COLS];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int n = blockIdx.x * COLS + lane;
-  const bool col_ok = n < Np;
-  const int nsub = Kp / SB;
-  for (int i = threadIdx.x; i < Kp; i += blockDim.x) xs[i] = (ST)load_x(x + i);
-  __syncthreads();
-  for (int s = warp; s < nsub; s += nwarps) {
-    AT v = 0;
-    for (int r = lane; r < SB; r += 32) v += (AT)xs[s * SB + r];
-    v = warp_sum(v);
-    if (lane == 0) xsum[s] = v;
-  }
-  __syncthreads();
-
-  const int G = Kp / ng;          // stored rows per group
-  const int Wsb = SB / 32;        // word rows per subblock (<= 16)
-  const int quarter = SB / 8;     // rows per sub-byte plane of a subblock
-  const size_t plane = (size_t)(Kp / 32) * Np;
-  float acc = 0.f;
-  for (int it = warp; it < nsub * bits; it += nwarps) {
-    const int s = it / bits;
-    const int b = it - s * bits;
-    if (!col_ok) continue;
-    const int32_t* wp = w + b * plane + (size_t)s * Wsb * Np + n;
-    AT dot = 0;
-#pragma unroll 4
-    for (int j = 0; j < Wsb; ++j) {
-      const unsigned word = (unsigned)__ldg(wp + (size_t)j * Np);
-      dot = plane_dot<1>(word, xs, s * SB + 4 * j, quarter, dot);
-    }
-    const int g = (s * SB) / G;
-    acc += __ldg(alpha + ((size_t)g * bits + b) * Np + n) *
-           (2.f * (float)dot - (float)xsum[s]);
-  }
-  red[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    float v = 0.f;
-    for (int i = 0; i < nwarps; ++i) v += red[i][lane];
-    if (col_ok) out[n] = v;
-  }
-}
-
-// the single-row path applies when groups cover whole subblocks and the
-// staged row fits a block's 227 KB of shared memory
-template <typename XT>
-bool mv_launch(const void* x, int Kp, const void* w, int bits, int SB,
-               const void* alpha, int ng, void* out, int Np,
-               cudaStream_t st) {
-  using ST = typename Stage<XT>::type;
-  using AT = typename Acc<XT>::type;
-  const int G = Kp / ng;
-  const size_t smem = ((Kp * sizeof(ST) + 15) & ~(size_t)15) +
-                      (size_t)(Kp / SB) * sizeof(AT);
-  const size_t static_smem = sizeof(float) * VWARPS * COLS;
-  if (G % SB != 0 || SB % 32 != 0 || SB > 512 ||
-      smem + static_smem > 227 * 1024)
-    return false;
-  if (smem + static_smem > 48 * 1024)
-    cudaFuncSetAttribute(bcq_mv_kernel<XT>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);  // a failure shows in cudaGetLastError
-  const dim3 grid((Np + COLS - 1) / COLS);
-  const int threads = (grid.x <= 264 ? VWARPS : WARPS) * 32;
-  bcq_mv_kernel<XT><<<grid, threads, smem, st>>>(
-      (const XT*)x, Kp, (const int32_t*)w, bits, SB, (const float*)alpha, ng,
-      (float*)out, Np);
-  return true;
-}
 
 // ---------------------------------------------------------------------------
 // general path: tiled CUDA-core product over a dequantized weight tile
@@ -236,33 +130,52 @@ bcq_mm_kernel(const XT* __restrict__ x, int M, int Kp,
 }
 
 template <typename XT>
-void launch(const void* x, int M, int Kp, const void* w, int bits, int SB,
-            const void* alpha, int ng, void* out, int Np, cudaStream_t st) {
-  if (M == 1 && mv_launch<XT>(x, Kp, w, bits, SB, alpha, ng, out, Np, st))
-    return;
+int launch(const void* x, int M, int Kp, const void* w, int bits, int SB,
+           const void* alpha, int ng, void* out, int Np, int splits,
+           int unit, cudaStream_t st) {
+  if (M == 1 && (Kp / ng) % SB == 0 && Np % 4 == 0) {
+    GemvArgs a{};
+    a.x = x;
+    a.w0 = (const int32_t*)w;
+    a.grid = (const float*)alpha;
+    a.out = (float*)out;
+    a.Kp = Kp;
+    a.Np = Np;
+    a.SB = SB;
+    a.ng = ng;
+    a.bits = bits;
+    a.splits = splits;
+    a.unit = unit;
+    return gemv_launch<XT, true>(a, st);
+  }
   const dim3 grid((Np + BN - 1) / BN, (M + BM - 1) / BM);
   bcq_mm_kernel<XT><<<grid, MM_THREADS, 0, st>>>(
       (const XT*)x, M, Kp, (const int32_t*)w, bits, SB, (const float*)alpha,
       ng, (float*)out, Np);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x_kind: 0 = f32, 1 = bf16, 2 = int8. Kp must be a multiple of 32 and of
-// SB. Returns cudaGetLastError() after the launch.
+// SB. splits / unit: the single-row kernel's cut of K (ops/qmatmul.
+// gemv_splits, gemv_unit), read at M == 1 only. Returns the launch's
+// cudaError_t.
 extern "C" int bcq_launch(const void* x, int x_kind, int M, int Kp,
                           const void* w, int bits, int SB, const void* alpha,
-                          int ng, void* out, int Np, void* stream) {
+                          int ng, void* out, int Np, int splits, int unit,
+                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (M < 1 || Kp % 32 || SB < 32 || Kp % SB || ng < 1 || Kp % ng)
     return (int)cudaErrorInvalidValue;
   if (x_kind == 0)
-    launch<float>(x, M, Kp, w, bits, SB, alpha, ng, out, Np, st);
-  else if (x_kind == 1)
-    launch<__nv_bfloat16>(x, M, Kp, w, bits, SB, alpha, ng, out, Np, st);
-  else if (x_kind == 2)
-    launch<int8_t>(x, M, Kp, w, bits, SB, alpha, ng, out, Np, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch<float>(x, M, Kp, w, bits, SB, alpha, ng, out, Np, splits,
+                         unit, st);
+  if (x_kind == 1)
+    return launch<__nv_bfloat16>(x, M, Kp, w, bits, SB, alpha, ng, out, Np,
+                                 splits, unit, st);
+  if (x_kind == 2)
+    return launch<int8_t>(x, M, Kp, w, bits, SB, alpha, ng, out, Np, splits,
+                          unit, st);
+  return (int)cudaErrorInvalidValue;
 }

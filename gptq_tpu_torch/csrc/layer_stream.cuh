@@ -9,7 +9,7 @@
 //     never reset from the host, so that a CUDA graph replays it);
 //   * a phase's input row staged once per block (the norm, the int8 scale
 //     or bf16 rounding, the group sums of the zero-point term);
-//   * the stage product over byteplane codes (qdot.cuh's algebra, four
+//   * the stage product over byteplane codes (wstream.cuh's rows, four
 //     columns a lane) and the K-split pieces summed in piece order by a
 //     chunk's last block (a ticket), which applies the phase's epilogue;
 //   * the attention phase: per-warp online states over slot tiles staged by
@@ -24,16 +24,14 @@
 #include "attn_rows.cuh"  // cp_async16, warp_max, row_dot
 #include "fused.cuh"  // WeightDesc, weight_ok, bf16r, act_fn, to_stage
 #include "tma.cuh"
+#include "wstream.cuh"  // CC, RR, STAGE_BYTES, RowMap, rows_dot
 
 namespace {
 
 constexpr int NCW = 16;                   // consumer warps
 constexpr int CTHREADS = 32 * NCW;        // consumer threads
 constexpr int LTHREADS = CTHREADS + 32;   // and the producer warp
-constexpr int CC = 128;                   // columns of a chunk (4 a lane)
-constexpr int RR = 32;                    // word rows of a stage
 constexpr int RW = RR / NCW;              // a consumer warp's rows a stage
-constexpr int STAGE_BYTES = RR * CC * 4;  // 16 KB
 constexpr int MAX_STAGES = 8;
 constexpr int ITEM = 8;                   // ints of a plan item
 constexpr int NSTAMP = 10;
@@ -345,66 +343,21 @@ __device__ void stage_row(const LArgs& a, int w, Stage<ST>& s) {
 // the stage product: a lane's four columns over a stage's word rows
 // ---------------------------------------------------------------------------
 
-// word row gr of a field: the staged row's element of its byte 0 in
-// plane 0 (qdot.cuh: subblock s holds rows s SB + e quarter + 4 j + b)
-struct Field {
-  int fb, sb_shift, wsb_shift, quarter, gw, ng, Np;  // gw: word rows a group
-  float mul;                                         // 2^shift of the field
+// field f of a weight: its width, its row map (wstream.cuh) and its grid
+struct Field : RowMap {
+  int fb, gw, ng, Np;  // gw: word rows a group
+  float mul;           // 2^shift of the field
   const float* scale;
-  __device__ Field(const WeightDesc& wd, int f) {
-    fb = wd.bits == 3 ? (f ? 1 : 2) : wd.bits;
-    sb_shift = 31 - __clz(wd.SB);
-    wsb_shift = 31 - __clz(wd.SB * fb / 32);
-    quarter = wd.SB * fb / 8;
+  __device__ Field(const WeightDesc& wd, int f)
+      : RowMap(wd.SB, field_bits(wd.bits, f)) {
+    fb = field_bits(wd.bits, f);
     ng = wd.ng;
     gw = wd.Kp / wd.ng * fb / 32;
     Np = wd.Np;
     mul = wd.bits == 3 && f ? 4.f : 1.f;
     scale = wd.scale;
   }
-  __device__ __forceinline__ int xrow(int gr) const {
-    const int s = gr >> wsb_shift;
-    return (s << sb_shift) + 4 * (gr - (s << wsb_shift));
-  }
 };
-
-template <int FB>
-__device__ __forceinline__ void row_dot4(int4 w4, const int8_t* x, int quarter,
-                                         int (&dot)[4]) {
-  constexpr unsigned BM = ((1u << FB) - 1u) * 0x01010101u;
-  const unsigned w[4] = {(unsigned)w4.x, (unsigned)w4.y, (unsigned)w4.z,
-                         (unsigned)w4.w};
-#pragma unroll
-  for (int e = 0; e < 8 / FB; ++e) {
-    const int xa = *reinterpret_cast<const int*>(x + e * quarter);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const unsigned ww = FB == 8 ? w[c] ^ 0x80808080u : w[c];
-      dot[c] = dp4a_su(xa, (ww >> (FB * e)) & BM, dot[c]);
-    }
-  }
-}
-
-template <int FB>
-__device__ __forceinline__ void row_dot4(int4 w4, const __nv_bfloat16* x,
-                                         int quarter, float (&dot)[4]) {
-  constexpr unsigned BM = ((1u << FB) - 1u) * 0x01010101u;
-  const unsigned w[4] = {(unsigned)w4.x, (unsigned)w4.y, (unsigned)w4.z,
-                         (unsigned)w4.w};
-#pragma unroll
-  for (int e = 0; e < 8 / FB; ++e) {
-    const uint2 xv = *reinterpret_cast<const uint2*>(x + e * quarter);
-    const float x0 = __uint_as_float(xv.x << 16);
-    const float x1 = __uint_as_float(xv.x & 0xffff0000u);
-    const float x2 = __uint_as_float(xv.y << 16);
-    const float x3 = __uint_as_float(xv.y & 0xffff0000u);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const unsigned ww = FB == 8 ? w[c] ^ 0x80808080u : w[c];
-      dot[c] = byte_dot((ww >> (FB * e)) & BM, x0, x1, x2, x3, dot[c]);
-    }
-  }
-}
 
 // a warp's rows of a stage: word rows [r, r + nr) (nr <= RW, one group)
 // of a field into a lane's four columns n0 .. n0 + 3, scaled by the group's
@@ -413,15 +366,8 @@ __device__ __forceinline__ void warp_rows(const int4* rows, int r, int nr,
                                           const ST* xs, const Field& fd,
                                           int n0, float (&acc)[4]) {
   using AT = typename Acc<ST>::type;
-  const int lane = threadIdx.x & 31;
   AT dot[4] = {0, 0, 0, 0};
-  int4 w4[RW];
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-    if (i < nr) w4[i] = rows[i * (CC / 4) + lane];
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-    if (i < nr) row_dot4<FB>(w4[i], xs + fd.xrow(r + i), fd.quarter, dot);
+  rows_dot<FB, RW>(rows, r, nr, xs, fd, dot);
   const int g = fd.ng == 1 ? 0 : r / fd.gw;
   const float4 sc = __ldg(
       reinterpret_cast<const float4*>(fd.scale + (size_t)g * fd.Np + n0));

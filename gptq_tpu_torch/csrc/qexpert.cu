@@ -7,7 +7,7 @@
 //       out[e, m, n] = sum_k X(e)[m, k] * dequant(bank[e])[k, n]
 //     for every expert e in one launch; X is (M, Kp) shared by the experts
 //     (gate / up) or (E, M, Kp), one per expert (down). M <= 32.
-//   * qmv_kernel with an expert index (qmv.cuh) <- the inner kernel of
+//   * qsel_kernel (the single-row body of qmv.cuh) <- the inner kernel of
 //     expert_dequant_matmul_select, #9:
 //       out[m, n] = sum_k x[m, k] * dequant(bank[e_idx])[k, n]
 //     The index is read by the kernel from a device int32 (the Pallas
@@ -368,14 +368,14 @@ extern "C" int qselect_launch(const void* x, int x_kind, int M, int Kp,
   const int* ei = (const int*)eidx;
   bool ok;
   if (x_kind == 0)
-    ok = qmv_launch<float>(x, M, Kp, bits, w0, w1, SB, scale, zoff, ng, ei, E,
-                           out, Np, st);
-  else if (x_kind == 1)
-    ok = qmv_launch<__nv_bfloat16>(x, M, Kp, bits, w0, w1, SB, scale, zoff,
-                                   ng, ei, E, out, Np, st);
-  else if (x_kind == 2)
-    ok = qmv_launch<int8_t>(x, M, Kp, bits, w0, w1, SB, scale, zoff, ng, ei,
+    ok = qsel_launch<float>(x, M, Kp, bits, w0, w1, SB, scale, zoff, ng, ei,
                             E, out, Np, st);
+  else if (x_kind == 1)
+    ok = qsel_launch<__nv_bfloat16>(x, M, Kp, bits, w0, w1, SB, scale, zoff,
+                                    ng, ei, E, out, Np, st);
+  else if (x_kind == 2)
+    ok = qsel_launch<int8_t>(x, M, Kp, bits, w0, w1, SB, scale, zoff, ng, ei,
+                             E, out, Np, st);
   else
     ok = false;
   if (!ok) return (int)cudaErrorInvalidValue;

@@ -27,9 +27,11 @@
 //     grid applies once per 32-row chunk on the partial:
 //     acc += part * scale - xsum * zoff, xsum by a warp reduction. Groups
 //     that do not cover whole chunks dequantize per element instead.
-//   * decode (M == 1) takes a word-centric single-row kernel (qmv_kernel
-//     of qmv.cuh): every word is loaded once and all its codes used, a8
-//     with dp4a on 4 codes at a time.
+//   * decode (M == 1, groups covering whole subblocks, Np a multiple of
+//     4) takes qgemv_kernel of gemv.cuh: the weight streamed through a
+//     ring of shared-memory stages by a producer warp, every code of each
+//     word used (a8: dp4a on 4 codes at a time), chunks cut in K into a
+//     thread block cluster's pieces summed in piece order.
 //
 // Bound on an H100: at decode (M <= 64) the packed-weight bytes over the
 // memory rate; at M = 2048 the multiply-adds over the tensor-core rate
@@ -39,7 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "qmv.cuh"
+#include "gemv.cuh"  // the single-row kernel
+#include "qmv.cuh"   // WARPS, COLS, Acc, load_x
 
 namespace {
 
@@ -167,8 +170,6 @@ qmm_kernel(const XT* __restrict__ x, int M, int Kp,
   }
 }
 
-// the single-row path (decode, M == 1) is qmv_kernel of qmv.cuh
-
 template <typename XT, int TM>
 void launch(const void* x, int M, int Kp, const void* w0, int fb0, int sh0,
             const void* w1, int fb1, int sh1, int SB, const void* scale,
@@ -181,14 +182,29 @@ void launch(const void* x, int M, int Kp, const void* w0, int fb0, int sh0,
 }
 
 template <typename XT>
-void launch_tm(const void* x, int M, int Kp, const void* w0, int fb0,
-               int sh0, const void* w1, int fb1, int sh1, int SB,
-               const void* scale, const void* zoff, int ng, void* out,
-               int Np, cudaStream_t st) {
+int launch_tm(const void* x, int M, int Kp, const void* w0, int fb0, int sh0,
+              const void* w1, int fb1, int sh1, int SB, const void* scale,
+              const void* zoff, int ng, void* out, int Np, int splits,
+              int unit, cudaStream_t st) {
   const int bits = w1 != nullptr ? 3 : fb0;
-  if (M == 1 && qmv_launch<XT>(x, 1, Kp, bits, w0, w1, SB, scale, zoff, ng,
-                               nullptr, 0, out, Np, st))
-    return;
+  if (M == 1 && (Kp / ng) % SB == 0 && Np % 4 == 0 &&
+      (bits == 2 || bits == 3 || bits == 4 || bits == 8)) {
+    GemvArgs a{};
+    a.x = x;
+    a.w0 = (const int32_t*)w0;
+    a.w1 = (const int32_t*)w1;
+    a.grid = (const float*)scale;
+    a.zoff = (const float*)zoff;
+    a.out = (float*)out;
+    a.Kp = Kp;
+    a.Np = Np;
+    a.SB = SB;
+    a.ng = ng;
+    a.bits = bits;
+    a.splits = splits;
+    a.unit = unit;
+    return gemv_launch<XT, false>(a, st);
+  }
   if (M <= 1)
     launch<XT, 1>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB, scale, zoff, ng,
                   out, Np, st);
@@ -198,28 +214,30 @@ void launch_tm(const void* x, int M, int Kp, const void* w0, int fb0,
   else
     launch<XT, 16>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB, scale, zoff,
                    ng, out, Np, st);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x_kind: 0 = f32, 1 = bf16, 2 = int8. w1 may be null (single field).
-// Returns cudaGetLastError() after the launch.
+// splits / unit: the single-row kernel's cut of K (ops/qmatmul.
+// gemv_splits, gemv_unit), read at M == 1 only. Returns the launch's
+// cudaError_t.
 extern "C" int qmm_launch(const void* x, int x_kind, int M, int Kp,
                           const void* w0, int fb0, int sh0, const void* w1,
                           int fb1, int sh1, int SB, const void* scale,
                           const void* zoff, int ng, void* out, int Np,
-                          void* stream) {
+                          int splits, int unit, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (x_kind == 0)
-    launch_tm<float>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB, scale, zoff,
-                     ng, out, Np, st);
-  else if (x_kind == 1)
-    launch_tm<__nv_bfloat16>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB, scale,
-                             zoff, ng, out, Np, st);
-  else if (x_kind == 2)
-    launch_tm<int8_t>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB, scale, zoff,
-                      ng, out, Np, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_tm<float>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB, scale,
+                            zoff, ng, out, Np, splits, unit, st);
+  if (x_kind == 1)
+    return launch_tm<__nv_bfloat16>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB,
+                                    scale, zoff, ng, out, Np, splits, unit,
+                                    st);
+  if (x_kind == 2)
+    return launch_tm<int8_t>(x, M, Kp, w0, fb0, sh0, w1, fb1, sh1, SB, scale,
+                             zoff, ng, out, Np, splits, unit, st);
+  return (int)cudaErrorInvalidValue;
 }

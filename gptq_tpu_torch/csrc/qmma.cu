@@ -6,7 +6,7 @@
 // kernels
 //   gptq_tpu/ops/qmatmul.py:_qmm_kernel (+ _tile_update)  -> qmma_kernel
 //   gptq_tpu/ops/bcq_matmul.py:_bcq_kernel                -> qmma_kernel<BCQ>
-// Decode (M == 1) stays on qmv_kernel (qmv.cuh) and bcq_mv_kernel, and
+// Decode (M == 1) takes qgemv_kernel and bcq_gemv_kernel (gemv.cuh), and
 // the weights this file does not take (below) on the CUDA-core loops of
 // qmatmul.cu and bcq_matmul.cu: ops/qmatmul.py:qmm_route and
 // ops/bcq_matmul.py:bcq_route decide, and a route is never a fallback.

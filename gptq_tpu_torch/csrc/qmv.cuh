@@ -1,7 +1,8 @@
-// Word-centric single-row dequantize + matmul over byteplane-packed
-// weights, shared by qmatmul.cu (decode, M == 1, kernel #1) and qexpert.cu
-// (the expert-select kernel #9, which reads its expert index from device
-// memory and offsets the bank's pointers by it).
+// The word-centric single-row dequantize + matmul body of the expert-select
+// kernel #9 (qexpert.cu's qsel_kernel, which reads its expert index from
+// device memory and offsets the bank's pointers by it); qmatmul.cu takes
+// its constants and loaders for the tiled loop (#1's decode kernel is
+// gemv.cuh's qgemv_kernel).
 //
 // The whole activation row is staged once in shared memory (f32 for
 // a16, int8 for a8) with one partial sum per subblock. Work items are
@@ -149,44 +150,34 @@ __device__ __forceinline__ void qmv_row(
   }
 }
 
-// #1's decode kernel (eidx unused) and #9's select kernel: one body, two
-// names, so a profile tells them apart
-#define QMV_PARAMS                                                          \
-  const XT *__restrict__ x, int Kp, const int32_t *__restrict__ w0,         \
-      const int32_t *__restrict__ w1, int SB,                               \
-      const float *__restrict__ scale, const float *__restrict__ zoff,      \
-      int ng, float *__restrict__ out, int Np, const int *__restrict__ eidx, \
-      int E
-
+// #9's select kernel
 template <typename XT, int BITS>
-__global__ void __launch_bounds__(VWARPS * 32) qmv_kernel(QMV_PARAMS) {
-  qmv_row<XT, BITS>(x, Kp, w0, w1, SB, scale, zoff, ng, out, Np, nullptr, 0);
-}
-
-template <typename XT, int BITS>
-__global__ void __launch_bounds__(VWARPS * 32) qsel_kernel(QMV_PARAMS) {
+__global__ void __launch_bounds__(VWARPS * 32) qsel_kernel(
+    const XT* __restrict__ x, int Kp, const int32_t* __restrict__ w0,
+    const int32_t* __restrict__ w1, int SB, const float* __restrict__ scale,
+    const float* __restrict__ zoff, int ng, float* __restrict__ out, int Np,
+    const int* __restrict__ eidx, int E) {
   qmv_row<XT, BITS>(x, Kp, w0, w1, SB, scale, zoff, ng, out, Np, eidx, E);
 }
 
-// the single-row path applies when groups cover whole subblocks and the
+// the select kernel applies when groups cover whole subblocks and the
 // staged row fits a block's 227 KB of shared memory (above 48 KB only as
 // dynamic shared memory the kernel has opted into). M rows of x, each its
 // own grid row. Returns false (launching nothing) where it does not apply.
 template <typename XT>
-bool qmv_launch(const void* x, int M, int Kp, int bits, const void* w0,
-                const void* w1, int SB, const void* scale, const void* zoff,
-                int ng, const int* eidx, int E, void* out, int Np,
-                cudaStream_t st) {
+bool qsel_launch(const void* x, int M, int Kp, int bits, const void* w0,
+                 const void* w1, int SB, const void* scale, const void* zoff,
+                 int ng, const int* eidx, int E, void* out, int Np,
+                 cudaStream_t st) {
   using ST = typename Stage<XT>::type;
   using AT = typename Acc<XT>::type;
   void (*kern)(const XT*, int, const int32_t*, const int32_t*, int,
                const float*, const float*, int, float*, int, const int*, int);
-  const bool sel = eidx != nullptr;
   switch (bits) {
-    case 2: kern = sel ? &qsel_kernel<XT, 2> : &qmv_kernel<XT, 2>; break;
-    case 3: kern = sel ? &qsel_kernel<XT, 3> : &qmv_kernel<XT, 3>; break;
-    case 4: kern = sel ? &qsel_kernel<XT, 4> : &qmv_kernel<XT, 4>; break;
-    case 8: kern = sel ? &qsel_kernel<XT, 8> : &qmv_kernel<XT, 8>; break;
+    case 2: kern = &qsel_kernel<XT, 2>; break;
+    case 3: kern = &qsel_kernel<XT, 3>; break;
+    case 4: kern = &qsel_kernel<XT, 4>; break;
+    case 8: kern = &qsel_kernel<XT, 8>; break;
     default: return false;
   }
   const int G = Kp / ng;

@@ -1,8 +1,9 @@
 // TMA and mbarrier helpers shared by the tensor-core kernels (qmma.cu,
-// qexpert_mma.cu): shared-memory addresses, mbarrier init / expect /
-// arrive / wait, tiled bulk-tensor copies into shared memory that complete
-// on an mbarrier, the proxy fence, and the host-side map encoder fetched
-// from the driver at run time.
+// qexpert_mma.cu) and the weight streams (layer_stream.cuh, gemv.cuh):
+// shared-memory addresses, mbarrier init / expect / arrive / wait, tiled
+// bulk-tensor copies and plain bulk copies into shared memory that
+// complete on an mbarrier, the proxy fence, and the host-side map encoder
+// fetched from the driver at run time.
 
 #pragma once
 
@@ -69,6 +70,18 @@ __device__ __forceinline__ void tma4d(void* dst, const CUtensorMap* m, int c0,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of global
+// memory into this block's shared memory, completing on `bar`: a bulk copy
+// that needs no tensor map
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

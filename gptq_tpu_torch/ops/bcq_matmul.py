@@ -5,10 +5,11 @@ gptq_tpu/ops/bcq_matmul.py).
 
 `bcq_matmul` on a CUDA tensor launches the hand-written kernels that
 are the counterpart of the Pallas `_bcq_kernel`, chosen by `bcq_route`
-from the row count: csrc/bcq_matmul.cu on CUDA cores for one row
+from the row count: csrc/bcq_matmul.cu's streamed single-row kernel
+(csrc/gemv.cuh `bcq_gemv_kernel`, the design #1 shares) for one row
 (decode), csrc/qmma.cu on the tensor cores (wgmma, sm_90a) for more
-(batched decode, prefill, PPL eval), and csrc/bcq_matmul.cu's loop for
-the weights the tensor-core kernel does not take. On a CPU tensor
+(batched decode, prefill, PPL eval), and csrc/bcq_matmul.cu's tiled loop
+for the weights neither takes. On a CPU tensor
 it runs `bcq_matmul_reference`, the plain PyTorch version (the JAX
 package's `impl="xla"` path). There is no fallback from a kernel to the
 plain version on the card: a launch that fails raises.
@@ -24,18 +25,20 @@ from gptq_tpu_torch.ops import _build
 from gptq_tpu_torch.ops.pack import PackedWeight, subblock, unpack_field
 # the act-order gather, int8 activations, row scale and bias: as qmatmul
 from gptq_tpu_torch.ops.qmatmul import (_X_KIND, _finish, _lib as _qlib,
-                                        _mma_ready, _prepare, mma_x)
+                                        _mma_ready, _prepare, gemv_cut, mma_x)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): csrc/bcq_matmul.cu, csrc/qmma.cu's BCQ kernel
+# them): csrc/bcq_matmul.cu (its single-row kernel and its tiled loop),
+# csrc/qmma.cu's BCQ kernel
 launches = 0
 mma_launches = 0
 
 
 def bcq_route(M: int, bits: int, groupsize: int, Np: int = 128) -> str:
     """The kernel of #13 for M rows against `bits` sign planes:
-    "single_row" (M = 1: bcq_mv_kernel where groups cover whole
-    subblocks, else the CUDA-core loop), "mma" (M >= 2: csrc/qmma.cu; the
+    "single_row" (M = 1: the streamed bcq_gemv_kernel of csrc/gemv.cuh
+    where groups cover whole subblocks and Np % 4 == 0, else the
+    CUDA-core loop), "mma" (M >= 2: csrc/qmma.cu; the
     grid is applied inside the dequantized weight, so groups of any
     multiple of 8 rows that divides or is divided by the kernel's 64-row
     stage; chip_smoke's crossover rows on an H100 find it faster than
@@ -140,10 +143,14 @@ def _bcq_cuda(x2: torch.Tensor, pw: PackedWeight,
     if route == "mma":
         return _bcq_mma(x2, pw, words, alpha, ng)
     out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
+    sb = subblock(pw.Kp, pw.groupsize)
+    # the single-row kernel's 16-byte copies need x on a 16-byte boundary
+    # (and the weight's tensors, which it checks: allocations are)
+    x2 = _mma_ready(x2)
     err = _lib().bcq_launch(
         x2.data_ptr(), _X_KIND[x2.dtype], M, pw.Kp, words.data_ptr(),
-        pw.bits, subblock(pw.Kp, pw.groupsize), alpha.data_ptr(), ng,
-        out.data_ptr(), pw.Np,
+        pw.bits, sb, alpha.data_ptr(), ng, out.data_ptr(), pw.Np,
+        *gemv_cut(pw.Kp, pw.Np, sb, 1, x2.element_size(), x2.get_device()),
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "bcq_launch")
     launches += 1
@@ -155,7 +162,7 @@ def _lib():
     f = lib.bcq_launch
     if f.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp, i, i, i, vp, i, i, vp, i, vp, i, vp]
+        f.argtypes = [vp, i, i, i, vp, i, i, vp, i, vp, i, i, i, vp]
         f.restype = ctypes.c_int
     return lib
 

@@ -324,6 +324,8 @@ def _lib():
 # TMA maps by its tensors' storage (see _weight_entry)
 _plans: dict = {}
 _syncs: dict = {}
+_retired: list = []  # the words of streams whose launch failed (a graph
+# that holds their addresses keeps them alive)
 _weights: dict = {}
 MAX_WEIGHTS = 4096  # weights kept (past it the cache starts over)
 
@@ -350,22 +352,31 @@ def _sync_words(n: int, dev, stream: int) -> torch.Tensor:
     must not overlap, hence one buffer per stream: a stream runs its
     launches one after another. Each launch that runs to its end leaves
     every word but the generation zero (the barrier's last arrival and
-    each ticket's last holder reset theirs); one that does not leaves a
-    sticky CUDA error, after which the context launches nothing more. The
-    words are never reset from the host, so a CUDA graph replays its
-    launches on the buffer of the stream that captured them; a buffer that
-    grows keeps the old one, whose address such a graph holds."""
+    each ticket's last holder reset theirs). A launch whose check raises
+    retires its stream's words (_retire_sync_words): the next launch on
+    that stream starts from fresh zero words. The words are never reset
+    from the host, so a CUDA graph replays its launches on the buffer of
+    the stream that captured them; a buffer that grows, or is retired,
+    stays alive, since such a graph holds its address."""
     bufs = _syncs.setdefault((_index(dev), stream), [])
     if not bufs or bufs[-1].numel() < n:
         bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32, device=dev))
     return bufs[-1]
 
 
+def _retire_sync_words(dev, stream: int) -> None:
+    """Stop using the words of `stream`: a launch on it failed, and may
+    have left a barrier count or a ticket set that would hang or misfinish
+    the next launch. They are kept (a graph may hold them), not checked
+    by sync_clean, and the next launch allocates fresh zero words."""
+    _retired.append(_syncs.pop((_index(dev), stream), []))
+
+
 def sync_clean(device=None) -> bool:
     """Are the barrier and ticket words of every stream of `device` (all
     devices: None) zero but the generations, as every launch that ran to
-    its end leaves them? A check for tests and chip_smoke.py; it reads the
-    words back (a synchronisation)."""
+    its end leaves them (retired words aside)? A check for tests and
+    chip_smoke.py; it reads the words back (a synchronisation)."""
     want = None if device is None else _index(torch.device(device))
     return all(bool((b[0] == 0) & (b[2:] == 0).all())
                for (dev, _), bufs in _syncs.items()
@@ -517,6 +528,8 @@ def _layer_cuda(x, k_cache, v_cache, length, cos, sin, w_ln1, w_ln2, qkv,
         ptr["qkv"], ptr["pml"], ptr["pacc"], nsplit, ptr["attn"], ptr["r2"],
         ptr["gu"], ptr["inner"], ptr["out"], ptr["part"], sync.data_ptr(),
         None if stamps is None else stamps.data_ptr(), stream)
+    if err != 0:
+        _retire_sync_words(dev, stream)
     _build.check(err, "layer_launch")
     out = offsets["out"][0]
     return (buf[out:out + hidden].reshape(1, 1, hidden),

@@ -6,10 +6,11 @@ expert_dequant_matmul, expert_dequant_matmul_select).
 `dequant_matmul` routes by GPTQ_TPU_MATMUL_IMPL, as in the JAX package:
   * `pallas` (the default): on a CUDA tensor the hand-written kernels
     that are the counterpart of the Pallas `_qmm_kernel`, chosen by
-    `qmm_route` from the row count: csrc/qmatmul.cu on CUDA cores for one
-    row (decode), csrc/qmma.cu on the tensor cores (wgmma, sm_90a) for
-    more (batched decode, prefill, PPL eval), and csrc/qmatmul.cu's loop
-    for the weights the tensor-core kernel does not take;
+    `qmm_route` from the row count: csrc/qmatmul.cu's streamed
+    single-row kernel (csrc/gemv.cuh `qgemv_kernel`) for one row
+    (decode), csrc/qmma.cu on the tensor cores (wgmma, sm_90a) for more
+    (batched decode, prefill, PPL eval), and csrc/qmatmul.cu's loop for
+    the weights neither takes;
   * `streamed`: single-field (2/4/8-bit) weights take csrc/qstream.cu
     (the counterpart of `_stream_kernel`), which walks K itself; a 3-bit
     weight takes the `pallas` route;
@@ -46,8 +47,9 @@ from gptq_tpu_torch.ops.pack import (FIELD_SPLITS, PackedExperts,
                                      PackedWeight, subblock, unpack_codes)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): csrc/qmatmul.cu, csrc/qmma.cu's uniform kernel, csrc/qstream.cu,
-# csrc/qexpert.cu's two and csrc/qexpert_mma.cu
+# them): csrc/qmatmul.cu (its single-row kernel and its loop),
+# csrc/qmma.cu's uniform kernel, csrc/qstream.cu, csrc/qexpert.cu's two
+# and csrc/qexpert_mma.cu
 launches = 0
 mma_launches = 0
 stream_launches = 0
@@ -166,12 +168,64 @@ def mma_row_order(Kp: int, sb: int, fbmin: int, stage: int,
     return _row_order(Kp, sb, fbmin, stage, torch.device(device))
 
 
+GEMV_COLS = 128       # csrc/gemv.cuh: columns of a chunk (CC)
+GEMV_WARP_ROWS = 4    # ... a consumer warp's word rows of a stage (GRW)
+GEMV_MAX_SPLITS = 8   # ... pieces of a chunk: a portable cluster (GMAXS)
+GEMV_X_ROOM = 64 * 1024  # most bytes of x a piece stages
+
+
+def gemv_unit(sb: int, fbmin: int) -> int:
+    """K rows of the single-row kernel's unit of a cut: whole subblocks of
+    `sb` rows, and in the finest field (`fbmin` bits) whole runs of a
+    consumer warp's 4 word rows, so that a piece starts on a subblock and
+    on such a run in every field."""
+    return max(sb, GEMV_WARP_ROWS * 32 // fbmin)
+
+
+def gemv_splits(Kp: int, Np: int, sb: int, fbmin: int, x_bytes: int,
+                sms: int) -> int:
+    """Pieces of each 128-column chunk of the single-row kernel
+    (csrc/gemv.cuh), one block and one cluster rank each: as many as keep
+    the chunks times the pieces within two blocks an SM (all resident at
+    once, each the same share of the weight), at most 8 (a portable
+    cluster) and the units of K; more where a piece's staged x row
+    (x_bytes an element) would pass 64 KB. The launch takes fewer where
+    the card cannot keep that many clusters resident at once (its
+    cudaOccupancyMaxActiveClusters)."""
+    unit = gemv_unit(sb, fbmin)
+    units = -(-Kp // unit)
+    top = min(GEMV_MAX_SPLITS, units)
+    s = max(1, min(top, 2 * sms // -(-Np // GEMV_COLS)))
+    while s < top and -(-units // s) * unit * x_bytes > GEMV_X_ROOM:
+        s += 1
+    return s
+
+
+@functools.lru_cache(maxsize=256)
+def gemv_cut(Kp: int, Np: int, sb: int, fbmin: int, x_bytes: int,
+             device: int) -> tuple[int, int]:
+    """(splits, unit) of the single-row kernel on CUDA device `device`."""
+    return (gemv_splits(Kp, Np, sb, fbmin, x_bytes, _build.sm_count(device)),
+            gemv_unit(sb, fbmin))
+
+
+def gemv_pieces(Kp: int, unit: int, splits: int) -> list:
+    """The single-row kernel's cut of K: piece p takes the K rows [k0,
+    k1), whole units (csrc/gemv.cuh gemv_piece)."""
+    units = -(-Kp // unit)
+    return [(min(Kp, p * units // splits * unit),
+             min(Kp, (p + 1) * units // splits * unit))
+            for p in range(splits)]
+
+
 def qmm_route(M: int, bits: int, groupsize: int, dtype: torch.dtype,
               a8: bool = False, Np: int = 128) -> str:
     """The kernel of #1 for an (M, K) x of `dtype` (int8 with a8) against
     a uniform weight of `bits` and `groupsize` (-1: one group):
       * "single_row": M = 1, decode: csrc/qmatmul.cu's qmm_launch, which
-        takes qmv_kernel where groups cover whole subblocks;
+        takes the streamed single-row kernel (csrc/gemv.cuh
+        qgemv_kernel) where groups cover whole subblocks and Np % 4 == 0,
+        and the CUDA-core loop for other weights;
       * "mma": M >= 2: the tensor-core kernel of csrc/qmma.cu. chip_smoke's
         crossover rows (4096x12288 w4 g-1) on an H100 find it faster than
         the CUDA-core loop from M = 2 up for bf16, f32 and int8 x
@@ -270,13 +324,19 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight,
         return _qmm_mma(x2, pw, words, scale, zoff, ng)
     out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
     lib = _lib()
+    sb = subblock(pw.Kp, pw.groupsize)
+    # the single-row kernel's 16-byte copies need x on a 16-byte boundary
+    # (and the weight's tensors, which it checks: allocations are)
+    x2 = _mma_ready(x2)
+    splits, unit = gemv_cut(pw.Kp, pw.Np, sb, _fbmin(pw.bits),
+                            x2.element_size(), x2.get_device())
     (fb0, sh0), w0 = fields[0], words[0]
     fb1, sh1, w1 = (fields[1][0], fields[1][1], words[1].data_ptr()) \
         if len(fields) > 1 else (0, 0, None)
     err = lib.qmm_launch(
         x2.data_ptr(), _X_KIND[x2.dtype], M, pw.Kp, w0.data_ptr(), fb0, sh0,
-        w1, fb1, sh1, subblock(pw.Kp, pw.groupsize),
-        scale.data_ptr(), zoff.data_ptr(), ng, out.data_ptr(), pw.Np,
+        w1, fb1, sh1, sb, scale.data_ptr(), zoff.data_ptr(), ng,
+        out.data_ptr(), pw.Np, splits, unit,
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "qmm_launch")
     launches += 1
@@ -288,7 +348,7 @@ def _lib(name="qmatmul"):
     vp, i = ctypes.c_void_p, ctypes.c_int
     if name == "qmatmul":
         f, types = lib.qmm_launch, [vp, i, i, i, vp, i, i, vp, i, i, i, vp,
-                                    vp, i, vp, i, vp]
+                                    vp, i, vp, i, i, i, vp]
     elif name == "qmma":
         for f, types in ((lib.qmma_launch,
                           [vp, vp, i, i, i, vp, vp, i, i, vp, vp, vp, i, vp,

@@ -139,11 +139,19 @@ def test_benchmark_decode_chained_keys_and_ppl():
     assert tdec.measure_dispatch_rtt(device="cpu") > 0
 
 
-@pytest.mark.parametrize("protocol", ["batch2", "per-token", "chained"])
-def test_cli_protocols(protocol, tmp_path, capsys, monkeypatch):
+@pytest.fixture(scope="module")
+def packed_checkpoint(tmp_path_factory):
+    """The protocols' 2-layer packed checkpoint, its params built (the JAX
+    side's init and packing too) and saved once for the module."""
     _, _, tspec, tp = packed_model(PACKED, seed=13)
-    path = str(tmp_path / "m.npz")
+    path = str(tmp_path_factory.mktemp("protocols") / "m.npz")
     tio.save_checkpoint(path, tspec, tp)
+    return path
+
+
+@pytest.mark.parametrize("protocol", ["batch2", "per-token", "chained"])
+def test_cli_protocols(protocol, packed_checkpoint, capsys, monkeypatch):
+    path = packed_checkpoint
     flags = ["--benchmark_batch", "2"] if protocol == "batch2" else []
     if protocol == "chained":  # a link slower than 1 ms a round trip
         monkeypatch.setattr(tdec, "measure_dispatch_rtt",

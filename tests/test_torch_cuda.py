@@ -243,6 +243,85 @@ def test_bcq_single_row_past_48kb(cuda, a8):
     _close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
 
 
+# the single-row kernels of #1 and #13 (csrc/gemv.cuh): a chunk's K pieces
+# are one cluster, summed in piece order by its rank 0
+# w3g32: a 1-bit field's group of one word row, so a warp's rows of a
+# stage span four groups (one grid row each)
+_GEMV_WEIGHTS = {"w4g-1": (4, -1), "w3g128": (3, 128), "w8g-1": (8, -1),
+                 "w3g32": (3, 32), "bcq3g128": (3, 128), "bcq2g-1": (2, -1)}
+
+
+def _gemv_case(cuda, fmt, act, K, N, seed):
+    """(module, wrapper, plain, weight, x, a8) of one single-row case."""
+    rng = np.random.default_rng(seed)
+    bits, gs = _GEMV_WEIGHTS[fmt]
+    bcq = fmt.startswith("bcq")
+    pw = (_bcq if bcq else _packed)(rng, bits, gs, K, N).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(1, K)).astype(np.float32)).to(cuda)
+    if act == "bf16":
+        x = x.to(torch.bfloat16)
+    if bcq:
+        return tbm, tbm.bcq_matmul, tbm.bcq_matmul_reference, pw, x, act == "a8"
+    return (tq, tq.dequant_matmul, tq.dequant_matmul_reference, pw, x,
+            act == "a8")
+
+
+def _near(got, want, act):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if act == "bf16":  # a bf16 output may round one bf16 step apart
+        bound = 2.0 ** -7 * np.abs(want) + 1e-4 * np.abs(want).max()
+        assert np.all(np.abs(got - want) <= bound)
+    else:
+        _close(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("fmt", list(_GEMV_WEIGHTS))
+@pytest.mark.parametrize("act", ["f32", "bf16", "a8"])
+def test_single_row_two_launches_bit_equal(cuda, fmt, act):
+    # K = 11264 cut into pieces: two launches sum them in the same order
+    mod, fn, plain, pw, x, a8 = _gemv_case(cuda, fmt, act, 11264, 512, 31)
+    before = mod.launches
+    first, second = fn(x, pw, a8=a8), fn(x, pw, a8=a8)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 2
+    assert torch.equal(first, second)
+    _near(first, plain(x, pw, a8=a8), act)
+
+
+@pytest.mark.parametrize("fmt", ["w4g-1", "w3g128", "bcq3g128"])
+def test_single_row_narrow_weight(cuda, fmt):
+    # 2 chunks of 128 columns: far fewer than the SMs, so each chunk is cut
+    # into 8 pieces (a cluster of 8 blocks)
+    mod, fn, plain, pw, x, a8 = _gemv_case(cuda, fmt, "a8", 4096, 256, 32)
+    sb = tpack.subblock(pw.Kp, pw.groupsize)
+    fbmin = 1 if pw.bits == 3 or mod is tbm else pw.bits
+    assert tq.gemv_splits(pw.Kp, pw.Np, sb, fbmin, 1,
+                          torch.cuda.get_device_properties(
+                              cuda).multi_processor_count) == 8
+    _near(fn(x, pw, a8=a8), plain(x, pw, a8=a8), "a8")
+
+
+@pytest.mark.parametrize("fmt", ["w4g-1", "bcq3g128"])
+@pytest.mark.parametrize("act", ["bf16", "a8"])
+def test_single_row_replays_in_a_cuda_graph(cuda, fmt, act):
+    # captured once, replayed on new x: the same bits as an eager launch
+    mod, fn, plain, pw, x, a8 = _gemv_case(cuda, fmt, act, 4096, 4096, 33)
+    fn(x, pw, a8=a8)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = fn(x, pw, a8=a8)
+    rng = np.random.default_rng(34)
+    for _ in range(2):
+        x.copy_(torch.from_numpy(rng.normal(size=(1, 4096)).astype(
+            np.float32)).to(x.dtype))
+        graph.replay()
+        want = fn(x, pw, a8=a8)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        _near(y, plain(x, pw, a8=a8), act)
+
+
 # #7: the streamed route against the plain version, single-field weights
 @pytest.mark.parametrize("bits,groupsize,K", [(4, -1, 480), (4, 128, 1024),
                                               (2, 256, 4096), (8, -1, 4096),
@@ -1001,6 +1080,42 @@ def test_layer_kernel_graph_replays_at_two_lengths(cuda):
     assert tl.sync_clean(cuda)
 
 
+def test_layer_kernel_failed_launch_retires_its_words(cuda, monkeypatch):
+    """A launch whose check raises retires its stream's barrier and ticket
+    words: the next launch on that stream takes fresh zero ones and runs
+    as an eager launch on a clean stream does."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    rng = np.random.default_rng(81)
+    spec, ws, x, w1, w2, kv0, kw = _layer_case(cuda, rng, 4, -1, 256)
+    lens = torch.tensor(60, dtype=torch.int32, device=cuda)
+    cos, sin = tc.rope_tables(spec, lens.reshape(1, 1))
+    args = (cos, sin, w1, w2, *ws)
+    want = tl.decode_layer_fused(x, *[c.clone() for c in kv0], lens, *args,
+                                 a8=True, **kw)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    old = tl._sync_words(1, cuda, stream)
+    real = tl._lib()
+
+    class Refused:  # a launch that the driver refuses
+        layer_maps = real.layer_maps
+
+        @staticmethod
+        def layer_launch(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tl, "_lib", lambda: Refused)
+    with pytest.raises(RuntimeError, match="layer_launch"):
+        tl.decode_layer_fused(x, *[c.clone() for c in kv0], lens, *args,
+                              a8=True, **kw)
+    monkeypatch.undo()
+    got = tl.decode_layer_fused(x, *[c.clone() for c in kv0], lens, *args,
+                                a8=True, **kw)
+    torch.cuda.synchronize()
+    assert tl._sync_words(1, cuda, stream).data_ptr() != old.data_ptr()
+    assert torch.equal(got, want) and tl.sync_clean(cuda)
+
+
 def _serve_model(cuda, n_layers=2, hidden=1024, H=8, Hkv=4, F=1024,
                  vocab=512):
     """A small packed llama model on the card (4-bit g-1 linears, random)."""
@@ -1104,6 +1219,62 @@ def test_generate_chained_replays_graphs(cuda, monkeypatch, route, B):
         generator=torch.Generator(device=cuda).manual_seed(3))
         for _ in range(2)]
     np.testing.assert_array_equal(draws[0], draws[1])
+
+
+def _single_row_model(cuda, route):
+    """A small model whose decode step launches #1 or #13 at one row (the
+    unfused route's packed linears, BCQ's sign planes) or the MoE layer's
+    selections (#9) beside #1 (its dense attention linears packed)."""
+    if route != "moe":
+        spec, params = _serve_model(cuda)
+        if route == "bcq":
+            rng = np.random.default_rng(5)
+            for lp in params["layers"]:
+                for k in ("q", "k", "v", "o", "gate", "up", "down"):
+                    w = lp[k]["w"]
+                    pw = _bcq(rng, 3, 128, w.K, w.N)
+                    pw.perm, pw.bias = None, None
+                    lp[k]["w"] = pw.to(cuda)
+        return spec, params
+    spec = tc.ArchSpec(arch="llama", n_layers=2, hidden=512, n_heads=4,
+                       n_kv_heads=2, ffn=1024, vocab=128, max_pos=64,
+                       act="silu", pos="rope", norm_type="rmsnorm",
+                       linear_bias=False, n_experts=8, expert_top_k=2,
+                       expert_capacity=4.0)
+    params = tc.init_params(spec, seed=0, device=cuda)
+    tm.pack_experts(params, bits=4)
+    rng = np.random.default_rng(6)
+    kvw = spec.kv_heads * spec.hd
+    for lp in params["layers"]:
+        for k, n in (("q", 512), ("k", kvw), ("v", kvw), ("o", 512)):
+            lp[k] = {"w": _fusable(rng, 4, -1, 512, n).to(cuda), "b": None}
+    return spec, params
+
+
+@pytest.mark.parametrize("route", ["unfused", "bcq", "moe"])
+def test_generate_chained_single_row_routes(cuda, monkeypatch, route):
+    """generate_chained's tokens equal generate's where the step launches
+    the single-row kernels (the MoE step: no host sync inside its
+    captured graphs); a second call replays them, launching nothing."""
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+
+    monkeypatch.setenv("GPTQ_TPU_LAYER_FUSION", "off")
+    if route == "unfused":
+        monkeypatch.setenv("GPTQ_TPU_FFN_FUSION", "off")
+    spec, params = _single_row_model(cuda, route)
+    eng = DecodeEngine(spec, params, max_len=64, batch=1,
+                       cache_dtype=torch.int8, a8=True)
+    prompt = np.random.default_rng(2).integers(0, spec.vocab, size=(1, 6))
+    want = eng.generate(prompt, 12)
+    mod = tbm if route == "bcq" else tq
+    before = mod.launches
+    np.testing.assert_array_equal(eng.generate_chained(prompt, 12, chunk=5),
+                                  want)
+    assert mod.launches > before  # captured
+    before = (tq.launches, tbm.launches, tq.select_launches)
+    np.testing.assert_array_equal(eng.generate_chained(prompt, 12, chunk=5),
+                                  want)
+    assert (tq.launches, tbm.launches, tq.select_launches) == before
 
 
 @pytest.fixture

@@ -438,3 +438,21 @@ def test_k_split_replay_matches_jax_kernel(bits, groupsize, blocks, a8,
             torch.from_numpy(w1), torch.from_numpy(w2), *ws, **kw).numpy()
 
     _check(port, np.asarray(jy), a8, monkeypatch)
+
+
+def test_retired_sync_words_start_fresh(monkeypatch):
+    """A stream whose launch failed gets fresh zero barrier and ticket
+    words for its next launch; the old ones stay alive (a CUDA graph may
+    hold their address) and out of sync_clean's check."""
+    monkeypatch.setattr(tl, "_syncs", {})
+    monkeypatch.setattr(tl, "_retired", [])
+    monkeypatch.setattr(tl, "_index", lambda dev: 0)
+    dev = torch.device("cpu")
+    old = tl._sync_words(8, dev, 5)
+    assert tl._sync_words(8, dev, 5) is old  # one buffer a stream
+    old[0] = 3  # a barrier count a failed launch left behind
+    assert not tl.sync_clean()
+    tl._retire_sync_words(dev, 5)
+    new = tl._sync_words(8, dev, 5)
+    assert new is not old and not bool(new.any()) and tl.sync_clean()
+    assert any(t is old for bufs in tl._retired for t in bufs)

@@ -471,7 +471,15 @@ def test_greedy_tokens_match():
     np.testing.assert_array_equal(got, want)
 
 
-def test_w4a8_int8kv_decode_matches():
+@pytest.fixture(scope="module")
+def jax_forward():
+    """gptq_tpu's model_forward compiled whole by jax.jit (the spec
+    static): one XLA program a call shape, where the eager calls compile
+    every primitive of the model on its own."""
+    return jax.jit(jc.model_forward, static_argnums=0)
+
+
+def test_w4a8_int8kv_decode_matches(jax_forward):
     """The serving flags' route (--faster-kernel --int8_kv) on an MoE model
     whose attention linears and experts are 4-bit packed. The bounds are
     ROADMAP section 3's: int8 rounding ties of the two frameworks' ~1e-7
@@ -482,13 +490,13 @@ def test_w4a8_int8kv_decode_matches():
     tf = tc.fuse_serving(tspec, tp, a8=True)
     assert "router" in tf["layers"][0] and "qkv_fused" in tf["layers"][0]
     ids = np.random.default_rng(6).integers(0, KW["vocab"], size=(1, 12))
-    want, _ = jc.model_forward(jspec, jf, jnp.asarray(ids))
+    want, _ = jax_forward(jspec, jf, jnp.asarray(ids))
     got, _ = tc.model_forward(tspec, tf, torch.from_numpy(ids))
     _close(got.numpy(), want, 5e-2)
     jcache = jc.KVCache.init(jspec, 1, 16, jnp.int8)
     tcache = tc.KVCache.init(tspec, 1, 16, torch.int8, device="cpu")
     for chunk in [ids[:, :8]] + [ids[:, i:i + 1] for i in range(8, 12)]:
-        want, jcache = jc.model_forward(jspec, jp, jnp.asarray(chunk), jcache)
+        want, jcache = jax_forward(jspec, jp, jnp.asarray(chunk), jcache)
         got, tcache = tc.model_forward(tspec, tp, torch.from_numpy(chunk),
                                        tcache)
         _close(got.numpy(), want, 5e-3)
