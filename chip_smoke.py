@@ -13,15 +13,19 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                the card at llama-7B shapes, with stated tolerances, and
                timed beside its plain version, a one-call PyTorch
                yardstick (or, for the fused kernels, the unfused route of
-               the same function) and the card's bound. The fused
+               the same function) and the card's bound. At one row #5 /
+               #6 run on #12's weight stream (mlp_stream_kernel), held to
+               the plain version with the near-tie rule and timed beside
+               the tiled mlp_kernel they replaced there. The fused
                kernels' BCQ branch (3-bit sign planes, g-1 and g128, M 1
                and 32, a8 and a16) the same way, with the near-tie rule,
                its unfused route being the norm and #13. The BCQ kernel
                (#13) and the streamed qmm (#7, GPTQ_TPU_MATMUL_IMPL=
                streamed) are held the same way; #7 is also timed beside
                kernel #1 on the same weight. The expert kernels: #8 (the
-               batched bank) and #9 (the select, index in device memory)
-               at Mixtral-8x7B shapes. The whole-layer kernel (#12) at
+               batched bank) and #9 (the select, index in device memory;
+               at one row qsel_gemv_kernel, timed beside the qsel_kernel
+               it replaced there) at Mixtral-8x7B shapes. The whole-layer kernel (#12) at
                llama-7B width, a8 and a16, on bf16 caches of 256 and 2048
                slots and an f32 one, with the near-tie rule of
                tests/test_torch_ffn.py, its cache write bit for bit, two
@@ -67,7 +71,9 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                64 + 64 tokens); a 2-layer model whose o projection is
                act-order takes the ffn_fused route. Each run's launch
                counters must rise by the expected amounts; a profile gives
-               each route's device time per step; at 2 layers, kernel
+               each route's device time per step (the fused route's: 32
+               mlp_stream_kernel launches a step, no mlp_kernel); at 2
+               layers, kernel
                decoding and plain decoding give the same greedy tokens on
                each route. Then a 32-layer 3-bit g128 BCQ checkpoint from
                seeded signs and alphas through the same CLI (128
@@ -114,7 +120,8 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                tokens against the plain versions; one layer's decode FFN
                under torch.cuda.set_sync_debug_mode("error"); and the
                whole 32-layer model (~23.6 GB) through
-               engine.decode.benchmark_decode, with its profile and byte
+               engine.decode.benchmark_decode, with its profile (192
+               qsel_gemv_kernel launches a step, no qsel_kernel) and byte
                bound, and through benchmark_decode_chained (its step
                captured in a CUDA graph, which no host sync survives).
   7. cli     - quantize from a model directory through
@@ -138,6 +145,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -162,6 +170,7 @@ MMA_SRC = "gptq_tpu_torch/csrc/qmma.cu"
 MOE_MMA_SRC = "gptq_tpu_torch/csrc/qexpert_mma.cu"
 PARTIAL_SRC = "gptq_tpu_torch/csrc/attention_partial.cu"
 GEMV_SRC = "gptq_tpu_torch/csrc/gemv.cuh"
+STREAM_DEV_SRC = "gptq_tpu_torch/csrc/layer_stream.cuh"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
 # bf16 x times codes in another order; attention: f32 math, other order;
 # fused kernels (relative to max|plain|): they round to bf16 (and, a8,
@@ -850,11 +859,29 @@ def packed_bytes(pw) -> int:
                   if t is not None))
 
 
+def host_us(fn, n=100) -> float:
+    """fn's host time a call in µs: n calls queued back to back with no
+    synchronisation (the device behind), after three warm calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def fused_times(timer, peaks, M, a8, weights, io_bytes, kernel, wrapper,
-                plain, unfused) -> dict:
+                plain, unfused, tiles=None) -> dict:
     """Device times of one fused function: the bare kernel launch, the
     wrapper, the plain version and the unfused route (qmm launches and the
-    PyTorch glue between them), beside the byte / operation bound."""
+    PyTorch glue between them), beside the byte / operation bound; with
+    `tiles` (one row: the launch of the tiled mlp_kernel, which the stream
+    replaced there) its time too and the wrapper's host time a call."""
     ms = timer(kernel)
     wrapper_ms = timer(wrapper)
     plain_ms = timer(plain)
@@ -864,10 +891,14 @@ def fused_times(timer, peaks, M, a8, weights, io_bytes, kernel, wrapper,
     ops = 2 * M * sum(pw.Kp * pw.Np for pw in weights)
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = ops / peaks["int8" if a8 else "bf16"] * 1e3
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "unfused_ms": unfused_ms, "bytes": nbytes,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "unfused_ms": unfused_ms, "bytes": nbytes,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if tiles is not None:
+        out["tiles_ms"] = timer(tiles)
+        out["wrapper_host_us"] = host_us(wrapper)
+    return out
 
 
 def residual_check(what, attn, xres, ln, o, gu, dn0, a8) -> float:
@@ -890,10 +921,39 @@ def residual_check(what, attn, xres, ln, o, gu, dn0, a8) -> float:
     return float(diff.max() / want.abs().max())
 
 
+def stream_vs_tiles(what, args, gu, dn, a8) -> float:
+    """#5 / #6 at one row on the weight stream and the tiled kernel it
+    replaced there (both forced): two stream launches bit for bit, the
+    barrier and ticket words clean after them. args: (x, xres, ln2, o), or
+    (m, None, None, None). Returns max|stream - tiles| / max|tiles|, which
+    is not held to a limit: each is held to the plain version, and a
+    near tie that the two round apart moves the output by up to ~1e-2."""
+    import torch
+
+    from gptq_tpu_torch.ops import ffn as Fz
+    from gptq_tpu_torch.ops import layer_fused as LF
+
+    kw = ("silu", "rmsnorm", 1e-5, True, a8, None, None, None, None)
+    x, xres, ln, o = args
+    tiles = Fz._mlp_cuda(x, xres, ln, o, gu, dn, *kw, route="tiles")
+    one = Fz._mlp_cuda(x, xres, ln, o, gu, dn, *kw, route="stream")
+    two = Fz._mlp_cuda(x, xres, ln, o, gu, dn, *kw, route="stream")
+    torch.cuda.synchronize()
+    rel = float((one - tiles).abs().max() / tiles.abs().max())
+    if not math.isfinite(rel) or not torch.equal(one, two) \
+            or not LF.sync_clean(x.device):
+        raise AssertionError(f"{what}: two stream launches differ, or the "
+                             f"sync words are not clean")
+    return rel
+
+
 def fused_checks(device, peaks, timer, report):
     """The fused kernels (#4 norm_qkv, #5 attn_mlp, #6 ffn) against their
     plain versions at llama-7B shapes, M in {1, 32}, a8 and a16; timed at
-    the decode shape (M = 1, a8)."""
+    the decode shape (M = 1, a8; #5 / #6 at a16 too). At M = 1 #5 / #6 run
+    on the weight stream (mlp_stream_kernel; ffn.mlp_route), held to the
+    plain version and to the tiled mlp_kernel (forced) on every tag, two
+    launches bit for bit, and timed beside it."""
     import torch
 
     from gptq_tpu_torch.models import common
@@ -914,16 +974,28 @@ def fused_checks(device, peaks, timer, report):
         return fuse_packed(pws), FusedSplits(tuple((p.Np, p.N) for p in pws))
 
     def check(kernel, tag, M, a8, got, want):
+        """got within TOL["fused"] of max|want|; want: the plain version's
+        output, or (the weight stream at one row) the plain version itself,
+        and then the near-tie rule of the layer checks (tie_check): the
+        stream's f32 sums run in another order than the tiled kernel's, so
+        a residual or activation element within a few ulps of a bf16 or
+        int8 rounding boundary may round the other way, and its row moves
+        by up to ~1e-2 of max|want| through ln2 and the int8 codes."""
         torch.cuda.synchronize()
-        got, want = got.float(), want.float()
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
+        flips = 0
+        if callable(want):
+            err, rel, flips = tie_check(f"{kernel} {tag} M={M} a8={a8}", got,
+                                        want, TOL["fused"])
+        else:
+            got, want = got.float(), want.float()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
         if not (math.isfinite(err) and rel <= TOL["fused"]):
             raise AssertionError(f"{kernel} {tag} M={M} a8={a8}: rel err "
                                  f"{rel:.3g} > {TOL['fused']}")
         worst[kernel] = max(worst.get(kernel, 0.0), err)
         row = {"kernel": kernel, "w": tag, "M": M, "a8": a8,
-               "max_abs_err": err, "rel_err": rel}
+               "max_abs_err": err, "rel_err": rel, "flips": flips}
         rows.append(row)
         return row
 
@@ -961,27 +1033,43 @@ def fused_checks(device, peaks, timer, report):
         dn = packed_linear(gen, F, H, bits, gs, device)
         dn0 = dataclasses.replace(dn, scale=torch.zeros_like(dn.scale),
                                   zoff=torch.zeros_like(dn.zoff))
-        p = {"o": {"w": o, "b": None, "serve": flags},
-             "gateup_fused": {"w": gu, "splits": splits,
-                              "b_parts": [None, None], "serve": flags},
-             "down": {"w": dn, "b": None, "serve": flags}, "ln2": {"w": ln}}
+        ps = {a8: {"o": {"w": o, "b": None, "serve": ServeFlags(a8=a8)},
+                   "gateup_fused": {"w": gu, "splits": splits,
+                                    "b_parts": [None, None],
+                                    "serve": ServeFlags(a8=a8)},
+                   "down": {"w": dn, "b": None, "serve": ServeFlags(a8=a8)},
+                   "ln2": {"w": ln}} for a8 in (True, False)}
         for M in (1, 32):
             attn = torch.randn((M, H), generator=gen, device=device)
             xres = torch.randn((M, H), generator=gen,
                                device=device).to(torch.bfloat16)
             m = torch.randn((M, H), generator=gen, device=device)
             for a8 in (True, False):
+                route = Fz.mlp_route(M, o, gu, dn, a8)
+                if (route == "stream") != (M == 1):
+                    raise AssertionError(f"attn_mlp {tag} M={M}: route {route}")
+                plain5 = functools.partial(Fz.attn_mlp_fused_reference, attn,
+                                           xres, ln, o, gu, dn, a8=a8)
+                plain6 = functools.partial(Fz.ffn_fused_reference, m, gu, dn,
+                                           a8=a8)
                 row5 = check("attn_mlp", tag, M, a8,
                              Fz.attn_mlp_fused(attn, xres, ln, o, gu, dn,
                                                a8=a8),
-                             Fz.attn_mlp_fused_reference(attn, xres, ln, o, gu,
-                                                         dn, a8=a8))
+                             plain5 if M == 1 else plain5())
                 row5["r2_rel_err"] = residual_check(
                     f"attn_mlp {tag} M={M} a8={a8}", attn, xres, ln, o, gu,
                     dn0, a8)
                 row6 = check("ffn", tag, M, a8, Fz.ffn_fused(m, gu, dn, a8=a8),
-                             Fz.ffn_fused_reference(m, gu, dn, a8=a8))
-                if M == 1 and a8 and tag == "w4g-1":
+                             plain6 if M == 1 else plain6())
+                for row, args in ((row5, (attn, xres.float(), ln, o)),
+                                  (row6, (m, None, None, None))):
+                    row["route"] = route
+                    if M == 1:  # the stream against the kernel it replaced
+                        row["tiles_rel_err"] = stream_vs_tiles(
+                            f"{row['kernel']} {tag} a8={a8}", args, gu, dn,
+                            a8)
+                if M == 1 and tag == "w4g-1":
+                    p = ps[a8]  # the unfused route at the same activations
                     x2 = xres.float()
                     a3, r3 = attn.reshape(1, 1, H), xres.reshape(1, 1, H)
                     row5.update(fused_times(
@@ -989,13 +1077,17 @@ def fused_checks(device, peaks, timer, report):
                         M * H * 4 + M * H * 2 + H * 2 + M * H * 4,
                         kernel=lambda: Fz._mlp_cuda(
                             attn, x2, ln, o, gu, dn, "silu", "rmsnorm", 1e-5,
-                            True, True, None, None, None, None),
+                            True, a8, None, None, None, None),
                         wrapper=lambda: Fz.attn_mlp_fused(attn, xres, ln, o,
-                                                          gu, dn),
+                                                          gu, dn, a8=a8),
                         plain=lambda: Fz.attn_mlp_fused_reference(
-                            attn, xres, ln, o, gu, dn),
+                            attn, xres, ln, o, gu, dn, a8=a8),
                         unfused=lambda: common._finish_block(
-                            spec, p, r3, a3, None, None)))
+                            spec, p, r3, a3, None, None),
+                        tiles=lambda: Fz._mlp_cuda(
+                            attn, x2, ln, o, gu, dn, "silu", "rmsnorm", 1e-5,
+                            True, a8, None, None, None, None,
+                            route="tiles")))
 
                     def unfused_ffn():
                         g, u = common._apply_fused(p["gateup_fused"], m)
@@ -1006,10 +1098,15 @@ def fused_checks(device, peaks, timer, report):
                         timer, peaks, M, a8, [gu, dn], M * H * 4 * 2,
                         kernel=lambda: Fz._mlp_cuda(
                             m, None, None, None, gu, dn, "silu", "rmsnorm",
-                            0.0, True, True, None, None, None, None),
-                        wrapper=lambda: Fz.ffn_fused(m, gu, dn),
-                        plain=lambda: Fz.ffn_fused_reference(m, gu, dn),
-                        unfused=unfused_ffn))
+                            0.0, True, a8, None, None, None, None),
+                        wrapper=lambda: Fz.ffn_fused(m, gu, dn, a8=a8),
+                        plain=lambda: Fz.ffn_fused_reference(m, gu, dn,
+                                                             a8=a8),
+                        unfused=unfused_ffn,
+                        tiles=lambda: Fz._mlp_cuda(
+                            m, None, None, None, gu, dn, "silu", "rmsnorm",
+                            0.0, True, a8, None, None, None, None,
+                            route="tiles")))
                 log("fused " + json.dumps(row5))
                 log("fused " + json.dumps(row6))
     report["fused_rows"] = rows
@@ -1458,16 +1555,8 @@ def layer_times(timer, peaks, spec, x, cache0, lens, args, kw, flags) -> dict:
         kw["sm_scale"], True, 1))
     wrapper_ms = timer(lambda: LF.decode_layer_fused(x, kc, vc, lens, *args,
                                                      a8=True, **kw))
-    # the wrapper's host time a call: 100 calls queued back to back with
-    # no synchronisation (the device runs behind), after a warm-up
-    for _ in range(3):
-        LF.decode_layer_fused(x, kc, vc, lens, *args, a8=True, **kw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        LF.decode_layer_fused(x, kc, vc, lens, *args, a8=True, **kw)
-    host_us = (time.perf_counter() - t0) / 100 * 1e6
-    torch.cuda.synchronize()
+    wrapper_host_us = host_us(lambda: LF.decode_layer_fused(
+        x, kc, vc, lens, *args, a8=True, **kw))
     plain_ms = timer(lambda: LF.decode_layer_fused_reference(
         x, kc, vc, lens, *args, a8=True, **kw))
     p = {"ln1": {"w": w1}, "ln2": {"w": w2},
@@ -1493,7 +1582,8 @@ def layer_times(timer, peaks, spec, x, cache0, lens, args, kw, flags) -> dict:
     attn_ops = 4 * nh * (length + 1) * hd
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = (mm_ops / peaks["int8"] + attn_ops / peaks["f32"]) * 1e3
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "wrapper_host_us": host_us,
+    return {"ms": ms, "wrapper_ms": wrapper_ms,
+            "wrapper_host_us": wrapper_host_us,
             "plain_ms": plain_ms, "fused_route_ms": fused_route_ms,
             "bytes": nbytes,
             "bound_ms": max(t_bytes, t_ops),
@@ -1698,16 +1788,8 @@ def matmul_times(pw, x, a8, peaks, timer, kernel, prepare, wrapper, plain,
     ms = timer(lambda: kernel(x2, pw))
     out = {"ms": ms, "wrapper_ms": timer(lambda: wrapper(x, pw, a8=a8)),
            "plain_ms": timer(lambda: plain(x, pw, a8=a8))}
-    if M == 1:  # decode: the wrapper's host time a call (100 calls queued
-        # back to back with no synchronisation, the device behind)
-        for _ in range(3):
-            wrapper(x, pw, a8=a8)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(100):
-            wrapper(x, pw, a8=a8)
-        out["wrapper_host_us"] = (time.perf_counter() - t0) / 100 * 1e6
-        torch.cuda.synchronize()
+    if M == 1:  # decode: the wrapper's host time a call
+        out["wrapper_host_us"] = host_us(lambda: wrapper(x, pw, a8=a8))
     wd = dense(pw).to(torch.bfloat16)
     xb = x.to(torch.bfloat16)
     out["library_ms"] = timer(lambda: torch.matmul(xb, wd))
@@ -1862,6 +1944,8 @@ def expert_checks(device, peaks, timer, report):
             idx = torch.tensor([e], dtype=torch.int32, device=device)
             for dt in ("f32", "bf16"):
                 x = x32.to(torch.bfloat16) if dt == "bf16" else x32
+                if Q.select_route(1, pe.Np) != "single_row":
+                    raise AssertionError(f"expert select {tag}: route")
                 before = Q.select_launches
                 got = Q.expert_dequant_matmul_select(x, pe, idx)
                 if Q.select_launches != before + 1:
@@ -1871,14 +1955,29 @@ def expert_checks(device, peaks, timer, report):
                     f"expert select {tag} e={e} {dt}", got,
                     Q.expert_dequant_matmul_select_reference(x, pe, idx),
                     tol, False)
+                # the row kernel it replaced at one row, forced; two
+                # launches of the single-row kernel bit for bit
+                rows_k = Q._select_cuda(x, pe, idx, route="rows")
+                again = Q._select_cuda(x, pe, idx)
+                close_check(f"expert select {tag} e={e} {dt} against "
+                            f"qsel_kernel", got, rows_k[:, :pe.N], tol, False)
+                if not torch.equal(again[:, :pe.N], got):
+                    raise AssertionError(f"expert select {tag} e={e} {dt}: "
+                                         f"two launches differ")
                 worst = max(worst, err)
                 row = {"w": tag, "K": pe.K, "N": pe.N, "M": 1, "e": e,
-                       "x": dt, "max_abs_err": err}
+                       "x": dt, "route": "single_row", "max_abs_err": err}
                 if e == 3 and dt == "bf16" and "g128" not in tag:
                     row.update(select_times(pe, x, idx, peaks, timer))
                     sel.append(row)
                 rows.append(row)
-        log(f"expert select {tag}: 6 cases within {tol}")
+        bad = torch.tensor([pe.E], dtype=torch.int32, device=device)
+        if not bool(torch.isnan(Q.expert_dequant_matmul_select(
+                x32, pe, bad)).all()):
+            raise AssertionError(f"expert select {tag}: an index outside "
+                                 f"the bank gave numbers, not NaN")
+        log(f"expert select {tag}: 6 cases within {tol}, against "
+            f"qsel_kernel, bit for bit twice; index {pe.E}: NaN")
     for r in sel:
         log("expert select timing " + json.dumps(r))
     report["expert_rows"] = rows
@@ -1921,16 +2020,21 @@ def expert_times(pe, x, peaks, timer, plain=True) -> dict:
 
 
 def select_times(pe, x, idx, peaks, timer) -> dict:
-    """Device times of #9 on one selected expert: the bare launch, the
-    plain version and torch.matmul on that expert's dequantized bf16
-    weight, beside the byte bound of one expert's words and grids."""
+    """Device times of #9 on one selected expert: the bare launch (the
+    single-row qsel_gemv_kernel), the row kernel qsel_kernel it replaced
+    at one row (`rows_ms`, forced), the plain version and torch.matmul on
+    that expert's dequantized bf16 weight, beside the byte bound of one
+    expert's words and grids; the wrapper's host time a call."""
     import torch
 
     from gptq_tpu_torch.ops import qmatmul as Q
 
     out = {"ms": timer(lambda: Q._select_cuda(x, pe, idx)),
+           "rows_ms": timer(lambda: Q._select_cuda(x, pe, idx, route="rows")),
            "plain_ms": timer(
-               lambda: Q.expert_dequant_matmul_select_reference(x, pe, idx))}
+               lambda: Q.expert_dequant_matmul_select_reference(x, pe, idx)),
+           "wrapper_host_us": host_us(
+               lambda: Q.expert_dequant_matmul_select(x, pe, idx))}
     wd = Q.dequant(pe.expert(idx)).to(torch.bfloat16)
     xb = x.to(torch.bfloat16)
     out["library_ms"] = timer(lambda: torch.matmul(xb, wd))
@@ -2464,6 +2568,9 @@ def phase_serve(device, tmp, card, report):
                                          / serve[route]["median_ms"])
         log(f"decode profile {route} " + json.dumps(prof))
         serve[route]["profile"] = prof
+        if route == "fused":  # #5 at one row: the weight stream
+            single_row_check("fused decode profile", prof,
+                             {"mlp_stream_kernel": L})
 
     # the ffn_fused route: an act-order o projection keeps attn_mlp off,
     # so the MLP alone fuses (gate|up + act + down)
@@ -3055,6 +3162,8 @@ def moe_serve(device, tmp, card, peaks, report):
         f"on {card}; {alloc:.1f} GiB on the card; byte bound "
         f"{r32['bound_ms']:.3f} ms/token ({nbytes / 1e9:.3f} GB per step)")
     log("decode profile moe32 " + json.dumps(prof))
+    single_row_check("moe32 decode profile", prof,
+                     {"qsel_gemv_kernel": 6 * spec.n_layers})
     # the chained protocol: each chain one CUDA graph, whose capture fails
     # on any host synchronisation of the step (the routing, the expert
     # indices and their selections stay on the card)
@@ -3639,17 +3748,22 @@ def profile_decode(eng, prompt, steps=8) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fams = (("qmm", ("qmm_kernel", "qgemv_kernel")), ("mma", ("qmma_kernel",)),
-            ("select", ("qsel_kernel",)), ("expert", ("qexpert_kernel",)),
+            ("select", ("qsel_kernel", "qsel_gemv_kernel")),
+            ("expert", ("qexpert_kernel",)),
             ("expert_mma", ("qexpert_mma_kernel", "xprep_kernel")),
             ("bcq", ("bcq_gemv_kernel", "bcq_mm_kernel")),
             ("stream", ("qstream_kernel",)),
             ("attention", ("attnd_tile",)),
             ("partial", ("attnp_tile",)),
-            ("norm_qkv", ("norm_qkv_kernel",)), ("mlp", ("mlp_kernel",)),
+            ("norm_qkv", ("norm_qkv_kernel",)),
+            ("mlp", ("mlp_kernel", "mlp_stream_kernel")),
             ("layer", ("layer_kernel",)))
     ms = {f: 0.0 for f, _ in fams}
     ms["other"] = 0.0
     n = dict.fromkeys(ms, 0.0)
+    # launches a step of #5 / #6's and #9's kernels by name: the single-row
+    # ones and those they replaced at one row
+    named = dict.fromkeys(SINGLE_ROW_KERNELS, 0.0)
     host = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -3660,6 +3774,9 @@ def profile_decode(eng, prompt, steps=8) -> dict:
                    "other")
         ms[fam] += e.device_time_total / 1e3 / steps
         n[fam] += e.count / steps
+        for name in named:
+            if name + "<" in e.key:
+                named[name] += e.count / steps
     # the host side: the operators with the most self CPU time a step
     # (under the profiler, which adds its own cost to each)
     host_top = [{"op": k, "self_ms": t, "calls": c}
@@ -3667,7 +3784,29 @@ def profile_decode(eng, prompt, steps=8) -> dict:
     return {"steps": steps, "profiled_wall_ms": wall / steps * 1e3,
             "device_ms": sum(ms.values()),
             "device_ms_by_family": ms, "device_events_per_step": n,
-            "host_top": host_top}
+            "kernels_per_step": named, "host_top": host_top}
+
+
+# the single-row kernels of #5 / #6 and #9, and the kernels that serve
+# those functions at more rows (profile_decode counts them by name)
+SINGLE_ROW_KERNELS = ("mlp_stream_kernel", "mlp_kernel", "qsel_gemv_kernel",
+                      "qsel_kernel")
+
+
+def single_row_check(what, prof, want) -> None:
+    """A decode profile's launches a step of the kernels named in want
+    (the rest of SINGLE_ROW_KERNELS: none), where the trace holds device
+    events."""
+    if prof["device_ms"] <= 0:
+        log(f"{what}: the trace holds no device events; kernels by name not "
+            f"measured")
+        return
+    got = prof["kernels_per_step"]
+    bad = {k: (v, want.get(k, 0)) for k, v in got.items()
+           if abs(v - want.get(k, 0)) > 1e-9}
+    if bad:
+        raise AssertionError(f"{what}: launches a step by kernel (got, want) "
+                             f"{bad}")
 
 
 def main(argv=None) -> int:
@@ -3774,16 +3913,29 @@ def main(argv=None) -> int:
                              for r in rs]}
 
         def fused_entry(name, line, row, launches, shape):
-            return {"name": name, "route": "cuda", "source": FFN_SRC,
-                    "replaces": f"gptq_tpu/ops/ffn.py:{line}",
-                    "launches": launches,
-                    "max_abs_err": report["fused_max_abs_err"][name],
-                    "ms": row["ms"], "plain_ms": row["plain_ms"],
-                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                    # no one PyTorch call computes these functions
-                    "library_ms": None, "unfused_ms": row["unfused_ms"],
-                    "wrapper_ms": row["wrapper_ms"], "shape": shape,
-                    "bcq": bcq_branch(name)}
+            entry = {"name": name, "route": "cuda", "source": FFN_SRC,
+                     "replaces": f"gptq_tpu/ops/ffn.py:{line}",
+                     "launches": launches,
+                     "max_abs_err": report["fused_max_abs_err"][name],
+                     "ms": row["ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                     # no one PyTorch call computes these functions
+                     "library_ms": None, "unfused_ms": row["unfused_ms"],
+                     "wrapper_ms": row["wrapper_ms"], "shape": shape,
+                     "bcq": bcq_branch(name)}
+            if name != "norm_qkv":  # M = 1 on the weight stream
+                a16 = next(r for r in report["fused_rows"]
+                           if r["kernel"] == name and r["w"] == row["w"]
+                           and r["M"] == 1 and not r["a8"] and "ms" in r)
+                entry.update({
+                    "kernels": ["mlp_stream_kernel (M = 1, uniform)",
+                                "mlp_kernel (M 2-32, BCQ)"],
+                    "device_code": STREAM_DEV_SRC,
+                    "tiles_ms": row["tiles_ms"],
+                    "wrapper_host_us": row["wrapper_host_us"],
+                    "a16": {k: a16[k] for k in ("ms", "tiles_ms", "plain_ms",
+                                                "bound_ms", "unfused_ms")}})
+            return entry
 
         def summed(rows, key):
             vals = [r[key] for r in rows]
@@ -4022,6 +4174,12 @@ def main(argv=None) -> int:
             kernels.append({
                 "name": "expert_select", "route": "cuda", "source": MOE_SRC,
                 "replaces": "gptq_tpu/ops/qmatmul.py:730",
+                # M = 1: qsel_gemv_kernel of csrc/gemv.cuh
+                "kernels": ["qsel_gemv_kernel (M = 1)",
+                            "qsel_kernel (M > 1)"],
+                "device_code": GEMV_SRC,
+                "rows_ms": summed(dec, "rows_ms"),
+                "wrapper_host_us": dec[0]["wrapper_host_us"],
                 "launches": moe.get("cli8", {}).get("launches", {})
                 .get("select", 0),
                 "max_abs_err": report["expert_max_abs_err"],

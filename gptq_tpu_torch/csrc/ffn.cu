@@ -54,8 +54,29 @@
 //     a separate non-inlined function, chosen per weight at run time, so
 //     the uniform tile (shared with layer_fused.cu) is unchanged.
 // The device code both kernels share with layer_fused.cu is in fused.cuh.
+//
+// At one row (decode), #5 and #6 on uniform weights take mlp_stream_kernel
+// instead (mlp_stream_launch; ops/ffn.mlp_route picks it): the weight
+// phases of the whole-layer kernel #12 (layer_stream.cuh, the same device
+// code layer_fused.cu launches) from o (#5) or gate|up (#6). A producer
+// warp an SM streams the packed words through a ring of 16 KB stages by
+// TMA under a static plan (ops/layer_fused.layer_plan over o, gate|up and
+// down), so every block streams a near-equal share of every phase and the
+// narrow o and down weights are cut in K as well as in columns; 16
+// consumer warps stage each phase's input row once per block and take the
+// stages (wstream.cuh's product: a lane four columns, every code of each
+// word), the pieces of a chunk cut in K summed in piece order by its last
+// block (a ticket), which applies the zero points, the int8 scale, the
+// bias and the phase's epilogue (r2, the GLU or fc1 activation, the
+// residual). The consumers meet on a grid barrier of their own between
+// phases (a generation counter in the caller's sync words, never reset
+// from the host: a CUDA graph replays it). The rows 2 .. 32 of batched
+// decode and short prefills, and BCQ sign planes, keep mlp_kernel above.
+
+#include <string.h>
 
 #include "fused.cuh"
+#include "layer_stream.cuh"  // mlp_stream_kernel, its host side
 
 namespace {
 
@@ -183,4 +204,84 @@ extern "C" int mlp_launch(const float* x, const float* xres, const float* nw,
   }
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(a8 ? mlp_rows<int8_t>(a, st) : mlp_rows<__nv_bfloat16>(a, st));
+}
+
+// #5 / #6 at one row on the weight stream (mlp_stream_kernel). With o: x
+// the attention row (o.Kp), xres (o.Np) bf16 values, the norm over r2 (nw,
+// nb for layernorm; norm 0 rmsnorm, 1 rmsnorm1p, 2 layernorm), scratch r2
+// (o.Np); without o (null): x the MLP's input row (gu.Kp), no norm, no
+// residual. gu, dn (and o): uniform weights the stream takes, each with
+// its maps (layer_fused.cu layer_maps) and its bias (Np f32) or null. items / first: the
+// plan of `blocks` blocks (ops/layer_fused.layer_plan over o, gate|up and
+// down, or gate|up and down), max_items / max_cut as layer_launch takes
+// them. Scratch (the caller's, 16-byte aligned): gbuf (gu.Np), inner
+// (dn.Kp), part (the plan's pieces x 128); sync: 2 + the plan's tickets
+// uint32, as layer_launch's (the same words may serve both kernels on one
+// stream). out: (dn.Np) f32. act: 0 silu, 1 gelu, 2 gelu_tanh, 3 relu.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for what the
+// kernel does not take, launching nothing).
+extern "C" int mlp_stream_launch(
+    const float* x, const float* xres, const float* nw, const float* nb,
+    int norm, float eps, int act, int glu, int a8, const WeightDesc* o,
+    const WeightDesc* gu, const WeightDesc* dn, const void* m_o,
+    const void* m_gu, const void* m_dn, const float* b_o, const float* b_g,
+    const float* b_d, const int* items, const int* first, int blocks,
+    int max_items, int max_cut, float* r2, float* gbuf, float* inner,
+    float* out, float* part, unsigned* sync, void* stream) {
+  if (!stream_weight_ok(gu) || !stream_weight_ok(dn) || m_gu == nullptr ||
+      m_dn == nullptr || act < 0 || act > 3 ||
+      (glu ? gu->Np != 2 * dn->Kp : gu->Np != dn->Kp) || !aligned16(x) ||
+      !aligned16(gbuf) || !aligned16(inner) || out == nullptr ||
+      part == nullptr || items == nullptr || first == nullptr ||
+      sync == nullptr || blocks < 1 || max_items < 0 || max_cut < 0 ||
+      max_cut > MAXP)
+    return (int)cudaErrorInvalidValue;
+  if (o != nullptr &&
+      (!stream_weight_ok(o) || m_o == nullptr || o->Np != gu->Kp ||
+       dn->Np != o->Np || xres == nullptr || !aligned16(r2) ||
+       !aligned16(nw) || norm < 0 || norm > 2 ||
+       (norm == 2 && !aligned16(nb)) || nw == nullptr ||
+       (norm == 2 && nb == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  LArgs a{};
+  const WeightDesc* ws[4] = {nullptr, o, gu, dn};
+  const void* ms[4] = {nullptr, m_o, m_gu, m_dn};
+  const float* bs[4] = {nullptr, b_o, b_g, b_d};
+  for (int w = 1; w < 4; ++w) {
+    if (ws[w] == nullptr) continue;
+    a.wd[w] = *ws[w];
+    a.wd[w].bias = bs[w];
+    memcpy(&a.maps[2 * w], ms[w], 2 * sizeof(CUtensorMap));
+  }
+  a.items = items;
+  a.first = first;
+  a.max_items = max_items;
+  a.first_w = o != nullptr ? 1 : 2;
+  a.glu = glu;
+  a.act = act;
+  a.eps = eps;
+  if (o != nullptr) {
+    a.attn = const_cast<float*>(x);
+    a.x = xres;
+    a.r2 = r2;
+    a.ln2 = nw;
+    a.ln2b = norm == 2 ? nb : nullptr;
+    a.norm = norm;
+  } else {
+    a.r2 = const_cast<float*>(x);  // gate|up's input row, no norm
+  }
+  a.gu = gbuf;
+  a.inner = inner;
+  a.out = out;
+  a.part = part;
+  a.sync = sync;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = a8 ? stream_layout<int8_t>(a, 0)
+                         : stream_layout<__nv_bfloat16>(a, 0);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  static int per_sm[2] = {-1, -1};  // by a8: the kernel and the card decide
+  return a8 ? stream_launch(mlp_stream_kernel<int8_t>, a, blocks, smem,
+                            per_sm[1], st)
+            : stream_launch(mlp_stream_kernel<__nv_bfloat16>, a, blocks, smem,
+                            per_sm[0], st);
 }

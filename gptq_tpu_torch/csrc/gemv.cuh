@@ -1,9 +1,16 @@
-// The single-row (decode, M = 1) packed matmul of #1 and #13: one design,
-// two kernels. qmatmul.cu launches qgemv_kernel (uniform grids) and
-// bcq_matmul.cu bcq_gemv_kernel (BCQ sign planes):
+// The single-row (decode, M = 1) packed matmul of #1, #13 and #9: one
+// design, three kernels. qmatmul.cu launches qgemv_kernel (uniform grids),
+// bcq_matmul.cu bcq_gemv_kernel (BCQ sign planes) and qexpert.cu
+// qsel_gemv_kernel (one expert of a uniform bank, chosen by a device
+// index):
 //
 //   #1:  out[n] = sum_g (x_g . C_g)[n] scale[g, n] - xsum_g zoff[g, n]
 //   #13: out[n] = sum_g sum_b alpha[g, b, n] (2 (x_g . B_b)[n] - xsum_g)
+//   #9:  #1 over bank[e], e = *eidx read by every block before its first
+//        copy: the expert's fields lie e (Kp fb / 32) Np words, its grids
+//        e ng Np entries into the bank's; an e outside [0, E) gives NaN
+//        outputs (every block of a cluster reads the same e and leaves
+//        before any arrival is due)
 //
 // over the stored dims: x (Kp,) f32 / bf16 / int8, out (Np,) f32. The
 // caller applies the int8 row scale and the bias.
@@ -68,24 +75,31 @@ struct GemvArgs {
   const float* grid;   // uniform: scale (ng, Np); BCQ: alpha (ng, bits, Np)
   const float* zoff;   // uniform: (ng, Np); BCQ: null
   float* out;          // (Np,)
+  const int* eidx;     // #9: the expert's index (device int32), else null
+  int E;               // #9: experts in the bank
   int Kp, Np, SB, ng, bits, splits, unit, ns;
   // dynamic shared memory: ring | staged x | run sums | group sums | warp
   // partials, then the pieces' sums (rank 0) | mbarriers
   int off_x, off_runs, off_xg, off_red, off_bar;
 };
 
-// field (uniform) or sign plane (BCQ) f of the weight, over the word rows
-// [r0, r1) of the piece's K range [k0, k1)
+// field (uniform) or sign plane (BCQ) f of the weight (#9: of expert e),
+// over the word rows [r0, r1) of the piece's K range [k0, k1)
 template <bool BCQ>
 struct GField : RowMap {
-  const int32_t* w;  // (rows, Np) words
+  const int32_t* w;     // (rows, Np) words
+  const float* grid;    // the weight's grid (uniform: scale) and zero points
+  const float* zoff;
   int fb, gw, r0, r1, srow, sstep;  // grid row of group g: g sstep + srow
   float mul;  // the exact partial's factor beside the grid
   bool zero;  // adds the zero-point term
-  __device__ GField(const GemvArgs& a, int f, int k0, int k1)
+  __device__ GField(const GemvArgs& a, int f, int k0, int k1, int e)
       : RowMap(a.SB, BCQ ? 1 : a.bits == 3 ? (f ? 1 : 2) : a.bits) {
     fb = BCQ ? 1 : a.bits == 3 ? (f ? 1 : 2) : a.bits;
     w = BCQ ? a.w0 + (size_t)f * (a.Kp / 32) * a.Np : f ? a.w1 : a.w0;
+    w += (size_t)e * ((size_t)a.Kp * fb / 32) * a.Np;
+    grid = a.grid + (size_t)e * a.ng * a.Np;
+    zoff = BCQ ? nullptr : a.zoff + (size_t)e * a.ng * a.Np;
     gw = a.Kp / a.ng * fb / 32;
     r0 = k0 * fb / 32;
     r1 = k1 * fb / 32;
@@ -188,7 +202,7 @@ __host__ __device__ inline void gemv_piece(int Kp, int unit, int splits,
 template <typename ST, bool BCQ>
 __device__ void gemv_produce(const GemvArgs& a, unsigned char* ring,
                              uint64_t* full, uint64_t* empty, uint64_t* xbar,
-                             ST* xs, int c, int k0, int k1, int nf) {
+                             ST* xs, int c, int k0, int k1, int nf, int e) {
   const int lane = threadIdx.x & 31;
   if (lane == 0) {
     const int xb = (k1 - k0) * (int)sizeof(ST);
@@ -199,7 +213,7 @@ __device__ void gemv_produce(const GemvArgs& a, unsigned char* ring,
   const int rowb = cols * 4;
   int k = 0;
   for (int f = 0; f < nf; ++f) {
-    const GField<BCQ> fd(a, f, k0, k1);
+    const GField<BCQ> fd(a, f, k0, k1, e);
     for (int r = fd.r0; r < fd.r1; r += RR, ++k) {
       const int slot = k % a.ns;
       if (k >= a.ns) mbar_wait(&empty[slot], ((k / a.ns) - 1) & 1);
@@ -250,8 +264,8 @@ __device__ __forceinline__ void gemv_rows(
     const int gr = gr0 + i, g = gr / fd.gw;
     const bool zr = fd.zero && gr == max(g * fd.gw, fd.r0);
     if (g != g0 && live) {
-      sc = ldg4(a.grid + (size_t)(g * fd.sstep + fd.srow) * a.Np + n0);
-      zz = !BCQ && zr ? ldg4(a.zoff + (size_t)g * a.Np + n0) : zero4;
+      sc = ldg4(fd.grid + (size_t)(g * fd.sstep + fd.srow) * a.Np + n0);
+      zz = !BCQ && zr ? ldg4(fd.zoff + (size_t)g * a.Np + n0) : zero4;
     }
     AT dot[4] = {0, 0, 0, 0};
     rows_dot<FB, 1>(rows + i * (CC / 4), gr - fd.r0, 1, xs, fd, dot);
@@ -265,7 +279,7 @@ template <typename ST, bool BCQ>
 __device__ void gemv_consume(const GemvArgs& a, unsigned char* ring,
                              uint64_t* full, uint64_t* empty, uint64_t* xbar,
                              const ST* xs, float* runs, float* xg, float* red,
-                             int c, int k0, int k1, int nf, float& D,
+                             int c, int k0, int k1, int nf, int e, float& D,
                              float& Z) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int G = a.Kp / a.ng, gA = k0 / G, ngp = (k1 - 1) / G - gA + 1;
@@ -287,7 +301,7 @@ __device__ void gemv_consume(const GemvArgs& a, unsigned char* ring,
   float d[4] = {0.f, 0.f, 0.f, 0.f}, z[4] = {0.f, 0.f, 0.f, 0.f};
   int k = 0;
   for (int f = 0; f < nf; ++f) {
-    const GField<BCQ> fd(a, f, k0, k1);
+    const GField<BCQ> fd(a, f, k0, k1, e);
     for (int r = fd.r0; r < fd.r1; r += RR, ++k) {
       const int slot = k % a.ns;
       const int gr0 = r + GRW * warp, nr = min(GRW, fd.r1 - gr0);
@@ -296,8 +310,8 @@ __device__ void gemv_consume(const GemvArgs& a, unsigned char* ring,
       const bool z0 = fd.zero && nr > 0 && gr0 == max(g0 * fd.gw, fd.r0);
       float4 sc = zero4, zz = zero4;
       if (live && nr > 0) {
-        sc = ldg4(a.grid + (size_t)(g0 * fd.sstep + fd.srow) * a.Np + n0);
-        if (!BCQ && z0) zz = ldg4(a.zoff + (size_t)g0 * a.Np + n0);
+        sc = ldg4(fd.grid + (size_t)(g0 * fd.sstep + fd.srow) * a.Np + n0);
+        if (!BCQ && z0) zz = ldg4(fd.zoff + (size_t)g0 * a.Np + n0);
       }
       mbar_wait(&full[slot], (k / a.ns) & 1);
       if (nr > 0) {
@@ -340,7 +354,7 @@ __device__ void gemv_consume(const GemvArgs& a, unsigned char* ring,
   }
 }
 
-template <typename ST, bool BCQ>
+template <typename ST, bool BCQ, bool SEL>
 __device__ __forceinline__ void gemv_block(const GemvArgs& a) {
   extern __shared__ __align__(128) unsigned char gsmem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(gsmem + a.off_bar);
@@ -350,6 +364,16 @@ __device__ __forceinline__ void gemv_block(const GemvArgs& a) {
   ST* xs = reinterpret_cast<ST*>(gsmem + a.off_x);
   const int t = threadIdx.x;
   const int piece = blockIdx.x % a.splits, c = blockIdx.x / a.splits;
+  int e = 0;  // #9: the expert, read before anything else
+  if constexpr (SEL) {
+    e = __ldg(a.eidx);
+    if (e < 0 || e >= a.E) {  // the same e in every block: the cluster
+      // leaves before its barrier, no arrival is awaited
+      if (piece == 0 && t < CC && c * CC + t < a.Np)
+        a.out[c * CC + t] = __int_as_float(0x7fc00000);
+      return;
+    }
+  }
   int k0, k1;
   gemv_piece(a.Kp, a.unit, a.splits, piece, k0, k1);
   const int nf = BCQ ? a.bits : a.bits == 3 ? 2 : 1;
@@ -366,13 +390,13 @@ __device__ __forceinline__ void gemv_block(const GemvArgs& a) {
   if (a.splits > 1) cluster_arrive_relaxed();
   float D = 0.f, Z = 0.f;
   if (t >= GCT)
-    gemv_produce<ST, BCQ>(a, gsmem, full, empty, xbar, xs, c, k0, k1, nf);
+    gemv_produce<ST, BCQ>(a, gsmem, full, empty, xbar, xs, c, k0, k1, nf, e);
   else
     gemv_consume<ST, BCQ>(a, gsmem, full, empty, xbar, xs,
                           reinterpret_cast<float*>(gsmem + a.off_runs),
                           reinterpret_cast<float*>(gsmem + a.off_xg),
                           reinterpret_cast<float*>(gsmem + a.off_red), c, k0,
-                          k1, nf, D, Z);
+                          k1, nf, e, D, Z);
   const int n = c * CC + t;
   if (a.splits == 1) {
     if (t < CC && n < a.Np) a.out[n] = D - Z;
@@ -405,13 +429,19 @@ __device__ __forceinline__ void gemv_block(const GemvArgs& a) {
 template <typename ST>
 __global__ void __launch_bounds__(GTHREADS, 2)
     qgemv_kernel(const __grid_constant__ GemvArgs a) {
-  gemv_block<ST, false>(a);
+  gemv_block<ST, false, false>(a);
 }
 
 template <typename ST>
 __global__ void __launch_bounds__(GTHREADS, 2)
     bcq_gemv_kernel(const __grid_constant__ GemvArgs a) {
-  gemv_block<ST, true>(a);
+  gemv_block<ST, true, false>(a);
+}
+
+template <typename ST>
+__global__ void __launch_bounds__(GTHREADS, 2)
+    qsel_gemv_kernel(const __grid_constant__ GemvArgs a) {
+  gemv_block<ST, false, true>(a);
 }
 
 inline int galign16(int v) { return (v + 15) & ~15; }
@@ -468,8 +498,9 @@ void gemv_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
 // launch's cudaError_t, or cudaErrorInvalidValue (launching nothing) for
 // what the kernel does not take: groups that do not cover whole
 // subblocks, an Np that is no multiple of 4, a cut that is not whole
-// units, pointers off a 16-byte boundary, more than GMAXS pieces.
-template <typename ST, bool BCQ>
+// units, pointers off a 16-byte boundary, more than GMAXS pieces. SEL
+// (#9, uniform only): a.eidx and a.E select the expert of a bank.
+template <typename ST, bool BCQ, bool SEL = false>
 int gemv_launch(GemvArgs a, cudaStream_t st) {
   auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
   const int fbmin = BCQ || a.bits == 3 ? 1 : a.bits;
@@ -481,11 +512,14 @@ int gemv_launch(GemvArgs a, cudaStream_t st) {
       (!BCQ && (a.zoff == nullptr || !aligned(a.zoff) ||
                 (a.bits == 3) != (a.w1 != nullptr) ||
                 (a.w1 != nullptr && !aligned(a.w1)))) ||
-      (BCQ && (a.bits < 1 || a.bits > 8)))
+      (BCQ && (a.bits < 1 || a.bits > 8)) ||
+      (SEL && (BCQ || a.eidx == nullptr || a.E < 1)))
     return (int)cudaErrorInvalidValue;
   void (*kern)(const GemvArgs);
   if constexpr (BCQ)
     kern = bcq_gemv_kernel<ST>;
+  else if constexpr (SEL)
+    kern = qsel_gemv_kernel<ST>;
   else
     kern = qgemv_kernel<ST>;
   cudaError_t err;

@@ -60,6 +60,9 @@
 //     state. The kv head's last split (a ticket) merges the splits' states
 //     in split order into the attention row: no combine phase and no
 //     barrier of its own.
+// The weight phases after attention, and the parts around them, are
+// layer_stream.cuh's, which ffn.cu's single-row MLP kernel (#5 / #6)
+// launches too, from o or gate|up.
 // Measured on an H100 (PERF.md §6): 0.106 ms at 128 filled slots
 // against 0.184 for the design this replaced (a cooperative grid of
 // 32-column tiles, 4-byte loads, five grid.sync()s); the kernel's own
@@ -79,45 +82,20 @@
 
 namespace {
 
-constexpr int SMEM_LIMIT = 232448;  // a block's shared memory
-
 template <typename ST, typename CT>
 __global__ void __launch_bounds__(LTHREADS, 1)
     layer_kernel(const __grid_constant__ LArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.off_bar);
-  uint64_t* empty = full + a.ns;
-  uint64_t* gates = empty + a.ns;  // the producer's, one a phase
-  int* pl = reinterpret_cast<int*>(gates + 4);  // consume's piece list
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < a.ns; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], NCW);
-    }
-    for (int w = 0; w < 4; ++w) mbar_init(&gates[w], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x >= CTHREADS) {  // the producer warp
-    produce(a, smem, full, empty, gates);
-    return;
-  }
-  Stage<ST> s{reinterpret_cast<float*>(smem + a.off_uni),
-              reinterpret_cast<ST*>(smem + a.off_xs),
-              reinterpret_cast<float*>(smem + a.off_red),
-              reinterpret_cast<float*>(smem + a.off_xg), gates, 1.f};
-  int* items = reinterpret_cast<int*>(smem + a.off_it);
-  {
-    const int i0 = a.first[blockIdx.x] * ITEM;
-    const int n = a.first[blockIdx.x + 1] * ITEM - i0;
-    for (int i = threadIdx.x; i < n; i += CTHREADS) items[i] = a.items[i0 + i];
-  }  // read after the staging's barriers
+  Ring r;
+  Stage<ST> s;
+  int* items;
+  if (!block_start<ST>(a, smem, r, s, items)) return;
   const int len = *a.len;  // slots cached (read here: its trip overlaps)
   int item = 0, k = 0;
   unsigned gen = threadIdx.x == 0 ? ld_acquire(a.sync + 1) : 0;  // grid_bar
   stamp(a, 0);
   stage_row<ST>(a, 0, s);  // ln1 + q|k|v
-  consume<ST>(a, 0, item, k, smem, full, empty, s, pl, items);
+  consume<ST>(a, 0, item, k, smem, r.full, r.empty, s, r.pl, items);
   unsigned char* uni = smem + a.off_uni;  // rope, fresh rows, split states
   attn_prefetch<CT>(a, uni, len);
   stamp(a, 1);
@@ -129,22 +107,8 @@ __global__ void __launch_bounds__(LTHREADS, 1)
     attn_phase<CT, 128>(a, uni, len);
   else
     attn_phase<CT, 256>(a, uni, len);
-  stamp(a, 3);
-  grid_bar(a, ++gen);
-  stamp(a, 4);
-  stage_row<ST>(a, 1, s);  // the attention row
-  consume<ST>(a, 1, item, k, smem, full, empty, s, pl, items);  // o + residual
-  stamp(a, 5);
-  grid_bar(a, ++gen);
-  stamp(a, 6);
-  stage_row<ST>(a, 2, s);  // ln2 + gate|up
-  consume<ST>(a, 2, item, k, smem, full, empty, s, pl, items);
-  stamp(a, 7);
-  grid_bar(a, ++gen);
-  stamp(a, 8);
-  stage_row<ST>(a, 3, s);  // act * up, down + residual
-  consume<ST>(a, 3, item, k, smem, full, empty, s, pl, items);
-  stamp(a, 9);
+  // o + residual, ln2 + gate|up, act * up + down + residual
+  weight_phases<ST>(a, 1, gen, item, k, smem, r, s, items);
 }
 
 template <typename ST, typename CT>
@@ -154,73 +118,13 @@ int attn_bytes(int hd) {
                      : ATile<CT, 256>::BYTES;
 }
 
-int align16(int v) { return (v + 15) & ~15; }
-
 template <typename ST, typename CT>
 int layer_run(LArgs& a, int blocks, cudaStream_t st) {
-  auto kern = layer_kernel<ST, CT>;
-  int kmax = 0, ngmax = 1;
-  for (const WeightDesc& w : a.wd) {
-    kmax = w.Kp > kmax ? w.Kp : kmax;
-    ngmax = w.ng > ngmax ? w.ng : ngmax;
-  }
-  if (kmax / 32 > NCW * CC) return (int)cudaErrorInvalidValue;  // 32s' sums
-  const int uni = align16(kmax * 4 > attn_bytes<ST, CT>(a.hd)
-                              ? kmax * 4
-                              : attn_bytes<ST, CT>(a.hd));
-  a.off_uni = 0;  // after the ring, below
-  a.off_xs = uni;
-  a.off_red = a.off_xs + align16(kmax * (int)sizeof(ST));
-  a.off_xg = a.off_red + NCW * CC * 4;
-  a.off_it = a.off_xg + align16(ngmax * 4);
-  a.off_bar = a.off_it + align16(a.max_items * ITEM * 4);
-  const int tail = 32 + (PLE + 1) * MAXP * 4;  // the gates, the piece list
-  const int rest = a.off_bar + 2 * MAX_STAGES * 8 + tail;
-  int ns = (SMEM_LIMIT - rest) / STAGE_BYTES;
-  ns = ns > MAX_STAGES ? MAX_STAGES : ns;
-  if (ns < 2) return (int)cudaErrorInvalidValue;
-  a.ns = ns;
-  const int ring = ns * STAGE_BYTES;
-  a.off_uni += ring;
-  a.off_xs += ring;
-  a.off_red += ring;
-  a.off_xg += ring;
-  a.off_it += ring;
-  a.off_bar += ring;
-  const size_t smem = (size_t)a.off_bar + 2 * ns * 8 + tail;
+  const size_t smem = stream_layout<ST>(a, attn_bytes<ST, CT>(a.hd));
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   static int per_sm = -1;  // depends on the kernel and the card only
-  cudaError_t err;
-  if (per_sm < 0) {
-    if ((err = cudaFuncSetAttribute(
-             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             SMEM_LIMIT)) != cudaSuccess)
-      return (int)err;
-    int dev = 0, sms = 0, n = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &n, kern, LTHREADS, SMEM_LIMIT)) != cudaSuccess)
-      return (int)err;
-    per_sm = n * sms;  // blocks resident at the largest plan
-  }
-  if (blocks > per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(LTHREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if ((err = cudaLaunchKernelEx(&cfg, kern, a)) != cudaSuccess)
-    return (int)err;
-  return (int)cudaGetLastError();
+  return stream_launch(layer_kernel<ST, CT>, a, blocks, smem, per_sm, st);
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 static_assert(sizeof(CUtensorMap) == 128, "layer_maps writes 2 x 128 bytes");
 
@@ -297,9 +201,7 @@ extern "C" int layer_launch(const float* x, const float* ln1,
   for (const void* m : ms)
     if (m == nullptr) return (int)cudaErrorInvalidValue;
   for (const WeightDesc* w : ws)
-    if (!weight_ok(w) || w->fmt != 0 || w->Np % CC || !aligned16(w->scale) ||
-        !aligned16(w->zoff))
-      return (int)cudaErrorInvalidValue;
+    if (!stream_weight_ok(w)) return (int)cudaErrorInvalidValue;
   const int hidden = qkv->Kp;
   if (H < 1 || Hkv < 1 || H % Hkv || H / Hkv > LMAXG ||
       (hd != 64 && hd != 128 && hd != 256) ||
@@ -316,6 +218,7 @@ extern "C" int layer_launch(const float* x, const float* ln1,
   LArgs a{};
   for (int w = 0; w < 4; ++w) {
     a.wd[w] = *ws[w];
+    a.wd[w].bias = nullptr;  // the llama layer has no biases
     memcpy(&a.maps[2 * w], ms[w], 2 * sizeof(CUtensorMap));
   }
   a.items = items;
@@ -349,6 +252,8 @@ extern "C" int layer_launch(const float* x, const float* ln1,
   a.act = act;
   a.eps = eps;
   a.sm_scale = sm_scale;
+  a.first_w = 0;
+  a.glu = 1;
   cudaStream_t st = (cudaStream_t)stream;
   if (a8)
     return cache_kind ? layer_run<int8_t, __nv_bfloat16>(a, blocks, st)

@@ -1,6 +1,8 @@
-// Device code of the whole-layer kernel (layer_fused.cu, #12): a weight
-// stream kept apart from the phases' arithmetic. layer_fused.cu's header
-// comment gives the design; this file holds its parts:
+// Device code of the weight-stream kernels: the whole-layer kernel
+// (layer_fused.cu, #12) and, at one row, the MLP half of a block (ffn.cu's
+// mlp_stream_kernel, #5 / #6), whose phases are a subset of #12's. The
+// weight stream is kept apart from the phases' arithmetic. layer_fused.cu's
+// header comment gives the design; this file holds its parts:
 //   * the static plan's items (ops/layer_fused.layer_plan) and the
 //     producer warp that streams their stages through a ring of shared-
 //     memory stages with TMA, gated at the phase boundaries;
@@ -12,8 +14,13 @@
 //   * the stage product over byteplane codes (wstream.cuh's rows, four
 //     columns a lane) and the K-split pieces summed in piece order by a
 //     chunk's last block (a ticket), which applies the phase's epilogue;
+//   * the weight phases after attention (o + residual, norm + gate|up +
+//     act, down + residual), which both kernels run from the plan's first
+//     weight: q|k|v (#12), o (#5) or gate|up (#6);
 //   * the attention phase: per-warp online states over slot tiles staged by
-//     cp.async, the splits merged in split order by a kv head's last split.
+//     cp.async, the splits merged in split order by a kv head's last split;
+//   * the host side both launchers share: the weight check, the
+//     shared-memory layout and the co-resident grid.
 
 #pragma once
 
@@ -43,12 +50,13 @@ constexpr int LMAXG = 8;                  // query heads a kv head
 // maps must lie in parameter, constant or global memory)
 struct LArgs {
   CUtensorMap maps[8];  // weight w, field f: maps[2 * w + f]
-  WeightDesc wd[4];     // q|k|v, o, gate|up, down
+  WeightDesc wd[4];     // q|k|v, o, gate|up, down (bias: null, or Np f32)
   const int* items;     // the plan (layer_plan)
   const int* first;     // (grid + 1) item offsets
-  const float* x;       // (hidden,) f32 block input
+  const float* x;       // (hidden,) f32 block input (#5: xres)
   const float* ln1;
-  const float* ln2;
+  const float* ln2;     // the norm over r2, or null (#6: none)
+  const float* ln2b;    // its bias (norm 2, layernorm), else null
   const float* cs;  // (hd,) rope tables of this position
   const float* sn;
   const int* len;   // (1,) slots already cached
@@ -57,8 +65,8 @@ struct LArgs {
   float* qkvo;   // (qkv.Np) the q|k|v row (before rope)
   float* pml;    // (Hkv nsplit G, 2) the splits' (m, l)
   float* pacc;   // (Hkv nsplit G, hd) the splits' unnormalised outputs
-  float* attn;   // (H hd) the attention row (block 0 writes it)
-  float* r2;     // (hidden) bf16(x + o(attn))
+  float* attn;   // (H hd) the attention row (block 0 writes it; #5: input)
+  float* r2;     // (hidden) bf16(x + o(attn)) (#6: the input row)
   float* gu;     // (gate|up Np) the gate|up row (before act)
   float* inner;  // (F) bf16(act(gate) * up) (block 0 writes it)
   float* out;    // (hidden) y
@@ -66,6 +74,8 @@ struct LArgs {
   unsigned* sync;  // [0] barrier count, [1] generation, [2 ..] tickets
   long long* stamps;  // (grid, NSTAMP) %globaltimer, or null
   int S, H, Hkv, hd, nsplit, norm, act, ns, max_items;
+  int first_w;  // the plan's first weight: 0 (#12), 1 (o: #5), 2 (gate|up: #6)
+  int glu;      // act(gate) * up; else act(fc1) (gate|up is fc1 alone)
   float eps, sm_scale;
   // dynamic shared memory: ring | union (f32 row / attention) | staged row
   // | warp partials | group sums | the block's items | mbarriers
@@ -130,7 +140,7 @@ __device__ __forceinline__ void stamp(const LArgs& a, int i) {
 // gate|up chunks c and c + F / CC are finished together (the GLU output
 // written once, by the chunk pair's last block) where CC divides F
 __device__ __forceinline__ bool paired(const LArgs& a) {
-  return (a.wd[2].Np / 2) % CC == 0;
+  return a.glu && (a.wd[2].Np / 2) % CC == 0;
 }
 
 // field f of a weight: its bit width and its shift in the code
@@ -142,7 +152,7 @@ __device__ __forceinline__ int field_bits(int bits, int f) {
 // the producer warp: the block's items' stages, in order, into the ring
 // ---------------------------------------------------------------------------
 
-// The producer holds before each phase after the first (gates[w]): o's
+// The producer holds before each phase after the plan's first (gates[w]): o's
 // weights wait until the block's consumers have o's input row, so the
 // attention and the boundary's trips (tickets, barrier, staging loads) run
 // on a quiet memory system, where a ring already refilling would queue
@@ -160,7 +170,7 @@ __device__ void produce(const LArgs& a, unsigned char* ring, uint64_t* full,
     const int w = it[0] & 3, f = (it[0] >> 2) & 1;
     bool ramp = false;
     if (w != lastw) {
-      if (w > 0) mbar_wait(&gates[w], 0);
+      if (w > a.first_w) mbar_wait(&gates[w], 0);
       lastw = w;
       ramp = true;
     }
@@ -222,10 +232,10 @@ __device__ void stage_row(const LArgs& a, int w, Stage<ST>& s) {
   // its sum of squares; a thread takes vectors t, t + CTHREADS, ... here
   // and in the passes below. Every block stages the same bits in the same
   // order: a chunk's last block finishes it with its own row statistics.
-  const bool glu_here = w == 3 && !paired(a);
+  const bool glu_here = w == 3 && a.glu && !paired(a);
   const float* src = w == 0 ? a.x : w == 1 ? a.attn : w == 2 ? a.r2
                    : glu_here ? a.gu : a.inner;
-  float ss = 0.f;
+  float ss = 0.f, sm = 0.f;  // sm: the row's sum (layernorm)
   for (int v0 = t; v0 < NV; v0 += CTHREADS * UNR) {
     float4 v[UNR], g2[UNR];
 #pragma unroll
@@ -252,13 +262,24 @@ __device__ void stage_row(const LArgs& a, int w, Stage<ST>& s) {
         u4[vi] = v[u];
         ss += v[u].x * v[u].x + v[u].y * v[u].y + v[u].z * v[u].z +
               v[u].w * v[u].w;
+        sm += v[u].x + v[u].y + v[u].z + v[u].w;
         if (glu_here && blockIdx.x == 0)
           reinterpret_cast<float4*>(a.inner)[vi] = v[u];
       }
     }
   }
   if (w == 1 && t == 0) mbar_arrive(&s.gates[1]);  // o's weights may go on
-  float rstd = 1.f;
+  const bool ln = nw != nullptr && a.norm == 2;
+  float rstd = 1.f, mu = 0.f;
+  if (ln) {  // layernorm: the mean, then the centred row's sum of squares
+    mu = block_red(sm, false, s.red) / (float)K;
+    ss = 0.f;
+    for (int vi = t; vi < NV; vi += CTHREADS) {
+      const float4 x = u4[vi];
+      const float dx = x.x - mu, dy = x.y - mu, dz = x.z - mu, dw = x.w - mu;
+      ss += dx * dx + dy * dy + dz * dz + dw * dw;
+    }
+  }
   if (nw != nullptr)
     rstd = 1.f / sqrtf(block_red(ss, false, s.red) / (float)K + a.eps);
   // pass 2: the norm (rounded to bf16; its weights UNR vectors at a time)
@@ -277,7 +298,14 @@ __device__ void stage_row(const LArgs& a, int w, Stage<ST>& s) {
       const int vi = v0 + CTHREADS * u;
       if (vi >= NV) continue;
       float4 x = u4[vi];
-      if (nw != nullptr) {
+      if (ln) {
+        const float4 b = __ldg(reinterpret_cast<const float4*>(a.ln2b) + vi);
+        x = make_float4(bf16r((x.x - mu) * rstd * n4[u].x + b.x),
+                        bf16r((x.y - mu) * rstd * n4[u].y + b.y),
+                        bf16r((x.z - mu) * rstd * n4[u].z + b.z),
+                        bf16r((x.w - mu) * rstd * n4[u].w + b.w));
+        u4[vi] = x;
+      } else if (nw != nullptr) {
         const float4 m = a.norm == 1 ? make_float4(1.f + n4[u].x, 1.f + n4[u].y,
                                                    1.f + n4[u].z, 1.f + n4[u].w)
                                      : n4[u];
@@ -378,14 +406,15 @@ __device__ __forceinline__ void warp_rows(const int4* rows, int r, int nr,
 }
 
 // column n of a weight is complete (v: its sum over K, in staged units):
-// its value, after the zero points and the int8 scale
+// its value, after the zero points, the int8 scale and the bias
 template <typename ST>
 __device__ __forceinline__ float finished(const WeightDesc& wd, int n, float v,
                                           const Stage<ST>& s) {
   float z = 0.f;
   for (int g = 0; g < wd.ng; ++g)
     z += __ldg(wd.zoff + (size_t)g * wd.Np + n) * s.xg[g];
-  return (v - z) * s.sx;
+  const float y = (v - z) * s.sx;
+  return wd.bias != nullptr ? y + __ldg(wd.bias + n) : y;
 }
 
 // a gate|up chunk pair (gate column n, up column n + F) is complete: the
@@ -408,9 +437,12 @@ __device__ __forceinline__ void finish(const LArgs& a, int w, int n, float v,
   } else if (w == 1) {
     a.r2[n] = bf16r(__ldg(a.x + n) + y);
   } else if (w == 2) {
-    a.gu[n] = y;
+    if (a.glu)
+      a.gu[n] = y;
+    else  // fc1: its activation is the down phase's input
+      a.inner[n] = bf16r(act_fn(a.act, y));
   } else {
-    a.out[n] = y + __ldcg(a.r2 + n);
+    a.out[n] = a.first_w <= 1 ? y + __ldcg(a.r2 + n) : y;  // #6: no residual
   }
 }
 
@@ -512,6 +544,86 @@ __device__ void consume(const LArgs& a, int w, int& item, int& k,
     else
       finish<ST>(a, w, e[5] * CC + col, sum, s);
   }
+}
+
+// ---------------------------------------------------------------------------
+// a block's start and the weight phases after attention
+// ---------------------------------------------------------------------------
+
+struct Ring {  // a block's mbarriers and consume's piece list
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* gates;  // the producer's, one a phase
+  int* pl;
+};
+
+// the block's mbarriers initialised; the producer warp streams the block's
+// items and returns false; the consumers copy the block's items into
+// shared memory (read after the first staging's barriers) and return true
+template <typename ST>
+__device__ bool block_start(const LArgs& a, unsigned char* smem, Ring& r,
+                            Stage<ST>& s, int*& items) {
+  r.full = reinterpret_cast<uint64_t*>(smem + a.off_bar);
+  r.empty = r.full + a.ns;
+  r.gates = r.empty + a.ns;
+  r.pl = reinterpret_cast<int*>(r.gates + 4);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.ns; ++i) {
+      mbar_init(&r.full[i], 1);
+      mbar_init(&r.empty[i], NCW);
+    }
+    for (int w = 0; w < 4; ++w) mbar_init(&r.gates[w], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= CTHREADS) {  // the producer warp
+    produce(a, smem, r.full, r.empty, r.gates);
+    return false;
+  }
+  s = Stage<ST>{reinterpret_cast<float*>(smem + a.off_uni),
+                reinterpret_cast<ST*>(smem + a.off_xs),
+                reinterpret_cast<float*>(smem + a.off_red),
+                reinterpret_cast<float*>(smem + a.off_xg), r.gates, 1.f};
+  items = reinterpret_cast<int*>(smem + a.off_it);
+  const int i0 = a.first[blockIdx.x] * ITEM;
+  const int n = a.first[blockIdx.x + 1] * ITEM - i0;
+  for (int i = threadIdx.x; i < n; i += CTHREADS) items[i] = a.items[i0 + i];
+  return true;
+}
+
+// the weight phases w0 .. 3 of the block's items (1: o + residual, 2: the
+// norm over r2 + gate|up + act, 3: down + residual), a grid barrier before
+// each but the plan's first; each stages its input row once, then takes
+// its stages from the ring (k: the stage counter, carried over the phases)
+template <typename ST>
+__device__ void weight_phases(const LArgs& a, int w0, unsigned gen, int& item,
+                              int& k, unsigned char* ring, const Ring& r,
+                              Stage<ST>& s, const int* items) {
+  for (int w = w0; w < 4; ++w) {
+    if (w > a.first_w) {
+      stamp(a, 2 * w + 1);
+      grid_bar(a, ++gen);
+      stamp(a, 2 * w + 2);
+    }
+    stage_row<ST>(a, w, s);
+    consume<ST>(a, w, item, k, ring, r.full, r.empty, s, r.pl, items);
+  }
+  stamp(a, 9);
+}
+
+// #5 / #6 at one row: the weight phases from the plan's first weight (o,
+// or gate|up without it); one persistent block an SM, all resident
+template <typename ST>
+__global__ void __launch_bounds__(LTHREADS, 1)
+    mlp_stream_kernel(const __grid_constant__ LArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ring r;
+  Stage<ST> s;
+  int* items;
+  if (!block_start<ST>(a, smem, r, s, items)) return;
+  int item = 0, k = 0;
+  const unsigned gen = threadIdx.x == 0 ? ld_acquire(a.sync + 1) : 0;
+  weight_phases<ST>(a, a.first_w, gen, item, k, smem, r, s, items);
 }
 
 // ---------------------------------------------------------------------------
@@ -778,6 +890,97 @@ __device__ __noinline__ void attn_phase(const LArgs& a, unsigned char* uni,
   } else {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side, shared by layer_fused.cu and ffn.cu
+// ---------------------------------------------------------------------------
+
+constexpr int SMEM_LIMIT = 232448;  // a block's shared memory
+
+inline int align16(int v) { return (v + 15) & ~15; }
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// a weight the stream takes: uniform, Np a multiple of CC, its grids on
+// 16-byte boundaries (read as float4), groups of whole runs of a consumer
+// warp's RW word rows in every field
+inline bool stream_weight_ok(const WeightDesc* w) {
+  if (!weight_ok(w) || w->fmt != 0 || w->Np % CC || !aligned16(w->scale) ||
+      !aligned16(w->zoff))
+    return false;
+  const int fbmin = w->bits == 3 ? 1 : w->bits;
+  return w->ng == 1 || (w->Kp / w->ng) * fbmin / 32 % RW == 0;
+}
+
+// the shared-memory layout of a launch whose union (the f32 input row, or
+// #12's attention tiles) takes `uni` bytes: the offsets and the ring's
+// depth; the bytes, or 0 where it does not fit
+template <typename ST>
+size_t stream_layout(LArgs& a, int uni) {
+  int kmax = 0, ngmax = 1;
+  for (const WeightDesc& w : a.wd) {
+    kmax = w.Kp > kmax ? w.Kp : kmax;
+    ngmax = w.ng > ngmax ? w.ng : ngmax;
+  }
+  if (kmax / 32 > NCW * CC) return 0;  // the staged row's 32s' sums
+  uni = align16(kmax * 4 > uni ? kmax * 4 : uni);
+  a.off_uni = 0;  // after the ring, below
+  a.off_xs = uni;
+  a.off_red = a.off_xs + align16(kmax * (int)sizeof(ST));
+  a.off_xg = a.off_red + NCW * CC * 4;
+  a.off_it = a.off_xg + align16(ngmax * 4);
+  a.off_bar = a.off_it + align16(a.max_items * ITEM * 4);
+  const int tail = 32 + (PLE + 1) * MAXP * 4;  // the gates, the piece list
+  const int rest = a.off_bar + 2 * MAX_STAGES * 8 + tail;
+  int ns = (SMEM_LIMIT - rest) / STAGE_BYTES;
+  ns = ns > MAX_STAGES ? MAX_STAGES : ns;
+  if (ns < 2) return 0;
+  a.ns = ns;
+  const int ring = ns * STAGE_BYTES;
+  a.off_uni += ring;
+  a.off_xs += ring;
+  a.off_red += ring;
+  a.off_xg += ring;
+  a.off_it += ring;
+  a.off_bar += ring;
+  return (size_t)a.off_bar + 2 * ns * 8 + tail;
+}
+
+// a launch of `kern` on `blocks` blocks, all resident at once (the
+// cooperative attribute: the consumers' grid barrier waits for every
+// block), in the form a stream capture records; per_sm: the kernel's
+// resident blocks, found once (the kernel and the card decide it)
+inline int stream_launch(void (*kern)(const LArgs), const LArgs& a, int blocks,
+                         size_t smem, int& per_sm, cudaStream_t st) {
+  cudaError_t err;
+  if (per_sm < 0) {
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             SMEM_LIMIT)) != cudaSuccess)
+      return (int)err;
+    int dev = 0, sms = 0, n = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n, kern, LTHREADS, SMEM_LIMIT)) != cudaSuccess)
+      return (int)err;
+    per_sm = n * sms;  // blocks resident at the largest plan
+  }
+  if (blocks > per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(LTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, kern, a)) != cudaSuccess)
+    return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -7,21 +7,27 @@
 //       out[e, m, n] = sum_k X(e)[m, k] * dequant(bank[e])[k, n]
 //     for every expert e in one launch; X is (M, Kp) shared by the experts
 //     (gate / up) or (E, M, Kp), one per expert (down). M <= 32.
-//   * qsel_kernel (the single-row body of qmv.cuh) <- the inner kernel of
+//   * qsel_gemv_kernel (gemv.cuh, M = 1) and qsel_kernel (the single-row
+//     body of qmv.cuh, M > 1) <- the inner kernel of
 //     expert_dequant_matmul_select, #9:
 //       out[m, n] = sum_k x[m, k] * dequant(bank[e_idx])[k, n]
 //     The index is read by the kernel from a device int32 (the Pallas
 //     kernel's scalar prefetch), which offsets the bank's pointers: the
 //     host never reads the routing, and only the selected expert's words
-//     are read.
+//     are read. At one row (the MoE decode, the only row count the model
+//     selects at) the expert streams as #1's single-row kernel streams a
+//     weight: 128-column chunks cut in K into a cluster's pieces, a
+//     producer warp bulk-copying 512-byte word rows through a ring of
+//     stages, the pieces summed in piece order by rank 0 (gemv.cuh's
+//     header). More rows keep qsel_kernel.
 // x is f32, bf16 or int8 (no row scale: the MoE path passes activations
 // in their own dtype); fields 2/3/4/8 bits; groups of whole subblocks
 // (groupsize -1 or a multiple of the subblock); f32 accumulation and
 // output. Pad rows and columns carry zero grids.
 //
 // Bound on an H100: #9 streams one expert's packed weight once (29.4 MB
-// at 4-bit, Mixtral's 4096 x 14336: 8.8 us at 3.35 TB/s), the single-row
-// kernel of #1. #8 streams the whole bank once (234.9 MB, 70 us), and at
+// at 4-bit, Mixtral's 4096 x 14336: 8.8 us at 3.35 TB/s), as #1's
+// single-row kernel streams a weight. #8 streams the whole bank once (234.9 MB, 70 us), and at
 // M = 16 its 15 GFLOP also bound a kernel on CUDA cores.
 //
 // Design of #8 (simple and right first; tensor cores and TMA later):
@@ -45,6 +51,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemv.cuh"  // qsel_gemv_kernel
 #include "qmv.cuh"
 
 namespace {
@@ -56,10 +63,10 @@ constexpr int KSL = XW / CG;       // K slices
 constexpr int BN = CG * 32;        // columns per block
 constexpr int RG = 4;              // rows per pass (registers)
 constexpr int MAXM = 32;           // most rows
-constexpr int STAGE_BYTES = 65536; // staged rows of X
-constexpr size_t XSUM_BYTES = 4 * (STAGE_BYTES / 32);
+constexpr int XSTAGE_BYTES = 65536; // staged rows of X
+constexpr size_t XSUM_BYTES = 4 * (XSTAGE_BYTES / 32);
 constexpr size_t ACC_BYTES = sizeof(float) * XW * MAXM * 32;
-constexpr size_t SMEM_BYTES = STAGE_BYTES + XSUM_BYTES + ACC_BYTES;
+constexpr size_t SMEM_BYTES = XSTAGE_BYTES + XSUM_BYTES + ACC_BYTES;
 
 __device__ __forceinline__ float stage_val(float v) { return v; }
 __device__ __forceinline__ float stage_val(__nv_bfloat16 v) {
@@ -221,8 +228,8 @@ qexpert_kernel(const XT* __restrict__ x, int per_x, int M, int Kp,
   using AT = typename Acc<XT>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   ST* xs = reinterpret_cast<ST*>(smem);
-  AT* xsum = reinterpret_cast<AT*>(smem + STAGE_BYTES);
-  float* acc = reinterpret_cast<float*>(smem + STAGE_BYTES + XSUM_BYTES);
+  AT* xsum = reinterpret_cast<AT*>(smem + XSTAGE_BYTES);
+  float* acc = reinterpret_cast<float*>(smem + XSTAGE_BYTES + XSUM_BYTES);
 
   const int e = blockIdx.y;
   const int lane = threadIdx.x & 31;
@@ -317,7 +324,7 @@ int expert_launch(const void* x, int per_x, int E, int M, int Kp,
                   const void* scale, const void* zoff, int ng, void* out,
                   int Np, cudaStream_t st) {
   using ST = typename Stage<XT>::type;
-  const int elems = STAGE_BYTES / (int)sizeof(ST);
+  const int elems = XSTAGE_BYTES / (int)sizeof(ST);
   int kt = (elems / M) / SB * SB;
   if (kt > Kp) kt = Kp;
   if (M < 1 || M > MAXM || kt < SB || (Kp / ng) % SB != 0)
@@ -357,15 +364,55 @@ extern "C" int qexpert_launch(const void* x, int x_kind, int per_x, int E,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename XT>
+int select_gemv(const void* x, int Kp, int bits, const void* w0,
+                const void* w1, int SB, const void* scale, const void* zoff,
+                int ng, const int* eidx, int E, void* out, int Np, int splits,
+                int unit, cudaStream_t st) {
+  if (bits != 2 && bits != 3 && bits != 4 && bits != 8)
+    return (int)cudaErrorInvalidValue;
+  GemvArgs a{};
+  a.x = x;
+  a.w0 = (const int32_t*)w0;
+  a.w1 = (const int32_t*)w1;
+  a.grid = (const float*)scale;
+  a.zoff = (const float*)zoff;
+  a.out = (float*)out;
+  a.eidx = eidx;
+  a.E = E;
+  a.Kp = Kp;
+  a.Np = Np;
+  a.SB = SB;
+  a.ng = ng;
+  a.bits = bits;
+  a.splits = splits;
+  a.unit = unit;
+  return gemv_launch<XT, false, true>(a, st);
+}
+
 // #9. x (M, Kp); eidx: a device int32 expert index into the bank of E;
-// out (M, Np). Same return convention.
+// out (M, Np). splits / unit: at M = 1, the cut of K of the single-row
+// kernel (ops/qmatmul.gemv_splits, gemv_unit), which then takes the call
+// (qsel_gemv_kernel); splits = 0 launches qsel_kernel (any M). Same return
+// convention.
 extern "C" int qselect_launch(const void* x, int x_kind, int M, int Kp,
                               const void* w0, const void* w1, int bits,
                               int SB, const void* scale, const void* zoff,
                               int ng, const void* eidx, int E, void* out,
-                              int Np, void* stream) {
+                              int Np, int splits, int unit, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int* ei = (const int*)eidx;
+  if (splits > 0) {
+    if (M != 1 || x_kind < 0 || x_kind > 2) return (int)cudaErrorInvalidValue;
+    if (x_kind == 0)
+      return select_gemv<float>(x, Kp, bits, w0, w1, SB, scale, zoff, ng, ei,
+                                E, out, Np, splits, unit, st);
+    if (x_kind == 1)
+      return select_gemv<__nv_bfloat16>(x, Kp, bits, w0, w1, SB, scale, zoff,
+                                        ng, ei, E, out, Np, splits, unit, st);
+    return select_gemv<int8_t>(x, Kp, bits, w0, w1, SB, scale, zoff, ng, ei,
+                               E, out, Np, splits, unit, st);
+  }
   bool ok;
   if (x_kind == 0)
     ok = qsel_launch<float>(x, M, Kp, bits, w0, w1, SB, scale, zoff, ng, ei,

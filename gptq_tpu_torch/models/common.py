@@ -138,7 +138,8 @@ def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def linear_apply(lin: dict, x: torch.Tensor) -> torch.Tensor:
     if lin.get("act_q") is not None:
         raise NotImplementedError(
-            "activation quantizers (act_q) are not ported (ROADMAP queue 1)")
+            "activation quantizers (act_q) are not ported (ROADMAP queue 1, "
+            "item 11)")
     w = lin["w"]
     if isinstance(w, PackedWeight):
         flags = lin.get("serve")

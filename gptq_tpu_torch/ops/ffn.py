@@ -13,6 +13,10 @@ csrc/ffn.cu (the counterparts of the Pallas `_norm_qkv_kernel`,
 `_attn_mlp_kernel` and `_ffn_kernel`); on a CPU tensor it runs the plain
 PyTorch version beside it (`*_reference`). There is no fallback from a
 kernel to its plain version on the card: a launch that fails raises.
+attn_mlp and ffn at one row on uniform weights (decode) take the weight
+stream of the whole-layer kernel (`mlp_route`: csrc/ffn.cu
+mlp_stream_kernel, device code in csrc/layer_stream.cuh); more rows and
+BCQ sign planes take the tiled mlp_kernel.
 
 The plain versions keep the JAX kernels' rounding points, which differ
 from the unfused path: norm_qkv casts x to bf16 at entry and rounds the
@@ -39,7 +43,7 @@ import torch
 from gptq_tpu_torch.ops import _build
 from gptq_tpu_torch.ops.bcq_matmul import bcq_dequant_stored
 from gptq_tpu_torch.ops.pack import FIELD_SPLITS, PackedWeight, subblock, unpack_codes
-from gptq_tpu_torch.ops.qmatmul import quantize_acts_int8
+from gptq_tpu_torch.ops.qmatmul import _mma_ready, quantize_acts_int8
 
 # kernel launches since the last reset, one count per wrapper
 # (chip_smoke.py reads and resets them)
@@ -50,6 +54,34 @@ ffn_launches = 0
 MAX_ROWS = 32  # the kernels serve at most this many activation rows
 _NORMS = {"rmsnorm": 0, "rmsnorm1p": 1, "layernorm": 2}
 _ACTS = {"silu": 0, "gelu": 1, "gelu_tanh": 2, "relu": 3}
+
+# csrc/layer_stream.cuh: a consumer warp's word rows of a stage, a block's
+# shared memory, a ring stage's bytes
+STREAM_WARP_ROWS = 2
+STREAM_SMEM = 232448
+STREAM_STAGE = 16384
+
+
+def mlp_route(M: int, o, gu, dn, a8: bool = True) -> str:
+    """The kernel of #5 (with o) / #6 (o None) for M activation rows:
+      * "stream": M = 1 (decode) and every weight uniform, of a stored
+        width that 128 divides, in groups of whole runs of the stream's
+        consumer-warp word rows (every groupsize the gates pass), K short
+        enough that the staged rows leave room for a ring of two stages:
+        csrc/ffn.cu mlp_stream_kernel, #12's weight phases;
+      * "tiles": more rows (batched decode, short prefills) or BCQ sign
+        planes: csrc/ffn.cu mlp_kernel."""
+    ws = [pw for pw in (o, gu, dn) if pw is not None]
+    if M != 1 or any(pw.fmt != "uniform" or pw.Np % 128 for pw in ws):
+        return "tiles"
+    for pw in ws:
+        ng = pw.scale.shape[0]
+        fbmin = 1 if pw.bits == 3 else pw.bits
+        if ng > 1 and (pw.Kp // ng) * fbmin // 32 % STREAM_WARP_ROWS:
+            return "tiles"
+    kmax = max(pw.Kp for pw in ws)
+    rows = kmax * (4 + (1 if a8 else 2)) + 16 * 1024  # staged rows, the rest
+    return "tiles" if rows + 2 * STREAM_STAGE > STREAM_SMEM else "stream"
 
 
 # ---------------------------------------------------------------------------
@@ -301,14 +333,14 @@ def _desc(pw: PackedWeight, bias, device, keep: list) -> _WeightDesc:
 def _norm_vecs(w, b, kind: str, K: int, device, keep: list):
     if kind not in _NORMS:
         raise ValueError(f"norm {kind!r}")
-    nw = w.reshape(-1).to(device=device, dtype=torch.float32).contiguous()
+    nw = _mma_ready(w.reshape(-1).to(device=device, dtype=torch.float32))
     if nw.shape[0] != K:
         raise ValueError(f"norm weight of {nw.shape[0]} entries for width {K}")
     nb = None
     if kind == "layernorm":
         nb = (torch.zeros(K, dtype=torch.float32, device=device) if b is None
-              else b.reshape(-1).to(device=device, dtype=torch.float32)
-              .contiguous())
+              else _mma_ready(b.reshape(-1).to(device=device,
+                                                dtype=torch.float32)))
     keep.extend(t for t in (nw, nb) if t is not None)
     return nw.data_ptr(), None if nb is None else nb.data_ptr()
 
@@ -328,6 +360,11 @@ def _lib():
         lib.mlp_launch.argtypes = [vp, vp, vp, vp, i, f, i, i, i, i, dp, dp, dp,
                                    vp, vp, vp, vp]
         lib.mlp_launch.restype = ctypes.c_int
+        lib.mlp_stream_launch.argtypes = [vp, vp, vp, vp, i, f, i, i, i, dp,
+                                          dp, dp, vp, vp, vp, vp, vp, vp, vp,
+                                          vp, i, i, i, vp, vp, vp, vp, vp, vp,
+                                          vp]
+        lib.mlp_stream_launch.restype = ctypes.c_int
     return lib
 
 
@@ -370,14 +407,74 @@ def norm_qkv_fused(x, w1, pw: PackedWeight, norm: str = "rmsnorm",
     return out.reshape(*lead, pw.Np).to(x.dtype)
 
 
+def _mlp_stream(x2, xres2, w2, o, gu, dn, act, norm, eps, glu, a8, b_ln,
+                b_o, b_g, b_d) -> torch.Tensor:
+    """Launch csrc/ffn.cu's single-row MLP kernel (mlp_route's "stream")
+    on x2 (1, K): the plan, barrier / ticket words and weight entries of
+    the whole-layer kernel's wrapper (ops/layer_fused: a plan by shapes,
+    words by (device, stream), each weight's descriptor and TMA maps
+    cached on its tensors). Returns (1, dn.Np) f32."""
+    from gptq_tpu_torch.ops import layer_fused as lf
+
+    dev = x2.device
+    ents = [None if pw is None else lf._weight_entry(pw, dev)
+            for pw in (None, o, gu, dn)]
+    shapes = tuple(None if e is None else e[2] for e in ents)
+    plan = lf._device_plan(shapes, dev, glu)
+    stream = _stream(dev)
+    sync = lf._sync_words(2 + plan["tickets"], dev, stream)
+    keep = [_mma_ready(x2)]
+    biases = []
+    for pw, b in ((o, b_o), (gu, b_g), (dn, b_d)):
+        if b is not None:
+            b = _vec(b, pw.Np).contiguous()
+            if b.device != dev:
+                raise ValueError("fused kernels: weights and activations "
+                                 "must lie on the same CUDA device")
+            keep.append(b)
+        biases.append(None if b is None else b.data_ptr())
+    nw = nb = None
+    if o is not None:
+        nw, nb = _norm_vecs(w2, b_ln, norm, gu.Kp, dev, keep)
+    # the f32 scratch rows in one allocation, each 16-byte aligned
+    offsets, end = {}, 0
+    for name, n in (("r2", gu.Kp), ("gu", gu.Np), ("inner", dn.Kp),
+                    ("out", dn.Np), ("part", max(1, plan["pieces"]) * 128)):
+        offsets[name] = end
+        end += -(-n // 4) * 4
+    buf = torch.empty(end, dtype=torch.float32, device=dev)
+    ptr = {k: buf.data_ptr() + 4 * v for k, v in offsets.items()}
+    err = _lib().mlp_stream_launch(
+        keep[0].data_ptr(), None if xres2 is None else xres2.data_ptr(), nw,
+        nb, _NORMS.get(norm, 0), float(eps), _ACTS[act], int(glu), int(a8),
+        *(None if e is None else ctypes.byref(e[0]) for e in ents[1:]),
+        *(None if e is None else e[1] for e in ents[1:]), *biases,
+        plan["items"].data_ptr(), plan["first"].data_ptr(), plan["blocks"],
+        plan["max_items"], plan["max_cut"], ptr["r2"], ptr["gu"],
+        ptr["inner"], ptr["out"], ptr["part"], sync.data_ptr(), stream)
+    if err != 0:  # a failed launch may leave a count or a ticket set
+        lf._retire_sync_words(dev, stream)
+    _build.check(err, "mlp_stream_launch")
+    out = offsets["out"]
+    return buf[out:out + dn.Np].reshape(1, dn.Np)
+
+
 def _mlp_cuda(x2, xres2, w2, o, gu, dn, act, norm, eps, glu, a8, b_ln, b_o,
-              b_g, b_d) -> torch.Tensor:
-    """Launch the cooperative MLP kernel: with `o` the whole attn_mlp,
-    without it the ffn (gate|up, act, down). Returns (M, dn.Np) f32."""
+              b_g, b_d, route: str | None = None) -> torch.Tensor:
+    """Launch #5 (with `o`: the whole attn_mlp) or #6 (without it: gate|up,
+    act, down) on the kernel mlp_route picks, or the one `route` names
+    (chip_smoke times both at one row): "stream" (csrc/ffn.cu
+    mlp_stream_kernel) or "tiles" (the cooperative mlp_kernel). Returns
+    (M, dn.Np) f32."""
     dev = x2.device
     M = x2.shape[0]
     if act not in _ACTS:
         raise ValueError(f"activation {act!r}")
+    if route is None:
+        route = mlp_route(M, o, gu, dn, a8)
+    if route == "stream":
+        return _mlp_stream(x2, xres2, w2, o, gu, dn, act, norm, eps, glu, a8,
+                           b_ln, b_o, b_g, b_d)
     keep = [x2]
     od = None if o is None else _desc(o, b_o, dev, keep)
     gd = _desc(gu, b_g, dev, keep)

@@ -165,10 +165,14 @@ ITEM = 8
 MAX_PIECES = 32  # pieces of chunks cut in K a block lists in one phase
 
 
-def layer_plan(shapes, blocks: int) -> dict:
+def layer_plan(shapes, blocks: int, glu: bool = True) -> dict:
     """The static plan of the layer kernel's weight stream: a pure function
     of the four weights' (bits, Kp, Np) (q|k|v, o, gate|up, down) and the
-    number of blocks (one an SM).
+    number of blocks (one an SM). The single-row MLP kernel (csrc/ffn.cu
+    mlp_stream_kernel, #5 / #6) streams by the same plan over the weights
+    it has: a shape of None is a weight the kernel does not stream (#5:
+    q|k|v; #6: q|k|v and o), and glu=False (fc1 -> fc2) pairs no gate|up
+    chunks.
 
     Each weight's work is its chunks' stages in (chunk, field, row) order;
     it is cut into `blocks` contiguous runs of whole stages whose counts
@@ -196,7 +200,10 @@ def layer_plan(shapes, blocks: int) -> dict:
     per_block = [[] for _ in range(blocks)]
     load = [0] * blocks
     slot = ticket = 0
-    for w, (bits, Kp, Np) in enumerate(shapes):
+    for w, shape in enumerate(shapes):
+        if shape is None:
+            continue
+        bits, Kp, Np = shape
         rows = [Kp * fb // 32 for fb, _ in FIELD_SPLITS[bits]]
         stages = [-(-r // STAGE_ROWS) for r in rows]
         uc = sum(stages)  # stages of a chunk
@@ -221,7 +228,8 @@ def layer_plan(shapes, blocks: int) -> dict:
                 u = end
         # gate|up: chunk c and c + half are finished together (the GLU
         # output, by the pair's last block), where CHUNK divides the half
-        half = Np // 2 // CHUNK if w == 2 and Np // 2 % CHUNK == 0 else 0
+        half = (Np // 2 // CHUNK if w == 2 and glu and Np // 2 % CHUNK == 0
+                else 0)
         first_slot, c_slot = {}, slot
         for c in sorted(pieces):
             first_slot[c] = c_slot
@@ -330,12 +338,12 @@ _weights: dict = {}
 MAX_WEIGHTS = 4096  # weights kept (past it the cache starts over)
 
 
-def _device_plan(shapes, dev) -> dict:
+def _device_plan(shapes, dev, glu: bool = True) -> dict:
     """The plan of `shapes` over one block an SM of `dev`, on `dev`."""
-    key = (shapes, dev)
+    key = (shapes, dev, glu)
     if key not in _plans:
         blocks = _build.sm_count(dev)
-        plan = layer_plan(shapes, blocks)
+        plan = layer_plan(shapes, blocks, glu)
         _plans[key] = {"blocks": blocks,
                        "items": plan["items"].reshape(-1).to(dev),
                        "first": plan["first"].to(dev),
@@ -388,9 +396,10 @@ def _index(dev: torch.device) -> int:
 
 
 def _weight_entry(pw: PackedWeight, dev) -> tuple:
-    """(descriptor, TMA maps, (bits, Kp, Np)) of one of the layer's
-    weights: its kernel descriptor (ops/ffn._desc, which validates it) and
-    its fields' TMA maps (csrc/layer_fused.cu layer_maps). Both are
+    """(descriptor, TMA maps, (bits, Kp, Np)) of one weight of the stream
+    kernels (the layer's, or #5 / #6's at one row): its kernel descriptor
+    (ops/ffn._desc, which validates it) and its fields' TMA maps (csrc/
+    layer_fused.cu layer_maps; ffn.cu's kernel takes the same). Both are
     functions of the weight's tensors' addresses, shapes and dtypes and of
     its format, bits and groupsize, which key the cache: a layer dict
     copied with one weight replaced, or a tensor freed and its memory
@@ -404,7 +413,7 @@ def _weight_entry(pw: PackedWeight, dev) -> tuple:
     if ent is not None and ent[3] == dev:
         return ent
     if pw.fmt != "uniform" or pw.Np % CHUNK:
-        raise ValueError(f"decode_layer_fused: uniform weights of a stored "
+        raise ValueError(f"weight stream: uniform weights of a stored "
                          f"width that {CHUNK} divides (see layer_fusable)")
     keep = []
     desc = _ffn._desc(pw, None, dev, keep)

@@ -369,7 +369,7 @@ def _lib(name="qmatmul"):
                            vp]),
                          (lib.qselect_launch,
                           [vp, i, i, i, vp, vp, i, i, vp, vp, i, vp, i, vp, i,
-                           vp])):
+                           i, i, vp])):
             if f.argtypes is None:
                 f.argtypes = types
                 f.restype = ctypes.c_int
@@ -697,9 +697,21 @@ def expert_dequant_matmul(x: torch.Tensor, pe: PackedExperts) -> torch.Tensor:
     return _expert_cuda(x, pe)[..., :pe.N]
 
 
-def _select_cuda(x: torch.Tensor, pe: PackedExperts,
-                 e_idx: torch.Tensor) -> torch.Tensor:
-    """Launch #9 on x (M, K) with a device int32 expert index -> (M, Np)."""
+def select_route(M: int, Np: int) -> str:
+    """The kernel of #9 for M rows of x against a bank of stored width Np:
+      * "single_row": M = 1 (the MoE decode, the only row count the model
+        selects at) and Np % 4 == 0: csrc/gemv.cuh's qsel_gemv_kernel,
+        #1's single-row design over the selected expert;
+      * "rows": csrc/qmv.cuh's qsel_kernel, a block row a row of x.
+    Both need groups covering whole subblocks (_check_bank)."""
+    return "single_row" if M == 1 and Np % 4 == 0 else "rows"
+
+
+def _select_cuda(x: torch.Tensor, pe: PackedExperts, e_idx: torch.Tensor,
+                 route: str | None = None) -> torch.Tensor:
+    """Launch #9 on x (M, K) with a device int32 expert index -> (M, Np):
+    the kernel select_route picks, or the one `route` names (chip_smoke
+    times both at one row)."""
     global select_launches
     what = "expert_dequant_matmul_select"
     if x.dim() != 2 or x.shape[-1] not in (pe.K, pe.Kp):
@@ -713,12 +725,20 @@ def _select_cuda(x: torch.Tensor, pe: PackedExperts,
     words, scale, zoff, ng, sb = _check_bank(x, pe, what)
     e_idx = e_idx.contiguous()
     M = x.shape[0]
+    if route is None:
+        route = select_route(M, pe.Np)
+    splits = unit = 0  # "rows": qsel_kernel
+    if route == "single_row":  # the cut of one expert's Kp x Np
+        x = _mma_ready(x)  # its bulk copies need a 16-byte boundary
+        splits, unit = gemv_cut(pe.Kp, pe.Np, sb, _fbmin(pe.bits),
+                                x.element_size(), x.get_device())
     out = torch.empty((M, pe.Np), dtype=torch.float32, device=x.device)
     err = _lib("qexpert").qselect_launch(
         x.data_ptr(), _X_KIND[x.dtype], M, pe.Kp, words[0].data_ptr(),
         words[1].data_ptr() if len(words) > 1 else None, pe.bits, sb,
         scale.data_ptr(), zoff.data_ptr(), ng, e_idx.data_ptr(), pe.E,
-        out.data_ptr(), pe.Np, torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), pe.Np, splits, unit,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "qselect_launch")
     select_launches += 1
     return out

@@ -152,7 +152,7 @@ def gptq_quantize(W: torch.Tensor, H: torch.Tensor, cfg: SolverConfig,
         raise NotImplementedError(
             f"gptq_quantize mode={cfg.mode!r}: only the uniform and lut "
             f"modes are ported (columnwise / non-linear wait: ROADMAP queue "
-            f"1, items 10-11)")
+            f"1, item 11)")
     lut = cfg.mode == "lut"
     del mean_input  # used by the non-linear back-end only
     rows, cols = W.shape

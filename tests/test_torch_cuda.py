@@ -854,6 +854,128 @@ def test_expert_select_past_48kb_and_bad_index(cuda):
     assert torch.isnan(tq.expert_dequant_matmul_select(x, pe, bad)).all()
 
 
+# the single-row kernels of #5 / #6 (mlp_stream_kernel) and #9
+# (qsel_gemv_kernel) against their plain versions and the kernels they
+# replaced at one row (forced by route)
+@pytest.mark.parametrize("kind,tag", [("attn_mlp", "w4g-1"),
+                                      ("attn_mlp", "w4g128"),
+                                      ("attn_mlp", "w3g128"),
+                                      ("ffn", "w4g-1"), ("ffn", "w3g128")])
+@pytest.mark.parametrize("a8", [False, True])
+def test_mlp_stream_matches_plain_and_tiles(cuda, kind, tag, a8):
+    """At one row the route takes the stream; it agrees with the plain
+    version and with the tiled kernel, two launches give the same bits,
+    and the barrier and ticket words are left clean."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    bits, groupsize = {"w4g-1": (4, -1), "w4g128": (4, 128),
+                       "w3g128": (3, 128)}[tag]
+    rng = np.random.default_rng(bits * 10 + a8 + len(kind))
+    H, F = 1024, 2816  # gate|up's half: 22 chunks; o and down cut in K
+    o = _fusable(rng, bits, groupsize, H, H).to(cuda)
+    gu = _fusable(rng, bits, groupsize, H, F, parts=2).to(cuda)
+    dn = _fusable(rng, bits, groupsize, F, H).to(cuda)
+    attn, xres = (torch.from_numpy(rng.normal(size=(1, H)).astype(np.float32))
+                  .to(cuda) for _ in range(2))
+    w2 = _vec(rng, H, cuda, base=1.0)
+    if kind == "attn_mlp":
+        args = (attn, xres, w2, o, gu, dn)
+        run, plain = tf.attn_mlp_fused, tf.attn_mlp_fused_reference
+        kern = (attn, xres, w2, o, gu, dn, "silu", "rmsnorm", 1e-5, True, a8,
+                None, None, None, None)
+    else:
+        args = (attn, gu, dn)
+        run, plain = tf.ffn_fused, tf.ffn_fused_reference
+        kern = (attn, None, None, None, gu, dn, "silu", "rmsnorm", 0.0, True,
+                a8, None, None, None, None)
+    assert tf.mlp_route(1, o if kind == "attn_mlp" else None, gu, dn,
+                        a8) == "stream"
+    count = "attn_mlp_launches" if kind == "attn_mlp" else "ffn_launches"
+    before = getattr(tf, count)
+    got = run(*args, a8=a8)
+    torch.cuda.synchronize()
+    assert getattr(tf, count) == before + 1
+    want = plain(*args, a8=a8)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=FUSED_RTOL)
+    tiles = tf._mlp_cuda(*kern, route="tiles")
+    stream = tf._mlp_cuda(*kern, route="stream")
+    again = tf._mlp_cuda(*kern, route="stream")
+    torch.cuda.synchronize()
+    _close(stream.cpu().numpy(), tiles.cpu().numpy(), rtol=FUSED_RTOL)
+    assert torch.equal(stream, again) and tl.sync_clean(cuda)
+
+
+def test_mlp_stream_failed_launch_retires_its_words(cuda, monkeypatch):
+    """A stream launch whose check raises retires its stream's barrier and
+    ticket words: the next launch takes fresh zero ones and gives the bits
+    an eager launch on a clean stream gives."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    rng = np.random.default_rng(82)
+    o = _fusable(rng, 4, -1, 1024, 1024).to(cuda)
+    gu = _fusable(rng, 4, -1, 1024, 1536, parts=2).to(cuda)
+    dn = _fusable(rng, 4, -1, 1536, 1024).to(cuda)
+    attn, xres = (torch.from_numpy(rng.normal(size=(1, 1024)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    w2 = _vec(rng, 1024, cuda, base=1.0)
+    want = tf.attn_mlp_fused(attn, xres, w2, o, gu, dn)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    old = tl._sync_words(1, cuda, stream)
+
+    class Refused:  # a launch that CUDA refuses
+        @staticmethod
+        def mlp_stream_launch(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tf, "_lib", lambda: Refused)
+    with pytest.raises(RuntimeError, match="mlp_stream_launch"):
+        tf.attn_mlp_fused(attn, xres, w2, o, gu, dn)
+    monkeypatch.undo()
+    got = tf.attn_mlp_fused(attn, xres, w2, o, gu, dn)
+    torch.cuda.synchronize()
+    assert tl._sync_words(1, cuda, stream).data_ptr() != old.data_ptr()
+    assert torch.equal(got, want) and tl.sync_clean(cuda)
+
+
+@pytest.mark.parametrize("bits,groupsize", [(4, -1), (4, 128), (3, 128),
+                                            (8, -1)])
+@pytest.mark.parametrize("act", ["f32", "bf16", "int8"])
+def test_select_single_row_matches_plain_and_rows(cuda, bits, groupsize, act):
+    """At one row #9 takes the single-row kernel over the selected expert
+    (the first and the last of the bank, chunks cut in K): it agrees with
+    the plain version and with the row kernel it replaced, two launches
+    give the same bits, and a CUDA graph replays it on a new index."""
+    rng = np.random.default_rng(bits * 31 + groupsize + len(act))
+    E, K, N = 4, 2048, 520
+    pe = _bank(rng, bits, groupsize, K, N, E=E).to(cuda)
+    x = _acts(rng, (1, K), act, cuda)
+    assert tq.select_route(1, pe.Np) == "single_row"
+    for e in (0, E - 1):
+        idx = torch.tensor([e], dtype=torch.int32, device=cuda)
+        got = tq._select_cuda(x, pe, idx)
+        again = tq._select_cuda(x, pe, idx)
+        rows = tq._select_cuda(x, pe, idx, route="rows")
+        torch.cuda.synchronize()
+        want = tq.expert_dequant_matmul_select_reference(x, pe, idx)
+        _close(got[:, :N].cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+        _close(got.cpu().numpy(), rows.cpu().numpy(), rtol=1e-4)
+        assert torch.equal(got, again)
+    idx = torch.tensor([0], dtype=torch.int32, device=cuda)
+    tq._select_cuda(x, pe, idx)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tq._select_cuda(x, pe, idx)
+    idx.fill_(E - 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tq._select_cuda(x, pe, idx))
+    idx.fill_(E)  # outside the bank: NaN, every cluster leaves cleanly
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.isnan(out).all()
+
+
 def test_expert_kernels_refuse_what_they_cannot_serve(cuda):
     rng = np.random.default_rng(1)
     pe = _bank(rng, 4, 16, 512, 64).to(cuda)  # 16-row groups < a subblock
@@ -1275,6 +1397,42 @@ def test_generate_chained_single_row_routes(cuda, monkeypatch, route):
     np.testing.assert_array_equal(eng.generate_chained(prompt, 12, chunk=5),
                                   want)
     assert (tq.launches, tbm.launches, tq.select_launches) == before
+
+
+def test_generate_chained_takes_the_new_single_row_kernels(cuda, monkeypatch):
+    """generate_chained equals generate on the fused route, whose decode
+    step launches #5 on the weight stream, and on a 2-layer MoE model,
+    whose step launches #9's single-row kernel: a profiler trace of one
+    eager step names mlp_stream_kernel and qsel_gemv_kernel, and neither
+    kernel they replaced at one row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+
+    monkeypatch.setenv("GPTQ_TPU_LAYER_FUSION", "off")
+    for route in ("fused", "moe"):
+        if route == "fused":
+            spec, params = _serve_model(cuda)
+        else:
+            spec, params = _single_row_model(cuda, "moe")
+        eng = DecodeEngine(spec, params, max_len=64, batch=1,
+                           cache_dtype=torch.int8, a8=True)
+        prompt = np.random.default_rng(4).integers(0, spec.vocab, size=(1, 6))
+        want = eng.generate(prompt, 10)
+        np.testing.assert_array_equal(eng.generate_chained(prompt, 10,
+                                                           chunk=4), want)
+        logits, cache = eng.prefill(torch.as_tensor(prompt, device=cuda))
+        tok = logits.argmax(-1)[:, None]
+        eng.step(cache, tok)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.step(cache, tok)
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages())
+        new, old = (("mlp_stream_kernel<", "mlp_kernel<") if route == "fused"
+                    else ("qsel_gemv_kernel<", "qsel_kernel<"))
+        if "kernel" in names:  # the trace holds device events
+            assert new in names and old not in names, names
 
 
 @pytest.fixture
