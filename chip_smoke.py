@@ -14,15 +14,20 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                timed beside its plain version, a one-call PyTorch
                yardstick (or, for the fused kernels, the unfused route of
                the same function) and the card's bound. At one row #5 /
-               #6 run on #12's weight stream (mlp_stream_kernel), held to
-               the plain version with the near-tie rule and timed beside
-               the tiled mlp_kernel they replaced there. The fused
+               #6 run on #12's weight stream (mlp_stream_kernel) and #4
+               on #1's single-row stream (norm_qkv_gemv_kernel: llama-7B
+               and Mixtral-8x7B q|k|v, the 8-bit head), each held to the
+               plain version with the near-tie rule and timed beside the
+               tiled kernel it replaced there (mlp_kernel,
+               norm_qkv_kernel), two launches bit for bit. The fused
                kernels' BCQ branch (3-bit sign planes, g-1 and g128, M 1
                and 32, a8 and a16) the same way, with the near-tie rule,
                its unfused route being the norm and #13. The BCQ kernel
                (#13) and the streamed qmm (#7, GPTQ_TPU_MATMUL_IMPL=
-               streamed) are held the same way; #7 is also timed beside
-               kernel #1 on the same weight. The expert kernels: #8 (the
+               streamed) are held the same way; at one row #7 launches
+               #1's single-row kernel (its output #1's bit for bit), timed
+               beside #1 and the qstream_kernel it replaced there. The
+               expert kernels: #8 (the
                batched bank) and #9 (the select, index in device memory;
                at one row qsel_gemv_kernel, timed beside the qsel_kernel
                it replaced there) at Mixtral-8x7B shapes. The whole-layer kernel (#12) at
@@ -71,8 +76,11 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                64 + 64 tokens); a 2-layer model whose o projection is
                act-order takes the ffn_fused route. Each run's launch
                counters must rise by the expected amounts; a profile gives
-               each route's device time per step (the fused route's: 32
-               mlp_stream_kernel launches a step, no mlp_kernel); at 2
+               each route's device time per step and its single-row
+               kernels by name (the fused route's 32 mlp_stream_kernel and
+               33 norm_qkv_gemv_kernel launches a step, no mlp_kernel or
+               norm_qkv_kernel; the unfused route's 128 qgemv_kernel; the
+               layer route's head on norm_qkv_gemv_kernel); at 2
                layers, kernel
                decoding and plain decoding give the same greedy tokens on
                each route. Then a 32-layer 3-bit g128 BCQ checkpoint from
@@ -81,7 +89,8 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                fused kernel) with its profile, a 2-layer 4-bit serve on
                the streamed route (GPTQ_TPU_FFN_FUSION=off,
                GPTQ_TPU_MATMUL_IMPL=streamed: 8 streamed launches per
-               step, no qmm) with kernel-vs-plain greedy tokens, and the
+               step, no qmm; by name 8 qgemv_kernel, no qstream_kernel)
+               with kernel-vs-plain greedy tokens, and the
                CLI's --lut_bench table. The whole-layer route: the same
                32-layer checkpoint with GPTQ_TPU_LAYER_FUSION=on and a bf16
                cache (per step 32 layer launches and the head's norm_qkv,
@@ -96,7 +105,8 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                one-rank NCCL process group: the serve phase's 32-layer
                checkpoint at sp = 1 (fused, a8, 8-bit head, int8 cache,
                max_len 2048): per step 32 partial-wide (#10) launches, 33
-               norm_qkv, 32 attn_mlp and no flat attention or #12; the
+               norm_qkv, 32 attn_mlp and no flat attention or #12 (by
+               name 33 norm_qkv_gemv_kernel, 32 mlp_stream_kernel); the
                per-token median over 128 tokens, benchmark_chained (one
                CUDA graph per chain, the all-reduces captured inside) and
                a profile; a 1,024-token prompt through the ring prefill
@@ -121,7 +131,9 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                under torch.cuda.set_sync_debug_mode("error"); and the
                whole 32-layer model (~23.6 GB) through
                engine.decode.benchmark_decode, with its profile (192
-               qsel_gemv_kernel launches a step, no qsel_kernel) and byte
+               qsel_gemv_kernel, 32 qgemv_kernel and 33
+               norm_qkv_gemv_kernel launches a step, no qsel_kernel or
+               norm_qkv_kernel) and byte
                bound, and through benchmark_decode_chained (its step
                captured in a CUDA graph, which no host sync survives).
   7. cli     - quantize from a model directory through
@@ -947,13 +959,40 @@ def stream_vs_tiles(what, args, gu, dn, a8) -> float:
     return rel
 
 
+def norm_qkv_vs_tiles(what, x2, ln, pw, a8, plain) -> float:
+    """#4 at one row on the single-row stream and the tiled kernel it
+    replaced there (both forced): two stream launches bit for bit, the
+    tiled kernel held to the plain version with the near-tie rule.
+    Returns max|stream - tiles| / max|tiles|, which is not held to a
+    limit: each is held to the plain version, and a near tie that the two
+    round apart moves an output element by one int8 code's product."""
+    import torch
+
+    from gptq_tpu_torch.ops import ffn as Fz
+
+    kw = ("rmsnorm", 1e-5, a8, None, None)
+    tiles = Fz._norm_qkv_cuda(x2, ln, pw, *kw, route="tiles")
+    one = Fz._norm_qkv_cuda(x2, ln, pw, *kw, route="stream")
+    two = Fz._norm_qkv_cuda(x2, ln, pw, *kw, route="stream")
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError(f"{what}: two stream launches differ")
+    tie_check(f"{what} (tiles forced)", tiles, plain, TOL["fused"])
+    rel = float((one - tiles).abs().max() / tiles.abs().max())
+    if not math.isfinite(rel):
+        raise AssertionError(f"{what}: stream against tiles {rel}")
+    return rel
+
+
 def fused_checks(device, peaks, timer, report):
     """The fused kernels (#4 norm_qkv, #5 attn_mlp, #6 ffn) against their
-    plain versions at llama-7B shapes, M in {1, 32}, a8 and a16; timed at
-    the decode shape (M = 1, a8; #5 / #6 at a16 too). At M = 1 #5 / #6 run
-    on the weight stream (mlp_stream_kernel; ffn.mlp_route), held to the
-    plain version and to the tiled mlp_kernel (forced) on every tag, two
-    launches bit for bit, and timed beside it."""
+    plain versions at llama-7B shapes (#4 also at Mixtral-8x7B's q|k|v),
+    M in {1, 32}, a8 and a16; timed at the decode shape (M = 1, a8; #5 /
+    #6 and llama q|k|v at a16 too). At M = 1 #4 runs on #1's single-row
+    stream (norm_qkv_gemv_kernel; ffn.norm_qkv_route) and #5 / #6 on the
+    weight stream (mlp_stream_kernel; ffn.mlp_route), each held to the
+    plain version and to the tiled kernel it replaced there (forced) on
+    every tag, two launches bit for bit, and timed beside it."""
     import torch
 
     from gptq_tpu_torch.models import common
@@ -966,7 +1005,6 @@ def fused_checks(device, peaks, timer, report):
     spec = llama7b_spec(1)
     H, F, V = spec.hidden, spec.ffn, spec.vocab
     ln = torch.ones(H, dtype=torch.float32, device=device)
-    flags = ServeFlags(a8=True)
     rows, worst = [], {}
 
     def fused_weight(K, N, bits, gs, parts):
@@ -999,31 +1037,61 @@ def fused_checks(device, peaks, timer, report):
         rows.append(row)
         return row
 
+    def norm_qkv_rows(tag, pw, g):
+        """#4 at M 1 and 32, a8 and a16, x drawn from g. At one row the
+        weight stream (norm_qkv_gemv_kernel; ffn.norm_qkv_route) is held
+        to the plain version with the near-tie rule and to the tiled
+        norm_qkv_kernel it replaced there (norm_qkv_vs_tiles); the a8 rows
+        but w4 g128's, and llama q|k|v's a16 row, are timed beside it."""
+        for M in (1, 32):
+            x = torch.randn((M, H), generator=g, device=device)
+            for a8 in (True, False):
+                route = Fz.norm_qkv_route(M, pw)
+                if (route == "stream") != (M == 1):
+                    raise AssertionError(f"norm_qkv {tag} M={M}: route "
+                                         f"{route}")
+                plain = functools.partial(Fz.norm_qkv_fused_reference, x, ln,
+                                          pw, a8=a8)
+                row = check("norm_qkv", tag, M, a8,
+                            Fz.norm_qkv_fused(x, ln, pw, a8=a8),
+                            plain if M == 1 else plain())
+                row["route"] = route
+                if M == 1:
+                    x2 = x.to(torch.bfloat16).float()
+                    row["tiles_rel_err"] = norm_qkv_vs_tiles(
+                        f"norm_qkv {tag} a8={a8}", x2, ln, pw, a8, plain)
+                if M == 1 and "g128" not in tag and (a8 or tag ==
+                                                     "q|k|v w4g-1"):
+                    xb = x.to(torch.bfloat16)
+                    x2 = xb.float()
+                    lin = {"w": pw, "b": None, "serve": ServeFlags(a8=a8)}
+                    kw = ("rmsnorm", 1e-5, a8, None, None)
+                    row.update(fused_times(
+                        timer, peaks, M, a8, [pw],
+                        M * H * 2 + H * 2 + M * pw.Np * 4,
+                        kernel=lambda: Fz._norm_qkv_cuda(x2, ln, pw, *kw),
+                        wrapper=lambda: Fz.norm_qkv_fused(xb, ln, pw, a8=a8),
+                        plain=lambda: Fz.norm_qkv_fused_reference(xb, ln, pw,
+                                                                  a8=a8),
+                        unfused=lambda: common.linear_apply(
+                            lin, common.norm_apply(spec, {"w": ln}, xb)),
+                        tiles=lambda: Fz._norm_qkv_cuda(x2, ln, pw, *kw,
+                                                        route="tiles")))
+                log("fused " + json.dumps(row))
+
     # 4: ln1 + q|k|v (w4), and final_ln + the 8-bit lm_head
     nq = [("q|k|v w4g-1", fused_weight(H, H, 4, -1, 3)[0]),
           ("q|k|v w4g128", fused_weight(H, H, 4, 128, 3)[0]),
           ("head w8g-1", packed_linear(gen, H, V, 8, -1, device))]
     for tag, pw in nq:
-        for M in (1, 32):
-            x = torch.randn((M, H), generator=gen, device=device)
-            for a8 in (True, False):
-                row = check("norm_qkv", tag, M, a8,
-                            Fz.norm_qkv_fused(x, ln, pw, a8=a8),
-                            Fz.norm_qkv_fused_reference(x, ln, pw, a8=a8))
-                if M == 1 and a8 and "g128" not in tag:
-                    xb = x.to(torch.bfloat16)
-                    x2 = xb.float()
-                    lin = {"w": pw, "b": None, "serve": flags}
-                    row.update(fused_times(
-                        timer, peaks, M, a8, [pw],
-                        M * H * 2 + H * 2 + M * pw.Np * 4,
-                        kernel=lambda: Fz._norm_qkv_cuda(
-                            x2, ln, pw, "rmsnorm", 1e-5, True, None, None),
-                        wrapper=lambda: Fz.norm_qkv_fused(xb, ln, pw),
-                        plain=lambda: Fz.norm_qkv_fused_reference(xb, ln, pw),
-                        unfused=lambda: common.linear_apply(
-                            lin, common.norm_apply(spec, {"w": ln}, xb))))
-                log("fused " + json.dumps(row))
+        norm_qkv_rows(tag, pw, gen)
+    # Mixtral-8x7B's ln1 + q|k|v (8 KV heads: 4096 x 6144), its own seed
+    gen_mx = torch.Generator(device=device)
+    gen_mx.manual_seed(13)
+    mx = fuse_packed([packed_linear(gen_mx, H, n, 4, -1, device)
+                      for n in (H, H // 4, H // 4)])
+    norm_qkv_rows("q|k|v mixtral w4g-1", mx, gen_mx)
+    del mx
 
     # 5 and 6: o (4096^2), gate|up (4096 x 2*11264), down (11264 x 4096)
     for tag, bits, gs in (("w4g-1", 4, -1), ("w4g128", 4, 128),
@@ -1818,8 +1886,11 @@ def matmul_times(pw, x, a8, peaks, timer, kernel, prepare, wrapper, plain,
 def stream_checks(device, peaks, timer, report):
     """#7 (GPTQ_TPU_MATMUL_IMPL=streamed) against dequant_matmul_reference
     at llama-7B shapes: 2/4/8-bit, groupsize -1 and 128, M 1 and 8, a8 and
-    a16 (bf16); timed at M = 1 w4a8 g-1 beside kernel #1 on the same
-    weight."""
+    a16 (bf16). At M = 1 the route launches #1's single-row stream
+    (csrc/gemv.cuh qgemv_kernel): its output equals #1's bit for bit, and
+    qstream_kernel, forced there, is held to the plain version too; timed
+    at M = 1 w4a8 g-1 beside kernel #1 and the forced qstream_kernel on
+    the same weight."""
     import torch
 
     from gptq_tpu_torch.ops import qmatmul as Q
@@ -1853,6 +1924,24 @@ def stream_checks(device, peaks, timer, report):
                                 worst = max(worst, err)
                             row = {"K": K, "N": N, "bits": bits, "g": gs,
                                    "M": M, "a8": a8, "max_abs_err": err}
+                            if M == 1:  # #1's kernel, and the old one
+                                x2, _ = Q._prepare(x, pw, a8)
+                                if not torch.equal(Q._stream_cuda(x2, pw),
+                                                   Q._qmm_cuda(x2, pw)):
+                                    raise AssertionError(
+                                        f"streamed qmm K={K} N={N} w{bits} "
+                                        f"g{gs} a8={a8}: M = 1 is not #1's "
+                                        f"single-row kernel")
+                                tiles = Q._stream_cuda(x2, pw, route="tiles")
+                                if a8:
+                                    tiles = tiles * Q._prepare(x, pw, a8)[1]
+                                row["tiles_max_abs_err"] = close_check(
+                                    f"streamed qmm K={K} N={N} w{bits} "
+                                    f"g{gs} M=1 a8={a8} (tiles forced)",
+                                    tiles[:, :pw.N],
+                                    Q.dequant_matmul_reference(x, pw, a8=a8),
+                                    TOL["qmm_a8" if a8 else "qmm_a16"],
+                                    not a8)
                             if bits == 4 and gs == -1 and M == 1 and a8:
                                 row.update(matmul_times(
                                     pw, x, a8, peaks, timer,
@@ -1860,7 +1949,10 @@ def stream_checks(device, peaks, timer, report):
                                     wrapper=Q.dequant_matmul,
                                     plain=Q.dequant_matmul_reference,
                                     dense=Q.dequant,
-                                    extra={"qmm_ms": Q._qmm_cuda}))
+                                    extra={"qmm_ms": Q._qmm_cuda,
+                                           "tiles_ms": functools.partial(
+                                               Q._stream_cuda,
+                                               route="tiles")}))
                                 dec.append(row)
                             rows.append(row)
             log(f"streamed qmm K={K} N={N}: 24 cases within tolerance")
@@ -2521,7 +2613,7 @@ def phase_serve(device, tmp, card, report):
 
     # 4 requests through DecodeEngine.generate on the fused route: the
     # 64-row prefill takes the unfused route (more than 32 rows)
-    dense_head = params["lm_head"]
+    dense_head = dict(params["lm_head"])  # quantize_lm_head packs in place
     assert quantize_lm_head(spec, params, bits=8)
     eng = DecodeEngine(spec, params, max_len=128, batch=1,
                        cache_dtype=torch.int8, a8=True)
@@ -2568,9 +2660,15 @@ def phase_serve(device, tmp, card, report):
                                          / serve[route]["median_ms"])
         log(f"decode profile {route} " + json.dumps(prof))
         serve[route]["profile"] = prof
-        if route == "fused":  # #5 at one row: the weight stream
-            single_row_check("fused decode profile", prof,
-                             {"mlp_stream_kernel": L})
+        # one row: #5 on the weight stream, #4 (q|k|v and the head) and #1
+        # on the single-row stream
+        single_row_check(f"{route} decode profile", prof, {
+            "fused": {"mlp_stream_kernel": L, "norm_qkv_gemv_kernel": L + 1},
+            "unfused": {"qgemv_kernel": 4 * L},
+            "layer": {"norm_qkv_gemv_kernel": 1}}[route], {
+            "fused": {"norm_qkv": L + 1, "attn_mlp": L, "attention": L},
+            "unfused": {"qmm": 4 * L, "attention": L},
+            "layer": {"layer": L, "norm_qkv": 1}}[route])
 
     # the ffn_fused route: an act-order o projection keeps attn_mlp off,
     # so the MLP alone fuses (gate|up + act + down)
@@ -2855,6 +2953,17 @@ def serve_streamed(device, tmp, report):
     with fusion_mode("off"), matmul_impl("streamed"):
         r["greedy_tokens"] = greedy_check("2-layer streamed decoding", eng,
                                           prompt, 16, "stream")
+        # one row: #7 launches #1's single-row stream, no qstream_kernel
+        prof = profile_decode(eng, np.random.default_rng(17).integers(
+            0, spec.vocab, size=(1, 64)))
+    if prof["device_ms"] > 0:
+        prof["device_busy_share"] = prof["device_ms"] / r["median_ms"]
+    log("decode profile streamed " + json.dumps(prof))
+    r["profile"] = prof
+    single_row_check("streamed decode profile", prof,
+                     {"qgemv_kernel": 4 * spec.n_layers},
+                     {"stream": 4 * spec.n_layers,
+                      "attention": spec.n_layers})
     report.setdefault("serve", {})["streamed"] = r
 
 
@@ -3040,6 +3149,10 @@ def moe_serve(device, tmp, card, peaks, report):
     if prof["device_ms"] > 0:
         prof["device_busy_share"] = prof["device_ms"] / r["median_ms"]
     log("decode profile moe8 " + json.dumps(prof))
+    single_row_check("moe8 decode profile", prof,
+                     {"qsel_gemv_kernel": 6 * L, "qgemv_kernel": L,
+                      "norm_qkv_gemv_kernel": L + 1},
+                     moe_decode_counts(L, 1))
     r["profile"] = prof
     moe = report.setdefault("moe", {})
     moe["cli8"] = r
@@ -3163,7 +3276,10 @@ def moe_serve(device, tmp, card, peaks, report):
         f"{r32['bound_ms']:.3f} ms/token ({nbytes / 1e9:.3f} GB per step)")
     log("decode profile moe32 " + json.dumps(prof))
     single_row_check("moe32 decode profile", prof,
-                     {"qsel_gemv_kernel": 6 * spec.n_layers})
+                     {"qsel_gemv_kernel": 6 * spec.n_layers,
+                      "qgemv_kernel": spec.n_layers,
+                      "norm_qkv_gemv_kernel": spec.n_layers + 1},
+                     moe_decode_counts(spec.n_layers, 1))
     # the chained protocol: each chain one CUDA graph, whose capture fails
     # on any host synchronisation of the step (the routing, the expert
     # indices and their selections stay on the card)
@@ -3315,6 +3431,9 @@ def sp_serve(device, card, report):
     if prof["device_ms"] > 0:
         prof["device_busy_share"] = prof["device_ms"] / r["median_ms"]
     r["profile"] = prof
+    single_row_check("sp decode profile", prof,
+                     {"mlp_stream_kernel": L, "norm_qkv_gemv_kernel": L + 1},
+                     {"partial_wide": L, "norm_qkv": L + 1, "attn_mlp": L})
     c = r["chained"]
     log(f"sp decode (sp=1, 32 layers, w4a8 + w8 head, int8 KV, max_len "
         f"2048, B=1): median {r['median_ms']:.3f} ms/token "
@@ -3726,9 +3845,10 @@ def phase_moe(device, tmp, card, peaks, report):
 
 def profile_decode(eng, prompt, steps=8) -> dict:
     """Device time per decode step by kernel family, from a torch.profiler
-    trace of `steps` steps after a 64-token prefill. The profiled steps'
-    wall time includes the profiler's own overhead; the busy share is
-    taken against the unprofiled benchmark median instead. A trace that
+    trace of `steps` steps after a 64-token prefill, and the wrappers'
+    launch counts over those steps (reset just before them). The profiled
+    steps' wall time includes the profiler's own overhead; the busy share
+    is taken against the unprofiled benchmark median instead. A trace that
     holds no device events reports device_ms 0 (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3739,6 +3859,7 @@ def profile_decode(eng, prompt, steps=8) -> dict:
         logits, cache = eng.step(cache, tok)
         tok = logits.argmax(-1)[:, None]
     torch.cuda.synchronize()
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3747,6 +3868,7 @@ def profile_decode(eng, prompt, steps=8) -> dict:
             tok = logits.argmax(-1)[:, None]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counts = launch_counts()
     fams = (("qmm", ("qmm_kernel", "qgemv_kernel")), ("mma", ("qmma_kernel",)),
             ("select", ("qsel_kernel", "qsel_gemv_kernel")),
             ("expert", ("qexpert_kernel",)),
@@ -3755,17 +3877,19 @@ def profile_decode(eng, prompt, steps=8) -> dict:
             ("stream", ("qstream_kernel",)),
             ("attention", ("attnd_tile",)),
             ("partial", ("attnp_tile",)),
-            ("norm_qkv", ("norm_qkv_kernel",)),
+            ("norm_qkv", ("norm_qkv_kernel", "norm_qkv_gemv_kernel")),
             ("mlp", ("mlp_kernel", "mlp_stream_kernel")),
             ("layer", ("layer_kernel",)))
     ms = {f: 0.0 for f, _ in fams}
     ms["other"] = 0.0
     n = dict.fromkeys(ms, 0.0)
-    # launches a step of #5 / #6's and #9's kernels by name: the single-row
-    # ones and those they replaced at one row
+    # launches a step of #1 / #7's, #4's, #5 / #6's and #9's kernels by
+    # name: the single-row ones and those they replaced at one row
     named = dict.fromkeys(SINGLE_ROW_KERNELS, 0.0)
-    host = []
+    host, buffer_requests = [], 0
     for e in prof.key_averages():
+        if e.key == "Activity Buffer Request":  # CUPTI's, on the host
+            buffer_requests += e.count
         if e.device_type != torch.autograd.DeviceType.CUDA:
             host.append((e.self_cpu_time_total / 1e3 / steps, e.key,
                          e.count / steps))
@@ -3784,26 +3908,45 @@ def profile_decode(eng, prompt, steps=8) -> dict:
     return {"steps": steps, "profiled_wall_ms": wall / steps * 1e3,
             "device_ms": sum(ms.values()),
             "device_ms_by_family": ms, "device_events_per_step": n,
-            "kernels_per_step": named, "host_top": host_top}
+            "kernels_per_step": named, "launches": counts,
+            "buffer_requests": buffer_requests, "host_top": host_top}
 
 
-# the single-row kernels of #5 / #6 and #9, and the kernels that serve
-# those functions at more rows (profile_decode counts them by name)
+# the single-row kernels of #1 / #7 (qgemv_kernel), #4, #5 / #6 and #9,
+# and the kernels that serve those functions at more rows (profile_decode
+# counts them by name)
 SINGLE_ROW_KERNELS = ("mlp_stream_kernel", "mlp_kernel", "qsel_gemv_kernel",
-                      "qsel_kernel")
+                      "qsel_kernel", "norm_qkv_gemv_kernel", "norm_qkv_kernel",
+                      "qgemv_kernel", "qmm_kernel", "qstream_kernel")
 
 
-def single_row_check(what, prof, want) -> None:
-    """A decode profile's launches a step of the kernels named in want
-    (the rest of SINGLE_ROW_KERNELS: none), where the trace holds device
-    events."""
+def single_row_check(what, prof, want, counts) -> None:
+    """A decode profile's routes at one row. The wrappers' launch counts
+    over the profiled steps equal `counts` a step times the steps (a
+    missing name: 0), and where the trace holds device events, each kernel
+    named in `want` appears in it, none above its launches a step, and the
+    rest of SINGLE_ROW_KERNELS do not appear. The counters give the exact
+    number, the names the kernel each launch took: a CUPTI trace can drop
+    a kernel record (seen on an H100: a one-call trace that held an
+    "Activity Buffer Request" and no qgemv_kernel; one norm_qkv_gemv_kernel
+    of 72 and of 264 in the Mixtral profiles), so a shortfall by name is
+    logged beside the trace's buffer requests, not counted."""
+    steps = prof["steps"]
+    expect(prof["launches"], {k: v * steps for k, v in counts.items()},
+           f"{what} (launch counters over {steps} steps)")
     if prof["device_ms"] <= 0:
         log(f"{what}: the trace holds no device events; kernels by name not "
             f"measured")
         return
-    got = prof["kernels_per_step"]
-    bad = {k: (v, want.get(k, 0)) for k, v in got.items()
-           if abs(v - want.get(k, 0)) > 1e-9}
+    bad = {}
+    for k, v in prof["kernels_per_step"].items():
+        w = want.get(k, 0)
+        if v > w + 1e-9 or (w > 0) != (v > 0):
+            bad[k] = (v, w)
+        elif v < w:
+            log(f"{what}: the trace holds {round((w - v) * steps)} {k} "
+                f"record(s) fewer than its {w * steps} launches "
+                f"({prof['buffer_requests']} activity buffer requests)")
     if bad:
         raise AssertionError(f"{what}: launches a step by kernel (got, want) "
                              f"{bad}")
@@ -3923,18 +4066,22 @@ def main(argv=None) -> int:
                      "library_ms": None, "unfused_ms": row["unfused_ms"],
                      "wrapper_ms": row["wrapper_ms"], "shape": shape,
                      "bcq": bcq_branch(name)}
-            if name != "norm_qkv":  # M = 1 on the weight stream
-                a16 = next(r for r in report["fused_rows"]
-                           if r["kernel"] == name and r["w"] == row["w"]
-                           and r["M"] == 1 and not r["a8"] and "ms" in r)
-                entry.update({
-                    "kernels": ["mlp_stream_kernel (M = 1, uniform)",
-                                "mlp_kernel (M 2-32, BCQ)"],
-                    "device_code": STREAM_DEV_SRC,
-                    "tiles_ms": row["tiles_ms"],
-                    "wrapper_host_us": row["wrapper_host_us"],
-                    "a16": {k: a16[k] for k in ("ms", "tiles_ms", "plain_ms",
-                                                "bound_ms", "unfused_ms")}})
+            # M = 1: #4 on #1's single-row stream, #5 / #6 on #12's
+            a16 = next(r for r in report["fused_rows"]
+                       if r["kernel"] == name and r["w"] == row["w"]
+                       and r["M"] == 1 and not r["a8"] and "ms" in r)
+            single = ("norm_qkv_gemv_kernel" if name == "norm_qkv"
+                      else "mlp_stream_kernel")
+            tiled = "norm_qkv_kernel" if name == "norm_qkv" else "mlp_kernel"
+            entry.update({
+                "kernels": [f"{single} (M = 1, uniform)",
+                            f"{tiled} (M 2-32, BCQ)"],
+                "device_code": (GEMV_SRC if name == "norm_qkv"
+                                else STREAM_DEV_SRC),
+                "tiles_ms": row["tiles_ms"],
+                "wrapper_host_us": row["wrapper_host_us"],
+                "a16": {k: a16[k] for k in ("ms", "tiles_ms", "plain_ms",
+                                            "bound_ms", "unfused_ms")}})
             return entry
 
         def summed(rows, key):
@@ -3986,7 +4133,8 @@ def main(argv=None) -> int:
             fused_entry("norm_qkv", 483, timed("norm_qkv", "q|k|v w4g-1"),
                         fused_launches.get("norm_qkv", 0),
                         "ln1 + q|k|v 4096x12288 w4a8 g-1, M=1 (head 4096x32256 "
-                        "w8a8 in head_*)"),
+                        "w8a8 in head_*, Mixtral's q|k|v 4096x6144 w4a8 g-1 "
+                        "in mixtral, a16 the llama q|k|v at bf16)"),
             fused_entry("attn_mlp", 383, timed("attn_mlp", "w4g-1"),
                         fused_launches.get("attn_mlp", 0),
                         "o 4096x4096 + ln2 + gate|up 4096x22528 + down "
@@ -4019,7 +4167,12 @@ def main(argv=None) -> int:
                      "layer route"})
         head = timed("norm_qkv", "head w8g-1")
         kernels[2].update({f"head_{k}": head[k] for k in
-                           ("ms", "plain_ms", "bound_ms", "unfused_ms")})
+                           ("ms", "tiles_ms", "plain_ms", "bound_ms",
+                            "unfused_ms")})
+        mx = timed("norm_qkv", "q|k|v mixtral w4g-1")
+        kernels[2]["mixtral"] = {k: mx[k] for k in
+                                 ("ms", "tiles_ms", "plain_ms", "bound_ms",
+                                  "unfused_ms")}
 
         layer = ("one llama-7B layer's four packed linears (K x N: "
                  "4096x12288, 4096x4096, 4096x22528, 11264x4096), M=1, "
@@ -4028,6 +4181,10 @@ def main(argv=None) -> int:
         kernels.append({
             "name": "streamed_qmm", "route": "cuda", "source": STREAM_SRC,
             "replaces": "gptq_tpu/ops/qmatmul.py:205",
+            # M = 1: qgemv_kernel of csrc/gemv.cuh
+            "kernels": ["qgemv_kernel (M = 1)", "qstream_kernel (M 2-8)"],
+            "device_code": GEMV_SRC,
+            "tiles_ms": summed(sd, "tiles_ms"),
             "launches": serve.get("streamed", {}).get("launches", {})
             .get("stream", 0),
             "max_abs_err": report["stream_max_abs_err"],

@@ -72,10 +72,21 @@
 // phases (a generation counter in the caller's sync words, never reset
 // from the host: a CUDA graph replays it). The rows 2 .. 32 of batched
 // decode and short prefills, and BCQ sign planes, keep mlp_kernel above.
+//
+// At one row (decode), #4 on uniform weights takes norm_qkv_gemv_kernel
+// instead (csrc/gemv.cuh; ops/ffn.norm_qkv_route picks it, the wrapper
+// passes the single-row cut): #1's single-row stream, each 128-column
+// chunk cut in K into a cluster's pieces, with the norm in front. Its
+// producer warp fills the ring with weight stages at once while the
+// consumer warps compute the row's norm and int8 scale from the f32 row
+// in L2 (the row arithmetic of #12's stage_row, wstream.cuh row_norm) and
+// stage their piece's range. Rows 2 .. 32 and BCQ sign planes keep
+// norm_qkv_kernel.
 
 #include <string.h>
 
 #include "fused.cuh"
+#include "gemv.cuh"          // norm_qkv_gemv_kernel, gemv_launch
 #include "layer_stream.cuh"  // mlp_stream_kernel, its host side
 
 namespace {
@@ -152,15 +163,45 @@ cudaError_t mlp_rows(MlpArgs& a, cudaStream_t st) {
 
 // x: (M, K) f32 (bf16 values); nw: (K,) f32; nb: (K,) f32 for layernorm,
 // else null; norm: 0 rmsnorm, 1 rmsnorm1p, 2 layernorm; out: (M, Np) f32.
-// Returns the launch's cudaError_t.
+// splits > 0: the single-row kernel (M = 1, a uniform weight; splits /
+// unit its cut, ops/qmatmul.gemv_splits / gemv_unit; x, nw, nb on 16-byte
+// boundaries); 0: the tiled norm_qkv_kernel. Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for what the kernel does not take,
+// launching nothing).
 extern "C" int norm_qkv_launch(const float* x, int M, int K, const float* nw,
                                const float* nb, int norm, float eps, int a8,
-                               const WeightDesc* w, float* out, void* stream) {
+                               const WeightDesc* w, float* out, int splits,
+                               int unit, void* stream) {
   if (M < 1 || M > MAX_ROWS || !weight_ok(w, true) || K != w->Kp ||
       nw == nullptr || norm < 0 || norm > 2 || (norm == 2 && nb == nullptr))
     return (int)cudaErrorInvalidValue;
-  const RowSrc src{x, nw, nb, K, norm, eps};
   cudaStream_t st = (cudaStream_t)stream;
+  if (splits > 0) {
+    if (M != 1 || w->fmt != 0 || w->bits == 1)
+      return (int)cudaErrorInvalidValue;
+    GemvArgs a{};
+    a.x = x;
+    a.w0 = w->w0;
+    a.w1 = w->w1;
+    a.grid = w->scale;
+    a.zoff = w->zoff;
+    a.out = out;
+    a.nw = nw;
+    a.nb = norm == 2 ? nb : nullptr;
+    a.bias = w->bias;
+    a.norm = norm;
+    a.eps = eps;
+    a.Kp = w->Kp;
+    a.Np = w->Np;
+    a.SB = w->SB;
+    a.ng = w->ng;
+    a.bits = w->bits;
+    a.splits = splits;
+    a.unit = unit;
+    return a8 ? gemv_launch<int8_t, false, false, true>(a, st)
+              : gemv_launch<__nv_bfloat16, false, false, true>(a, st);
+  }
+  const RowSrc src{x, nw, nb, K, norm, eps};
   return (int)(a8 ? norm_qkv_rows<int8_t>(src, M, *w, out, st)
                   : norm_qkv_rows<__nv_bfloat16>(src, M, *w, out, st));
 }

@@ -13,6 +13,7 @@
 #include <stdint.h>
 
 #include "qdot.cuh"
+#include "wstream.cuh"  // bf16r, to_stage
 
 namespace cg = cooperative_groups;
 
@@ -49,19 +50,9 @@ struct Acc { using type = float; };
 template <>
 struct Acc<int8_t> { using type = int; };
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 __device__ __forceinline__ float ld(int8_t v) { return (float)v; }
 __device__ __forceinline__ float ld(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-__device__ __forceinline__ int8_t to_stage(float v, float sx, int8_t*) {
-  return (int8_t)fminf(fmaxf(rintf(v / sx), -127.f), 127.f);
-}
-__device__ __forceinline__ __nv_bfloat16 to_stage(float v, float,
-                                                  __nv_bfloat16*) {
-  return __float2bfloat16_rn(v);
 }
 
 // The shared-memory plan of a block (dynamic shared memory).

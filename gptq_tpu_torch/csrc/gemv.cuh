@@ -1,8 +1,9 @@
-// The single-row (decode, M = 1) packed matmul of #1, #13 and #9: one
-// design, three kernels. qmatmul.cu launches qgemv_kernel (uniform grids),
-// bcq_matmul.cu bcq_gemv_kernel (BCQ sign planes) and qexpert.cu
+// The single-row (decode, M = 1) packed matmul of #1 (and #7's streamed
+// route), #13 and #9, and #4's norm + matmul: one design, four kernels.
+// qmatmul.cu and qstream.cu launch qgemv_kernel (uniform grids),
+// bcq_matmul.cu bcq_gemv_kernel (BCQ sign planes), qexpert.cu
 // qsel_gemv_kernel (one expert of a uniform bank, chosen by a device
-// index):
+// index) and ffn.cu norm_qkv_gemv_kernel (below):
 //
 //   #1:  out[n] = sum_g (x_g . C_g)[n] scale[g, n] - xsum_g zoff[g, n]
 //   #13: out[n] = sum_g sum_b alpha[g, b, n] (2 (x_g . B_b)[n] - xsum_g)
@@ -13,7 +14,19 @@
 //        before any arrival is due)
 //
 // over the stored dims: x (Kp,) f32 / bf16 / int8, out (Np,) f32. The
-// caller applies the int8 row scale and the bias.
+// caller applies the int8 row scale and the bias. #4 at one row (ln1 +
+// q|k|v, or final_ln + the head) normalizes and scales in the kernel:
+//
+//   #4:  out = q8(bf16(norm(x) w_ln (+ b_ln))) @ dequant(W) sx (+ b)
+//
+// #1's stream with the norm in front, as gptq_tpu/ops/ffn.py's
+// _norm_qkv_kernel starts its weight DMAs before the norm: the producer
+// copies no x and fills the ring at once, while the consumer warps read
+// the whole f32 row from L2 (wstream.cuh row_norm: the statistics, the
+// norm and, a8, the absmax and sx) and stage only their piece's K range
+// of it (int8 codes or bf16) with the range's group sums. Every block
+// stages the same bits in the same order, so every rank holds the same
+// sx, and rank 0 writes (D - Z) sx + b after the piece sum.
 //
 // Bound on an H100: the packed words and the grids over the memory rate
 // (a llama-7B layer's four w4 g-1 linears: ~103 MB, 0.031 ms). The stream
@@ -77,6 +90,14 @@ struct GemvArgs {
   float* out;          // (Np,)
   const int* eidx;     // #9: the expert's index (device int32), else null
   int E;               // #9: experts in the bank
+  // #4: x is the f32 row (bf16 values), normed by nw (and nb: layernorm;
+  // norm 0 rmsnorm, 1 rmsnorm1p, 2 layernorm), the output biased by bias
+  // (Np f32) or not (null)
+  const float* nw;
+  const float* nb;
+  const float* bias;
+  int norm;
+  float eps;
   int Kp, Np, SB, ng, bits, splits, unit, ns;
   // dynamic shared memory: ring | staged x | run sums | group sums | warp
   // partials, then the pieces' sums (rank 0) | mbarriers
@@ -197,14 +218,15 @@ __host__ __device__ inline void gemv_piece(int Kp, int unit, int splits,
   k1 = k1 < Kp ? k1 : Kp;
 }
 
-// the producer warp: the piece's x range, then its stages (the fields or
-// planes in order, 32 word rows of the chunk a stage, a lane a row)
-template <typename ST, bool BCQ>
+// the producer warp: the piece's x range (#4: none, its consumers stage
+// x), then its stages (the fields or planes in order, 32 word rows of the
+// chunk a stage, a lane a row)
+template <typename ST, bool BCQ, bool NORM>
 __device__ void gemv_produce(const GemvArgs& a, unsigned char* ring,
                              uint64_t* full, uint64_t* empty, uint64_t* xbar,
                              ST* xs, int c, int k0, int k1, int nf, int e) {
   const int lane = threadIdx.x & 31;
-  if (lane == 0) {
+  if (!NORM && lane == 0) {
     const int xb = (k1 - k0) * (int)sizeof(ST);
     mbar_expect(xbar, xb);
     bulk_copy(xs, reinterpret_cast<const ST*>(a.x) + k0, xb, xbar);
@@ -273,17 +295,64 @@ __device__ __forceinline__ void gemv_rows(
   }
 }
 
-// the consumer warps: the piece's group sums of x, then its stages; D / Z:
-// thread t < CC's column of the piece's products and zero-point terms
-template <typename ST, bool BCQ>
+// #4's input row: the f32 row in device memory, read again in each pass
+// (L2 holds it: every block of the launch reads the same row)
+struct GlobalRow {
+  const float4* x;
+  int NV;
+  template <int U>
+  __device__ __forceinline__ void load(int v0, int step,
+                                       float4 (&v)[U]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      v[u] = v0 + step * u < NV ? __ldg(x + v0 + step * u)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ void passed() const {}
+  __device__ __forceinline__ float4 get(int vi) const { return __ldg(x + vi); }
+  __device__ __forceinline__ void put(int, float4) const {}
+};
+
+// #4: the whole row's norm and int8 scale, then the piece's K range [k0,
+// k1) of the staged row into xs. Returns sx (a16: 1).
+template <typename ST>
+__device__ float gemv_norm_stage(const GemvArgs& a, ST* xs, float* red,
+                                 int k0, int k1) {
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const float4* n4 = reinterpret_cast<const float4*>(a.nw);
+  const float4* b4 = reinterpret_cast<const float4*>(a.nb);
+  GlobalRow row{x4, a.Kp / 4};
+  float mu, rstd;
+  const float sx = row_norm<GCT, 4, sizeof(ST) == 1>(
+      row, a.Kp / 4, a.nw, a.nb, a.norm, a.eps, red, mu, rstd);
+  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int vi = k0 / 4 + (int)threadIdx.x; vi < k1 / 4; vi += GCT)
+    store_staged(xs, vi - k0 / 4,
+                 norm4(__ldg(x4 + vi), __ldg(n4 + vi),
+                       a.norm == 2 ? __ldg(b4 + vi) : z4, a.norm, mu, rstd),
+                 sx);
+  return sx;
+}
+
+// the consumer warps: the piece's group sums of x (#4: after staging the
+// piece's range of the normed row), then its stages; D / Z: thread t <
+// CC's column of the piece's products and zero-point terms; sx: #4's int8
+// scale (else 1)
+template <typename ST, bool BCQ, bool NORM>
 __device__ void gemv_consume(const GemvArgs& a, unsigned char* ring,
                              uint64_t* full, uint64_t* empty, uint64_t* xbar,
-                             const ST* xs, float* runs, float* xg, float* red,
+                             ST* xs, float* runs, float* xg, float* red,
                              int c, int k0, int k1, int nf, int e, float& D,
-                             float& Z) {
+                             float& Z, float& sx) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int G = a.Kp / a.ng, gA = k0 / G, ngp = (k1 - 1) / G - gA + 1;
-  mbar_wait(xbar, 0);
+  sx = 1.f;
+  if constexpr (NORM) {
+    sx = gemv_norm_stage<ST>(a, xs, red, k0, k1);
+    gemv_bar();
+  } else {
+    mbar_wait(xbar, 0);
+  }
   for (int i = t; i < (k1 - k0) / 32; i += GCT) runs[i] = run_sum(xs + 32 * i);
   gemv_bar();
   for (int g = warp; g < ngp; g += GW) {  // each group's part of the piece
@@ -354,7 +423,7 @@ __device__ void gemv_consume(const GemvArgs& a, unsigned char* ring,
   }
 }
 
-template <typename ST, bool BCQ, bool SEL>
+template <typename ST, bool BCQ, bool SEL, bool NORM>
 __device__ __forceinline__ void gemv_block(const GemvArgs& a) {
   extern __shared__ __align__(128) unsigned char gsmem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(gsmem + a.off_bar);
@@ -388,18 +457,26 @@ __device__ __forceinline__ void gemv_block(const GemvArgs& a) {
   }
   __syncthreads();
   if (a.splits > 1) cluster_arrive_relaxed();
-  float D = 0.f, Z = 0.f;
+  float D = 0.f, Z = 0.f, sx = 1.f;
   if (t >= GCT)
-    gemv_produce<ST, BCQ>(a, gsmem, full, empty, xbar, xs, c, k0, k1, nf, e);
+    gemv_produce<ST, BCQ, NORM>(a, gsmem, full, empty, xbar, xs, c, k0, k1,
+                                nf, e);
   else
-    gemv_consume<ST, BCQ>(a, gsmem, full, empty, xbar, xs,
-                          reinterpret_cast<float*>(gsmem + a.off_runs),
-                          reinterpret_cast<float*>(gsmem + a.off_xg),
-                          reinterpret_cast<float*>(gsmem + a.off_red), c, k0,
-                          k1, nf, e, D, Z);
+    gemv_consume<ST, BCQ, NORM>(a, gsmem, full, empty, xbar, xs,
+                                reinterpret_cast<float*>(gsmem + a.off_runs),
+                                reinterpret_cast<float*>(gsmem + a.off_xg),
+                                reinterpret_cast<float*>(gsmem + a.off_red),
+                                c, k0, k1, nf, e, D, Z, sx);
   const int n = c * CC + t;
+  // a finished column: #4 applies the int8 scale and the bias
+  auto finish = [&](float d, float z) {
+    if constexpr (NORM)
+      return (d - z) * sx + (a.bias != nullptr ? __ldg(a.bias + n) : 0.f);
+    else
+      return d - z;
+  };
   if (a.splits == 1) {
-    if (t < CC && n < a.Np) a.out[n] = D - Z;
+    if (t < CC && n < a.Np) a.out[n] = finish(D, Z);
     return;
   }
   // the chunk's pieces: each writes its sums into rank 0's shared memory
@@ -422,26 +499,33 @@ __device__ __forceinline__ void gemv_block(const GemvArgs& a) {
       D += dz[2 * p * CC + t];
       Z += dz[(2 * p + 1) * CC + t];
     }
-    if (n < a.Np) a.out[n] = D - Z;
+    if (n < a.Np) a.out[n] = finish(D, Z);
   }
 }
 
 template <typename ST>
 __global__ void __launch_bounds__(GTHREADS, 2)
     qgemv_kernel(const __grid_constant__ GemvArgs a) {
-  gemv_block<ST, false, false>(a);
+  gemv_block<ST, false, false, false>(a);
 }
 
 template <typename ST>
 __global__ void __launch_bounds__(GTHREADS, 2)
     bcq_gemv_kernel(const __grid_constant__ GemvArgs a) {
-  gemv_block<ST, true, false>(a);
+  gemv_block<ST, true, false, false>(a);
 }
 
 template <typename ST>
 __global__ void __launch_bounds__(GTHREADS, 2)
     qsel_gemv_kernel(const __grid_constant__ GemvArgs a) {
-  gemv_block<ST, false, true>(a);
+  gemv_block<ST, false, true, false>(a);
+}
+
+// #4: ST is the staged row's type (int8: a8, bf16: a16); x is f32
+template <typename ST>
+__global__ void __launch_bounds__(GTHREADS, 2)
+    norm_qkv_gemv_kernel(const __grid_constant__ GemvArgs a) {
+  gemv_block<ST, false, false, true>(a);
 }
 
 inline int galign16(int v) { return (v + 15) & ~15; }
@@ -499,10 +583,16 @@ void gemv_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
 // what the kernel does not take: groups that do not cover whole
 // subblocks, an Np that is no multiple of 4, a cut that is not whole
 // units, pointers off a 16-byte boundary, more than GMAXS pieces. SEL
-// (#9, uniform only): a.eidx and a.E select the expert of a bank.
-template <typename ST, bool BCQ, bool SEL = false>
+// (#9, uniform only): a.eidx and a.E select the expert of a bank. NORM
+// (#4, uniform only): a.x is the f32 row, a.nw (a.nb) its norm, a.bias
+// the output's bias or null; ST the staged row's type.
+template <typename ST, bool BCQ, bool SEL = false, bool NORM = false>
 int gemv_launch(GemvArgs a, cudaStream_t st) {
   auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  if (NORM && (BCQ || SEL || a.nw == nullptr || !aligned(a.nw) ||
+               a.norm < 0 || a.norm > 2 ||
+               (a.norm == 2 && (a.nb == nullptr || !aligned(a.nb)))))
+    return (int)cudaErrorInvalidValue;
   const int fbmin = BCQ || a.bits == 3 ? 1 : a.bits;
   if (a.Kp < 32 || a.SB < 32 || a.Kp % a.SB || a.ng < 1 || a.Kp % a.ng ||
       (a.Kp / a.ng) % a.SB || a.Np < 1 || a.Np % 4 || a.splits < 1 ||
@@ -518,6 +608,8 @@ int gemv_launch(GemvArgs a, cudaStream_t st) {
   void (*kern)(const GemvArgs);
   if constexpr (BCQ)
     kern = bcq_gemv_kernel<ST>;
+  else if constexpr (NORM)
+    kern = norm_qkv_gemv_kernel<ST>;
   else if constexpr (SEL)
     kern = qsel_gemv_kernel<ST>;
   else

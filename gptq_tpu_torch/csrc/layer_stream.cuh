@@ -9,8 +9,9 @@
 //   * the consumer warps' barrier over the grid (a named bar.sync, then one
 //     thread's release / acquire on a generation counter in device memory,
 //     never reset from the host, so that a CUDA graph replays it);
-//   * a phase's input row staged once per block (the norm, the int8 scale
-//     or bf16 rounding, the group sums of the zero-point term);
+//   * a phase's input row staged once per block (the norm and the int8
+//     scale through wstream.cuh's row_norm, which #4's single-row kernel
+//     shares; the int8 or bf16 row, the group sums of the zero-point term);
 //   * the stage product over byteplane codes (wstream.cuh's rows, four
 //     columns a lane) and the K-split pieces summed in piece order by a
 //     chunk's last block (a ticket), which applies the phase's epilogue;
@@ -205,137 +206,80 @@ struct Stage {  // the consumer side of one block's shared memory
   float sx;     // the row's int8 scale (1: a16)
 };
 
-__device__ __forceinline__ float block_red(float v, bool is_max, float* red) {
-  v = is_max ? warp_max(v) : warp_sum(v);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  cbar();
-  float r = 0.f;  // absmax >= 0
+// #12's input row: read once (pass 1, the finished rows of an earlier
+// phase: x, the attention row, r2, and the GLU output, or without a
+// gate|up pairing the gate|up row) and kept, f32, in shared memory (u4),
+// where pass 2 leaves its norm; block 0 writes the GLU output it forms
+struct KeptRow {
+  float4* u4;
+  const float4* src;
+  const float4* g4;  // the up half of the gate|up row, or null (no GLU here)
+  float4* inner;     // block 0's GLU output, or null
+  uint64_t* gate;    // the producer's gate to open after pass 1, or null
+  int act, NV;
+  template <int U>
+  __device__ __forceinline__ void load(int v0, int step, float4 (&v)[U]) {
+    const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 g2[U];
 #pragma unroll
-  for (int w = 0; w < NCW; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  cbar();
-  return r;
-}
+    for (int u = 0; u < U; ++u) {
+      const int vi = v0 + step * u;
+      v[u] = vi < NV ? __ldcg(src + vi) : z4;
+      g2[u] = g4 != nullptr && vi < NV ? __ldcg(g4 + vi) : z4;
+    }
+    if (g4 != nullptr) {  // the GLU output, rounded to bf16
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        v[u].x = bf16r(act_fn(act, v[u].x) * g2[u].x);
+        v[u].y = bf16r(act_fn(act, v[u].y) * g2[u].y);
+        v[u].z = bf16r(act_fn(act, v[u].z) * g2[u].z);
+        v[u].w = bf16r(act_fn(act, v[u].w) * g2[u].w);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int vi = v0 + step * u;
+      if (vi < NV) {
+        u4[vi] = v[u];
+        if (inner != nullptr) inner[vi] = v[u];
+      }
+    }
+  }
+  __device__ __forceinline__ void passed() {
+    if (gate != nullptr && threadIdx.x == 0) mbar_arrive(gate);
+  }
+  __device__ __forceinline__ float4 get(int vi) const { return u4[vi]; }
+  __device__ __forceinline__ void put(int vi, float4 x) { u4[vi] = x; }
+};
 
 template <typename ST>
 __device__ void stage_row(const LArgs& a, int w, Stage<ST>& s) {
   constexpr bool A8 = sizeof(ST) == 1;
-  constexpr int UNR = 4;  // vectors of 4 in flight a thread
   const WeightDesc& wd = a.wd[w];
   const int K = wd.Kp, NV = K / 4, t = threadIdx.x;
   const int F = a.wd[3].Kp;
   const float* nw = w == 0 ? a.ln1 : w == 2 ? a.ln2 : nullptr;
-  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
   float4* u4 = reinterpret_cast<float4*>(s.uni);
-  // pass 1: the input row (its finished rows: x, the attention row, r2,
-  // and the GLU output, or without a gate|up pairing the gate|up row) and
-  // its sum of squares; a thread takes vectors t, t + CTHREADS, ... here
-  // and in the passes below. Every block stages the same bits in the same
-  // order: a chunk's last block finishes it with its own row statistics.
+  // the row's norm and int8 scale (wstream.cuh row_norm; a thread takes
+  // vectors t, t + CTHREADS, ... here and in pass 3). Every block stages
+  // the same bits in the same order: a chunk's last block finishes it with
+  // its own row statistics.
   const bool glu_here = w == 3 && a.glu && !paired(a);
   const float* src = w == 0 ? a.x : w == 1 ? a.attn : w == 2 ? a.r2
                    : glu_here ? a.gu : a.inner;
-  float ss = 0.f, sm = 0.f;  // sm: the row's sum (layernorm)
-  for (int v0 = t; v0 < NV; v0 += CTHREADS * UNR) {
-    float4 v[UNR], g2[UNR];
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int vi = v0 + CTHREADS * u;
-      v[u] = vi < NV ? __ldcg(reinterpret_cast<const float4*>(src) + vi) : z4;
-      g2[u] = glu_here && vi < NV
-                  ? __ldcg(reinterpret_cast<const float4*>(a.gu + F) + vi)
-                  : z4;
-    }
-    if (glu_here) {  // the GLU output, rounded to bf16
-#pragma unroll
-      for (int u = 0; u < UNR; ++u) {
-        v[u].x = bf16r(act_fn(a.act, v[u].x) * g2[u].x);
-        v[u].y = bf16r(act_fn(a.act, v[u].y) * g2[u].y);
-        v[u].z = bf16r(act_fn(a.act, v[u].z) * g2[u].z);
-        v[u].w = bf16r(act_fn(a.act, v[u].w) * g2[u].w);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int vi = v0 + CTHREADS * u;
-      if (vi < NV) {
-        u4[vi] = v[u];
-        ss += v[u].x * v[u].x + v[u].y * v[u].y + v[u].z * v[u].z +
-              v[u].w * v[u].w;
-        sm += v[u].x + v[u].y + v[u].z + v[u].w;
-        if (glu_here && blockIdx.x == 0)
-          reinterpret_cast<float4*>(a.inner)[vi] = v[u];
-      }
-    }
-  }
-  if (w == 1 && t == 0) mbar_arrive(&s.gates[1]);  // o's weights may go on
-  const bool ln = nw != nullptr && a.norm == 2;
-  float rstd = 1.f, mu = 0.f;
-  if (ln) {  // layernorm: the mean, then the centred row's sum of squares
-    mu = block_red(sm, false, s.red) / (float)K;
-    ss = 0.f;
-    for (int vi = t; vi < NV; vi += CTHREADS) {
-      const float4 x = u4[vi];
-      const float dx = x.x - mu, dy = x.y - mu, dz = x.z - mu, dw = x.w - mu;
-      ss += dx * dx + dy * dy + dz * dz + dw * dw;
-    }
-  }
-  if (nw != nullptr)
-    rstd = 1.f / sqrtf(block_red(ss, false, s.red) / (float)K + a.eps);
-  // pass 2: the norm (rounded to bf16; its weights UNR vectors at a time)
-  // and the row's absmax
-  float amax = 0.f;
-  for (int v0 = t; v0 < NV; v0 += CTHREADS * UNR) {
-    float4 n4[UNR];
-#pragma unroll
-    for (int u = 0; u < UNR; ++u)
-      n4[u] = nw != nullptr && v0 + CTHREADS * u < NV
-                  ? __ldg(reinterpret_cast<const float4*>(nw) + v0 +
-                          CTHREADS * u)
-                  : z4;
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int vi = v0 + CTHREADS * u;
-      if (vi >= NV) continue;
-      float4 x = u4[vi];
-      if (ln) {
-        const float4 b = __ldg(reinterpret_cast<const float4*>(a.ln2b) + vi);
-        x = make_float4(bf16r((x.x - mu) * rstd * n4[u].x + b.x),
-                        bf16r((x.y - mu) * rstd * n4[u].y + b.y),
-                        bf16r((x.z - mu) * rstd * n4[u].z + b.z),
-                        bf16r((x.w - mu) * rstd * n4[u].w + b.w));
-        u4[vi] = x;
-      } else if (nw != nullptr) {
-        const float4 m = a.norm == 1 ? make_float4(1.f + n4[u].x, 1.f + n4[u].y,
-                                                   1.f + n4[u].z, 1.f + n4[u].w)
-                                     : n4[u];
-        x = make_float4(bf16r(x.x * rstd * m.x), bf16r(x.y * rstd * m.y),
-                        bf16r(x.z * rstd * m.z), bf16r(x.w * rstd * m.w));
-        u4[vi] = x;
-      }
-      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)),
-                               fmaxf(fabsf(x.z), fabsf(x.w))));
-    }
-  }
-  s.sx = A8 ? block_red(amax, true, s.red) / 127.f + 1e-12f : 1.f;
+  KeptRow row{u4, reinterpret_cast<const float4*>(src),
+              glu_here ? reinterpret_cast<const float4*>(a.gu + F) : nullptr,
+              glu_here && blockIdx.x == 0 ? reinterpret_cast<float4*>(a.inner)
+                                          : nullptr,
+              w == 1 ? &s.gates[1] : nullptr,  // o's weights may go on
+              a.act, NV};
+  float mu, rstd;
+  s.sx = row_norm<CTHREADS, 4, A8>(row, NV, nw, a.ln2b, a.norm, a.eps, s.red,
+                                   mu, rstd);
   // pass 3: the staged row, then the sum of each run of 32 (a thread a
   // run: a group is whole runs), then the group sums from the runs'
-  for (int vi = t; vi < NV; vi += CTHREADS) {
-    const float4 x = u4[vi];
-    ST q[4] = {to_stage(x.x, s.sx, (ST*)nullptr), to_stage(x.y, s.sx, (ST*)nullptr),
-               to_stage(x.z, s.sx, (ST*)nullptr), to_stage(x.w, s.sx, (ST*)nullptr)};
-    if constexpr (A8) {
-      reinterpret_cast<uint32_t*>(s.xs)[vi] =
-          (uint32_t)(uint8_t)q[0] | (uint32_t)(uint8_t)q[1] << 8 |
-          (uint32_t)(uint8_t)q[2] << 16 | (uint32_t)(uint8_t)q[3] << 24;
-    } else {
-      reinterpret_cast<uint2*>(s.xs)[vi] = make_uint2(
-          (uint32_t)__bfloat16_as_ushort(q[0]) |
-              (uint32_t)__bfloat16_as_ushort(q[1]) << 16,
-          (uint32_t)__bfloat16_as_ushort(q[2]) |
-              (uint32_t)__bfloat16_as_ushort(q[3]) << 16);
-    }
-  }
+  for (int vi = t; vi < NV; vi += CTHREADS)
+    store_staged(s.xs, vi, u4[vi], s.sx);
   cbar();
   for (int ci = t; ci < K / 32; ci += CTHREADS) {
     const int4* v = reinterpret_cast<const int4*>(s.xs + ci * 32);

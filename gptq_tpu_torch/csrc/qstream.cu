@@ -28,6 +28,16 @@
 //
 // Bound on an H100: the packed-word bytes over the memory rate at the
 // decode shapes this route serves (M <= 8).
+//
+// At one row (decode) this kernel is not launched: the wrapper
+// (ops/qmatmul._stream_cuda) sends the row to #1's single-row stream
+// through csrc/qmatmul.cu's qmm_launch (csrc/gemv.cuh qgemv_kernel), which
+// keeps more bytes in flight than the 32-column tiles here (on an H100, a
+// llama-7B layer's four w4a8 linears: 0.082 ms against 0.182). There the
+// ring of stages, not tk, shapes the walk over K: the wrapper still
+// computes tk and seg (ops/qmatmul.stream_chunks), so the route refuses
+// the weights the JAX package refuses, but at one row they only pick the
+// route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -16,7 +16,11 @@ kernel to its plain version on the card: a launch that fails raises.
 attn_mlp and ffn at one row on uniform weights (decode) take the weight
 stream of the whole-layer kernel (`mlp_route`: csrc/ffn.cu
 mlp_stream_kernel, device code in csrc/layer_stream.cuh); more rows and
-BCQ sign planes take the tiled mlp_kernel.
+BCQ sign planes take the tiled mlp_kernel. norm_qkv at one row on uniform
+weights takes the single-row stream of #1 with the norm in front
+(`norm_qkv_route`: csrc/gemv.cuh norm_qkv_gemv_kernel, launched from
+csrc/ffn.cu); more rows and BCQ sign planes take the tiled
+norm_qkv_kernel.
 
 The plain versions keep the JAX kernels' rounding points, which differ
 from the unfused path: norm_qkv casts x to bf16 at entry and rounds the
@@ -43,7 +47,8 @@ import torch
 from gptq_tpu_torch.ops import _build
 from gptq_tpu_torch.ops.bcq_matmul import bcq_dequant_stored
 from gptq_tpu_torch.ops.pack import FIELD_SPLITS, PackedWeight, subblock, unpack_codes
-from gptq_tpu_torch.ops.qmatmul import _mma_ready, quantize_acts_int8
+from gptq_tpu_torch.ops.qmatmul import (_fbmin, _mma_ready, gemv_cut,
+                                        quantize_acts_int8)
 
 # kernel launches since the last reset, one count per wrapper
 # (chip_smoke.py reads and resets them)
@@ -82,6 +87,23 @@ def mlp_route(M: int, o, gu, dn, a8: bool = True) -> str:
     kmax = max(pw.Kp for pw in ws)
     rows = kmax * (4 + (1 if a8 else 2)) + 16 * 1024  # staged rows, the rest
     return "tiles" if rows + 2 * STREAM_STAGE > STREAM_SMEM else "stream"
+
+
+def norm_qkv_route(M: int, pw) -> str:
+    """The kernel of #4 for M activation rows:
+      * "stream": M = 1 (decode) and a uniform weight of 2, 3, 4 or 8
+        bits, of a stored width that 128 divides, in groups that cover
+        whole subblocks: csrc/gemv.cuh norm_qkv_gemv_kernel, #1's
+        single-row stream with the norm in front;
+      * "tiles": more rows (batched decode, short prefills), BCQ sign
+        planes or other weights: csrc/ffn.cu norm_qkv_kernel."""
+    if (M != 1 or pw.fmt != "uniform" or pw.Np % 128
+            or pw.bits not in (2, 3, 4, 8)):
+        return "tiles"
+    ng = pw.scale.shape[0]
+    if pw.Kp % ng or (pw.Kp // ng) % subblock(pw.Kp, pw.groupsize):
+        return "tiles"
+    return "stream"
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +377,8 @@ def _lib():
     if lib.norm_qkv_launch.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dp = ctypes.POINTER(_WeightDesc)
-        lib.norm_qkv_launch.argtypes = [vp, i, i, vp, vp, i, f, i, dp, vp, vp]
+        lib.norm_qkv_launch.argtypes = [vp, i, i, vp, vp, i, f, i, dp, vp, i,
+                                        i, vp]
         lib.norm_qkv_launch.restype = ctypes.c_int
         lib.mlp_launch.argtypes = [vp, vp, vp, vp, i, f, i, i, i, i, dp, dp, dp,
                                    vp, vp, vp, vp]
@@ -372,19 +395,31 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _norm_qkv_cuda(x2, w1, pw: PackedWeight, norm, eps, a8, b_ln, b_qkv):
-    """Launch the norm_qkv kernel on x2 (M, K) f32 -> (M, Np) f32."""
+def _norm_qkv_cuda(x2, w1, pw: PackedWeight, norm, eps, a8, b_ln, b_qkv,
+                   route: str | None = None):
+    """Launch #4 on x2 (M, K) f32 -> (M, Np) f32: the kernel
+    norm_qkv_route picks, or the one `route` names (chip_smoke times both
+    at one row): "stream" (csrc/gemv.cuh norm_qkv_gemv_kernel, with the
+    single-row cut of qmatmul.gemv_cut) or "tiles" (norm_qkv_kernel)."""
     M, K = x2.shape
     _check_rows(M, "norm_qkv_fused")
     if K != pw.Kp:
         raise ValueError(f"norm_qkv_fused: width {K} for a weight of K={pw.Kp}")
+    if route is None:
+        route = norm_qkv_route(M, pw)
+    x2 = _mma_ready(x2)  # the stream reads x as 16-byte vectors
     keep = [x2]
     desc = _desc(pw, b_qkv, x2.device, keep)
     nw, nb = _norm_vecs(w1, b_ln, norm, K, x2.device, keep)
+    splits = unit = 0  # "tiles"
+    if route == "stream":
+        splits, unit = gemv_cut(pw.Kp, pw.Np, desc.SB, _fbmin(pw.bits),
+                                1 if a8 else 2, x2.get_device())
     out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
     err = _lib().norm_qkv_launch(x2.data_ptr(), M, K, nw, nb, _NORMS[norm],
                                  float(eps), int(a8), ctypes.byref(desc),
-                                 out.data_ptr(), _stream(x2.device))
+                                 out.data_ptr(), splits, unit,
+                                 _stream(x2.device))
     _build.check(err, "norm_qkv_launch")
     return out
 

@@ -12,8 +12,10 @@ expert_dequant_matmul, expert_dequant_matmul_select).
     (batched decode, prefill, PPL eval), and csrc/qmatmul.cu's loop for
     the weights neither takes;
   * `streamed`: single-field (2/4/8-bit) weights take csrc/qstream.cu
-    (the counterpart of `_stream_kernel`), which walks K itself; a 3-bit
-    weight takes the `pallas` route;
+    (the counterpart of `_stream_kernel`), which walks K itself, and at
+    one row launches the single-row stream of csrc/gemv.cuh
+    (`qgemv_kernel`) where that takes the weight; a 3-bit weight takes
+    the `pallas` route;
   * `xla`: the plain version, `dequant_matmul_reference`, because the
     caller asked for it;
   * `staged`: the resident serving mode, not ported (ROADMAP item 17).
@@ -322,8 +324,18 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight,
         route = qmm_route(M, pw.bits, pw.groupsize, x2.dtype, Np=pw.Np)
     if route == "mma":
         return _qmm_mma(x2, pw, words, scale, zoff, ng)
-    out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
-    lib = _lib()
+    out = _qmm_launch(x2, pw, words, scale, zoff, ng)
+    launches += 1
+    return out
+
+
+def _qmm_launch(x2, pw, words, scale, zoff, ng) -> torch.Tensor:
+    """csrc/qmatmul.cu's qmm_launch on checked operands: at one row the
+    single-row stream of csrc/gemv.cuh where it takes the weight, else
+    qmm_kernel. Counts nothing (its callers do)."""
+    fields = FIELD_SPLITS[pw.bits]
+    out = torch.empty((x2.shape[0], pw.Np), dtype=torch.float32,
+                      device=x2.device)
     sb = subblock(pw.Kp, pw.groupsize)
     # the single-row kernel's 16-byte copies need x on a 16-byte boundary
     # (and the weight's tensors, which it checks: allocations are)
@@ -333,13 +345,12 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight,
     (fb0, sh0), w0 = fields[0], words[0]
     fb1, sh1, w1 = (fields[1][0], fields[1][1], words[1].data_ptr()) \
         if len(fields) > 1 else (0, 0, None)
-    err = lib.qmm_launch(
-        x2.data_ptr(), _X_KIND[x2.dtype], M, pw.Kp, w0.data_ptr(), fb0, sh0,
-        w1, fb1, sh1, sb, scale.data_ptr(), zoff.data_ptr(), ng,
+    err = _lib().qmm_launch(
+        x2.data_ptr(), _X_KIND[x2.dtype], x2.shape[0], pw.Kp, w0.data_ptr(),
+        fb0, sh0, w1, fb1, sh1, sb, scale.data_ptr(), zoff.data_ptr(), ng,
         out.data_ptr(), pw.Np, splits, unit,
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "qmm_launch")
-    launches += 1
     return out
 
 
@@ -412,8 +423,14 @@ def stream_chunks(pw: PackedWeight) -> tuple[int, int]:
     return tk, min(g, tk)
 
 
-def _stream_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
-    """Launch csrc/qstream.cu on x2 (M, Kp) -> (M, Np) f32."""
+def _stream_cuda(x2: torch.Tensor, pw: PackedWeight,
+                 route: str | None = None) -> torch.Tensor:
+    """The streamed route's launch on x2 (M, Kp) -> (M, Np) f32: at one row
+    (where groups cover whole subblocks and Np % 4 == 0) #1's single-row
+    stream of csrc/gemv.cuh (qmatmul.cu's launch, the same kernel and cut
+    as `_qmm_cuda`), else csrc/qstream.cu's qstream_kernel; route="tiles"
+    forces qstream_kernel (chip_smoke times both at one row). Either
+    counts in stream_launches."""
     global stream_launches
     tk, seg = stream_chunks(pw)
     if x2.dtype not in _X_KIND:
@@ -434,13 +451,17 @@ def _stream_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
         raise ValueError(f"streamed dequant_matmul: packed weight of "
                          f"K={pw.Kp} N={pw.Np} bits={pw.bits} is malformed")
     M = x2.shape[0]
-    out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
-    err = _lib("qstream").qstream_launch(
-        x2.data_ptr(), _X_KIND[x2.dtype], M, pw.Kp, w.data_ptr(), fb,
-        subblock(pw.Kp, pw.groupsize), tk, seg, scale.data_ptr(),
-        zoff.data_ptr(), ng, out.data_ptr(), pw.Np,
-        torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, "qstream_launch")
+    sb = subblock(pw.Kp, pw.groupsize)
+    if (M == 1 and route != "tiles" and (pw.Kp // ng) % sb == 0
+            and pw.Np % 4 == 0):
+        out = _qmm_launch(x2, pw, [w], scale, zoff, ng)
+    else:
+        out = torch.empty((M, pw.Np), dtype=torch.float32, device=x2.device)
+        err = _lib("qstream").qstream_launch(
+            x2.data_ptr(), _X_KIND[x2.dtype], M, pw.Kp, w.data_ptr(), fb, sb,
+            tk, seg, scale.data_ptr(), zoff.data_ptr(), ng, out.data_ptr(),
+            pw.Np, torch.cuda.current_stream(x2.device).cuda_stream)
+        _build.check(err, "qstream_launch")
     stream_launches += 1
     return out
 

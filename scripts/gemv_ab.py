@@ -13,7 +13,7 @@ groupsize 128 BCQ (#13), each with int8 (a8) and bf16 x:
     kernel_bench.time_fn: CUDA events, L2 flushed), each linear and their
     sum;
   * the host's time for one wrapper call (dequant_matmul / bcq_matmul on
-    the 4096x4096 linear; scripts/layer_route_ab.host_times: 100 calls
+    the 4096x4096 linear; scripts/_ab.host_times: 100 calls
     queued with no synchronisation, the median of five batches).
 
 Prints the card's name and power limit, a JSON line for each run and a
@@ -23,13 +23,9 @@ runs and the summary to --out. Needs a CUDA card.
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
 import sys
 
-from layer_route_ab import host_times
+from _ab import host_times, run_ab
 
 SHAPES = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096)]
 
@@ -75,47 +71,7 @@ def worker(tree: str) -> dict:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("a")
-    ap.add_argument("b")
-    ap.add_argument("--out", default="")
-    ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    if args.worker:
-        print("RESULT " + json.dumps(worker(args.worker)), flush=True)
-        return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    print(card, flush=True)
-    runs = []
-    for label, tree in (("a", args.a), ("b", args.b), ("b", args.b),
-                        ("a", args.a)):
-        tree = os.path.abspath(tree)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), args.a, args.b,
-             "--worker", tree], capture_output=True, text=True, cwd=tree)
-        line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith("RESULT ")]
-        if proc.returncode != 0 or not line:
-            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
-            raise SystemExit(f"gemv_ab: the run of {tree} failed "
-                             f"(exit {proc.returncode})")
-        run = {"label": label, **json.loads(line[-1][len("RESULT "):])}
-        runs.append(run)
-        print(json.dumps(run), flush=True)
-    summary = {"card": card}
-    for label in ("a", "b"):
-        mine = [r for r in runs if r["label"] == label]
-        summary[label] = {k: sorted(r[k] for r in mine) for k in mine[0]
-                          if k.endswith(" ms") or k.endswith("host_us")}
-    print(json.dumps(summary), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump({"runs": runs, "summary": summary}, f, indent=1)
-    return 0
+    return run_ab(__file__, worker, __doc__, argv=argv)
 
 
 if __name__ == "__main__":

@@ -24,39 +24,19 @@ runs and the summary to --out. Needs a CUDA card.
 
 from __future__ import annotations
 
-import argparse
-import json
 import os
-import subprocess
 import sys
 import tempfile
-import time
+
+from _ab import host_times, run_ab
 
 
-def host_times(fn, n: int = 100, batches: int = 5) -> dict:
-    """fn's host time a call (n calls queued with no synchronisation) and
-    the wall time a call until the device has run them all, in µs: the
-    median of `batches` batches."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    host, wall = [], []
-    for _ in range(batches):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        host.append((t1 - t0) / n * 1e6)
-        wall.append((t2 - t0) / n * 1e6)
-    return {"host_us": sorted(host)[batches // 2],
-            "wall_us": sorted(wall)[batches // 2]}
+def worker(tree: str) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        return measure(tree, tmp)
 
 
-def worker(tree: str, tmp: str) -> dict:
+def measure(tree: str, tmp: str) -> dict:
     sys.path.insert(0, tree)
     import chip_smoke as cs  # the checkout's own
     import torch
@@ -107,50 +87,9 @@ def worker(tree: str, tmp: str) -> dict:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("a")
-    ap.add_argument("b")
-    ap.add_argument("--out", default="")
-    ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    if args.worker:
-        with tempfile.TemporaryDirectory() as tmp:
-            print("RESULT " + json.dumps(worker(args.worker, tmp)),
-                  flush=True)
-        return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    print(card, flush=True)
-    runs = []
-    for label, tree in (("a", args.a), ("b", args.b), ("b", args.b),
-                        ("a", args.a)):
-        tree = os.path.abspath(tree)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), args.a, args.b,
-             "--worker", tree], capture_output=True, text=True, cwd=tree)
-        line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith("RESULT ")]
-        if proc.returncode != 0 or not line:
-            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
-            raise SystemExit(f"layer_route_ab: the run of {tree} failed "
-                             f"(exit {proc.returncode})")
-        run = {"label": label, **json.loads(line[-1][len("RESULT "):])}
-        runs.append(run)
-        print(json.dumps(run), flush=True)
-    summary = {"card": card}
-    for label in ("a", "b"):
-        mine = [r for r in runs if r["label"] == label]
-        summary[label] = {k: sorted(r[k] for r in mine)
-                          for k in ("median_ms", "wrapper_host_us",
-                                    "wrapper_wall_us")}
-    print(json.dumps(summary), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump({"runs": runs, "summary": summary}, f, indent=1)
-    return 0
+    return run_ab(__file__, worker, __doc__, argv=argv,
+                  keys=lambda k: k in ("median_ms", "wrapper_host_us",
+                                       "wrapper_wall_us"))
 
 
 if __name__ == "__main__":

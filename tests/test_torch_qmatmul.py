@@ -11,6 +11,7 @@ from gptq_tpu.ops import pack as jpack
 from gptq_tpu.ops import qmatmul as jq
 from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.ops import qmatmul as tq
+from test_torch_gemv import gemv_replay
 
 RTOL = 1e-5  # both sides f32 on the CPU; sums in another order
 
@@ -150,6 +151,51 @@ def test_streamed_entry_rules_match():
     _, tp3 = _weights(rng, 3, 128, 512, 128)
     with pytest.raises(ValueError, match="single-field"):
         tq._matmul_streamed(torch.from_numpy(x), tp3)
+
+
+@pytest.mark.parametrize("bits,gs,K", [(4, 64, 512), (2, 32, 1024)])
+def test_streamed_one_row_keeps_the_entry_rules(monkeypatch, bits, gs, K):
+    """At one row, as at eight, the streamed route refuses the chunks that
+    split a group, as gptq_tpu does, though the single-row kernel it
+    launches there would take them."""
+    rng = np.random.default_rng(bits + K)
+    jp, tp = _weights(rng, bits, gs, K, 128)
+    monkeypatch.setenv("GPTQ_TPU_MATMUL_IMPL", "streamed")
+    for M in (1, 8):
+        x = np.zeros((M, K), np.float32)
+        with pytest.raises(ValueError, match="group-aligned"):
+            jq._matmul_streamed(jnp.asarray(x), jp, interpret=True)
+        with pytest.raises(ValueError, match="group-aligned"):
+            tq._matmul_streamed(torch.from_numpy(x), tp)
+        with pytest.raises(ValueError, match="group-aligned"):
+            tq.dequant_matmul(torch.from_numpy(x), tp)
+
+
+@pytest.mark.parametrize("bits,gs", [(2, -1), (4, 128), (8, 256)])
+@pytest.mark.parametrize("a8", [False, True])
+def test_streamed_one_row_matches_pallas_interpret(bits, gs, a8):
+    """One row through the streamed route's plain version against the
+    Pallas _stream_kernel in interpret mode, and the single-row replay of
+    the kernel the card launches there (test_torch_gemv.gemv_replay, the
+    cut of qmatmul.gemv_splits on 132 SMs) against both."""
+    rng = np.random.default_rng(bits * 3 + gs + a8)
+    jp, tp = _weights(rng, bits, gs, 1024, 256)
+    x = rng.normal(size=(1, 1024)).astype(np.float32)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    sx = None
+    if a8:
+        jx, _ = jq.quantize_acts_int8(jx)
+        tx, sx = tq.quantize_acts_int8(tx)
+    want = np.asarray(jq._matmul_streamed(jx, jp, interpret=True))
+    got = tq._matmul_streamed(tx, tp).numpy()
+    _close(got, want, rtol=1e-4)
+    sb = tpack.subblock(tp.Kp, gs)
+    unit = tq.gemv_unit(sb, bits)
+    splits = tq.gemv_splits(tp.Kp, tp.Np, sb, bits, tx.element_size(), 132)
+    assert splits > 1
+    replay = gemv_replay(tx[0], tp.words, tp.scale, tp.zoff, bits, sb, splits,
+                         unit, False).numpy()
+    _close(replay, want[0], rtol=1e-4)
 
 
 @pytest.mark.parametrize("impl", ["pallas", "streamed", "xla"])
