@@ -146,6 +146,34 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                PPL evals' launches (#1, then #13; exact counts) and its
                wikitext2 PPL against the dense twin of its saved file;
                then the saved w4 file served through the CLI.
+  8. batch   - continuous batching (engine/batching.ContinuousBatcher):
+               the serve phase's 32-layer checkpoint (w4a8 g-1, 8-bit
+               head, fuse_serving(a8=True)) with 32 slots, max_len 256,
+               window 16 (one CUDA graph of 16 lock-steps): uniform
+               traffic (64 requests of 128 tokens, 64 new, one bucket of
+               128, prefill groups of 16) on a bf16 and an int8 cache,
+               and churn (the first 44 of 96 seeded requests, prompts of
+               16-128 and 8-64 new tokens, buckets 32 / 64 / 128, int8):
+               each cell's tok/s with the prefill, dispatches, lock-steps,
+               the device ms of a step from a profile of one window, its
+               busy share and byte bound. Checks: one prefill dispatch
+               launches 128 #1 on the tensor cores and nothing else, one
+               eager lock-step 33 #4, 32 #5, 32 #3 and no #12 (counters),
+               and each profiled window a step 33 norm_qkv_kernel, 32
+               mlp_kernel, 32 attnd_tile and no layer_kernel or single-row
+               kernel (by name); window 16's tokens equal window 1's
+               (churn); four requests alone through DecodeEngine.generate
+               and, at 2 layers, the plain versions give the batcher's
+               tokens, every position teacher-forced on them and parting
+               only at a near tie of both sides' logits (forced_agree);
+               #4 / #5 at M = 4 and 32 and #3 at B = 32 with per-slot
+               lengths held to their plain versions on the inputs they
+               are timed on. The quantize phase's
+               last leg is the layer-streamed host offload: a 4-layer
+               LLaMA-7B-width HF directory quantized (w4 g128 act-order)
+               on the device and with params_from_dir(host=True), the
+               packed words equal bit for bit and the offload's peak
+               device memory at least two f32 blocks lower.
 Then one JSON line {"kernels": [...]}, and last {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero, printing no
@@ -171,7 +199,8 @@ from unittest import mock
 
 import numpy as np
 
-PHASES = ("build", "kernels", "quantize", "serve", "sp", "moe", "cli")
+PHASES = ("build", "kernels", "quantize", "serve", "sp", "moe", "cli",
+          "batch")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
 FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
 BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
@@ -590,16 +619,23 @@ def attn_checks(device, peaks, timer, report):
 
 def attn_times(gen, device, peaks, timer, S, length, cache="int8", Hkv=32,
                B=1) -> dict:
-    """#3 (one launch of attention_partial.cu's decode mode) beside its
-    plain version and SDPA over the same (dequantized, bf16) cache prefix
-    and fresh column, every row at `length`; bound: the filled slots'
-    bytes (and scales) plus q, the fresh pair and the output."""
+    """#3 (one launch of attention_partial.cu's decode mode) held to its
+    plain version on the timed inputs (max abs err within TOL["attn"]),
+    then timed beside it and SDPA over the same (dequantized, bf16) cache
+    prefix and fresh column, every row at `length` (a list: each row at
+    its own length, the continuous batcher's lock-step; SDPA then reads
+    the longest prefix under a mask); bound: the filled slots' bytes (and
+    scales) plus q, the fresh pair and the output."""
     import torch
 
     from gptq_tpu_torch.ops import attention as A
 
     H, hd = 32, 128
     G = H // Hkv
+    lens = [length] * B if isinstance(length, int) else list(length)
+    per_row = not isinstance(length, int)
+    if per_row:
+        length = torch.tensor(lens, dtype=torch.int32, device=device)
     q = torch.randn((B, H, hd), generator=gen, device=device)
     if cache == "int8":
         k = torch.randint(-127, 128, (B, S, Hkv, hd), generator=gen,
@@ -618,31 +654,48 @@ def attn_times(gen, device, peaks, timer, S, length, cache="int8", Hkv=32,
     fv = torch.randn((B, Hkv, hd), generator=gen, device=device)
     sm = 1.0 / math.sqrt(hd)
     kw = dict(k_scale=ks, v_scale=vs, fresh_k=fk, fresh_v=fv)
+    got = A.decode_attention(q, k, v, length, sm, **kw)
+    want = A.decode_attention_reference(q, k, v, length, sm, **kw)
+    err = float((got - want).abs().max())
+    if not err <= TOL["attn"]:
+        raise AssertionError(f"attention S={S} B={B} Hkv={Hkv} {cache} "
+                             f"lengths {lens}: max abs err {err:.3g}")
+    del got, want
     ms = timer(lambda: A.decode_attention(q, k, v, length, sm, **kw))
     plain_ms = timer(lambda: A.decode_attention_reference(q, k, v, length, sm,
                                                           **kw))
 
     # yardstick: SDPA over the dequantized bf16 cache prefix + fresh row
+    top = max(lens)
+
     def dq(c, sc):
-        c = c[:, :length].float()
-        return c * sc[:, :length, :, None] if sc is not None else c
+        c = c[:, :top].float()
+        return c * sc[:, :top, :, None] if sc is not None else c
 
     kd = torch.cat([dq(k, ks), fk[:, None]], dim=1).to(torch.bfloat16)
     vd = torch.cat([dq(v, vs), fv[:, None]], dim=1).to(torch.bfloat16)
     kd = kd.transpose(1, 2).contiguous()  # (B, Hkv, L, hd): each kv head
     vd = vd.transpose(1, 2).contiguous()  # read once, as the kernel does
     qd = q[:, :, None].to(torch.bfloat16)
+    mask = None
+    if per_row:  # each row's prefix and its fresh column
+        t = torch.arange(top + 1, device=device)
+        mask = ((t[None] < length[:, None]) | (t[None] == top))[:, None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = timer(lambda: sdpa(qd, kd, vd, scale=sm, enable_gqa=G > 1))
+    lib_ms = timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sm,
+                                enable_gqa=G > 1))
     item = k.element_size()
-    nbytes = (B * (length * Hkv * hd * item * 2
-                   + (length * Hkv * 4 * 2 if ks is not None else 0))
+    filled = sum(lens)
+    nbytes = ((filled * Hkv * hd * item * 2
+               + (filled * Hkv * 4 * 2 if ks is not None else 0))
               + (B * H * hd + 2 * B * Hkv * hd + B * H * hd) * 4 + B * 4)
-    ops = 4 * B * H * (length + 1) * hd
+    ops = 4 * H * (filled + B) * hd
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = ops / peaks["f32"] * 1e3
+    length = lens if per_row else lens[0]
     return {"S": S, "length": length, "cache": cache, "Hkv": Hkv, "B": B,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -2215,6 +2268,84 @@ def phase_quantize(device, tmp, report):
         raise AssertionError(f"packed vs dense PPL differ by {rel:.3g}")
     report["quantize"] = {"seconds": t_quant, "per_layer_s": per_layer,
                           "ppl_packed": ppl_packed, "ppl_dense": ppl_dense}
+
+
+def quantize_offload(device, tmp, report):
+    """Layer-streamed host offload: a 4-layer LLaMA-7B-width HF directory
+    (F16 safetensors from a seed) quantized twice, w4 g128 act-order
+    true-sequential on 16 x 512 tokens, then packed: on the device, and
+    with params_from_dir(host=True) (each block staged onto the card for
+    its layer, its quantized weights written back; pack_model one linear
+    at a time). The packed words, grids and permutations must be equal
+    bit for bit, and the offload run's peak device memory at least two
+    blocks' f32 weights below the on-device run's."""
+    import torch
+
+    from gptq_tpu_torch.config import QuantConfig
+    from gptq_tpu_torch.data import synthetic_stream
+    from gptq_tpu_torch.models.convert import params_from_dir
+    from gptq_tpu_torch.pipeline import pack_model, quantize_model
+
+    L = 4
+    path = os.path.join(tmp, "llama-7b-4l")
+    t0 = time.perf_counter()
+    nbytes = write_hf_llama(path, L, device, seed=11)
+    log(f"offload: wrote a {L}-layer LLaMA-7B-width HF directory (F16, "
+        f"{nbytes / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
+    cfg = QuantConfig(wbits=4, groupsize=128, act_order=True,
+                      true_sequential=True, nsamples=16)
+    calib = torch.as_tensor(synthetic_stream(32000, 16 * 512, seed=3)
+                            .reshape(16, 512), device=device).long()
+    runs, packed = {}, {}
+    for mode in ("device", "offload"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        spec, params = params_from_dir(path, device=device,
+                                       host=mode == "offload")
+        t_load = time.perf_counter() - t0
+        on_card = {k: params["layers"][0][k]["w"].device.type
+                   for k in ("q", "down")}
+        if on_card != dict.fromkeys(on_card, "cpu" if mode == "offload"
+                                    else device.type):
+            raise AssertionError(f"offload ({mode}): linears on {on_card}")
+        res = quantize_model(spec, params, calib, cfg, log=lambda s: None)
+        pack_model(spec, params, res.quantizers, cfg)
+        torch.cuda.synchronize()
+        per_layer = [res.times[f"layer{i}"] for i in range(L)]
+        runs[mode] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                      "base_bytes": base, "load_s": t_load,
+                      "per_layer_s": per_layer,
+                      "s_per_layer": sum(per_layer) / L,
+                      "total_s": time.perf_counter() - t0}
+        log(f"offload ({mode}): peak device memory "
+            f"{runs[mode]['peak_bytes'] / 2**30:.3f} GiB (max_memory_"
+            f"allocated; {base / 2**30:.3f} GiB held before), load "
+            f"{t_load:.1f} s, {runs[mode]['s_per_layer']:.2f} s/layer ("
+            + ", ".join(f"{t:.2f}" for t in per_layer) + ")")
+        packed[mode] = [
+            [t.cpu() for k in ("q", "k", "v", "o", "gate", "up", "down")
+             for t in (*lp[k]["w"].words, lp[k]["w"].scale, lp[k]["w"].zoff,
+                       lp[k]["w"].perm)]
+            for lp in params["layers"]]
+        del params, res
+    for i, (a, b) in enumerate(zip(packed["device"], packed["offload"])):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"offload: layer {i}'s packed leaves differ "
+                                 f"from the on-device run's")
+    block = 4 * (4 * spec.hidden * spec.hidden
+                 + 3 * spec.hidden * spec.ffn)  # one block's f32 linears
+    saved = runs["device"]["peak_bytes"] - runs["offload"]["peak_bytes"]
+    log(f"offload: packed words, grids and perms equal bit for bit; peak "
+        f"{saved / 2**30:.3f} GiB lower ({saved / block:.2f} blocks of "
+        f"{block / 2**30:.3f} GiB f32 linears)")
+    if saved < 2 * block:
+        raise AssertionError(f"offload: the peak is only {saved / 2**30:.3f} "
+                             f"GiB lower, less than two f32 blocks")
+    shutil.rmtree(path, ignore_errors=True)
+    report["offload"] = {**runs, "saved_bytes": saved, "block_bytes": block}
 
 
 def dense_twin(params):
@@ -3920,20 +4051,23 @@ SINGLE_ROW_KERNELS = ("mlp_stream_kernel", "mlp_kernel", "qsel_gemv_kernel",
                       "qgemv_kernel", "qmm_kernel", "qstream_kernel")
 
 
-def single_row_check(what, prof, want, counts) -> None:
-    """A decode profile's routes at one row. The wrappers' launch counts
-    over the profiled steps equal `counts` a step times the steps (a
-    missing name: 0), and where the trace holds device events, each kernel
-    named in `want` appears in it, none above its launches a step, and the
-    rest of SINGLE_ROW_KERNELS do not appear. The counters give the exact
+def single_row_check(what, prof, want, counts=None) -> None:
+    """A decode profile's routes (at one row; window_profile's: at the
+    batcher's slots). The wrappers' launch counts over the profiled steps
+    equal `counts` a step times the steps (a missing name: 0; None: a
+    graph replay, which calls no wrapper), and where the trace holds
+    device events, each kernel named in `want` appears in it, none above
+    its launches a step, and the rest of the kernels the profile counts
+    by name do not appear. The counters give the exact
     number, the names the kernel each launch took: a CUPTI trace can drop
     a kernel record (seen on an H100: a one-call trace that held an
     "Activity Buffer Request" and no qgemv_kernel; one norm_qkv_gemv_kernel
     of 72 and of 264 in the Mixtral profiles), so a shortfall by name is
     logged beside the trace's buffer requests, not counted."""
     steps = prof["steps"]
-    expect(prof["launches"], {k: v * steps for k, v in counts.items()},
-           f"{what} (launch counters over {steps} steps)")
+    if counts is not None:
+        expect(prof["launches"], {k: v * steps for k, v in counts.items()},
+               f"{what} (launch counters over {steps} steps)")
     if prof["device_ms"] <= 0:
         log(f"{what}: the trace holds no device events; kernels by name not "
             f"measured")
@@ -3950,6 +4084,538 @@ def single_row_check(what, prof, want, counts) -> None:
     if bad:
         raise AssertionError(f"{what}: launches a step by kernel (got, want) "
                              f"{bad}")
+
+
+# ---------------------------------------------------------------------------
+# batch: continuous batching (engine/batching.ContinuousBatcher)
+# ---------------------------------------------------------------------------
+
+def step_bytes(spec, served, lens, cache_item, scaled) -> int:
+    """Bytes one lock-step must move at least: every packed weight of the
+    layers and the head once, the norms, each slot's filled cache rows
+    (and an int8 cache's scales) of every layer read and its fresh rows
+    written, one bf16 embedding row and one f32 logits row a slot."""
+    from gptq_tpu_torch.ops.pack import PackedWeight
+
+    weights = [e["w"] for lp in served["layers"] for e in lp.values()
+               if isinstance(e, dict) and isinstance(e.get("w"),
+                                                      PackedWeight)]
+    weights.append(served["lm_head"]["w"])
+    H, L, B = spec.hidden, spec.n_layers, len(lens)
+    per_tok = 2 * spec.kv_heads * (spec.hd * cache_item + (4 if scaled
+                                                           else 0))
+    return (sum(packed_bytes(w) for w in weights) + (2 * L + 1) * H * 2
+            + L * (sum(lens) + B) * per_tok
+            + B * H * 2 + B * served["lm_head"]["w"].N * 4)
+
+
+# the kernels a batcher lock-step's profile counts by name: #3's decode
+# kernel, #12's whole-layer kernel and SINGLE_ROW_KERNELS
+BATCH_KERNELS = ("attnd_tile", "layer_kernel") + SINGLE_ROW_KERNELS
+
+
+def window_profile(n, replay) -> tuple:
+    """Device time a lock-step by kernel family, and launches a step of
+    BATCH_KERNELS by name, from a torch.profiler trace of replay(n), one
+    replay of the batcher's n-step window graph. Fails if the trace holds
+    no device event. Returns (profile, the window's tokens)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fams = (("norm_qkv", ("norm_qkv_kernel", "norm_qkv_gemv_kernel")),
+            ("mlp", ("mlp_kernel", "mlp_stream_kernel")),
+            ("attention", ("attnd_tile",)), ("layer", ("layer_kernel",)),
+            ("qmm", ("qgemv_kernel", "qmm_kernel", "qmma")))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        toks = replay(n)
+        torch.cuda.synchronize()
+    ms = dict.fromkeys([f for f, _ in fams] + ["other"], 0.0)
+    named = dict.fromkeys(BATCH_KERNELS, 0.0)
+    buffer_requests = 0
+    for e in prof.key_averages():
+        if e.key == "Activity Buffer Request":  # CUPTI's, on the host
+            buffer_requests += e.count
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = next((f for f, keys in fams if any(k in e.key for k in keys)),
+                   "other")
+        ms[fam] += e.device_time_total / 1e3 / n
+        for name in named:
+            if name + "<" in e.key:
+                named[name] += e.count / n
+    if not sum(ms.values()) > 0:
+        raise AssertionError("batch profile: the trace of a window's graph "
+                             "replay holds no device event")
+    return {"steps": n, "device_ms": sum(ms.values()),
+            "device_ms_by_family": ms, "kernels_per_step": named,
+            "buffer_requests": buffer_requests}, toks
+
+
+def batcher_run(cb, requests, window, profile_window=None) -> dict:
+    """Submit `requests` ((prompt, max_new) pairs) and run the batcher to
+    the end: tokens, wall seconds (prefill included, and the capture of a
+    window graph met for the first time), prefill dispatches, decode
+    steps, the wall seconds of the windows not profiled and their steps;
+    with profile_window = k, the k-th window runs under the profiler
+    (window_profile)."""
+    import torch
+
+    real = cb._window
+    stats = {"steps": 0, "window_s": 0.0, "windows": 0, "timed_steps": 0}
+
+    def timed_window(n):
+        stats["windows"] += 1
+        stats["steps"] += n
+        if stats["windows"] == profile_window:
+            lens = cb.lengths.tolist()
+            t0 = time.perf_counter()
+            stats["profile"], out = window_profile(n, real)
+            stats["profile"].update(lens=lens,
+                                    wall_s=time.perf_counter() - t0)
+            return out
+        t0 = time.perf_counter()
+        out = real(n)
+        torch.cuda.synchronize()
+        stats["window_s"] += time.perf_counter() - t0
+        stats["timed_steps"] += n
+        return out
+
+    cb._window = timed_window
+    calls = cb.prefill_calls
+    try:
+        for prompt, n in requests:
+            cb.submit(prompt, max_new_tokens=int(n))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cb.run(window=window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del cb._window
+    toks = [r.output for r in res]
+    n_tok = sum(len(t) for t in toks)
+    return {"tokens": toks, "wall_s": wall, "new_tokens": n_tok,
+            "tokens_per_s": n_tok / wall,
+            "prefill_calls": cb.prefill_calls - calls, **stats}
+
+
+def engine_forced_logits(eng, prompts, toks) -> list:
+    """DecodeEngine's logits teacher-forced on toks: for request i, the
+    f32 rows (len(toks[i]), vocab) of prefill(prompts[i]) and of eng.step
+    on each of toks[i][:-1], the logits by which DecodeEngine.generate
+    picks each token."""
+    import torch
+
+    out = []
+    for p, t in zip(prompts, toks):
+        lg, cache = eng.prefill(torch.as_tensor(np.asarray(p)[None],
+                                                device=eng.device))
+        rows = [lg[0].float()]
+        for x in t[:-1]:
+            lg, cache = eng.step(cache, torch.tensor([[int(x)]],
+                                                     device=eng.device))
+            rows.append(lg[0].float())
+        out.append(torch.stack(rows))
+    return out
+
+
+def batcher_forced_logits(cb, prompts, toks) -> list:
+    """A batcher's lock-step logits teacher-forced on toks: the prompts
+    fill cb's free slots, cb.B at a time (_fill_slots, request k of a wave
+    in slot k), then each eager lock-step's logits (cb._logits) are kept
+    for the requests still running and each slot's next token is the
+    forced one. Returns per request its f32 rows (len(toks[i]), vocab)."""
+    import torch
+
+    out = [[] for _ in prompts]
+    for w0 in range(0, len(prompts), cb.B):
+        wave = list(range(w0, min(w0 + cb.B, len(prompts))))
+        uids = [cb.submit(prompts[i], max_new_tokens=len(toks[i]))
+                for i in wave]
+        cb._fill_slots()
+        assert [r.uid for r in cb.slot_req[:len(wave)]] == uids
+        for j in range(max(len(toks[i]) for i in wave)):
+            lg = cb._logits().float()
+            nxt = cb.tokens.tolist()
+            for k, i in enumerate(wave):
+                if j < len(toks[i]):
+                    out[i].append(lg[k])
+                    nxt[k] = int(toks[i][j])
+            cb.tokens.copy_(torch.tensor(nxt, device=cb.device))
+            cb.lengths.add_(1).clamp_(max=cb.S - 1)
+        cb.slot_req = [None] * cb.B
+        cb.lengths.zero_()
+    return [torch.stack(r) for r in out]
+
+
+def forced_agree(what, toks, ref, got, tol) -> dict:
+    """Two decodings' logits teacher-forced on the same tokens toks (`got`
+    the side that emitted them, `ref` the reference), held to
+    route_check's rule at every position of every request: the logits
+    agree within tol x max |ref| (the whole-logit relative difference of
+    TOL["logits_a8"]), and where either side's top token is not the
+    emitted one (a parting), each side's top logit lies within twice the
+    largest logit difference of that side's logit of every token in
+    question (the emitted one and both tops): a near tie that sums in
+    another order may round either way. Teacher forcing carries the
+    comparison on past a parting. Returns the partings, the largest gap
+    as a share of its limit, the positions where the emitting side's own
+    top differs from its token, and the largest relative difference."""
+    import torch
+
+    parted, self_parted, worst = [], 0, 0.0
+    for r, (t, la, lb) in enumerate(zip(toks, ref, got)):
+        spread = (la - lb).abs().amax(-1)
+        rel = spread / la.abs().amax(-1)
+        worst = max(worst, float(rel.max()))
+        if not float(rel.max()) <= tol:
+            j = int(rel.argmax())
+            raise AssertionError(f"{what}: request {r} step {j}: logits "
+                                 f"differ by {float(rel[j]):.3g} of max "
+                                 f"|logit| > {tol}")
+        tt = torch.as_tensor(np.asarray(t), device=la.device)
+        ta, tb = la.argmax(-1), lb.argmax(-1)
+        self_parted += int((tb != tt).sum())
+        for j in torch.nonzero((ta != tt) | (tb != tt)).flatten().tolist():
+            us = {int(tt[j]), int(ta[j]), int(tb[j])}
+            gap = max(float(s[j].max() - s[j][u]) for s in (la, lb)
+                      for u in us)
+            parted.append({"request": r, "step": j, "emitted": int(tt[j]),
+                           "ref_top": int(ta[j]), "emitter_top": int(tb[j]),
+                           "gap": gap, "spread": float(spread[j]),
+                           "rel": float(rel[j])})
+            if not gap <= 2 * float(spread[j]):
+                raise AssertionError(f"{what}: request {r} parts at step {j} "
+                                     f"beyond a near tie: {parted[-1]}")
+    def share(p):
+        return p["gap"] / (2 * p["spread"]) if p["spread"] > 0 else 0.0
+
+    if parted:
+        log(f"{what}: the closest of {len(parted)} partings to the limit "
+            + json.dumps(max(parted, key=share)))
+    return {"positions": sum(len(t) for t in toks), "parted": parted,
+            "worst_gap_share": max(map(share, parted), default=0.0),
+            "emitter_parted": self_parted,
+            "max_rel": worst}
+
+
+def batch_kernel_times(device, spec, served, peaks, timer) -> list:
+    """#4 (ln1 + q|k|v, and final_ln + the 8-bit head) and #5 (o + ln2 +
+    MLP) on the batcher's layer-0 weights at M = 4 and 32, a8: each held
+    to its plain version (the near-tie rule), timed beside its plain
+    version, the unfused route, torch.matmul over the dequantized bf16
+    weights at the same M, and its bound."""
+    import torch
+
+    from gptq_tpu_torch.models import common
+    from gptq_tpu_torch.ops import ffn as Fz
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    H = spec.hidden
+    lp = served["layers"][0]
+    ln = torch.ones(H, dtype=torch.float32, device=device)
+    qkv, head = lp["qkv_fused"], served["lm_head"]
+    o, gu, dn = lp["o"]["w"], lp["gateup_fused"]["w"], lp["down"]["w"]
+    dq = {id(w): dense_weight(w).T.to(torch.bfloat16).contiguous()
+          for w in (qkv["w"], head["w"], o, gu, dn)}
+    rows = []
+    for M in (4, 32):
+        xb = torch.randn((M, H), generator=gen,
+                         device=device).to(torch.bfloat16)
+        x2 = xb.float()
+        for name, e in (("q|k|v", qkv), ("head", head)):
+            pw = e["w"]
+            kw = ("rmsnorm", 1e-5, True, None, None)
+            _, rel, flips = tie_check(
+                f"batch #4 {name} M={M}", Fz.norm_qkv_fused(xb, ln, pw, a8=True),
+                functools.partial(Fz.norm_qkv_fused_reference, xb, ln, pw,
+                                  a8=True), TOL["fused"])
+            lin = {"w": pw, "b": None, "serve": e.get("serve")}
+            row = {"kernel": "norm_qkv", "w": name, "M": M, "rel_err": rel,
+                   "flips": flips, **fused_times(
+                       timer, peaks, M, True, [pw],
+                       M * H * 2 + H * 4 + M * pw.Np * 4,
+                       kernel=lambda: Fz._norm_qkv_cuda(x2, ln, pw, *kw),
+                       wrapper=lambda: Fz.norm_qkv_fused(xb, ln, pw, a8=True),
+                       plain=lambda: Fz.norm_qkv_fused_reference(xb, ln, pw,
+                                                                 a8=True),
+                       unfused=lambda: common.linear_apply(
+                           lin, common.norm_apply(spec, {"w": ln}, xb)))}
+            row["library_ms"] = timer(lambda: torch.matmul(xb, dq[id(pw)]))
+            rows.append(row)
+            log("batch kernel " + json.dumps(row))
+        attn = torch.randn((M, H), generator=gen, device=device)
+        xres = torch.randn((M, H), generator=gen,
+                           device=device).to(torch.bfloat16)
+        _, rel, flips = tie_check(
+            f"batch #5 M={M}", Fz.attn_mlp_fused(attn, xres, ln, o, gu, dn,
+                                                 a8=True),
+            functools.partial(Fz.attn_mlp_fused_reference, attn, xres, ln, o,
+                              gu, dn, a8=True), TOL["fused"])
+        p = {k: lp[k] for k in ("o", "gateup_fused", "down")}
+        p["ln2"] = {"w": ln}
+        a3, r3 = attn.reshape(M, 1, H), xres.reshape(M, 1, H)
+        ab = attn.to(torch.bfloat16)
+        F2 = dq[id(dn)].shape[0]
+
+        def library():
+            y = torch.matmul(ab, dq[id(o)])
+            g = torch.matmul(y, dq[id(gu)])
+            return torch.matmul(g[:, :F2], dq[id(dn)][:F2])
+
+        row = {"kernel": "attn_mlp", "w": "o + gate|up + down", "M": M,
+               "rel_err": rel, "flips": flips, **fused_times(
+                   timer, peaks, M, True, [o, gu, dn],
+                   M * H * 4 + M * H * 2 + H * 4 + M * H * 4,
+                   kernel=lambda: Fz._mlp_cuda(
+                       attn, xres.float(), ln, o, gu, dn, "silu", "rmsnorm",
+                       1e-5, True, True, None, None, None, None),
+                   wrapper=lambda: Fz.attn_mlp_fused(attn, xres, ln, o, gu,
+                                                     dn, a8=True),
+                   plain=lambda: Fz.attn_mlp_fused_reference(
+                       attn, xres, ln, o, gu, dn, a8=True),
+                   unfused=lambda: common._finish_block(spec, p, r3, a3,
+                                                        None, None))}
+        # three products over the dequantized bf16 weights (the MLP's
+        # activation and the norms left out)
+        row["library_ms"] = timer(library)
+        rows.append(row)
+        log("batch kernel " + json.dumps(row))
+    return rows
+
+
+def phase_batch(device, card, peaks, report):
+    """Continuous batching at llama-7B width: the serve phase's 32-layer
+    checkpoint (w4a8 g-1, 8-bit head, fuse_serving(a8=True)) through
+    engine.batching.ContinuousBatcher with 32 slots, max_len 256."""
+    import torch
+
+    from gptq_tpu_torch.engine.batching import ContinuousBatcher
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.models.common import fuse_serving
+    from gptq_tpu_torch.pipeline import quantize_lm_head
+
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = llama7b_spec(32)
+    L, B, S, W = spec.n_layers, 32, 256, 16
+    t_phase = time.perf_counter()
+    # the profiler's first use in a process takes seconds (CUPTI); pay it
+    # here, outside the timed runs that profile one window
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=device).add_(1)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = synth_packed_params(spec, device, seed=0)
+    assert quantize_lm_head(spec, params, bits=8)
+    served = fuse_serving(spec, params, a8=True)
+    log(f"batch: the serve phase's 32-layer checkpoint (w4a8 g-1, 8-bit "
+        f"head) in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(14)
+    uniform = [(rng.integers(0, spec.vocab, size=128), 64)
+               for _ in range(64)]
+    churn = [(rng.integers(0, spec.vocab, size=int(n)), int(m))
+             for n, m in zip(rng.integers(16, 129, size=96),
+                             rng.integers(8, 65, size=96))]
+    out = {}
+
+    def batcher(cache, buckets):
+        return ContinuousBatcher(spec, served, batch_slots=B, max_len=S,
+                                 cache_dtype=cache, prefill_buckets=buckets,
+                                 prefill_group=16)
+
+    # the launch counters: one prefill dispatch of 16 prompts of 128
+    # tokens (2,048 rows: every linear on the tensor cores, no head), then
+    # one eager lock-step at 32 slots (33 #4, 32 #5, 32 #3, no #12)
+    cb = batcher(torch.int8, (128,))
+    for prompt, n in uniform[:16]:
+        cb.submit(prompt, max_new_tokens=n)
+    reset_counts()
+    cb._fill_slots()
+    torch.cuda.synchronize()
+    expect(launch_counts(), {"qmm_mma": 4 * L}, "batch prefill dispatch")
+    reset_counts()
+    t0 = time.perf_counter()
+    cb.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts = launch_counts()
+    expect(step_counts, {"norm_qkv": L + 1, "attn_mlp": L, "attention": L},
+           "batch lock-step")
+    log(f"batch: launches of one prefill dispatch {{'qmm_mma': {4 * L}}}, "
+        f"of one lock-step at {B} slots " + json.dumps(
+            {k: v for k, v in step_counts.items() if v}))
+    del cb
+    # cuts: a lock-step at 32 slots runs #4 / #5 on the tiled kernels of
+    # rows 2-32 (~0.42 s), so the full model runs fewer lock-steps than
+    # the traffic asks: uniform on the bf16 cache one wave of 32 requests
+    # (64 lock-steps, no refill; the int8 cell keeps all 64 requests, a
+    # second wave in refilled slots), churn its first 44 requests (96
+    # lock-steps, 12 refills; all 96: 176). Window 16 against window 1
+    # runs the whole churn traffic at 2 layers.
+    n_bf16, n_churn = 32, 44
+    log(f"batch: one eager lock-step took {step_s * 1e3:.1f} ms; cut to "
+        f"keep the phase near 200 s: uniform traffic on the bf16 cache "
+        f"{len(uniform)} -> {n_bf16} requests (one wave, no refill; the "
+        f"int8 cell uncut), churn {len(churn)} -> {n_churn} requests (the "
+        f"first {n_churn} of the seeded 96; all 96 at 2 layers for window "
+        f"16 against window 1); no warm-up run (the window graph is "
+        f"captured inside the timed run, its capture in the wall time)")
+    # the window's kernels by name a step: #4 at 32 rows for the layers
+    # and the head, #5 and #3 a layer; no #12, no single-row kernel
+    want = {"norm_qkv_kernel": L + 1, "mlp_kernel": L, "attnd_tile": L}
+
+    cells = (("uniform bf16", torch.bfloat16, uniform[:n_bf16], (128,)),
+             ("uniform int8", torch.int8, uniform, (128,)),
+             ("churn int8", torch.int8, churn[:n_churn], (32, 64, 128)))
+    for name, cache, reqs, buckets in cells:
+        r = batcher_run(batcher(cache, buckets), reqs, W, profile_window=2)
+        prof = r["profile"]
+        single_row_check(f"batch {name} window profile", prof, want)
+        item = 1 if cache == torch.int8 else 2
+        nb = np.mean([step_bytes(spec, served, [x + i for x in prof["lens"]],
+                                 item, cache == torch.int8)
+                      for i in range(W)])
+        cell = {"tokens_per_s": r["tokens_per_s"], "wall_s": r["wall_s"],
+                "requests": len(reqs), "new_tokens": r["new_tokens"],
+                "prefill_calls": r["prefill_calls"],
+                "decode_steps": r["steps"], "windows": r["windows"],
+                "step_device_ms": prof["device_ms"],
+                "step_wall_ms": r["window_s"] / r["timed_steps"] * 1e3,
+                "busy_share_windows": (prof["device_ms"] * r["timed_steps"]
+                                       / (r["window_s"] * 1e3)),
+                "busy_share_run": (prof["device_ms"] * r["steps"]
+                                   / (r["wall_s"] * 1e3)),
+                "step_bound_ms": nb / peaks["bw"] * 1e3, "step_bytes": nb,
+                "profile": prof, "tokens": r["tokens"]}
+        out[name] = cell
+        log(f"batch {name}: {cell['tokens_per_s']:.2f} tok/s with prefill "
+            f"({r['new_tokens']} tokens of {len(reqs)} requests in "
+            f"{r['wall_s']:.3f} s), {r['prefill_calls']} prefill dispatches, "
+            f"{r['steps']} lock-steps, {cell['step_wall_ms']:.3f} ms a step "
+            f"in the windows, {prof['device_ms']:.3f} device ms a step "
+            f"(graph replay; bound {cell['step_bound_ms']:.3f} ms, "
+            f"{nb / 2**30:.3f} GiB), busy {cell['busy_share_windows']:.3f} "
+            f"of the windows, {cell['busy_share_run']:.3f} of the run, on "
+            f"{card}; by family " + json.dumps(prof["device_ms_by_family"])
+            + "; kernels a step " + json.dumps(
+                {k: v for k, v in prof["kernels_per_step"].items() if v})
+            + f" [{time.perf_counter() - t_phase:.1f} s]")
+        if cell["busy_share_windows"] > 1.05:
+            raise AssertionError(f"batch {name}: profile of a step "
+                                 f"{prof['device_ms']} ms")
+
+    # four requests of each cell alone through DecodeEngine.generate (one
+    # row, the single-row kernels) against the batcher's tokens on the
+    # same cache, every position teacher-forced on the batcher's tokens
+    # (forced_agree): the first four of the one-wave cell, and in the
+    # others the first four that ran in refilled slots (requests 32-35).
+    # The batcher's side replays them on 4 slots: the tiled kernels of
+    # rows 2-32 compute each row alone, so its logits stand for the
+    # 32-slot run's; where its top differs from the emitted token
+    # (forced_agree counts those positions) the same near-tie rule holds
+    engines = {}
+    for name, cache, reqs, buckets in cells:
+        idx = range(4) if len(reqs) <= B else range(B, B + 4)
+        prompts4 = [reqs[i][0] for i in idx]
+        got = [out[name]["tokens"][i] for i in idx]
+        if cache not in engines:
+            engines[cache] = DecodeEngine(spec, params, max_len=S, batch=1,
+                                          cache_dtype=cache, a8=True)
+        eng = engines[cache]
+        alone = [eng.generate(reqs[i][0][None], reqs[i][1])[0].tolist()
+                 for i in idx]
+        first = [next((j for j, (a, b) in enumerate(zip(w, g)) if a != b),
+                      None) for w, g in zip(alone, got)]
+        ref = engine_forced_logits(eng, prompts4, got)
+        cb4 = ContinuousBatcher(spec, served, batch_slots=4, max_len=S,
+                                cache_dtype=cache, prefill_buckets=buckets,
+                                prefill_group=4)
+        seen = forced_agree(f"batch {name} vs DecodeEngine", got, ref,
+                            batcher_forced_logits(cb4, prompts4, got),
+                            TOL["logits_a8"])
+        del cb4, ref
+        log(f"batch {name}: requests {list(idx)} alone through "
+            f"DecodeEngine.generate part from the batcher's tokens at steps "
+            f"{first} (None: equal); teacher-forced on the batcher's tokens, "
+            f"{len(seen['parted'])} of {seen['positions']} positions part at "
+            f"a near tie (largest gap {seen['worst_gap_share']:.3g} of twice "
+            f"the spread), the 4-slot replay's top differs from the emitted "
+            f"token at {seen['emitter_parted']}, logits within "
+            f"{seen['max_rel']:.4g} of max |logit| (limit "
+            f"{TOL['logits_a8']}) [{time.perf_counter() - t_phase:.1f} s]")
+        out[name]["alone"] = {"requests": list(idx), "first_parting": first,
+                              **seen}
+    del engines, eng
+
+    # 2 layers: window 16 against window 1 on all 96 churn requests at 32
+    # slots (64 refills, most mid-window); the batcher's kernel tokens
+    # against its plain versions', both teacher-forced on the kernel
+    # tokens (forced_agree)
+    small = llama7b_spec(2)
+    p2 = {**params, "layers": params["layers"][:2]}
+    s2 = fuse_serving(small, p2, a8=True)
+    w16, w1 = (batcher_run(ContinuousBatcher(
+        small, s2, batch_slots=B, max_len=S, cache_dtype=torch.int8,
+        prefill_buckets=(32, 64, 128), prefill_group=16), churn, w)["tokens"]
+               for w in (W, 1))
+    if w16 != w1:
+        bad = [i for i, (a, b) in enumerate(zip(w16, w1)) if a != b]
+        raise AssertionError(f"batch: 2 layers, window 16 and window 1 "
+                             f"tokens differ for requests {bad}")
+    log(f"batch: 2 layers, churn int8, window 16 tokens equal window 1's for "
+        f"all {len(churn)} requests ({len(churn) - B} refills) "
+        f"[{time.perf_counter() - t_phase:.1f} s]")
+    reqs2 = [(rng.integers(0, small.vocab, size=int(n)), 16)
+             for n in rng.integers(16, 65, size=12)]
+    prompts2 = [p for p, _ in reqs2]
+
+    def batcher2():
+        return ContinuousBatcher(small, s2, batch_slots=8, max_len=128,
+                                 cache_dtype=torch.int8,
+                                 prefill_buckets=(32, 64), prefill_group=8)
+
+    reset_counts()
+    got_kernel = batcher_run(batcher2(), reqs2, 4)["tokens"]
+    counts = launch_counts()
+    if not (counts["attention"] and counts["norm_qkv"]
+            and counts["attn_mlp"]):
+        raise AssertionError(f"2-layer batcher: launches {counts}")
+    kern = batcher_forced_logits(batcher2(), prompts2, got_kernel)
+    with plain_versions():
+        reset_counts()
+        got_plain = batcher_run(batcher2(), reqs2, 1)["tokens"]
+        plain = batcher_forced_logits(batcher2(), prompts2, got_kernel)
+        expect(launch_counts(), {}, "2-layer batcher on the plain versions")
+    seen = forced_agree("2-layer batcher, kernels vs plain", got_kernel,
+                        plain, kern, TOL["logits_a8"])
+    n_eq = sum(a == b for a, b in zip(got_kernel, got_plain))
+    log(f"batch: 2-layer kernel tokens equal the plain versions' for {n_eq} "
+        f"of 12 requests; teacher-forced on the kernel tokens, "
+        f"{len(seen['parted'])} of {seen['positions']} positions part at a "
+        f"near tie, logits within {seen['max_rel']:.4g} of max |logit| "
+        f"[{time.perf_counter() - t_phase:.1f} s]")
+    out["plain"] = {"equal_requests": n_eq, **seen}
+    del kern, plain
+
+    # the kernels at the batcher's shapes
+    rows = batch_kernel_times(device, spec, served, peaks, device_ms)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(19)
+    lens = rng.integers(128, 193, size=B).tolist()
+    attn = [attn_times(gen, device, peaks, device_ms, S, lens, cache=c, B=B)
+            for c in ("int8", "bf16")]
+    for a in attn:
+        log("batch attention " + json.dumps(a))
+    for cell in out.values():
+        if isinstance(cell, dict):
+            cell.pop("tokens", None)
+    report["batch"] = {"cells": out, "step_launches": step_counts,
+                       "kernel_rows": rows, "attn_rows": attn}
+    del params, p2, s2, served
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -4017,12 +4683,15 @@ def main(argv=None) -> int:
         for phase, run in (
                 ("quantize", lambda: (phase_quantize(device, tmp, report),
                                       phase_quantize_bcq(device, tmp,
-                                                         report))),
+                                                         report),
+                                      quantize_offload(device, tmp,
+                                                       report))),
                 ("serve", lambda: phase_serve(device, tmp, card, report)),
                 ("sp", lambda: (phase_sp(device, card, report),
                                 torch.cuda.empty_cache())),
                 ("moe", lambda: phase_moe(device, tmp, card, peaks, report)),
-                ("cli", lambda: phase_cli(device, tmp, report))):
+                ("cli", lambda: phase_cli(device, tmp, report)),
+                ("batch", lambda: phase_batch(device, card, peaks, report))):
             if phase in phases:
                 t0 = time.perf_counter()
                 run()
@@ -4173,6 +4842,27 @@ def main(argv=None) -> int:
         kernels[2]["mixtral"] = {k: mx[k] for k in
                                  ("ms", "tiles_ms", "plain_ms", "bound_ms",
                                   "unfused_ms")}
+        if "batch" in report:
+            # the continuous batcher's shapes: launches of one eager
+            # lock-step at 32 slots, times at M = 4 and 32 (#4, #5) and
+            # B = 32 with per-slot lengths (#3)
+            bt = report["batch"]
+            keys = ("ms", "wrapper_ms", "plain_ms", "unfused_ms",
+                    "library_ms", "bound_ms", "bound_by", "rel_err")
+            for entry, kernel in ((kernels[2], "norm_qkv"),
+                                  (kernels[3], "attn_mlp")):
+                entry["batch"] = {
+                    "launches_per_step": bt["step_launches"][kernel],
+                    "rows": [{"w": r["w"], "M": r["M"],
+                              **{k: r[k] for k in keys}}
+                             for r in bt["kernel_rows"]
+                             if r["kernel"] == kernel]}
+            kernels[1]["batch"] = {
+                "launches_per_step": bt["step_launches"]["attention"],
+                "rows": [{k: r[k] for k in ("cache", "B", "S", "max_abs_err",
+                                            "ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")}
+                         for r in bt["attn_rows"]]}
 
         layer = ("one llama-7B layer's four packed linears (K x N: "
                  "4096x12288, 4096x4096, 4096x22528, 11264x4096), M=1, "

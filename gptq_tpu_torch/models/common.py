@@ -245,10 +245,18 @@ class KVCache:
 
 def _write_slots(buf: torch.Tensor, rows: torch.Tensor, start, dim: int):
     """buf[start:start + T] = rows along `dim` (T = rows.shape[dim]), in
-    place. A tensor `start` is read on the device (index_copy_)."""
+    place. A tensor `start` is read on the device (index_copy_); a (B,)
+    one holds a start per slot, the slots being dim - 1: buf[.., b,
+    start[b] + t] = rows[.., b, t], one scatter (continuous batching)."""
     T = rows.shape[dim]
     rows = rows.to(buf.dtype)
-    if isinstance(start, torch.Tensor):
+    if getattr(start, "ndim", 0) == 1:
+        dev = buf.device
+        b = torch.arange(rows.shape[dim - 1], device=dev)[:, None]
+        t = (start.to(device=dev, dtype=torch.int64)[:, None]
+             + torch.arange(T, device=dev))
+        buf[(slice(None),) * (dim - 1) + (b, t)] = rows
+    elif isinstance(start, torch.Tensor):
         idx = (start.reshape(1).to(device=buf.device, dtype=torch.int64)
                + torch.arange(T, device=buf.device))
         buf.index_copy_(dim, idx, rows)
@@ -599,8 +607,9 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     """One llama decoder block. Returns (out, new_kv, captures).
 
     With `cache` = (k, v, k_scale, v_scale) per-layer views, keys/values
-    are written IN PLACE at [cache_len, cache_len + T) and attention runs
-    over the cache prefix (prefill). With `defer_write` (T == 1) the block
+    are written IN PLACE at [cache_len, cache_len + T) (a (B,) cache_len:
+    each row at its own offset) and attention runs over the cache under
+    the caller's mask (prefill). With `defer_write` (T == 1) the block
     does not write the cache: decode_attention reads the whole stacked
     cache `full_cache` = (kL, vL, ksL, vsL, i) at this block's layer i,
     over slots < cache_len plus the token's own k/v, and new_kv returns
@@ -775,26 +784,34 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
     fusion on (GPTQ_TPU_LAYER_FUSION) decode keeps the write-first path,
     as in the JAX package: the whole-layer kernel writes its own rows.
     A tensor cache.length stays on the device at T == 1 (a prompt reads
-    it on the host). `moe_aux`, a list, collects each MoE layer's
-    load-balancing loss."""
+    it on the host). A (B,) cache.length holds one length per slot
+    (engine/batching.py's lock-step): each row appends at its own length,
+    and decode takes the deferred write whatever the layer route says.
+    `moe_aux`, a list, collects each MoE layer's load-balancing loss."""
     _check_arch(spec)
     B, T = input_ids.shape
     dev = input_ids.device
-    defer = cache is not None and T == 1 and not _layer_fusion_impl()
     start = 0 if cache is None else cache.length
-    if isinstance(start, torch.Tensor) and T > 1:
+    per_slot = getattr(start, "ndim", 0) == 1
+    defer = cache is not None and T == 1 and (per_slot
+                                              or not _layer_fusion_impl())
+    if isinstance(start, torch.Tensor) and T > 1 and not per_slot:
         start = int(start)
-    positions = (start + torch.arange(T, device=dev)).expand(B, T)
+    if per_slot:
+        positions = (start.to(device=dev, dtype=torch.int64)[:, None]
+                     + torch.arange(T, device=dev))
+    else:
+        positions = (start + torch.arange(T, device=dev)).expand(B, T)
     if cache is None:
         mask = causal_mask(T, T, dev)
     elif defer:
         mask = None  # decode_attention masks by length itself
     else:
         S = cache.k.shape[2]
-        k_pos = torch.arange(S, device=dev)[None, :]
-        q_pos = start + torch.arange(T, device=dev)[:, None]
+        k_pos = torch.arange(S, device=dev)
+        q_pos = positions[:, :, None] if per_slot else positions[0, :, None]
         mask = torch.where(k_pos <= q_pos, 0.0, NEG_INF).to(torch.float32)
-        mask = mask[None, None]
+        mask = mask[:, None] if per_slot else mask[None, None]
 
     h = embed_forward(spec, params, input_ids, positions)
     rope = rope_tables(spec, positions)

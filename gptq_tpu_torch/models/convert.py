@@ -7,10 +7,14 @@ a state dict (params_from_state_dict), or a directory holding
 (params_from_dir). The directory path needs neither transformers nor the
 safetensors package: `config.json` is read with json into a namespace for
 registry.spec_from_hf_config, and safetensors files with this module's
-own reader (read_safetensors). Every floating leaf is widened to f32
-exactly (f16 / bf16 sources), as the JAX package's `_np` widens them, so
-both packages convert a directory to the same numbers. Mixtral's
-per-expert weights stack on a leading E axis (models/moe.py).
+own lazy reader (scan_safetensors: each tensor's bytes are mapped, and
+read and widened only when that tensor is converted). Every floating
+leaf is widened to f32 exactly (f16 / bf16 sources), as the JAX package's
+`_np` widens them, so both packages convert a directory to the same
+numbers. Mixtral's per-expert weights stack on a leading E axis
+(models/moe.py). params_from_dir(host=True) keeps the blocks' linear
+weights in CPU memory for the layer-streamed quantize (the JAX package's
+`_arr` under host_params).
 
 OPT / BLOOM state dicts, Meta `params.json` + `consolidated.*.pth`
 checkpoints and raw Gemma `.ckpt` files are refused with
@@ -40,49 +44,68 @@ _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
               "BOOL": np.bool_}
 
 
-def read_safetensors(path: str) -> dict:
-    """{name: numpy array} of one .safetensors file: an 8-byte
-    little-endian header length, a JSON header of dtype / shape /
-    data_offsets per tensor, then the raw bytes. F16 and BF16 tensors are
-    widened to f32 exactly; the other dtypes keep theirs."""
-    with open(path, "rb") as f:
-        n = int.from_bytes(f.read(8), "little")
-        header = json.loads(f.read(n))
-    base = 8 + n
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
+class LazyTensor:
+    """One tensor of a safetensors file, mapped and not read: `numpy()`
+    maps its bytes (np.memmap at its offset) and widens F16 / BF16 to f32
+    exactly; the other dtypes keep theirs. Converting one tensor at a time
+    keeps one widened copy of the model in host memory, never the raw
+    bytes of every shard beside it."""
+
+    def __init__(self, path: str, name: str, info: dict, base: int):
         if info["dtype"] not in _ST_DTYPES:
             raise ValueError(f"{path}: tensor {name} has dtype "
                              f"{info['dtype']}, which the reader does not "
                              f"take")
-        dt = np.dtype(_ST_DTYPES[info["dtype"]])
-        shape = tuple(info["shape"])
+        self.path, self.name, self.st_dtype = path, name, info["dtype"]
+        self.shape = tuple(info["shape"])
+        dt = np.dtype(_ST_DTYPES[self.st_dtype])
         begin, end = info["data_offsets"]
-        count = int(np.prod(shape, dtype=np.int64))
+        count = int(np.prod(self.shape, dtype=np.int64))
         if end - begin != count * dt.itemsize:
             raise ValueError(f"{path}: tensor {name} holds {end - begin} "
-                             f"bytes for shape {shape} {info['dtype']}")
-        a = np.fromfile(path, dtype=dt.newbyteorder("<"), count=count,
-                        offset=base + begin).reshape(shape)
-        if info["dtype"] == "BF16":  # the high half of an f32
-            a = (a.astype(np.uint32) << 16).view(np.float32)
-        elif info["dtype"] == "F16":
-            a = a.astype(np.float32)
-        out[name] = a
-    return out
+                             f"bytes for shape {self.shape} {self.st_dtype}")
+        self.offset, self.np_dtype = base + begin, dt.newbyteorder("<")
+
+    def numpy(self) -> np.ndarray:
+        if 0 in self.shape:
+            a = np.zeros(self.shape, self.np_dtype)
+        else:
+            a = np.memmap(self.path, dtype=self.np_dtype, mode="r",
+                          offset=self.offset, shape=self.shape)
+        if self.st_dtype == "BF16":  # the high half of an f32
+            return (a.astype(np.uint32) << 16).view(np.float32)
+        if self.st_dtype == "F16":
+            return a.astype(np.float32)
+        return np.array(a)
+
+
+def scan_safetensors(path: str) -> dict:
+    """{name: LazyTensor} of one .safetensors file: an 8-byte
+    little-endian header length, a JSON header of dtype / shape /
+    data_offsets per tensor, then the raw bytes (read only when a tensor
+    is converted)."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+    return {name: LazyTensor(path, name, info, 8 + n)
+            for name, info in header.items() if name != "__metadata__"}
+
+
+def read_safetensors(path: str) -> dict:
+    """{name: numpy array} of one .safetensors file, every tensor read:
+    F16 and BF16 widened to f32 exactly, the other dtypes kept."""
+    return {name: t.numpy() for name, t in scan_safetensors(path).items()}
 
 
 def load_state_dict_dir(path: str) -> dict:
     """Raw tensors of a checkpoint directory (safetensors preferred):
-    numpy arrays from *.safetensors, else torch tensors from
-    pytorch_model*.bin (torch.load with weights_only=True)."""
+    LazyTensors of *.safetensors (read as each is converted), else torch
+    tensors from pytorch_model*.bin (torch.load with weights_only=True)."""
     sd: dict = {}
     st_files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     if st_files:
         for f in st_files:
-            sd.update(read_safetensors(f))
+            sd.update(scan_safetensors(f))
         return sd
     for f in sorted(glob.glob(os.path.join(path, "pytorch_model*.bin"))):
         sd.update(torch.load(f, map_location="cpu", weights_only=True))
@@ -119,10 +142,13 @@ def params_from_hf_torch(model, dtype=torch.float32,
                                         dtype, device)
 
 
-def params_from_dir(path: str, dtype=torch.float32,
-                    device="cuda") -> tuple[ArchSpec, dict]:
+def params_from_dir(path: str, dtype=torch.float32, device="cuda",
+                    host: bool = False) -> tuple[ArchSpec, dict]:
     """An HF checkpoint directory (llama / Mixtral) -> (spec, params) on
-    `device`."""
+    `device`. host=True keeps each block's linear weights (q k v o gate
+    up down) in CPU memory and puts everything else on `device` (Mixtral's
+    expert stacks too), so that pipeline.quantize_model streams a model
+    larger than the card's memory one layer at a time."""
     path = resolve_model_path(path)
     if os.path.isfile(path) and path.endswith(".ckpt"):
         raise NotImplementedError(
@@ -138,29 +164,35 @@ def params_from_dir(path: str, dtype=torch.float32,
                                 f"local HF checkpoint directories)")
     spec = spec_from_hf_config(hf_config(path))
     return spec, params_from_state_dict(load_state_dict_dir(path), spec,
-                                        dtype, device)
+                                        dtype, device, host=host)
 
 
 def params_from_state_dict(sd: dict, spec: ArchSpec, dtype=torch.float32,
-                           device="cuda") -> dict:
-    """HF parameter names -> the port's params (llama and Mixtral)."""
+                           device="cuda", host: bool = False) -> dict:
+    """HF parameter names -> the port's params (llama and Mixtral); host
+    as params_from_dir's."""
     if spec.arch != "llama":
         raise NotImplementedError(
             f"arch {spec.arch!r}: its state dicts are not ported ({_ITEM13})")
-    return _convert_llama(sd, spec, dtype, resolve_device(device))
+    return _convert_llama(sd, spec, dtype, resolve_device(device),
+                          "cpu" if host else None)
 
 
 def _t(v, dtype, device) -> torch.Tensor:
-    """A numpy array or torch tensor -> a tensor of `dtype` on `device`
-    (f16 / bf16 widen exactly)."""
+    """A LazyTensor, numpy array or torch tensor -> a tensor of `dtype` on
+    `device` (f16 / bf16 widen exactly)."""
+    if isinstance(v, LazyTensor):
+        v = v.numpy()
     if isinstance(v, np.ndarray):
         v = torch.from_numpy(np.ascontiguousarray(v))
     return v.detach().to(device=device, dtype=dtype)
 
 
-def _lin(sd, prefix, dtype, device) -> dict:
+def _lin(sd, prefix, dtype, device, w_device=None) -> dict:
+    """A linear: its weight on `w_device` (the host of an offloaded
+    block) or `device`, its bias on `device`."""
     b = sd.get(prefix + ".bias")
-    return {"w": _t(sd[prefix + ".weight"], dtype, device),
+    return {"w": _t(sd[prefix + ".weight"], dtype, w_device or device),
             "b": None if b is None else _t(b, dtype, device)}
 
 
@@ -168,16 +200,18 @@ def _norm(sd, prefix, dtype, device) -> dict:
     return {"w": _t(sd[prefix + ".weight"], dtype, device)}
 
 
-def _convert_llama(sd, spec, dtype, device) -> dict:
+def _convert_llama(sd, spec, dtype, device, host=None) -> dict:
+    """`host`: the device of the blocks' linear weights when they stay
+    off `device` (params_from_dir's host=True), else None."""
     pre = "model."
     layers = []
     for i in range(spec.n_layers):
         lp = f"{pre}layers.{i}."
         layer = {
-            "q": _lin(sd, lp + "self_attn.q_proj", dtype, device),
-            "k": _lin(sd, lp + "self_attn.k_proj", dtype, device),
-            "v": _lin(sd, lp + "self_attn.v_proj", dtype, device),
-            "o": _lin(sd, lp + "self_attn.o_proj", dtype, device),
+            "q": _lin(sd, lp + "self_attn.q_proj", dtype, device, host),
+            "k": _lin(sd, lp + "self_attn.k_proj", dtype, device, host),
+            "v": _lin(sd, lp + "self_attn.v_proj", dtype, device, host),
+            "o": _lin(sd, lp + "self_attn.o_proj", dtype, device, host),
             "ln1": _norm(sd, lp + "input_layernorm", dtype, device),
             "ln2": _norm(sd, lp + "post_attention_layernorm", dtype, device),
         }
@@ -195,9 +229,11 @@ def _convert_llama(sd, spec, dtype, device) -> dict:
                 for src, dst in (("w1", "gate"), ("w3", "up"),
                                  ("w2", "down"))}
         else:
-            layer["gate"] = _lin(sd, lp + "mlp.gate_proj", dtype, device)
-            layer["up"] = _lin(sd, lp + "mlp.up_proj", dtype, device)
-            layer["down"] = _lin(sd, lp + "mlp.down_proj", dtype, device)
+            layer["gate"] = _lin(sd, lp + "mlp.gate_proj", dtype, device,
+                                 host)
+            layer["up"] = _lin(sd, lp + "mlp.up_proj", dtype, device, host)
+            layer["down"] = _lin(sd, lp + "mlp.down_proj", dtype, device,
+                                 host)
         layers.append(layer)
     lm = None
     if "lm_head.weight" in sd and not spec.tie_embeddings:

@@ -16,7 +16,13 @@ projection (per-channel RTN) for the fused head. On an MoE model the
 attention linears quantize here and the expert stacks through
 models/moe.gptq_quantize_experts. With `resume_dir`, quantize_model keeps
 a journal of finished layers and an interrupted run restarts at the first
-unfinished one. Mixed precision is not ported yet (ROADMAP queue 1).
+unfinished one. A model converted with params_from_dir(host=True) keeps
+its blocks' linear weights in CPU memory; quantize_model then stages one
+block at a time onto the calibration device and writes the quantized
+weights back to the host (the JAX package's offload branch), and
+pack_model packs one linear at a time onto the device, so neither the
+dense model nor more than one dense block ever lies on the card. Mixed
+precision is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -132,13 +138,21 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
         start = _resume_load(resume_dir, spec, params, quantizers, losses,
                              log)
         for i in range(start):
-            inps, _ = _layer_scan(spec, params["layers"][i], inps, positions,
-                                  mask, (), capture=False)
+            host_bp = params["layers"][i]
+            bp = (_stage(host_bp, arch, dev) if _host_block(host_bp, arch, dev)
+                  else host_bp)
+            inps, _ = _layer_scan(spec, bp, inps, positions, mask, (),
+                                  capture=False)
+            del bp
 
-    for i, bp in enumerate(params["layers"]):
+    for i, host_bp in enumerate(params["layers"]):
         if i < start:
             continue
         t_layer = time.time()
+        # a host-resident block streams: staged onto the device for this
+        # layer's work, its quantized weights written back to the host
+        offload = _host_block(host_bp, arch, dev)
+        bp = _stage(host_bp, arch, dev) if offload else host_bp
         for names in groups:
             # only the linears this layer has: an MoE layer carries router /
             # experts instead of gate / up / down (models/moe.py quantizes
@@ -187,11 +201,37 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
         # replay with quantized weights -> inputs for the next layer
         inps, _ = _layer_scan(spec, bp, inps, positions, mask, (),
                               capture=False)
+        if offload:
+            for key in _linear_keys(host_bp, arch):
+                host_bp[key]["w"] = bp[key]["w"].to(
+                    host_bp[key]["w"].device)
+        bp = W = out = None  # the staged copies go with the layer
         times[f"layer{i}"] = time.time() - t_layer
         log(f"layer {i} done in {times[f'layer{i}']:.2f}s")
         if resume_dir is not None:
-            _resume_save(resume_dir, i, bp, quantizers, losses, arch)
+            _resume_save(resume_dir, i, host_bp, quantizers, losses, arch)
     return QuantResult(quantizers=quantizers, losses=losses, times=times)
+
+
+def _linear_keys(bp: dict, arch) -> list:
+    """The keys of the linears block bp has (an MoE block has no gate / up
+    / down)."""
+    return [key for key in arch.linears.values() if key in bp]
+
+
+def _host_block(bp: dict, arch, dev) -> bool:
+    """Whether block bp's linear weights lie off the calibration device
+    `dev` (params_from_dir(host=True) keeps them in CPU memory)."""
+    return any(bp[key]["w"].device != dev for key in _linear_keys(bp, arch))
+
+
+def _stage(bp: dict, arch, dev) -> dict:
+    """A copy of block bp for one layer's work: each linear's weight
+    copied onto `dev`, every other leaf shared."""
+    staged = dict(bp)
+    for key in _linear_keys(bp, arch):
+        staged[key] = {**bp[key], "w": bp[key]["w"].to(dev)}
+    return staged
 
 
 def _resume_save(resume_dir: str, i: int, bp: dict, quantizers: dict,
@@ -256,14 +296,19 @@ def pack_model(spec: ArchSpec, params: dict, quantizers: dict,
     """Swap quantized dense linears for PackedWeights: uniform grids pack
     to byteplane fields, the lut mode's BCQ to sign planes (the signs
     recovered against the solver's alphas). Linears without an entry,
-    and those of the RTN / whole-weight BCQ modes, stay dense."""
+    and those of the RTN / whole-weight BCQ modes, stay dense (where
+    they are). Each linear is packed on the model's device (the
+    embedding's), one at a time: a host-resident weight of an offloaded
+    model is copied there alone, so its packed leaves land on the card and
+    the dense model never does."""
     arch = get_arch(spec.arch)
+    dev = params["embed"]["tokens"].device
     for i, bp in enumerate(params["layers"]):
         for name, key in arch.linears.items():
             q = quantizers.get(f"{arch.hf_prefix}.{i}.{name}")
             if q is None:
                 continue
-            W = bp[key]["w"].to(torch.float32)
+            W = bp[key]["w"].to(device=dev, dtype=torch.float32)
             gs = q.get("groupsize", -1)
             if q["mode"] == "uniform" and q["bits"] in (1, 2, 3, 4, 8):
                 bp[key]["w"] = pack_quantized(

@@ -1633,3 +1633,78 @@ def test_sp_engine_graphs_replay_on_new_inputs(cuda, one_rank_group):
         np.testing.assert_allclose(r["ppl"], eager, rtol=1e-4)
         ppls.append(eager)
     assert ppls[0] != ppls[1]
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+def test_batcher_window_graph_equals_stepwise(cuda, monkeypatch, cache_dtype):
+    """ContinuousBatcher.run(window=4) (one CUDA graph of 4 lock-steps,
+    replayed across refills) gives run(window=1)'s tokens, at 8 slots with
+    mid-window finishes; the second batcher's windows replay one graph, so
+    the decode kernels launch from the host only at its capture."""
+    from gptq_tpu_torch.engine.batching import ContinuousBatcher
+    from gptq_tpu_torch.ops import ffn as tf_
+
+    monkeypatch.setenv("GPTQ_TPU_LAYER_FUSION", "off")
+    spec, params = _serve_model(cuda)
+    served = tc.fuse_serving(spec, params, a8=True)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, spec.vocab, size=(int(n),))
+               for n in rng.integers(3, 30, size=13)]
+    news = rng.integers(2, 11, size=13)
+
+    def serve(window):
+        cb = ContinuousBatcher(spec, served, batch_slots=8, max_len=64,
+                               cache_dtype=cache_dtype,
+                               prefill_buckets=(8, 16, 32))
+        for p, n in zip(prompts, news):
+            cb.submit(p, max_new_tokens=int(n))
+        launches = tf_.norm_qkv_launches
+        out = [r.output for r in cb.run(window=window)]
+        return out, tf_.norm_qkv_launches - launches, cb
+
+    want, _, _ = serve(1)
+    got, n_launch, cb = serve(4)
+    assert got == want
+    assert list(cb._graphs) == [4]
+    # the warm step and the capture: (L + 1) launches each, and none from
+    # the replays; the prefills of <= 32 rows add theirs
+    prefill_rows = n_launch - 2 * (spec.n_layers + 1)
+    assert 0 <= prefill_rows <= cb.prefill_calls * (spec.n_layers + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+def test_per_slot_scatter_equals_its_plain_form(cuda, dtype):
+    """_write_slots with a (B,) start on a stacked (L, B, S, kvh, hd)
+    cache: one scatter, equal to writing each slot's row at its own length
+    in a loop; captured in a CUDA graph, it replays at new lengths."""
+    L, B, S, Hkv, hd = 3, 5, 16, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+    buf = (torch.randint(-127, 128, (L, B, S, Hkv, hd), generator=g,
+                         device=cuda).to(dtype))
+    lens = torch.tensor([0, 7, 15, 3, 7], dtype=torch.int32, device=cuda)
+
+    def rows():
+        return torch.randn((L, B, 1, Hkv, hd), generator=g,
+                           device=cuda).to(dtype)
+
+    def plain(b0, r, ln):
+        want = b0.clone()
+        for b in range(B):
+            want[:, b, int(ln[b])] = r[:, b, 0]
+        return want
+
+    r = rows()
+    want = plain(buf, r, lens)
+    tc._write_slots(buf, r, lens, 2)
+    assert torch.equal(buf, want)
+    static_r = rows()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tc._write_slots(buf, static_r, lens, 2)
+    for new in ([1, 2, 3, 4, 5], [15, 0, 9, 9, 2]):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        static_r.copy_(rows())
+        want = plain(buf, static_r, lens)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(buf, want), new
