@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # every phase, one GPU
 
 Phases, in order (any failure exits non-zero; there is no CPU fallback):
-  1. build   - nvcc builds the nine kernel libraries from csrc/ (qmatmul,
+  1. build   - nvcc builds the ten kernel libraries from csrc/ (qmatmul,
                ffn, bcq_matmul, qstream, qexpert, layer_fused,
-               attention_partial, qmma, qexpert_mma; in parallel) and
+               attention_partial, qmma, qexpert_mma, ffn_rows; in
+               parallel) and
                prints each kernel's ptxas line (registers, spills, shared
                memory).
   2. kernels - each kernel's wrapper against its plain PyTorch version on
@@ -19,7 +20,14 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                and Mixtral-8x7B q|k|v, the 8-bit head), each held to the
                plain version with the near-tie rule and timed beside the
                tiled kernel it replaced there (mlp_kernel,
-               norm_qkv_kernel), two launches bit for bit. The fused
+               norm_qkv_kernel), two launches bit for bit. At rows 2-32
+               (rows_checks) #4 and #5 / #6 run on the tensor cores
+               (norm_qkv_rows_kernel, mlp_rows_kernel): held to their
+               plain versions with the near-tie rule at M 2-32, two
+               launches bit for bit, each row the same bits at M = 4 and
+               32 in other slots, and timed at M = 4 and 32 beside the
+               tiled kernel forced, torch.matmul over the dequantized
+               bf16 weights and the bound. The fused
                kernels' BCQ branch (3-bit sign planes, g-1 and g128, M 1
                and 32, a8 and a16) the same way, with the near-tie rule,
                its unfused route being the norm and #13. The BCQ kernel
@@ -152,16 +160,17 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                window 16 (one CUDA graph of 16 lock-steps): uniform
                traffic (64 requests of 128 tokens, 64 new, one bucket of
                128, prefill groups of 16) on a bf16 and an int8 cache,
-               and churn (the first 44 of 96 seeded requests, prompts of
-               16-128 and 8-64 new tokens, buckets 32 / 64 / 128, int8):
+               and churn (96 seeded requests, prompts of 16-128 and 8-64
+               new tokens, buckets 32 / 64 / 128, int8):
                each cell's tok/s with the prefill, dispatches, lock-steps,
                the device ms of a step from a profile of one window, its
                busy share and byte bound. Checks: one prefill dispatch
                launches 128 #1 on the tensor cores and nothing else, one
-               eager lock-step 33 #4, 32 #5, 32 #3 and no #12 (counters),
-               and each profiled window a step 33 norm_qkv_kernel, 32
-               mlp_kernel, 32 attnd_tile and no layer_kernel or single-row
-               kernel (by name); window 16's tokens equal window 1's
+               eager lock-step 33 #4, 32 #5, 32 #3 and no #12 (counters;
+               all of #4 / #5 on the rows kernels), and each profiled
+               window a step 33 norm_qkv_rows_kernel, 32 mlp_rows_kernel,
+               32 attnd_tile and no tiled, layer or single-row kernel (by
+               name); window 16's tokens equal window 1's
                (churn); four requests alone through DecodeEngine.generate
                and, at 2 layers, the plain versions give the batcher's
                tokens, every position teacher-forced on them and parting
@@ -211,6 +220,8 @@ MMA_SRC = "gptq_tpu_torch/csrc/qmma.cu"
 MOE_MMA_SRC = "gptq_tpu_torch/csrc/qexpert_mma.cu"
 PARTIAL_SRC = "gptq_tpu_torch/csrc/attention_partial.cu"
 GEMV_SRC = "gptq_tpu_torch/csrc/gemv.cuh"
+ROWS_SRC = "gptq_tpu_torch/csrc/ffn_rows.cu"
+ROWS_DEV_SRC = "gptq_tpu_torch/csrc/rows.cuh"
 STREAM_DEV_SRC = "gptq_tpu_torch/csrc/layer_stream.cuh"
 # a8 qmm: exact int32 dot, f32 epilogue order differs; a16: f32 sums of
 # bf16 x times codes in another order; attention: f32 math, other order;
@@ -1066,9 +1077,9 @@ def fused_checks(device, peaks, timer, report):
 
     def check(kernel, tag, M, a8, got, want):
         """got within TOL["fused"] of max|want|; want: the plain version's
-        output, or (the weight stream at one row) the plain version itself,
-        and then the near-tie rule of the layer checks (tie_check): the
-        stream's f32 sums run in another order than the tiled kernel's, so
+        output, or (the weight stream at one row, the rows kernels at 32)
+        the plain version itself, and then the near-tie rule of the layer
+        checks (tie_check): their f32 sums run in another order, so
         a residual or activation element within a few ulps of a bf16 or
         int8 rounding boundary may round the other way, and its row moves
         by up to ~1e-2 of max|want| through ln2 and the int8 codes."""
@@ -1099,15 +1110,14 @@ def fused_checks(device, peaks, timer, report):
         for M in (1, 32):
             x = torch.randn((M, H), generator=g, device=device)
             for a8 in (True, False):
-                route = Fz.norm_qkv_route(M, pw)
-                if (route == "stream") != (M == 1):
+                route = Fz.norm_qkv_route(M, pw, a8)
+                if route != ("stream" if M == 1 else "rows"):
                     raise AssertionError(f"norm_qkv {tag} M={M}: route "
                                          f"{route}")
                 plain = functools.partial(Fz.norm_qkv_fused_reference, x, ln,
                                           pw, a8=a8)
                 row = check("norm_qkv", tag, M, a8,
-                            Fz.norm_qkv_fused(x, ln, pw, a8=a8),
-                            plain if M == 1 else plain())
+                            Fz.norm_qkv_fused(x, ln, pw, a8=a8), plain)
                 row["route"] = route
                 if M == 1:
                     x2 = x.to(torch.bfloat16).float()
@@ -1167,7 +1177,7 @@ def fused_checks(device, peaks, timer, report):
             m = torch.randn((M, H), generator=gen, device=device)
             for a8 in (True, False):
                 route = Fz.mlp_route(M, o, gu, dn, a8)
-                if (route == "stream") != (M == 1):
+                if route != ("stream" if M == 1 else "rows"):
                     raise AssertionError(f"attn_mlp {tag} M={M}: route {route}")
                 plain5 = functools.partial(Fz.attn_mlp_fused_reference, attn,
                                            xres, ln, o, gu, dn, a8=a8)
@@ -1175,13 +1185,12 @@ def fused_checks(device, peaks, timer, report):
                                            a8=a8)
                 row5 = check("attn_mlp", tag, M, a8,
                              Fz.attn_mlp_fused(attn, xres, ln, o, gu, dn,
-                                               a8=a8),
-                             plain5 if M == 1 else plain5())
+                                               a8=a8), plain5)
                 row5["r2_rel_err"] = residual_check(
                     f"attn_mlp {tag} M={M} a8={a8}", attn, xres, ln, o, gu,
                     dn0, a8)
                 row6 = check("ffn", tag, M, a8, Fz.ffn_fused(m, gu, dn, a8=a8),
-                             plain6 if M == 1 else plain6())
+                             plain6)
                 for row, args in ((row5, (attn, xres.float(), ln, o)),
                                   (row6, (m, None, None, None))):
                     row["route"] = route
@@ -1232,6 +1241,229 @@ def fused_checks(device, peaks, timer, report):
                 log("fused " + json.dumps(row6))
     report["fused_rows"] = rows
     report["fused_max_abs_err"] = worst
+
+
+def rows_checks(device, peaks, timer, report):
+    """#4 and #5 / #6 at rows 2-32 on the tensor cores (csrc/ffn_rows.cu:
+    norm_qkv_rows_kernel, mlp_rows_kernel; ffn.norm_qkv_route / mlp_route
+    "rows") at llama-7B shapes: ln1 + q|k|v and #5 / #6 on w4 g-1 at M 2,
+    3, 4, 8, 16, 32, a8 and a16, the 8-bit head at a8, w4 g128 and w3 g128
+    at M = 4 and 32, a8: each held to its plain version with the near-tie
+    rule (tie_check), two launches bit for bit, the barrier and ticket
+    words clean after them. Timed at M = 4 and 32 (w4 g-1 and the head,
+    a8) beside the tiled kernel forced on the same inputs (norm_qkv_kernel,
+    mlp_kernel: the kernel the rows kernels replaced), the plain version,
+    the unfused route, torch.matmul over the dequantized bf16 weights (#5
+    / #6: the three / two products) and the bound. Row independence: each
+    of four rows is the same bits at M = 4 as in other slots at M = 32."""
+    import torch
+
+    from gptq_tpu_torch.models import common
+    from gptq_tpu_torch.models.common import FusedSplits, ServeFlags
+    from gptq_tpu_torch.ops import _build
+    from gptq_tpu_torch.ops import ffn as Fz
+    from gptq_tpu_torch.ops import layer_fused as LF
+    from gptq_tpu_torch.ops.pack import fuse_packed
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(23)
+    spec = llama7b_spec(1)
+    H, F, V = spec.hidden, spec.ffn, spec.vocab
+    ln = torch.ones(H, dtype=torch.float32, device=device)
+    rows, worst = [], {}
+
+    def held(kernel, tag, M, a8, run, plain):
+        """run() twice bit for bit, within TOL["fused"] of plain() with
+        the near-tie rule; the row of the readings."""
+        one, two = run(), run()
+        torch.cuda.synchronize()
+        what = f"rows {kernel} {tag} M={M} a8={a8}"
+        if not torch.equal(one, two) or not LF.sync_clean(device):
+            raise AssertionError(f"{what}: two launches differ, or the sync "
+                                 f"words are not clean")
+        err, rel, flips = tie_check(what, one, plain, TOL["fused"])
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+        return {"kernel": kernel, "w": tag, "M": M, "a8": a8,
+                "max_abs_err": err, "rel_err": rel, "flips": flips}
+
+    def same_rows(kernel, run):
+        """Rows 5, 17, 30, 0 of a 32-row launch against a 4-row launch
+        of those rows: the same bits."""
+        idx = torch.tensor([5, 17, 30, 0], device=device)
+        full, part = run(None), run(idx)
+        torch.cuda.synchronize()
+        if not torch.equal(full[idx], part):
+            raise AssertionError(f"rows {kernel}: a row's output depends on "
+                                 f"M or its slot (max diff "
+                                 f"{float((full[idx] - part).abs().max())})")
+
+    for tag, bits, gs in (("w4g-1", 4, -1), ("w4g128", 4, 128),
+                          ("w3g128", 3, 128)):
+        parts = [packed_linear(gen, H, H, bits, gs, device) for _ in range(3)]
+        nq = [(f"q|k|v {tag}", fuse_packed(parts))]
+        if tag == "w4g-1":
+            nq.append(("head w8g-1", packed_linear(gen, H, V, 8, -1, device)))
+        o = packed_linear(gen, H, H, bits, gs, device)
+        gparts = [packed_linear(gen, H, F, bits, gs, device) for _ in range(2)]
+        gu = fuse_packed(gparts)
+        splits = FusedSplits(tuple((p.Np, p.N) for p in gparts))
+        dn = packed_linear(gen, F, H, bits, gs, device)
+        full = tag == "w4g-1"
+        for M in ((2, 3, 4, 8, 16, 32) if full else (4, 32)):
+            for a8 in ((True, False) if full else (True,)):
+                timed = full and a8 and M in (4, 32)
+                xb = torch.randn((M, H), generator=gen,
+                                 device=device).to(torch.bfloat16)
+                x2 = xb.float()
+                kw = ("rmsnorm", 1e-5, a8, None, None)
+                for wtag, pw in nq:
+                    if wtag.startswith("head") and not a8:
+                        continue
+                    if Fz.norm_qkv_route(M, pw, a8) != "rows":
+                        raise AssertionError(f"rows norm_qkv {wtag} M={M}: "
+                                             f"route "
+                                             f"{Fz.norm_qkv_route(M, pw, a8)}")
+                    # x2: xb's values in f32, so that both outputs are f32
+                    # (a bf16 output rounds an element one ulp, up to
+                    # 2^-8 of it, apart where the sums straddle a step)
+                    row = held("norm_qkv", wtag, M, a8,
+                               lambda: Fz.norm_qkv_fused(x2, ln, pw, a8=a8),
+                               functools.partial(Fz.norm_qkv_fused_reference,
+                                                 x2, ln, pw, a8=a8))
+                    if timed:
+                        lin = {"w": pw, "b": None,
+                               "serve": ServeFlags(a8=a8)}
+                        row.update(fused_times(
+                            timer, peaks, M, a8, [pw],
+                            M * H * 2 + H * 4 + M * pw.Np * 4,
+                            kernel=lambda: Fz._norm_qkv_cuda(x2, ln, pw, *kw),
+                            wrapper=lambda: Fz.norm_qkv_fused(xb, ln, pw,
+                                                              a8=a8),
+                            plain=lambda: Fz.norm_qkv_fused_reference(
+                                xb, ln, pw, a8=a8),
+                            unfused=lambda: common.linear_apply(
+                                lin, common.norm_apply(spec, {"w": ln}, xb)),
+                            tiles=lambda: Fz._norm_qkv_cuda(
+                                x2, ln, pw, *kw, route="tiles")))
+                        dq = dense_weight(pw).T.to(torch.bfloat16).contiguous()
+                        row["library_ms"] = timer(lambda: torch.matmul(xb, dq))
+                        del dq
+                    rows.append(row)
+                    log("rows " + json.dumps(row))
+                attn = torch.randn((M, H), generator=gen, device=device)
+                xres = torch.randn((M, H), generator=gen,
+                                   device=device).to(torch.bfloat16)
+                m = torch.randn((M, H), generator=gen, device=device)
+                if Fz.mlp_route(M, o, gu, dn, a8) != "rows" or \
+                        Fz.mlp_route(M, None, gu, dn, a8) != "rows":
+                    raise AssertionError(f"rows mlp {tag} M={M}: not the "
+                                         f"rows route")
+                row5 = held("attn_mlp", tag, M, a8,
+                            lambda: Fz.attn_mlp_fused(attn, xres, ln, o, gu,
+                                                      dn, a8=a8),
+                            functools.partial(Fz.attn_mlp_fused_reference,
+                                              attn, xres, ln, o, gu, dn,
+                                              a8=a8))
+                row6 = held("ffn", tag, M, a8,
+                            lambda: Fz.ffn_fused(m, gu, dn, a8=a8),
+                            functools.partial(Fz.ffn_fused_reference, m, gu,
+                                              dn, a8=a8))
+                if timed:
+                    x2r = xres.float()
+                    mk = ("silu", "rmsnorm", 1e-5, True, a8, None, None,
+                          None, None)
+                    p = {"o": {"w": o, "b": None, "serve": ServeFlags(a8=a8)},
+                         "gateup_fused": {"w": gu, "splits": splits,
+                                          "b_parts": [None, None],
+                                          "serve": ServeFlags(a8=a8)},
+                         "down": {"w": dn, "b": None,
+                                  "serve": ServeFlags(a8=a8)},
+                         "ln2": {"w": ln}}
+                    a3, r3 = attn.reshape(M, 1, H), xres.reshape(M, 1, H)
+                    row5.update(fused_times(
+                        timer, peaks, M, a8, [o, gu, dn],
+                        M * H * 4 + M * H * 2 + H * 4 + M * H * 4,
+                        kernel=lambda: Fz._mlp_cuda(attn, x2r, ln, o, gu, dn,
+                                                    *mk),
+                        wrapper=lambda: Fz.attn_mlp_fused(attn, xres, ln, o,
+                                                          gu, dn, a8=a8),
+                        plain=lambda: Fz.attn_mlp_fused_reference(
+                            attn, xres, ln, o, gu, dn, a8=a8),
+                        unfused=lambda: common._finish_block(spec, p, r3, a3,
+                                                             None, None),
+                        tiles=lambda: Fz._mlp_cuda(attn, x2r, ln, o, gu, dn,
+                                                   *mk, route="tiles")))
+
+                    def unfused_ffn():
+                        g, u = common._apply_fused(p["gateup_fused"], m)
+                        return common.linear_apply(
+                            p["down"], common.activation(spec, g) * u)
+
+                    row6.update(fused_times(
+                        timer, peaks, M, a8, [gu, dn], M * H * 4 * 2,
+                        kernel=lambda: Fz._mlp_cuda(m, None, None, None, gu,
+                                                    dn, *mk),
+                        wrapper=lambda: Fz.ffn_fused(m, gu, dn, a8=a8),
+                        plain=lambda: Fz.ffn_fused_reference(m, gu, dn,
+                                                             a8=a8),
+                        unfused=unfused_ffn,
+                        tiles=lambda: Fz._mlp_cuda(m, None, None, None, gu,
+                                                   dn, *mk, route="tiles")))
+                    # the products over the dequantized bf16 weights (the
+                    # activation and the norms left out)
+                    dq = {id(w): dense_weight(w).T.to(torch.bfloat16)
+                          .contiguous() for w in (o, gu, dn)}
+                    ab, mb = attn.to(torch.bfloat16), m.to(torch.bfloat16)
+                    F2 = dq[id(dn)].shape[0]
+
+                    def library(x, with_o):
+                        y = torch.matmul(x, dq[id(o)]) if with_o else x
+                        g = torch.matmul(y, dq[id(gu)])
+                        return torch.matmul(g[:, :F2], dq[id(dn)][:F2])
+
+                    row5["library_ms"] = timer(lambda: library(ab, True))
+                    row6["library_ms"] = timer(lambda: library(mb, False))
+                    del dq
+                for row in (row5, row6):
+                    rows.append(row)
+                    log("rows " + json.dumps(row))
+        if full:
+            pw = nq[0][1]
+            g32 = torch.randn((3, 32, H), generator=gen, device=device)
+            for a8 in (True, False):
+                def sel(idx, t):
+                    return t if idx is None else t[idx]
+
+                same_rows("norm_qkv", lambda idx: Fz.norm_qkv_fused(
+                    sel(idx, g32[0]), ln, pw, a8=a8))
+                same_rows("attn_mlp", lambda idx: Fz.attn_mlp_fused(
+                    sel(idx, g32[0]), sel(idx, g32[1]).to(torch.bfloat16),
+                    ln, o, gu, dn, a8=a8))
+                same_rows("ffn", lambda idx: Fz.ffn_fused(
+                    sel(idx, g32[2]), gu, dn, a8=a8))
+            log("rows: rows 5, 17, 30, 0 of M = 32 equal an M = 4 launch of "
+                "them bit for bit (#4, #5, #6; a8 and a16)")
+            # where a launch's time goes (a8, M = 32): each phase's barrier
+            # before its preparation, the preparation's end, the barrier
+            # after it and the product's end, µs from the first block's
+            # start, the latest block at each point (ffn.rows_timeline)
+            st = torch.zeros((_build.sm_count(device), Fz.ROWS_STAMPS),
+                             dtype=torch.int64, device=device)
+            xr = g32[1].to(torch.bfloat16).float()
+            Fz._rows_cuda(g32[0].to(torch.bfloat16).float(), None, ln, None,
+                          "rmsnorm", 1e-5, "silu", False, True,
+                          [pw, None, None, None], [None] * 4, stamps=st)
+            tl = {"norm_qkv": Fz.rows_timeline(st, 1)}
+            st.zero_()
+            Fz._rows_cuda(g32[0], xr, ln, None, "rmsnorm", 1e-5, "silu",
+                          True, True, [None, o, gu, dn], [None] * 4,
+                          stamps=st)
+            tl["attn_mlp"] = Fz.rows_timeline(st, 3)
+            log("rows timeline (w4a8 g-1, M = 32, µs) " + json.dumps(tl))
+            report["rows_timeline"] = tl
+        del nq, o, gu, dn, parts, gparts
+    report["rows_rows"] = rows
+    report["rows_max_abs_err"] = worst
 
 
 def fused_bcq_checks(device, peaks, timer, report):
@@ -2615,6 +2847,7 @@ def reset_counts() -> None:
     Q.launches = Q.stream_launches = B.launches = A.launches = 0
     Q.mma_launches = B.mma_launches = 0
     Fz.norm_qkv_launches = Fz.attn_mlp_launches = Fz.ffn_launches = 0
+    Fz.norm_qkv_rows_launches = Fz.mlp_rows_launches = 0
     Q.expert_launches = Q.select_launches = LF.launches = 0
     Q.expert_mma_launches = 0
     A.partial_launches = A.partial_wide_launches = 0
@@ -4008,8 +4241,9 @@ def profile_decode(eng, prompt, steps=8) -> dict:
             ("stream", ("qstream_kernel",)),
             ("attention", ("attnd_tile",)),
             ("partial", ("attnp_tile",)),
-            ("norm_qkv", ("norm_qkv_kernel", "norm_qkv_gemv_kernel")),
-            ("mlp", ("mlp_kernel", "mlp_stream_kernel")),
+            ("norm_qkv", ("norm_qkv_kernel", "norm_qkv_gemv_kernel",
+                          "norm_qkv_rows_kernel")),
+            ("mlp", ("mlp_kernel", "mlp_stream_kernel", "mlp_rows_kernel")),
             ("layer", ("layer_kernel",)))
     ms = {f: 0.0 for f, _ in fams}
     ms["other"] = 0.0
@@ -4048,7 +4282,8 @@ def profile_decode(eng, prompt, steps=8) -> dict:
 # counts them by name)
 SINGLE_ROW_KERNELS = ("mlp_stream_kernel", "mlp_kernel", "qsel_gemv_kernel",
                       "qsel_kernel", "norm_qkv_gemv_kernel", "norm_qkv_kernel",
-                      "qgemv_kernel", "qmm_kernel", "qstream_kernel")
+                      "qgemv_kernel", "qmm_kernel", "qstream_kernel",
+                      "norm_qkv_rows_kernel", "mlp_rows_kernel")
 
 
 def single_row_check(what, prof, want, counts=None) -> None:
@@ -4122,8 +4357,9 @@ def window_profile(n, replay) -> tuple:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fams = (("norm_qkv", ("norm_qkv_kernel", "norm_qkv_gemv_kernel")),
-            ("mlp", ("mlp_kernel", "mlp_stream_kernel")),
+    fams = (("norm_qkv", ("norm_qkv_kernel", "norm_qkv_gemv_kernel",
+                          "norm_qkv_rows_kernel")),
+            ("mlp", ("mlp_kernel", "mlp_stream_kernel", "mlp_rows_kernel")),
             ("attention", ("attnd_tile",)), ("layer", ("layer_kernel",)),
             ("qmm", ("qgemv_kernel", "qmm_kernel", "qmma")))
     with profile(activities=[ProfilerActivity.CPU,
@@ -4328,9 +4564,11 @@ def batch_kernel_times(device, spec, served, peaks, timer) -> list:
         for name, e in (("q|k|v", qkv), ("head", head)):
             pw = e["w"]
             kw = ("rmsnorm", 1e-5, True, None, None)
+            # x2 (xb's values in f32): f32 outputs on both sides
             _, rel, flips = tie_check(
-                f"batch #4 {name} M={M}", Fz.norm_qkv_fused(xb, ln, pw, a8=True),
-                functools.partial(Fz.norm_qkv_fused_reference, xb, ln, pw,
+                f"batch #4 {name} M={M}",
+                Fz.norm_qkv_fused(x2, ln, pw, a8=True),
+                functools.partial(Fz.norm_qkv_fused_reference, x2, ln, pw,
                                   a8=True), TOL["fused"])
             lin = {"w": pw, "b": None, "serve": e.get("serve")}
             row = {"kernel": "norm_qkv", "w": name, "M": M, "rel_err": rel,
@@ -4395,6 +4633,7 @@ def phase_batch(device, card, peaks, report):
     from gptq_tpu_torch.engine.batching import ContinuousBatcher
     from gptq_tpu_torch.engine.decode import DecodeEngine
     from gptq_tpu_torch.models.common import fuse_serving
+    from gptq_tpu_torch.ops import ffn as Fz
     from gptq_tpu_torch.pipeline import quantize_lm_head
 
     from torch.profiler import ProfilerActivity, profile
@@ -4444,32 +4683,31 @@ def phase_batch(device, card, peaks, report):
     step_counts = launch_counts()
     expect(step_counts, {"norm_qkv": L + 1, "attn_mlp": L, "attention": L},
            "batch lock-step")
+    rows_launches = {"norm_qkv_rows_kernel": Fz.norm_qkv_rows_launches,
+                     "mlp_rows_kernel": Fz.mlp_rows_launches}
+    if rows_launches != {"norm_qkv_rows_kernel": L + 1,
+                         "mlp_rows_kernel": L}:
+        raise AssertionError(f"batch lock-step: rows kernels' launches "
+                             f"{rows_launches}")
     log(f"batch: launches of one prefill dispatch {{'qmm_mma': {4 * L}}}, "
         f"of one lock-step at {B} slots " + json.dumps(
             {k: v for k, v in step_counts.items() if v}))
     del cb
-    # cuts: a lock-step at 32 slots runs #4 / #5 on the tiled kernels of
-    # rows 2-32 (~0.42 s), so the full model runs fewer lock-steps than
-    # the traffic asks: uniform on the bf16 cache one wave of 32 requests
-    # (64 lock-steps, no refill; the int8 cell keeps all 64 requests, a
-    # second wave in refilled slots), churn its first 44 requests (96
-    # lock-steps, 12 refills; all 96: 176). Window 16 against window 1
-    # runs the whole churn traffic at 2 layers.
-    n_bf16, n_churn = 32, 44
-    log(f"batch: one eager lock-step took {step_s * 1e3:.1f} ms; cut to "
-        f"keep the phase near 200 s: uniform traffic on the bf16 cache "
-        f"{len(uniform)} -> {n_bf16} requests (one wave, no refill; the "
-        f"int8 cell uncut), churn {len(churn)} -> {n_churn} requests (the "
-        f"first {n_churn} of the seeded 96; all 96 at 2 layers for window "
-        f"16 against window 1); no warm-up run (the window graph is "
-        f"captured inside the timed run, its capture in the wall time)")
+    # every cell serves its whole traffic: uniform 64 requests on each
+    # cache (a second wave in refilled slots), churn all 96 (64 refills)
+    log(f"batch: one eager lock-step took {step_s * 1e3:.1f} ms; launches "
+        f"of the rows kernels " + json.dumps(rows_launches) + "; no "
+        f"warm-up run (the window graph is captured inside the timed run, "
+        f"its capture in the wall time)")
     # the window's kernels by name a step: #4 at 32 rows for the layers
-    # and the head, #5 and #3 a layer; no #12, no single-row kernel
-    want = {"norm_qkv_kernel": L + 1, "mlp_kernel": L, "attnd_tile": L}
+    # and the head, #5 and #3 a layer, on the rows kernels; no tiled
+    # kernel, no #12, no single-row kernel
+    want = {"norm_qkv_rows_kernel": L + 1, "mlp_rows_kernel": L,
+            "attnd_tile": L}
 
-    cells = (("uniform bf16", torch.bfloat16, uniform[:n_bf16], (128,)),
+    cells = (("uniform bf16", torch.bfloat16, uniform, (128,)),
              ("uniform int8", torch.int8, uniform, (128,)),
-             ("churn int8", torch.int8, churn[:n_churn], (32, 64, 128)))
+             ("churn int8", torch.int8, churn, (32, 64, 128)))
     for name, cache, reqs, buckets in cells:
         r = batcher_run(batcher(cache, buckets), reqs, W, profile_window=2)
         prof = r["profile"]
@@ -4512,9 +4750,10 @@ def phase_batch(device, card, peaks, report):
     # same cache, every position teacher-forced on the batcher's tokens
     # (forced_agree): the first four of the one-wave cell, and in the
     # others the first four that ran in refilled slots (requests 32-35).
-    # The batcher's side replays them on 4 slots: the tiled kernels of
-    # rows 2-32 compute each row alone, so its logits stand for the
-    # 32-slot run's; where its top differs from the emitted token
+    # The batcher's side replays them on 4 slots: the rows kernels compute
+    # each row alone, bit for bit at any M (rows_checks), so its logits
+    # stand for the 32-slot run's; where its top differs from the emitted
+    # token
     # (forced_agree counts those positions) the same near-tie rule holds
     engines = {}
     for name, cache, reqs, buckets in cells:
@@ -4613,6 +4852,7 @@ def phase_batch(device, card, peaks, report):
         if isinstance(cell, dict):
             cell.pop("tokens", None)
     report["batch"] = {"cells": out, "step_launches": step_counts,
+                       "rows_launches": rows_launches,
                        "kernel_rows": rows, "attn_rows": attn}
     del params, p2, s2, served
     torch.cuda.empty_cache()
@@ -4667,7 +4907,7 @@ def main(argv=None) -> int:
     report = {}
     timer = device_ms
     if "kernels" in phases:
-        for check in (qmm_checks, attn_checks, fused_checks,
+        for check in (qmm_checks, attn_checks, fused_checks, rows_checks,
                       fused_bcq_checks, layer_checks, bcq_checks,
                       stream_checks, expert_checks, partial_checks,
                       mma_crossover):
@@ -4744,7 +4984,8 @@ def main(argv=None) -> int:
             tiled = "norm_qkv_kernel" if name == "norm_qkv" else "mlp_kernel"
             entry.update({
                 "kernels": [f"{single} (M = 1, uniform)",
-                            f"{tiled} (M 2-32, BCQ)"],
+                            f"{tiled} (BCQ; M 2-32 where the rows kernels "
+                            f"refuse)"],
                 "device_code": (GEMV_SRC if name == "norm_qkv"
                                 else STREAM_DEV_SRC),
                 "tiles_ms": row["tiles_ms"],
@@ -4863,6 +5104,47 @@ def main(argv=None) -> int:
                                             "ms", "plain_ms", "library_ms",
                                             "bound_ms", "bound_by")}
                          for r in bt["attn_rows"]]}
+
+        # #4 and #5 / #6 at rows 2-32 on the tensor cores: launches of the
+        # batch phase's eager lock-step at 32 slots (the main path of
+        # rows 2-32), readings at M = 32 (m4: M = 4), a8
+        rr = report["rows_rows"]
+        keys = ("ms", "tiles_ms", "plain_ms", "unfused_ms", "library_ms",
+                "bound_ms", "bound_by", "wrapper_ms", "wrapper_host_us",
+                "rel_err")
+
+        def rows_at(kernel, tag, M):
+            r = next(r for r in rr if r["kernel"] == kernel and r["w"] == tag
+                     and r["M"] == M and r["a8"] and "ms" in r)
+            return {k: r[k] for k in keys}
+
+        def rows_entry(name, kernel, line, tag, shape, **extra):
+            r = rows_at(kernel, tag, 32)
+            return {"name": name, "route": "cuda", "source": ROWS_SRC,
+                    "device_code": ROWS_DEV_SRC,
+                    "replaces": f"gptq_tpu/ops/ffn.py:{line}",
+                    "launches": report.get("batch", {})
+                    .get("rows_launches", {}).get(name, 0),
+                    "max_abs_err": report["rows_max_abs_err"][kernel],
+                    **r, "m4": rows_at(kernel, tag, 4), "shape": shape,
+                    **extra}
+
+        kernels.append(rows_entry(
+            "norm_qkv_rows_kernel", "norm_qkv", 483, "q|k|v w4g-1",
+            "ln1 + q|k|v 4096x12288 w4a8 g-1, M=32 (m4: M=4; head: "
+            "final_ln + 4096x32256 w8a8); tiles_ms: the tiled "
+            "norm_qkv_kernel forced on the same inputs",
+            head={M: rows_at("norm_qkv", "head w8g-1", M) for M in (4, 32)},
+            timeline=report["rows_timeline"]["norm_qkv"]))
+        kernels.append(rows_entry(
+            "mlp_rows_kernel", "attn_mlp", 383, "w4g-1",
+            "o 4096x4096 + ln2 + gate|up 4096x22528 + down 11264x4096, "
+            "w4a8 g-1, M=32 (m4: M=4; ffn: #6, gate|up + down); library: "
+            "the three (#6: two) products over the dequantized bf16 "
+            "weights; tiles_ms: the tiled mlp_kernel forced",
+            also_replaces="gptq_tpu/ops/ffn.py:312",
+            ffn={M: rows_at("ffn", "w4g-1", M) for M in (4, 32)},
+            timeline=report["rows_timeline"]["attn_mlp"]))
 
         layer = ("one llama-7B layer's four packed linears (K x N: "
                  "4096x12288, 4096x4096, 4096x22528, 11264x4096), M=1, "

@@ -29,7 +29,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD = os.path.join(PKG_DIR, "build")
 SOURCES = ("qmatmul", "ffn", "bcq_matmul", "qstream", "qexpert",
-           "layer_fused", "attention_partial", "qmma", "qexpert_mma")
+           "layer_fused", "attention_partial", "qmma", "qexpert_mma",
+           "ffn_rows")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

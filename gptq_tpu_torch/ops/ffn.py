@@ -15,12 +15,14 @@ PyTorch version beside it (`*_reference`). There is no fallback from a
 kernel to its plain version on the card: a launch that fails raises.
 attn_mlp and ffn at one row on uniform weights (decode) take the weight
 stream of the whole-layer kernel (`mlp_route`: csrc/ffn.cu
-mlp_stream_kernel, device code in csrc/layer_stream.cuh); more rows and
-BCQ sign planes take the tiled mlp_kernel. norm_qkv at one row on uniform
-weights takes the single-row stream of #1 with the norm in front
-(`norm_qkv_route`: csrc/gemv.cuh norm_qkv_gemv_kernel, launched from
-csrc/ffn.cu); more rows and BCQ sign planes take the tiled
-norm_qkv_kernel.
+mlp_stream_kernel, device code in csrc/layer_stream.cuh). norm_qkv at one
+row on uniform weights takes the single-row stream of #1 with the norm in
+front (`norm_qkv_route`: csrc/gemv.cuh norm_qkv_gemv_kernel, launched from
+csrc/ffn.cu). Rows 2 .. 32 (batched decode) on uniform weights take the
+tensor-core kernels norm_qkv_rows_kernel / mlp_rows_kernel (csrc/
+ffn_rows.cu, device code in csrc/rows.cuh: rows prepared once a phase,
+each word streamed once onto mma.sync); BCQ sign planes and the weights
+those refuse take the tiled norm_qkv_kernel / mlp_kernel.
 
 The plain versions keep the JAX kernels' rounding points, which differ
 from the unfused path: norm_qkv casts x to bf16 at entry and rounds the
@@ -55,6 +57,9 @@ from gptq_tpu_torch.ops.qmatmul import (_fbmin, _mma_ready, gemv_cut,
 norm_qkv_launches = 0
 attn_mlp_launches = 0
 ffn_launches = 0
+# launches of the rows kernels (route "rows") among them
+norm_qkv_rows_launches = 0
+mlp_rows_launches = 0
 
 MAX_ROWS = 32  # the kernels serve at most this many activation rows
 _NORMS = {"rmsnorm": 0, "rmsnorm1p": 1, "layernorm": 2}
@@ -67,6 +72,46 @@ STREAM_SMEM = 232448
 STREAM_STAGE = 16384
 
 
+# csrc/rows.cuh: K rows of an x segment, the most stages of the ring, a
+# block's shared memory (the rows kernels, M 2 .. 32)
+ROWS_SEGK = 128
+ROWS_MAX_STAGES = 8
+ROWS_SMEM = 232448
+ROWS_STAMPS = 13  # a block's %globaltimer readings (csrc/rows.cuh RSTAMPS)
+
+
+def rows_ok(pw) -> bool:
+    """Does the rows kernel (csrc/rows.cuh) take this weight? Uniform 2, 3,
+    4 or 8 bits, a stored width that 128 divides, K and groups in whole
+    128-row segments, subblocks of at least 128 rows (csrc/ffn_rows.cu
+    rows_weight_ok)."""
+    if (pw.fmt != "uniform" or pw.bits not in (2, 3, 4, 8) or pw.Np % 128
+            or pw.Kp % ROWS_SEGK):
+        return False
+    ng = pw.scale.shape[0]
+    return (pw.Kp % ng == 0 and (pw.Kp // ng) % ROWS_SEGK == 0
+            and subblock(pw.Kp, pw.groupsize) >= ROWS_SEGK)
+
+
+def _rows_smem(M: int, a8: bool, ws) -> int:
+    """The rows kernel's shared-memory bytes for M rows over the weights
+    ws, or 0 where no ring of two stages fits (csrc/ffn_rows.cu
+    rows_layout)."""
+    MP = -(-M // 8) * 8
+    kmax = max(pw.Kp for pw in ws)
+    fbmin = min(_fbmin(pw.bits) for pw in ws)
+    xseg = MP * 128 * (1 if a8 else 2)
+    slot = -(-(STREAM_STAGE + 32 * 32 // fbmin // ROWS_SEGK * xseg)
+             // 1024) * 1024
+    ngmax = max(pw.scale.shape[0] for pw in ws)
+    uni = max(2 * MP * 128 * 4 + (MP + MP * ngmax) * 4,
+              kmax * 4 + kmax // 16 * 4 + 32)
+    uni = -(-uni // 16) * 16
+    rest = 1024 + uni + (3 * ROWS_MAX_STAGES + 4) * 8
+    ns = min(ROWS_MAX_STAGES, (ROWS_SMEM - rest) // slot)
+    return 0 if ns < 2 else rest + ns * slot
+
+
 def mlp_route(M: int, o, gu, dn, a8: bool = True) -> str:
     """The kernel of #5 (with o) / #6 (o None) for M activation rows:
       * "stream": M = 1 (decode) and every weight uniform, of a stored
@@ -74,9 +119,15 @@ def mlp_route(M: int, o, gu, dn, a8: bool = True) -> str:
         consumer-warp word rows (every groupsize the gates pass), K short
         enough that the staged rows leave room for a ring of two stages:
         csrc/ffn.cu mlp_stream_kernel, #12's weight phases;
-      * "tiles": more rows (batched decode, short prefills) or BCQ sign
-        planes: csrc/ffn.cu mlp_kernel."""
+      * "rows": M = 2 .. 32 (batched decode) and every weight one the rows
+        kernel takes (rows_ok), its shared memory fitting: csrc/ffn_rows.cu
+        mlp_rows_kernel, on the tensor cores;
+      * "tiles": BCQ sign planes and the weights the others refuse, one
+        row or more: csrc/ffn.cu mlp_kernel."""
     ws = [pw for pw in (o, gu, dn) if pw is not None]
+    if 2 <= M <= MAX_ROWS:
+        fits = all(rows_ok(pw) for pw in ws) and _rows_smem(M, a8, ws) > 0
+        return "rows" if fits else "tiles"
     if M != 1 or any(pw.fmt != "uniform" or pw.Np % 128 for pw in ws):
         return "tiles"
     for pw in ws:
@@ -89,14 +140,20 @@ def mlp_route(M: int, o, gu, dn, a8: bool = True) -> str:
     return "tiles" if rows + 2 * STREAM_STAGE > STREAM_SMEM else "stream"
 
 
-def norm_qkv_route(M: int, pw) -> str:
+def norm_qkv_route(M: int, pw, a8: bool = True) -> str:
     """The kernel of #4 for M activation rows:
       * "stream": M = 1 (decode) and a uniform weight of 2, 3, 4 or 8
         bits, of a stored width that 128 divides, in groups that cover
         whole subblocks: csrc/gemv.cuh norm_qkv_gemv_kernel, #1's
         single-row stream with the norm in front;
-      * "tiles": more rows (batched decode, short prefills), BCQ sign
-        planes or other weights: csrc/ffn.cu norm_qkv_kernel."""
+      * "rows": M = 2 .. 32 (batched decode) and a weight the rows kernel
+        takes (rows_ok), its shared memory fitting: csrc/ffn_rows.cu
+        norm_qkv_rows_kernel, on the tensor cores;
+      * "tiles": BCQ sign planes and the weights the others refuse:
+        csrc/ffn.cu norm_qkv_kernel."""
+    if 2 <= M <= MAX_ROWS:
+        fits = rows_ok(pw) and _rows_smem(M, a8, [pw]) > 0
+        return "rows" if fits else "tiles"
     if (M != 1 or pw.fmt != "uniform" or pw.Np % 128
             or pw.bits not in (2, 3, 4, 8)):
         return "tiles"
@@ -391,22 +448,156 @@ def _lib():
     return lib
 
 
+def _rows_lib():
+    lib = _build.load("ffn_rows")
+    if lib.rows_launch.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        dp = ctypes.POINTER(_WeightDesc)
+        lib.rows_launch.argtypes = [i, vp, vp, vp, vp, i, f, i, i, i, i, dp,
+                                    dp, dp, dp, vp, vp, i, vp, vp, vp, vp, vp,
+                                    vp, vp,
+                                    vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                    vp]
+        lib.rows_launch.restype = ctypes.c_int
+    return lib
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_rows_cuts = {}  # (shapes, device): the plan's chunks cut in K
+
+
+def rows_cuts(items) -> tuple:
+    """The chunks a plan (ops/layer_fused.layer_plan, (n, ITEM) int32) cuts
+    in K, which the rows kernels finish after a grid barrier: (table,
+    offsets) with table (n, 3) int32 rows (chunk, first piece slot,
+    pieces), weight w's from row offsets[w], in (weight, chunk) order."""
+    cut = {}
+    for head, c, _, _, _, first, *_ in items.tolist():
+        if head >> 8 > 1:
+            cut[head & 3, c] = (c, first, head >> 8)
+    keys = sorted(cut)
+    offsets = [sum(1 for w2, _ in keys if w2 < w) for w in range(5)]
+    table = torch.tensor([cut[k] for k in keys] or [[0, 0, 0]],
+                         dtype=torch.int32)
+    return table, offsets
+
+
+def _rows_cuda(x2, xres2, w, b_ln, norm, eps, act, glu, a8, weights,
+               biases, stamps=None) -> torch.Tensor:
+    """Launch a rows kernel (csrc/ffn_rows.cu) on x2 (M, K) f32, M 2 ..
+    32: weights (q|k|v, o, gate|up, down) with None where absent; only
+    q|k|v: #4 (norm_qkv_rows_kernel, norm w / b_ln over x2); else #5 (with
+    o: x2 the attention rows, xres2 the residual, the norm over r2) or #6
+    (mlp_rows_kernel). The plan is the weight stream's (ops/layer_fused
+    layer_plan by shapes, glu off: gate|up is written out before the
+    activation) and its chunks cut in K (rows_cuts), the barrier words the
+    stream kernels' of this stream, the scratch one allocation. stamps: a
+    (blocks, ROWS_STAMPS) int64 tensor the kernel fills with %globaltimer
+    readings (rows_timeline reads them), or None. Returns (M, last Np)
+    f32."""
+    from gptq_tpu_torch.ops import layer_fused as lf
+
+    dev = x2.device
+    M = x2.shape[0]
+    kind = 0 if weights[0] is not None else 1
+    shapes = tuple(None if pw is None else (pw.bits, pw.Kp, pw.Np)
+                   for pw in weights)
+    plan = lf._device_plan(shapes, dev, False)
+    key = (shapes, dev)
+    if key not in _rows_cuts:
+        table, offsets = rows_cuts(lf.layer_plan(shapes, plan["blocks"],
+                                                 False)["items"])
+        _rows_cuts[key] = (table.to(dev), (ctypes.c_int * 5)(*offsets))
+    cuts, cut_off = _rows_cuts[key]
+    stream = _stream(dev)
+    sync = lf._sync_words(2, dev, stream)
+    keep = [_mma_ready(x2)]
+    if xres2 is not None:
+        keep.append(xres2.contiguous())
+    descs = [None if pw is None else _desc(pw, b, dev, keep)
+             for pw, b in zip(weights, biases)]
+    nw = nb = None
+    if w is not None:  # #4's ln1, #5's ln2
+        K = weights[0].Kp if kind == 0 else weights[2].Kp
+        nw, nb = _norm_vecs(w, b_ln, norm, K, dev, keep)
+    es = 1 if a8 else 2
+    sizes = [("sx", 4 * M * 4)]
+    for i, pw in enumerate(weights):
+        if pw is not None:
+            sizes += [(f"xq{i}", M * pw.Kp * es),
+                      (f"xs{i}", M * pw.scale.shape[0] * 4)]
+    last = weights[0] if kind == 0 else weights[3]
+    if weights[1] is not None:
+        sizes.append(("r2", M * weights[1].Np * 4))
+    if kind == 1:
+        sizes.append(("gu", M * weights[2].Np * 4))
+    sizes += [("out", M * last.Np * 4),
+              ("part", max(1, plan["pieces"]) * M * 128 * 4)]
+    offsets, end = {}, 0
+    for name, n in sizes:  # 128-byte boundaries (TMA reads the rows)
+        offsets[name] = end
+        end += -(-n // 128) * 128
+    buf = torch.empty(end, dtype=torch.uint8, device=dev)
+
+    def ptr(name):
+        return buf.data_ptr() + offsets[name] if name in offsets else None
+
+    err = _rows_lib().rows_launch(
+        kind, keep[0].data_ptr(),
+        None if xres2 is None else keep[1].data_ptr(), nw, nb,
+        _NORMS.get(norm, 0), float(eps), _ACTS.get(act, 0), int(glu),
+        int(a8), M, *(None if d is None else ctypes.byref(d) for d in descs),
+        plan["items"].data_ptr(), plan["first"].data_ptr(), plan["blocks"],
+        cuts.data_ptr(), cut_off, *(ptr(f"xq{i}") for i in range(4)),
+        ptr("sx"),
+        *(ptr(f"xs{i}") for i in range(4)), ptr("r2"), ptr("gu"),
+        ptr("out"), ptr("part"), sync.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), stream)
+    if err != 0:  # a failed launch may leave a barrier count set
+        lf._retire_sync_words(dev, stream)
+    _build.check(err, "rows_launch")
+    o = offsets["out"]
+    return buf[o:o + M * last.Np * 4].view(torch.float32).reshape(M, last.Np)
+
+
+def rows_timeline(stamps: torch.Tensor, phases: int) -> list:
+    """A rows launch's %globaltimer stamps (csrc/rows.cuh RSTAMPS per
+    block) as µs from the earliest block's start, the latest block at
+    each point: per phase its barrier before the preparation ("wait"), the
+    preparation's end ("prep"), the barrier after it ("ready") and the
+    product's end ("done")."""
+    s = stamps.to(torch.float64).cpu()
+    t0 = s[:, 0].min()
+    return [{name: float((s[:, 1 + 4 * p + i].max() - t0) / 1e3)
+             for i, name in enumerate(("wait", "prep", "ready", "done"))}
+            for p in range(phases)]
 
 
 def _norm_qkv_cuda(x2, w1, pw: PackedWeight, norm, eps, a8, b_ln, b_qkv,
                    route: str | None = None):
     """Launch #4 on x2 (M, K) f32 -> (M, Np) f32: the kernel
-    norm_qkv_route picks, or the one `route` names (chip_smoke times both
-    at one row): "stream" (csrc/gemv.cuh norm_qkv_gemv_kernel, with the
-    single-row cut of qmatmul.gemv_cut) or "tiles" (norm_qkv_kernel)."""
+    norm_qkv_route picks, or the one `route` names (chip_smoke times them
+    against each other): "stream" (M = 1: csrc/gemv.cuh
+    norm_qkv_gemv_kernel, with the single-row cut of qmatmul.gemv_cut),
+    "rows" (M 2 .. 32: csrc/ffn_rows.cu norm_qkv_rows_kernel) or "tiles"
+    (norm_qkv_kernel)."""
+    global norm_qkv_rows_launches
     M, K = x2.shape
     _check_rows(M, "norm_qkv_fused")
     if K != pw.Kp:
         raise ValueError(f"norm_qkv_fused: width {K} for a weight of K={pw.Kp}")
     if route is None:
-        route = norm_qkv_route(M, pw)
+        route = norm_qkv_route(M, pw, a8)
+    if route == "rows":
+        if norm not in _NORMS:
+            raise ValueError(f"norm {norm!r}")
+        out = _rows_cuda(x2, None, w1, b_ln, norm, eps, "silu", False, a8,
+                         [pw, None, None, None], [b_qkv, None, None, None])
+        norm_qkv_rows_launches += 1
+        return out
     x2 = _mma_ready(x2)  # the stream reads x as 16-byte vectors
     keep = [x2]
     desc = _desc(pw, b_qkv, x2.device, keep)
@@ -498,9 +689,11 @@ def _mlp_cuda(x2, xres2, w2, o, gu, dn, act, norm, eps, glu, a8, b_ln, b_o,
               b_g, b_d, route: str | None = None) -> torch.Tensor:
     """Launch #5 (with `o`: the whole attn_mlp) or #6 (without it: gate|up,
     act, down) on the kernel mlp_route picks, or the one `route` names
-    (chip_smoke times both at one row): "stream" (csrc/ffn.cu
-    mlp_stream_kernel) or "tiles" (the cooperative mlp_kernel). Returns
-    (M, dn.Np) f32."""
+    (chip_smoke times them against each other): "stream" (M = 1: csrc/
+    ffn.cu mlp_stream_kernel), "rows" (M 2 .. 32: csrc/ffn_rows.cu
+    mlp_rows_kernel) or "tiles" (the cooperative mlp_kernel). Returns (M,
+    dn.Np) f32."""
+    global mlp_rows_launches
     dev = x2.device
     M = x2.shape[0]
     if act not in _ACTS:
@@ -510,6 +703,14 @@ def _mlp_cuda(x2, xres2, w2, o, gu, dn, act, norm, eps, glu, a8, b_ln, b_o,
     if route == "stream":
         return _mlp_stream(x2, xres2, w2, o, gu, dn, act, norm, eps, glu, a8,
                            b_ln, b_o, b_g, b_d)
+    if route == "rows":
+        if o is not None and norm not in _NORMS:
+            raise ValueError(f"norm {norm!r}")
+        out = _rows_cuda(x2, xres2, w2 if o is not None else None, b_ln,
+                         norm, eps, act, glu, a8, [None, o, gu, dn],
+                         [None, b_o, b_g, b_d])
+        mlp_rows_launches += 1
+        return out
     keep = [x2]
     od = None if o is None else _desc(o, b_o, dev, keep)
     gd = _desc(gu, b_g, dev, keep)

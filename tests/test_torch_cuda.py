@@ -924,7 +924,7 @@ def test_norm_qkv_stream_matches_plain_and_tiles(cuda, K, N, bits, groupsize,
     w1 = _vec(rng, K, cuda, base=1.0)
     b = _vec(rng, pw.Np, cuda)
     assert tf.norm_qkv_route(1, pw) == "stream"
-    assert tf.norm_qkv_route(2, pw) == "tiles"
+    assert tf.norm_qkv_route(2, pw) == "rows"
     before = tf.norm_qkv_launches
     got = tf.norm_qkv_fused(x, w1, pw, a8=a8, b_qkv=b)
     torch.cuda.synchronize()
@@ -1708,3 +1708,170 @@ def test_per_slot_scatter_equals_its_plain_form(cuda, dtype):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(buf, want), new
+
+
+# #4 and #5 / #6 at rows 2-32 on the tensor cores (csrc/ffn_rows.cu:
+# norm_qkv_rows_kernel, mlp_rows_kernel) against their plain versions and
+# the tiled kernels they replaced there (forced by route), with the
+# limits of the tiled kernels' tests above
+_ROWS_W = {"w4g-1": (4, -1), "w4g128": (4, 128), "w8g-1": (8, -1)}
+
+
+@pytest.mark.parametrize("what", ["q|k|v w4g-1", "q|k|v w4g128",
+                                  "head w8g-1"])
+@pytest.mark.parametrize("M", [2, 3, 4, 8, 16, 32])
+@pytest.mark.parametrize("a8", [False, True])
+def test_norm_qkv_rows_matches_plain_and_tiles(cuda, what, M, a8):
+    """Rows 2-32 take the rows kernel; it agrees with the plain version
+    and with the tiled kernel forced, two launches give the same bits and
+    the barrier and ticket words are left clean."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    bits, groupsize = _ROWS_W[what.split()[1]]
+    rng = np.random.default_rng(M * 7 + bits + a8)
+    K = 1024
+    pw = (_fusable(rng, bits, groupsize, K, 512, parts=3) if "q|k|v" in what
+          else _fusable(rng, bits, groupsize, K, 4096)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda)
+    w1 = _vec(rng, K, cuda, base=1.0)
+    b = _vec(rng, pw.Np, cuda)
+    assert tf.norm_qkv_route(M, pw, a8) == "rows"
+    before = (tf.norm_qkv_launches, tf.norm_qkv_rows_launches)
+    got = tf.norm_qkv_fused(x, w1, pw, a8=a8, b_qkv=b)
+    torch.cuda.synchronize()
+    assert (tf.norm_qkv_launches, tf.norm_qkv_rows_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tf.norm_qkv_fused_reference(x, w1, pw, a8=a8, b_qkv=b)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=FUSED_RTOL)
+    kern = (x.to(torch.bfloat16).float(), w1, pw, "rmsnorm", 1e-5, a8, None,
+            b)
+    rows = tf._norm_qkv_cuda(*kern, route="rows")
+    tiles = tf._norm_qkv_cuda(*kern, route="tiles")
+    torch.cuda.synchronize()
+    assert torch.equal(rows, got) and tl.sync_clean(cuda)
+    _close(rows.cpu().numpy(), tiles.cpu().numpy(), rtol=FUSED_RTOL)
+
+
+@pytest.mark.parametrize("kind", ["attn_mlp", "ffn"])
+@pytest.mark.parametrize("tag", ["w4g-1", "w4g128"])
+@pytest.mark.parametrize("M", [2, 3, 4, 8, 16, 32])
+@pytest.mark.parametrize("a8", [False, True])
+def test_mlp_rows_matches_plain_and_tiles(cuda, kind, tag, M, a8):
+    """Rows 2-32 take the rows kernel (#5 with o, #6 without); it agrees
+    with the plain version and with the tiled kernel forced, two launches
+    give the same bits and the sync words are left clean."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    bits, groupsize = _ROWS_W[tag]
+    rng = np.random.default_rng(M * 11 + bits + a8 + len(kind))
+    H, F = 1024, 2816
+    o = _fusable(rng, bits, groupsize, H, H).to(cuda)
+    gu = _fusable(rng, bits, groupsize, H, F, parts=2).to(cuda)
+    dn = _fusable(rng, bits, groupsize, F, H).to(cuda)
+    attn, xres = (torch.from_numpy(rng.normal(size=(M, H)).astype(np.float32))
+                  .to(cuda) for _ in range(2))
+    w2 = _vec(rng, H, cuda, base=1.0)
+    b_o = _vec(rng, H, cuda)
+    if kind == "attn_mlp":
+        run = lambda: tf.attn_mlp_fused(attn, xres, w2, o, gu, dn, a8=a8,
+                                        b_o=b_o)
+        want = tf.attn_mlp_fused_reference(attn, xres, w2, o, gu, dn, a8=a8,
+                                           b_o=b_o)
+        kern = (attn, xres.to(torch.bfloat16).float(), w2, o, gu, dn, "silu",
+                "rmsnorm", 1e-5, True, a8, None, b_o, None, None)
+        rtol = FLIP_RTOL if a8 else FUSED_RTOL
+    else:
+        run = lambda: tf.ffn_fused(attn, gu, dn, a8=a8)
+        want = tf.ffn_fused_reference(attn, gu, dn, a8=a8)
+        kern = (attn, None, None, None, gu, dn, "silu", "rmsnorm", 0.0, True,
+                a8, None, None, None, None)
+        rtol = FUSED_RTOL
+    assert tf.mlp_route(M, o if kind == "attn_mlp" else None, gu, dn,
+                        a8) == "rows"
+    before = tf.mlp_rows_launches
+    got = run()
+    torch.cuda.synchronize()
+    assert tf.mlp_rows_launches == before + 1
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol)
+    rows = tf._mlp_cuda(*kern, route="rows")
+    again = tf._mlp_cuda(*kern, route="rows")
+    tiles = tf._mlp_cuda(*kern, route="tiles")
+    torch.cuda.synchronize()
+    assert torch.equal(rows, again) and tl.sync_clean(cuda)
+    _close(rows.cpu().numpy(), tiles.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_rows_kernels_row_independent(cuda, a8):
+    """A row's output is the same bits at M = 4 and at M = 32, in other
+    slots (#4, #5, #6)."""
+    rng = np.random.default_rng(44 + a8)
+    H, F = 1024, 2816
+    qkv = _fusable(rng, 4, -1, H, 512, parts=3).to(cuda)
+    o = _fusable(rng, 4, 128, H, H).to(cuda)
+    gu = _fusable(rng, 4, 128, H, F, parts=2).to(cuda)
+    dn = _fusable(rng, 4, 128, F, H).to(cuda)
+    x, xres = (torch.from_numpy(rng.normal(size=(32, H)).astype(np.float32))
+               .to(cuda) for _ in range(2))
+    w = _vec(rng, H, cuda, base=1.0)
+    idx = torch.tensor([5, 17, 30, 0], device=cuda)
+    for run in (lambda a, r: tf.norm_qkv_fused(a, w, qkv, a8=a8),
+                lambda a, r: tf.attn_mlp_fused(a, r, w, o, gu, dn, a8=a8),
+                lambda a, r: tf.ffn_fused(a, gu, dn, a8=a8)):
+        full, part = run(x, xres), run(x[idx], xres[idx])
+        torch.cuda.synchronize()
+        assert torch.equal(full[idx], part)
+
+
+def test_single_row_kernels_unchanged_beside_rows(cuda):
+    """At one row #4 and #5 / #6 keep the single-row streams
+    (norm_qkv_gemv_kernel, mlp_stream_kernel), whose outputs are the same
+    bits before and after rows launches on the same stream (the kernels
+    share its barrier and ticket words)."""
+    rng = np.random.default_rng(45)
+    H, F = 1024, 2816
+    qkv = _fusable(rng, 4, -1, H, 512, parts=3).to(cuda)
+    o = _fusable(rng, 4, -1, H, H).to(cuda)
+    gu = _fusable(rng, 4, -1, H, F, parts=2).to(cuda)
+    dn = _fusable(rng, 4, -1, F, H).to(cuda)
+    x, xres = (torch.from_numpy(rng.normal(size=(8, H)).astype(np.float32))
+               .to(cuda) for _ in range(2))
+    w = _vec(rng, H, cuda, base=1.0)
+    assert tf.norm_qkv_route(1, qkv) == tf.mlp_route(1, o, gu, dn) == "stream"
+
+    def one_row():
+        return (tf.norm_qkv_fused(x[:1], w, qkv),
+                tf.attn_mlp_fused(x[:1], xres[:1], w, o, gu, dn),
+                tf.ffn_fused(x[:1], gu, dn))
+
+    first = one_row()
+    tf.norm_qkv_fused(x, w, qkv)
+    tf.attn_mlp_fused(x, xres, w, o, gu, dn)
+    second = one_row()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_mlp_rows_graph_replays(cuda):
+    """A CUDA graph of an mlp_rows_kernel launch (its grid barriers on the
+    stream's generation counter), replayed twice on new inputs, equals
+    the eager launch on them."""
+    rng = np.random.default_rng(46)
+    H, F = 1024, 2816
+    o = _fusable(rng, 4, -1, H, H).to(cuda)
+    gu = _fusable(rng, 4, -1, H, F, parts=2).to(cuda)
+    dn = _fusable(rng, 4, -1, F, H).to(cuda)
+    attn, xres = (torch.from_numpy(rng.normal(size=(8, H)).astype(np.float32))
+                  .to(cuda) for _ in range(2))
+    w2 = _vec(rng, H, cuda, base=1.0)
+    tf.attn_mlp_fused(attn, xres, w2, o, gu, dn)  # warm: build, plan
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tf.attn_mlp_fused(attn, xres, w2, o, gu, dn)
+    for _ in range(2):
+        attn.copy_(torch.from_numpy(rng.normal(size=(8, H)).astype(
+            np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tf.attn_mlp_fused(attn, xres, w2, o, gu, dn))

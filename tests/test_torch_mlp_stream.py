@@ -232,8 +232,9 @@ def test_ffn_stream_replay_matches_jax(tag, a8, monkeypatch):
 
 def test_mlp_route_takes_the_stream_at_one_row():
     """One row on uniform weights of a stored width that 128 divides takes
-    the stream; more rows, BCQ sign planes and a width the stream's chunks
-    do not divide take the tiled kernel."""
+    the stream; rows 2-32 take the rows kernel (test_torch_ffn_rows);
+    BCQ sign planes and a width the stream's chunks do not divide take
+    the tiled kernel."""
     rng = np.random.default_rng(3)
     _, o = packed_pair(rng, H, H, 4, 128)
     _, gu = fused_pair(rng, H, F, 3, 128)
@@ -241,7 +242,7 @@ def test_mlp_route_takes_the_stream_at_one_row():
     assert tf.mlp_route(1, o, gu, dn) == "stream"
     assert tf.mlp_route(1, None, gu, dn, a8=False) == "stream"
     assert tf.mlp_route(2, o, gu, dn) == tf.mlp_route(32, None, gu, dn) \
-        == "tiles"
+        == "rows"
     _, bcq = fused_pair(rng, H, F, 3, 128, fmt="bcq")
     assert tf.mlp_route(1, o, bcq, dn) == "tiles"
     _, narrow = packed_pair(rng, H, 96, 4, -1)  # Np = 96 + pad

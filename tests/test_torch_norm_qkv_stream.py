@@ -114,15 +114,15 @@ def test_norm_qkv_stream_cut_at_the_main_path_shapes():
 
 def test_norm_qkv_route_takes_the_stream_at_one_row():
     """One row on a uniform weight of 2, 3, 4 or 8 bits, a stored width
-    that 128 divides and groups of whole subblocks takes the stream; more
-    rows, BCQ sign planes, 1-bit codes and other stored widths take the
-    tiled kernel."""
+    that 128 divides and groups of whole subblocks takes the stream; rows
+    2-32 take the rows kernel (test_torch_ffn_rows); BCQ sign planes,
+    1-bit codes and other stored widths take the tiled kernel."""
     rng = np.random.default_rng(7)
     for bits, gs in ((4, -1), (4, 128), (3, 128), (8, -1), (2, 256)):
         _, pw = fused_pair(rng, 512, 128, bits, gs, parts=3)
         assert tf.norm_qkv_route(1, pw) == "stream"
         assert tf.norm_qkv_route(2, pw) == tf.norm_qkv_route(32, pw) \
-            == "tiles"
+            == "rows"
     _, bcq = fused_pair(rng, 512, 128, 3, 128, parts=3, fmt="bcq")
     assert tf.norm_qkv_route(1, bcq) == "tiles"
     _, narrow = packed_pair(rng, 512, 96, 4, -1)  # Np = 96 + pad
