@@ -91,9 +91,9 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                layer route's head on norm_qkv_gemv_kernel); at 2
                layers, kernel
                decoding and plain decoding give the same greedy tokens on
-               each route. Then a 32-layer 3-bit g128 BCQ checkpoint from
-               seeded signs and alphas through the same CLI (128
-               bcq_matmul + 32 attention launches per step, no qmm, no
+               each route. Then an 8-layer 3-bit g128 BCQ checkpoint from
+               seeded signs and alphas through the same CLI (32
+               bcq_matmul + 8 attention launches per step, no qmm, no
                fused kernel) with its profile, a 2-layer 4-bit serve on
                the streamed route (GPTQ_TPU_FFN_FUSION=off,
                GPTQ_TPU_MATMUL_IMPL=streamed: 8 streamed launches per
@@ -107,14 +107,14 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                cache; the CLI's --benchmark_batch 4 (generate_chained);
                the chained protocol (benchmark_decode_chained, one CUDA
                graph per chain) on 32 layers of the layer route, the
-               fused route, the unfused route and the BCQ route, and
+               fused route and the unfused route, on 8 of the BCQ route, and
                2-layer generate_chained tokens against generate on each.
   5. sp      - sequence-parallel serving (engine/serving.SPEngine) on a
-               one-rank NCCL process group: the serve phase's 32-layer
-               checkpoint at sp = 1 (fused, a8, 8-bit head, int8 cache,
-               max_len 2048): per step 32 partial-wide (#10) launches, 33
-               norm_qkv, 32 attn_mlp and no flat attention or #12 (by
-               name 33 norm_qkv_gemv_kernel, 32 mlp_stream_kernel); the
+               one-rank NCCL process group: an 8-layer llama-7B-width
+               model at sp = 1 (fused, a8, 8-bit head, int8 cache,
+               max_len 2048): per step 8 partial-wide (#10) launches, 9
+               norm_qkv, 8 attn_mlp and no flat attention or #12 (by
+               name 9 norm_qkv_gemv_kernel, 8 mlp_stream_kernel); the
                per-token median over 128 tokens, benchmark_chained (one
                CUDA graph per chain, the all-reduces captured inside) and
                a profile; a 1,024-token prompt through the ring prefill
@@ -137,9 +137,9 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                tokens (prefill through #8) and 48 (per-expert #1), greedy
                tokens against the plain versions; one layer's decode FFN
                under torch.cuda.set_sync_debug_mode("error"); and the
-               whole 32-layer model (~23.6 GB) through
-               engine.decode.benchmark_decode, with its profile (192
-               qsel_gemv_kernel, 32 qgemv_kernel and 33
+               16-layer model (~12 GB) through
+               engine.decode.benchmark_decode, with its profile (96
+               qsel_gemv_kernel, 16 qgemv_kernel and 17
                norm_qkv_gemv_kernel launches a step, no qsel_kernel or
                norm_qkv_kernel) and byte
                bound, and through benchmark_decode_chained (its step
@@ -183,6 +183,26 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                on the device and with params_from_dir(host=True), the
                packed words equal bit for bit and the offload's peak
                device memory at least two f32 blocks lower.
+  9. families - OPT-6.7B (32 layers), BLOOM-7b1 and Gemma-7B (8 layers
+               each) at their published widths (spec_from_hf_config of
+               their config.json values), w4a8 g-1 weights, biases and
+               norms from a seed, an 8-bit head: on the served layer 0,
+               #4's branches (layernorm + biases on OPT's three q|k|v
+               parts and BLOOM's fused q|k|v, Gemma's rmsnorm1p; the
+               padded OPT head, the BLOOM and Gemma heads), #5 (fc1 ->
+               relu / gelu_tanh -> fc2 with o / fc1 / fc2 biases; Gemma's
+               GLU gelu_tanh) and Gemma's #6 at M = 1 and 32, Gemma's #12
+               (hd 256, H hd != hidden) and #3 at hd 256 (int8 / bf16, B 1
+               and 32), each held to its plain version (the near-tie
+               rule) and timed beside it, the unfused route, the library
+               call and the bound; 2-layer greedy tokens of kernel against
+               plain decoding (Gemma also on the layer route); the served
+               model's exact launches a step (L + 1 #4, L #5, L #3 but
+               under alibi; Gemma's layer route L #12 + 1), per-token
+               median, device ms a step and busy share; then a 2-layer
+               OPT-6.7B-width F16 directory through the CLI (w4 g128
+               act-order --new-eval --save, PPL against the dense twin,
+               a serve with the untied 8-bit head).
 Then one JSON line {"kernels": [...]}, and last {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero, printing no
@@ -209,7 +229,7 @@ from unittest import mock
 import numpy as np
 
 PHASES = ("build", "kernels", "quantize", "serve", "sp", "moe", "cli",
-          "batch")
+          "batch", "families")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
 FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
 BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
@@ -241,7 +261,11 @@ STREAM_DEV_SRC = "gptq_tpu_torch/csrc/layer_stream.cuh"
 # max |logit|: int8 activation ties flip, as in the fused route's logits
 # against gptq_tpu (tests/test_torch_fused_serving.py, a8: 1.6e-2); the
 # logits are bf16 (one ulp ~ 4e-3 of max there). sp_vs_flat shows that a
-# planted fault in the combine reads above it.
+# planted fault in the combine reads above it. It also holds the families'
+# 2-layer kernel decoding against the plain versions (forced_greedy),
+# raised to FLOOR_MARGIN x the floor read in the same run where the plain
+# versions drift further than it from their own f64 twin (OPT-6.7B at a8;
+# scripts/family_drift.py reads the drift, the floor and planted faults).
 TOL = {"qmm_a8": 1e-4, "qmm_a16": 2e-3, "attn": 1e-3, "fused": 3e-3,
        "partial": 1e-3, "logits_a8": 1.6e-2}
 
@@ -629,7 +653,7 @@ def attn_checks(device, peaks, timer, report):
 
 
 def attn_times(gen, device, peaks, timer, S, length, cache="int8", Hkv=32,
-               B=1) -> dict:
+               B=1, H=32, hd=128) -> dict:
     """#3 (one launch of attention_partial.cu's decode mode) held to its
     plain version on the timed inputs (max abs err within TOL["attn"]),
     then timed beside it and SDPA over the same (dequantized, bf16) cache
@@ -641,7 +665,6 @@ def attn_times(gen, device, peaks, timer, S, length, cache="int8", Hkv=32,
 
     from gptq_tpu_torch.ops import attention as A
 
-    H, hd = 32, 128
     G = H // Hkv
     lens = [length] * B if isinstance(length, int) else list(length)
     per_row = not isinstance(length, int)
@@ -704,8 +727,8 @@ def attn_times(gen, device, peaks, timer, S, length, cache="int8", Hkv=32,
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = ops / peaks["f32"] * 1e3
     length = lens if per_row else lens[0]
-    return {"S": S, "length": length, "cache": cache, "Hkv": Hkv, "B": B,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"S": S, "length": length, "cache": cache, "H": H, "Hkv": Hkv,
+            "hd": hd, "B": B, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -977,18 +1000,19 @@ def fused_times(timer, peaks, M, a8, weights, io_bytes, kernel, wrapper,
     return out
 
 
-def residual_check(what, attn, xres, ln, o, gu, dn0, a8) -> float:
+def residual_check(what, attn, xres, ln, o, gu, dn0, a8, **kw) -> float:
     """attn_mlp with down's grid zeroed: the output is the residual r2
     alone, which the main check cannot see where the down phase's output
     dwarfs it. Both sides round r2 to bf16, so an element may land one
     bf16 step (2^-7 of itself) apart, and one near 0 may differ by its f32
     sum's rounding (1e-5 of max|r2| allowed); a residual left out reads
-    1.0 of max|r2|. Returns max|diff| / max|r2|."""
+    1.0 of max|r2|. kw: attn_mlp's other arguments (act, norm, glu, the
+    biases but b_d). Returns max|diff| / max|r2|."""
     from gptq_tpu_torch.ops import ffn as Fz
 
-    got = Fz.attn_mlp_fused(attn, xres, ln, o, gu, dn0, a8=a8).float()
-    want = Fz.attn_mlp_fused_reference(attn, xres, ln, o, gu, dn0,
-                                       a8=a8).float()
+    got = Fz.attn_mlp_fused(attn, xres, ln, o, gu, dn0, a8=a8, **kw).float()
+    want = Fz.attn_mlp_fused_reference(attn, xres, ln, o, gu, dn0, a8=a8,
+                                       **kw).float()
     diff = (got - want).abs()
     bound = 2.0**-7 * want.abs() + 1e-5 * want.abs().max()
     if not bool((diff <= bound).all()):
@@ -1606,7 +1630,7 @@ class Ties:
 
     def __init__(self, flip=frozenset(), record=True):
         self.near, self.flip, self.n, self.record = [], flip, 0, record
-        self.kinds, self.gaps = [], {}
+        self.kinds, self.gaps, self.widths = [], {}, []
         self.stack = contextlib.ExitStack()
 
     def __enter__(self):
@@ -1631,6 +1655,7 @@ class Ties:
         point = self.n
         self.n += 1
         self.kinds.append(kind)
+        self.widths.append((v.numel() // v.shape[-1], v.shape[-1]))
         idx = [e for p, e in self.flip if p == point]
         if not (self.record or idx):
             return r
@@ -1672,62 +1697,98 @@ class Ties:
 
 
 def tie_check(what, got, plain, tol) -> tuple:
-    """got (the kernel's output) within tol of max|plain()|; a larger
-    difference passes only if rounding at most 4 of the plain version's
-    near-tie elements the other way (chosen greedily, one at a time) brings
-    it within tol. The rule of tests/test_torch_ffn.py::_check, with two
-    differences for llama-7B shapes, where a point holds thousands of near
-    ties: the candidates are the 128 nearest, ranked by the gap relative to
-    the element's own value (Ties), and the 32 nearest of each rounding
+    """got (the kernel's output) within tol of max|plain()|, row by row; a
+    row over tol passes only if rounding at most 4 of its own near-tie
+    elements in the plain version the other way (chosen greedily, one at a
+    time) brings it within tol. The rule of tests/test_torch_ffn.py::_check,
+    applied per row as tests/test_torch_ffn_rows.py::_check_rows applies it
+    (a row's output depends on its own inputs only), with two differences
+    for llama-7B shapes, where a point holds thousands of near ties: a
+    row's candidates are its 128 nearest, ranked by the gap relative to
+    the element's own value (Ties), and its 32 nearest of each rounding
     point besides, since one early flip (a bf16 residual element) carries
     through every later point of its row and the later points, wider,
-    would crowd it out of the 128; where a flip was needed, its point,
-    the point's kind and its gap over the row max are logged.
-    Returns (max abs err, rel err, flips needed)."""
+    would crowd it out of the 128. Each greedy round replays the plain
+    version once a candidate rank, every searching row trying its own
+    candidate of that rank. Where a rounding point is not laid out in
+    got's rows, all rows form one group that searches as one row does.
+    Where a flip was needed, its point, the point's kind and its gap over
+    the row max are logged. Returns (max abs err, rel err, flips needed)."""
     import torch
 
     torch.cuda.synchronize()
     got = got.float()
-
-    def rel(want):
-        want = want.float()
-        return float((got - want).abs().max() / want.abs().max())
+    M = got.numel() // got.shape[-1]
+    got2 = got.reshape(M, -1)
 
     with Ties() as ties:
         want = plain().float()
-    err = rel(want)
+    scale = want.abs().max()
+
+    def row_errs(w):
+        return ((got2 - w.float().reshape(M, -1)).abs().amax(-1)
+                / scale).tolist()
+
+    errs = row_errs(want)
     abs_err = float((got - want).abs().max())
-    flips = frozenset()
-    ranked = [k for _, k in sorted(ties.near)]
-    cands, per_point = ranked[:128], {}
-    for k in ranked[128:]:
-        if per_point.setdefault(k[0], 0) < 32:
-            per_point[k[0]] += 1
-            cands.append(k)
-    while not err <= tol and len(flips) < 4:
-        best = None
-        for key in cands:
-            if key in flips:
+    by_row = all(rows == M for rows, _ in ties.widths)
+    groups = [[m] for m in range(M)] if by_row else [list(range(M))]
+
+    def group_of(key):
+        p, e = key
+        return e // ties.widths[p][1] if by_row else 0
+
+    ranked = {}
+    for _, k in sorted(ties.near):
+        ranked.setdefault(group_of(k), []).append(k)
+    cands = {}
+    for g, keys in ranked.items():
+        cands[g], per_point = keys[:128], {}
+        for k in keys[128:]:
+            if per_point.setdefault(k[0], 0) < 32:
+                per_point[k[0]] += 1
+                cands[g].append(k)
+
+    def gerr(g, e):
+        return max(e[m] for m in groups[g])
+
+    err = {g: gerr(g, errs) for g in range(len(groups))}
+    flips = {g: frozenset() for g in err}
+    searching = [g for g in err if not err[g] <= tol and cands.get(g)]
+    rounds = 0
+    while searching and rounds < 4:
+        rounds += 1
+        trial = {g: [k for k in cands[g] if k not in flips[g]]
+                 for g in searching}
+        best = {}
+        for i in range(max(len(t) for t in trial.values())):
+            keys = frozenset().union(*flips.values()).union(
+                t[i] for t in trial.values() if i < len(t))
+            with Ties(keys, record=False):
+                e = row_errs(plain())
+            for g, t in trial.items():
+                if i < len(t) and (g not in best or gerr(g, e) < best[g][0]):
+                    best[g] = (gerr(g, e), t[i])
+        for g in list(searching):
+            if g not in best or best[g][0] >= err[g]:
+                searching.remove(g)
                 continue
-            with Ties(flips | {key}, record=False):
-                e = rel(plain())
-            if best is None or e < best[0]:
-                best = (e, flips | {key})
-        if best is None or best[0] >= err:
-            break
-        err, flips = best
-    if flips:
+            err[g], flips[g] = best[g][0], flips[g] | {best[g][1]}
+            if err[g] <= tol:
+                searching.remove(g)
+    used = sorted(frozenset().union(*flips.values()))
+    if used:
         log(f"{what}: flipped " + ", ".join(
             f"point {p} ({ties.kinds[p]}) element {e}, gap "
-            f"{ties.gaps[p, e]:.3g} of the row max" for p, e in sorted(flips)))
-    if not (math.isfinite(err) and err <= tol):
-        rows = ((got - want).abs().amax(dim=-1) / want.abs().max()).reshape(-1)
-        raise AssertionError(f"{what}: rel err {err:.3g} > {tol} with "
-                             f"{len(flips)} of {len(ties.near)} near-tie "
-                             f"flips; rows over the limit "
-                             f"{(rows > tol).nonzero().reshape(-1).tolist()} "
-                             f"of {rows.numel()}")
-    return abs_err, err, len(flips)
+            f"{ties.gaps[p, e]:.3g} of the row max" for p, e in used))
+    worst = max(err.values())
+    if not (math.isfinite(worst) and worst <= tol):
+        over = [m for g, e in err.items() if not e <= tol
+                for m in groups[g] if not errs[m] <= tol]
+        raise AssertionError(f"{what}: rel err {worst:.3g} > {tol} with "
+                             f"{len(used)} of {len(ties.near)} near-tie "
+                             f"flips; rows over the limit {over} of {M}")
+    return abs_err, worst, len(used)
 
 
 def layer_weights(gen, spec, device, bits=4, groupsize=-1):
@@ -1914,7 +1975,7 @@ def layer_times(timer, peaks, spec, x, cache0, lens, args, kw, flags) -> dict:
         x, kc, vc, lens, *args, a8=True, **kw))
     p = {"ln1": {"w": w1}, "ln2": {"w": w2},
          "qkv_fused": {"w": qkv, "b_parts": [None] * 3, "serve": flags,
-                       "splits": FusedSplits(((H, H), (kvw, kvw),
+                       "splits": FusedSplits(((nh * hd, nh * hd), (kvw, kvw),
                                               (kvw, kvw)))},
          "o": {"w": o, "b": None, "serve": flags},
          "gateup_fused": {"w": gu, "b_parts": [None] * 2, "serve": flags,
@@ -2585,7 +2646,7 @@ def dense_twin(params):
     from gptq_tpu_torch.ops.pack import PackedWeight
 
     return {**params, "layers": [
-        {k: ({"w": dense_weight(v["w"]), "b": None}
+        {k: ({"w": dense_weight(v["w"]), "b": v.get("b")}
              if isinstance(v.get("w"), PackedWeight) else v)
          for k, v in lp.items()} for lp in params["layers"]]}
 
@@ -2619,6 +2680,45 @@ def plain_versions():
              Q.expert_dequant_matmul_reference),
             (moe, "expert_dequant_matmul_select",
              Q.expert_dequant_matmul_select_reference)):
+        stack.enter_context(mock.patch.object(mod, name, fn))
+    return stack
+
+
+def f64_matmuls():
+    """Inside plain_versions(): the plain versions' matmuls in f64 (ops/ffn's
+    phases, dequant_matmul_reference's), each rounded once to f32. A
+    computation as exact as the plain one that differs from it in rounding
+    only: its distance from the plain version is the floor under a
+    kernel-vs-plain reading of the same function."""
+    import torch
+
+    from gptq_tpu_torch.models import common
+    from gptq_tpu_torch.ops import ffn as Fz
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    def phase64(x, pw, a8, bias=None):
+        w = Fz._dequant_stored(pw).double()
+        if a8:
+            xq, sx = Fz.quantize_acts_int8(x)
+            y = torch.matmul(xq.double(), w) * sx.double()
+        else:
+            y = torch.matmul(Fz._bf16(x).double(), w)
+        if bias is not None:
+            y = y + Fz._vec(bias, pw.Np).double()
+        return y.float()
+
+    def matmul64(x, pw, a8=False):
+        x2, sx = Q._prepare(x, pw, a8)
+        y = torch.matmul(x2.double(), Q.dequant(pw).double())
+        if sx is not None:
+            y = y * sx.double()
+        if pw.bias is not None:
+            y = y + pw.bias.double()
+        return y.float().reshape(*x.shape[:-1], pw.N).to(x.dtype)
+
+    stack = contextlib.ExitStack()
+    for mod, name, fn in ((Fz, "_phase", phase64),
+                          (common, "dequant_matmul", matmul64)):
         stack.enter_context(mock.patch.object(mod, name, fn))
     return stack
 
@@ -3218,9 +3318,11 @@ def serve_chained(device, spec, params, dense_head, card, report):
 
 
 def serve_bcq(device, tmp, card, report):
-    """The BCQ route: a 32-layer 3-bit g128 BCQ checkpoint through the CLI;
-    every packed linear launches #13 (the fused kernels take uniform
-    weights only), 128 per step, plus 32 attention launches; its profile,
+    """The BCQ route: an 8-layer 3-bit g128 BCQ checkpoint (llama-7B
+    width; 32 layers until PR 16, cut for the smoke's time limit) through
+    the CLI; every packed linear launches #13 (the fused kernels take
+    uniform weights only), 32 per step, plus 8 attention launches; its
+    profile,
     2-layer greedy tokens against the plain versions, the chained protocol
     and 2-layer generate_chained against generate."""
     import torch
@@ -3228,14 +3330,14 @@ def serve_bcq(device, tmp, card, report):
     from gptq_tpu_torch.engine.decode import DecodeEngine
     from gptq_tpu_torch.io import save_checkpoint
 
-    spec = llama7b_spec(32)
+    spec = llama7b_spec(8)
     L = spec.n_layers
     t0 = time.perf_counter()
     params = synth_packed_params(spec, device, bits=3, groupsize=128, seed=7,
                                  fmt="bcq")
-    path = os.path.join(tmp, "bcq32.npz")
+    path = os.path.join(tmp, f"bcq{L}.npz")
     save_checkpoint(path, spec, params)
-    log(f"serve (BCQ): synthesized + saved a 32-layer 3-bit g128 BCQ "
+    log(f"serve (BCQ): synthesized + saved a {L}-layer 3-bit g128 BCQ "
         f"checkpoint ({os.path.getsize(path) / 2**30:.2f} GiB) in "
         f"{time.perf_counter() - t0:.1f} s")
     n_tok, warmup = 128, 100
@@ -3597,8 +3699,9 @@ def moe_serve(device, tmp, card, peaks, report):
     del params, lp
     torch.cuda.empty_cache()
 
-    # the whole model: 32 layers on the card, no checkpoint on disk
-    spec = mixtral_spec(32)
+    # the whole model on the card, no checkpoint on disk: 16 layers (32
+    # until PR 16, cut for the smoke's time limit)
+    spec = mixtral_spec(16)
     t0 = time.perf_counter()
     params = synth_moe_params(spec, device, seed=5)
     assert quantize_lm_head(spec, params, bits=8)
@@ -3613,7 +3716,7 @@ def moe_serve(device, tmp, card, peaks, report):
     torch.cuda.synchronize()
     counts = launch_counts()
     expect(counts, moe_decode_counts(spec.n_layers, warmup + n_tok),
-           "MoE 32 layers")
+           f"MoE {spec.n_layers} layers")
     nbytes = moe_step_bytes(spec, params, n_tok // 2)
     r32 = {"median_ms": bench["median_s"] * 1e3,
            "tokens_per_s": bench["tokens_per_s"],
@@ -3631,9 +3734,10 @@ def moe_serve(device, tmp, card, peaks, report):
                                        / spec.n_layers)
     r32["profile"] = prof
     r32["prefill"] = moe_prefill_times(eng, spec, device)
-    log("moe prefill (32 layers, Mixtral-8x7B width, w4a8, B=1; #8 on the "
-        "tensor cores) " + json.dumps(r32["prefill"]))
-    log(f"decode moe (32 layers, Mixtral-8x7B width, w4a8 + w8 head + int8 "
+    log(f"moe prefill ({spec.n_layers} layers, Mixtral-8x7B width, w4a8, "
+        f"B=1; #8 on the tensor cores) " + json.dumps(r32["prefill"]))
+    log(f"decode moe ({spec.n_layers} layers, Mixtral-8x7B width, w4a8 + w8 "
+        f"head + int8 "
         f"KV, B=1, in-process benchmark_decode): median "
         f"{r32['median_ms']:.3f} ms/token, {r32['tokens_per_s']:.2f} tok/s "
         f"on {card}; {alloc:.1f} GiB on the card; byte bound "
@@ -3656,7 +3760,7 @@ def moe_serve(device, tmp, card, peaks, report):
 
 def moe_prefill_times(eng, spec, device) -> dict:
     """Seconds of one prefill of T = 16 and 32 tokens on the engine's
-    32-layer MoE model (host clock to a synchronize; the median of 3 after
+    MoE model (host clock to a synchronize; the median of 3 after
     a warm-up), with one prefill's launches: each layer's experts take #8
     on the tensor cores, 3 launches a layer."""
     import torch
@@ -3740,7 +3844,8 @@ def phase_sp(device, card, report):
 
 
 def sp_serve(device, card, report):
-    """The 32-layer llama-7B-width checkpoint of the serve phase through
+    """An 8-layer llama-7B-width model (32 layers until PR 16, cut for the
+    smoke's time limit) through
     SPEngine(sp=1): fused route, a8, the 8-bit head, int8 cache, max_len
     2048 (per-token median, chained benchmark, profile), a 1,024-token
     prompt through the ring prefill and 64 decoded tokens; then 2 layers
@@ -3752,7 +3857,7 @@ def sp_serve(device, card, report):
     from gptq_tpu_torch.engine.serving import SPEngine
     from gptq_tpu_torch.pipeline import quantize_lm_head
 
-    spec = llama7b_spec(32)
+    spec = llama7b_spec(8)
     L = spec.n_layers
     params = synth_packed_params(spec, device, seed=0)
     assert quantize_lm_head(spec, params, bits=8)
@@ -3799,7 +3904,7 @@ def sp_serve(device, card, report):
                      {"mlp_stream_kernel": L, "norm_qkv_gemv_kernel": L + 1},
                      {"partial_wide": L, "norm_qkv": L + 1, "attn_mlp": L})
     c = r["chained"]
-    log(f"sp decode (sp=1, 32 layers, w4a8 + w8 head, int8 KV, max_len "
+    log(f"sp decode (sp=1, {L} layers, w4a8 + w8 head, int8 KV, max_len "
         f"2048, B=1): median {r['median_ms']:.3f} ms/token "
         f"({r['tokens_per_s']:.2f} tok/s), chained "
         f"{c['per_token_s'] * 1e3:.3f} ms/token (full {c['full_run_s']:.4f} "
@@ -3963,11 +4068,8 @@ LLAMA7B_HF = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
 
 def write_hf_llama(path, n_layers, device, seed=0) -> int:
     """An HF llama checkpoint directory at LLaMA-7B width: config.json and
-    one F16 model.safetensors (8-byte header length, JSON header, raw
-    bytes) of seeded random weights, scaled as models.common.init_params
-    scales them, written tensor by tensor. Returns the bytes written."""
-    import torch
-
+    one F16 model.safetensors of seeded random weights (write_hf_dir).
+    Returns the bytes written."""
     cfg = dict(LLAMA7B_HF, num_hidden_layers=n_layers)
     H, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
     shapes = {"model.embed_tokens.weight": (V, H)}
@@ -3982,6 +4084,17 @@ def write_hf_llama(path, n_layers, device, seed=0) -> int:
         shapes[f"{lp}post_attention_layernorm.weight"] = (H,)
     shapes["model.norm.weight"] = (H,)
     shapes["lm_head.weight"] = (V, H)
+    return write_hf_dir(path, cfg, shapes, device, seed)
+
+
+def write_hf_dir(path, cfg, shapes, device, seed) -> int:
+    """config.json (cfg) and one F16 model.safetensors (8-byte header
+    length, JSON header, raw bytes) of seeded random weights of `shapes`,
+    scaled as models.common.init_params scales them (embeddings 0.02,
+    matrices 0.4 / sqrt(in), norm weights 1, biases 0.02), written tensor
+    by tensor. Returns the bytes written."""
+    import torch
+
     header, off = {}, 0
     for name, shape in shapes.items():
         n = 2 * math.prod(shape)
@@ -3998,10 +4111,12 @@ def write_hf_llama(path, n_layers, device, seed=0) -> int:
     with open(os.path.join(path, "model.safetensors"), "wb") as f:
         f.write(len(head).to_bytes(8, "little") + head)
         for name, shape in shapes.items():
-            if len(shape) == 1:
+            if len(shape) == 1 and name.endswith(".bias"):
+                t = torch.randn(shape, generator=gen, device=device) * 0.02
+            elif len(shape) == 1:
                 t = torch.ones(shape, device=device)
             else:
-                scale = (0.02 if name.startswith(("model.embed", "lm_head"))
+                scale = (0.02 if "embed" in name or name.startswith("lm_head")
                          else 0.4 / math.sqrt(shape[1]))
                 t = torch.randn(shape, generator=gen, device=device) * scale
             f.write(t.to(torch.float16).view(torch.int16).cpu().numpy()
@@ -4127,7 +4242,8 @@ def dense_ppl(spec, path, tok, device) -> float:
 
     _, params, _ = load_checkpoint(path, device=device)
     dense = dense_twin(params)
-    if isinstance(params["lm_head"]["w"], PackedWeight):
+    if params["lm_head"] is not None and isinstance(params["lm_head"]["w"],
+                                                    PackedWeight):
         dense["lm_head"] = {"w": dense_weight(params["lm_head"]["w"]),
                             "b": None}
     _, test = get_loaders("wikitext2", seed=0, seqlen=spec.max_pos,
@@ -4624,6 +4740,778 @@ def batch_kernel_times(device, spec, served, peaks, timer) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# families: OPT, BLOOM and Gemma at their published widths
+# ---------------------------------------------------------------------------
+
+# the published config.json values of facebook/opt-6.7b,
+# bigscience/bloom-7b1 and google/gemma-7b, and the depth each is served
+# at here (BLOOM and Gemma cut to 8 layers; PERF.md section 4)
+FAMILY_HF = {
+    "opt-6.7b": {"model_type": "opt", "num_hidden_layers": 32,
+                 "hidden_size": 4096, "num_attention_heads": 32,
+                 "ffn_dim": 16384, "vocab_size": 50272,
+                 "max_position_embeddings": 2048, "word_embed_proj_dim": 4096,
+                 "do_layer_norm_before": True, "activation_function": "relu",
+                 "enable_bias": True, "torch_dtype": "float16"},
+    "bloom-7b1": {"model_type": "bloom", "n_layer": 30, "hidden_size": 4096,
+                  "n_head": 32, "vocab_size": 250880,
+                  "layer_norm_epsilon": 1e-5, "torch_dtype": "float16"},
+    "gemma-7b": {"model_type": "gemma", "num_hidden_layers": 28,
+                 "hidden_size": 3072, "num_attention_heads": 16,
+                 "num_key_value_heads": 16, "head_dim": 256,
+                 "intermediate_size": 24576, "vocab_size": 256000,
+                 "max_position_embeddings": 8192, "rms_norm_eps": 1e-6,
+                 "rope_theta": 10000.0,
+                 "hidden_activation": "gelu_pytorch_tanh",
+                 "torch_dtype": "bfloat16"},
+}
+FAMILY_LAYERS = {"opt-6.7b": 32, "bloom-7b1": 8, "gemma-7b": 8}
+
+
+def family_spec(model, n_layers):
+    """The port's spec of a published config (registry.spec_from_hf_config)
+    at n_layers."""
+    from types import SimpleNamespace
+
+    from gptq_tpu_torch.models.registry import spec_from_hf_config
+
+    cfg = dict(FAMILY_HF[model])
+    cfg["n_layer" if cfg["model_type"] == "bloom"
+        else "num_hidden_layers"] = n_layers
+    return spec_from_hf_config(SimpleNamespace(**cfg))
+
+
+def synth_family_params(spec, device, seed=0):
+    """Seeded random params of an OPT / BLOOM / Gemma spec in the serving
+    format: every block linear a random 4-bit g-1 packed weight
+    (packed_linear, its grids scaled so that the weights' rms is init_params'
+    0.4 / sqrt(K): packed_linear's rms of ~0.05 makes q . k scores of
+    ~10 sigma, a near one-hot softmax in which a cache row's int8 tie
+    moves a decode step's logits by percents; its zero points at the
+    uniform codes' mean 7.5, so that each column's weights average zero,
+    as trained weights do: packed_linear's zero point of 8 sets every
+    weight half a step below zero on average, and after relu's positive
+    mean an fc2 output is mostly one component common to the whole row,
+    ~8x its varying part, which OPT's residual, with no embedding
+    layernorm, carries into every layernorm to be subtracted, so that one
+    bf16 ulp of the residual moved the 2-layer logits by percents:
+    scripts/family_drift.py reads both) with the family's bf16
+    biases, bf16 norms (layernorm
+    weights near 1 with biases; Gemma's rmsnorm1p weights near 0), a bf16
+    embedding (OPT: and its learned positions; BLOOM: its layernorm) and
+    the head tied to it, as all three have it (phase_families packs it to
+    8 bits with quantize_lm_head, as the CLI does)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h, f, V = spec.hidden, spec.ffn, spec.vocab
+    qd, kvd = spec.n_heads * spec.hd, spec.kv_heads * spec.hd
+
+    def vec(n, base=0.0, scale=0.02):
+        return (torch.randn(n, generator=gen, device=device) * scale
+                + base).to(torch.bfloat16)
+
+    def lin(K, N):
+        pw = packed_linear(gen, K, N, 4, -1, device)
+        f = 0.4 / math.sqrt(K) / 0.051  # packed_linear's rms: 0.011 x 4.64
+        return {"w": dataclasses.replace(pw, scale=pw.scale * f,
+                                         zoff=pw.scale * f * 7.5),
+                "b": vec(N) if spec.linear_bias else None}
+
+    def norm():
+        if spec.norm_type == "layernorm":
+            return {"w": vec(h, 1.0, 0.05), "b": vec(h)}
+        return {"w": vec(h, 0.0, 0.05)}  # rmsnorm1p scales by 1 + w
+
+    layers = []
+    for _ in range(spec.n_layers):
+        lp = {"ln1": norm(), "ln2": norm(), "o": lin(qd, h)}
+        if spec.arch == "bloom":
+            lp["qkv"] = lin(h, 3 * h)
+        else:
+            lp.update(q=lin(h, qd), k=lin(h, kvd), v=lin(h, kvd))
+        if spec.arch == "gemma":
+            lp.update(gate=lin(h, f), up=lin(h, f), down=lin(f, h))
+        else:
+            lp.update(fc1=lin(h, f), fc2=lin(f, h))
+        layers.append(lp)
+    emb = (torch.randn((V, h), generator=gen, device=device)
+           * 0.02).to(torch.bfloat16)
+    embed = {"tokens": emb}
+    if spec.arch == "opt":
+        embed.update(positions=(torch.randn((spec.max_pos + 2, h),
+                                            generator=gen, device=device)
+                                * 0.02).to(torch.bfloat16),
+                     project_in=None, project_out=None)
+    elif spec.arch == "bloom":
+        embed["ln"] = norm()
+    return {"embed": embed, "layers": layers, "final_ln": norm(),
+            "lm_head": None}
+
+
+def family_kernel_rows(model, spec, served, device, peaks, timer,
+                       seed=17) -> list:
+    """The family's branches of #4 (ln1 + q|k|v: OPT three biased parts,
+    BLOOM one fused biased linear, Gemma rmsnorm1p; final_ln + the 8-bit
+    head), #5 (o + ln2 + the MLP: OPT fc1 -> relu -> fc2, BLOOM gelu_tanh,
+    both with o / fc1 / fc2 biases; Gemma GLU gelu_tanh at 24,576) and,
+    for Gemma, #6 (gate|up + act + down), on the served layer 0 at M = 1
+    (the weight streams) and M = 32 (the rows kernels), a8 as served:
+    each held to its plain version with the near-tie rule (tie_check;
+    #5's residual on its own, residual_check), then timed beside the plain
+    version, the unfused route, torch.matmul over the dequantized bf16
+    weights (#5: the three products) and the bound."""
+    import torch
+
+    from gptq_tpu_torch.models import common
+    from gptq_tpu_torch.ops import ffn as Fz
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    lp = served["layers"][0]
+    h, eps, nt = spec.hidden, float(spec.norm_eps), spec.norm_type
+    bloom = spec.arch == "bloom"
+    qkv_e = lp["qkv"] if bloom else lp["qkv_fused"]
+    b_qkv = qkv_e["b"] if bloom else common._qkv_fused_bias(qkv_e)
+    g_e, d_e, glu = common._mlp_entries(spec, lp)
+    o, gu, dn = lp["o"]["w"], g_e["w"], d_e["w"]
+    mlp_kw = dict(act=spec.act, norm=nt, eps=eps, glu=glu,
+                  b_ln=lp["ln2"].get("b"), b_o=lp["o"].get("b"),
+                  b_g=None if glu else g_e.get("b"),
+                  b_d=None if glu else d_e.get("b"))
+    ln2 = lp["ln2"]["w"]
+    dq = {}
+
+    def dense(pw):  # the dequantized bf16 (K, N) weight, made once
+        if id(pw) not in dq:
+            dq[id(pw)] = dense_weight(pw).T.to(torch.bfloat16).contiguous()
+        return dq[id(pw)]
+
+    rows = []
+
+    def norm_qkv_row(tag, ln, pw, b, M):
+        x = torch.randn((M, h), generator=gen, device=device)
+        xb = x.to(torch.bfloat16)
+        x2 = xb.float()
+        kw = dict(norm=nt, eps=eps, a8=True, b_ln=ln.get("b"), b_qkv=b)
+        route = Fz.norm_qkv_route(M, pw, True)
+        if route != ("stream" if M == 1 else "rows"):
+            raise AssertionError(f"{model} norm_qkv {tag} M={M}: route "
+                                 f"{route}")
+        plain = functools.partial(Fz.norm_qkv_fused_reference, x, ln["w"],
+                                  pw, **kw)
+        err, rel, flips = tie_check(f"{model} norm_qkv {tag} M={M}",
+                                    Fz.norm_qkv_fused(x, ln["w"], pw, **kw),
+                                    plain, TOL["fused"])
+        unfused_p = (lp if tag == "q|k|v" else
+                     {"embed": {}, "final_ln": served["final_ln"],
+                      "lm_head": served["lm_head"]})
+
+        def unfused():
+            if tag == "q|k|v":
+                return common._qkv(spec, unfused_p, common.norm_apply(
+                    spec, ln, xb.reshape(1, M, h)), None)
+            return common.head_forward(spec, unfused_p, xb.reshape(1, M, h))
+
+        row = {"model": model, "kernel": "norm_qkv", "w": tag, "M": M,
+               "route": route, "max_abs_err": err, "rel_err": rel,
+               "flips": flips, "N": pw.N, "Np": pw.Np, "K": pw.Kp}
+        row.update(fused_times(
+            timer, peaks, M, True, [pw], M * h * 2 + 2 * h * 4 + M * pw.Np * 4,
+            kernel=lambda: Fz._norm_qkv_cuda(x2, ln["w"], pw, nt, eps, True,
+                                             ln.get("b"), b),
+            wrapper=lambda: Fz.norm_qkv_fused(xb, ln["w"], pw, **kw),
+            plain=lambda: Fz.norm_qkv_fused_reference(xb, ln["w"], pw, **kw),
+            unfused=unfused))
+        w = dense(pw)
+        row["library_ms"] = timer(lambda: torch.matmul(xb, w))
+        log(f"families {model} " + json.dumps(row))
+        rows.append(row)
+
+    def mlp_rows(M):
+        attn = torch.randn((M, o.Kp), generator=gen, device=device)
+        xres = torch.randn((M, h), generator=gen,
+                           device=device).to(torch.bfloat16)
+        route = Fz.mlp_route(M, o, gu, dn, True)
+        if route != ("stream" if M == 1 else "rows"):
+            raise AssertionError(f"{model} attn_mlp M={M}: route {route}")
+        err, rel, flips = tie_check(
+            f"{model} attn_mlp M={M}",
+            Fz.attn_mlp_fused(attn, xres, ln2, o, gu, dn, a8=True, **mlp_kw),
+            functools.partial(Fz.attn_mlp_fused_reference, attn, xres, ln2,
+                              o, gu, dn, a8=True, **mlp_kw), TOL["fused"])
+        dn0 = dataclasses.replace(dn, scale=torch.zeros_like(dn.scale),
+                                  zoff=torch.zeros_like(dn.zoff))
+        r2 = residual_check(f"{model} attn_mlp M={M}", attn, xres, ln2, o, gu,
+                            dn0, True, **{k: v for k, v in mlp_kw.items()
+                                          if k != "b_d"})
+        x2 = xres.float()
+        a3, r3 = attn.reshape(1, M, -1), xres.reshape(1, M, h)
+        F = dn.Kp
+        wo, wg, wd = dense(o), dense(gu), dense(dn)
+        ab = attn.to(torch.bfloat16)
+
+        def library():
+            g = torch.matmul(torch.matmul(ab, wo), wg)
+            return torch.matmul(g[:, :F], wd)
+
+        row = {"model": model, "kernel": "attn_mlp", "w": "w4g-1", "M": M,
+               "route": route, "glu": glu, "act": spec.act,
+               "max_abs_err": err, "rel_err": rel, "flips": flips,
+               "r2_rel_err": r2}
+        row.update(fused_times(
+            timer, peaks, M, True, [o, gu, dn],
+            M * o.Kp * 4 + M * h * 2 + 2 * h * 4 + M * h * 4,
+            kernel=lambda: Fz._mlp_cuda(
+                attn, x2, ln2, o, gu, dn, spec.act, nt, eps, glu, True,
+                mlp_kw["b_ln"], mlp_kw["b_o"], mlp_kw["b_g"], mlp_kw["b_d"]),
+            wrapper=lambda: Fz.attn_mlp_fused(attn, xres, ln2, o, gu, dn,
+                                              a8=True, **mlp_kw),
+            plain=lambda: Fz.attn_mlp_fused_reference(
+                attn, xres, ln2, o, gu, dn, a8=True, **mlp_kw),
+            unfused=lambda: common._finish_block(spec, lp, r3, a3, None,
+                                                 None)))
+        row["library_ms"] = timer(library)
+        log(f"families {model} " + json.dumps(row))
+        rows.append(row)
+        if not glu:
+            return
+        m = torch.randn((M, h), generator=gen, device=device)
+        err, rel, flips = tie_check(
+            f"{model} ffn M={M}", Fz.ffn_fused(m, gu, dn, act=spec.act,
+                                               a8=True),
+            functools.partial(Fz.ffn_fused_reference, m, gu, dn,
+                              act=spec.act, a8=True), TOL["fused"])
+        mb = m.to(torch.bfloat16)
+        row = {"model": model, "kernel": "ffn", "w": "w4g-1", "M": M,
+               "route": Fz.mlp_route(M, None, gu, dn, True), "glu": glu,
+               "act": spec.act, "max_abs_err": err, "rel_err": rel,
+               "flips": flips}
+
+        def unfused_ffn():
+            g, u = common._apply_fused(lp["gateup_fused"], m)
+            return common.linear_apply(lp["down"],
+                                       common.activation(spec, g) * u)
+
+        row.update(fused_times(
+            timer, peaks, M, True, [gu, dn], M * h * 4 * 2,
+            kernel=lambda: Fz._mlp_cuda(m, None, None, None, gu, dn, spec.act,
+                                        nt, 0.0, True, True, None, None, None,
+                                        None),
+            wrapper=lambda: Fz.ffn_fused(m, gu, dn, act=spec.act, a8=True),
+            plain=lambda: Fz.ffn_fused_reference(m, gu, dn, act=spec.act,
+                                                 a8=True),
+            unfused=unfused_ffn))
+        row["library_ms"] = timer(lambda: torch.matmul(
+            torch.matmul(mb, wg)[:, :F], wd))
+        log(f"families {model} " + json.dumps(row))
+        rows.append(row)
+
+    for M in (1, 32):
+        norm_qkv_row("q|k|v", lp["ln1"], qkv_e["w"], b_qkv, M)
+        norm_qkv_row("head", served["final_ln"], served["lm_head"]["w"],
+                     None, M)
+        mlp_rows(M)
+    dq.clear()
+    return rows
+
+
+def gemma_layer_rows(model, spec, served, device, peaks, timer,
+                     seed=19) -> list:
+    """#12 at Gemma-7B's layer (rmsnorm1p, gelu_tanh, hd 256, H hd = 4,096
+    != hidden 3,072) on the served layer 0, a8 and a16, over a bf16 cache
+    of 256 slots with 128 filled: held to its plain version with the
+    near-tie rule, the written k / v rows bit for bit against the
+    kernel's own roped q|k|v row, two launches bit for bit; a8 timed (
+    layer_times: the plain version, the fused route over the same layer,
+    the bound); and #3 at Gemma's heads (H = Hkv = 16, hd 256) on int8 and
+    bf16 caches, one row and 32 (attn_times: the plain version, SDPA)."""
+    import torch
+
+    from gptq_tpu_torch.models import common
+    from gptq_tpu_torch.models.common import ServeFlags
+    from gptq_tpu_torch.ops import layer_fused as LF
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    lp = served["layers"][0]
+    H, nh, Hkv, hd = spec.hidden, spec.n_heads, spec.kv_heads, spec.hd
+    qd, kvw = nh * hd, Hkv * hd
+    ws = (lp["qkv_fused"]["w"], lp["o"]["w"], lp["gateup_fused"]["w"],
+          lp["down"]["w"])
+    if not LF.layer_fusable(ws[0], lp["qkv_fused"]["splits"], *ws[1:], H,
+                            nh, Hkv, head_dim=hd):
+        raise AssertionError(f"{model}: layer_fusable refuses the layer")
+    w1, w2 = lp["ln1"]["w"], lp["ln2"]["w"]
+    kw = dict(n_heads=nh, n_kv_heads=Hkv, head_dim=hd, layer=1, act=spec.act,
+              norm=spec.norm_type, eps=float(spec.norm_eps),
+              sm_scale=float(spec.scale))
+    rows = []
+    S, length = 256, 128
+    for a8 in (True, False):
+        x = torch.randn((1, 1, H), generator=gen, device=device)
+        cache0 = [torch.randn((2, 1, S, Hkv, hd), generator=gen,
+                              device=device).to(torch.bfloat16)
+                  for _ in range(2)]
+        lens = torch.tensor(length, dtype=torch.int32, device=device)
+        cos, sin = common.rope_tables(spec, lens.reshape(1, 1))
+        args = (cos, sin, w1, w2, *ws)
+        what = f"{model} layer a8={a8}"
+        kern = [c.clone() for c in cache0]
+        got = LF.decode_layer_fused(x, *kern, lens, *args, a8=a8, **kw)
+        plain = [c.clone() for c in cache0]
+        err, rel, flips = tie_check(what, got, lambda: LF.decode_layer_fused_reference(
+            x, *plain, lens, *args, a8=a8, **kw), TOL["fused"])
+        own = [c.clone() for c in cache0]
+        y2, scratch = LF._layer_cuda(x, *own, lens, *args, nh, Hkv, hd,
+                                     spec.act, spec.norm_type,
+                                     float(spec.norm_eps), float(spec.scale),
+                                     a8, 1)
+        torch.cuda.synchronize()
+        row_qkv = scratch["qkv"]
+        fresh = [LF.rope_rows(row_qkv[qd:qd + kvw].reshape(Hkv, hd),
+                              cos.reshape(-1), sin.reshape(-1))
+                 .to(torch.bfloat16),
+                 row_qkv[qd + kvw:qd + 2 * kvw].reshape(Hkv, hd)
+                 .to(torch.bfloat16)]
+        for c_k, c_o, f in zip(kern, own, fresh):
+            if not (torch.equal(c_k, c_o) and torch.equal(c_k[1, 0, length],
+                                                          f)):
+                raise AssertionError(f"{what}: the cache write is not the "
+                                     f"kernel's roped fresh row")
+        if not torch.equal(got, y2):
+            raise AssertionError(f"{what}: two launches differ")
+        row = {"model": model, "kernel": "layer", "S": S, "filled": length,
+               "a8": a8, "cache": "bfloat16", "max_abs_err": err,
+               "rel_err": rel, "flips": flips}
+        if a8:
+            row.update(layer_times(timer, peaks, spec, x, cache0, lens, args,
+                                   kw, ServeFlags(a8=True)))
+        log(f"families {model} " + json.dumps(row))
+        rows.append(row)
+    if not LF.sync_clean(device):
+        raise AssertionError(f"{model}: #12 left barrier or ticket words set")
+    for cache in ("int8", "bf16"):
+        for B in (1, 32):
+            r = attn_times(gen, device, peaks, timer, S, length, cache=cache,
+                           Hkv=Hkv, B=B, H=nh, hd=hd)
+            r.update(model=model, kernel="attention")
+            log(f"families {model} " + json.dumps(r))
+            rows.append(r)
+    return rows
+
+
+def family_decode_counts(spec, layer=False) -> dict:
+    """A decode step's launches on the served route: ln1 + q|k|v and the
+    head (#4), the post-attention half (#5), the attention (#3; alibi takes
+    the plain attention, as in the JAX package); on the layer route L #12
+    and the head."""
+    L = spec.n_layers
+    if layer:
+        return {"layer": L, "norm_qkv": 1}
+    counts = {"norm_qkv": L + 1, "attn_mlp": L}
+    if spec.pos != "alibi":
+        counts["attention"] = L
+    return counts
+
+
+@contextlib.contextmanager
+def head_launches():
+    """Counts the kernel launches made inside the model's head
+    (models/common.head_forward) apart: yields a dict that holds, once the
+    block ends, each wrapper's launches made there."""
+    from gptq_tpu_torch.models import common
+
+    seen, real = {}, common.head_forward
+
+    def head(*args, **kw):
+        before = launch_counts()
+        try:
+            return real(*args, **kw)
+        finally:
+            for k, v in launch_counts().items():
+                if v != before[k]:
+                    seen[k] = seen.get(k, 0) + v - before[k]
+
+    with mock.patch.object(common, "head_forward", head):
+        yield seen
+    for k in launch_counts():
+        seen.setdefault(k, 0)
+
+
+def family_serve(model, spec, params, device, card) -> dict:
+    """The family's served model (w4a8 g-1, an 8-bit head, an int8 cache;
+    Gemma also the layer route on a bf16 cache) through DecodeEngine:
+    `steps` eager decode steps with the counters set to 0 just before and
+    read just after (exact counts a step, the main path's launches);
+    the per-token median (engine.decode.benchmark_decode); a profile's
+    device ms a step, busy share and kernels by name."""
+    import torch
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine, benchmark_decode
+
+    out = {}
+    rng = np.random.default_rng(23)
+    routes = [("fused", torch.int8, "off")]
+    if spec.pos == "rope" and spec.arch == "gemma":
+        routes.append(("layer", torch.bfloat16, "on"))
+    for route, cdt, layer in routes:
+        with env_var("GPTQ_TPU_LAYER_FUSION", layer):
+            eng = DecodeEngine(spec, params, max_len=256, batch=1,
+                               cache_dtype=cdt, a8=True)
+            logits, cache = eng.prefill(torch.as_tensor(
+                rng.integers(0, spec.vocab, size=(1, 16)), device=device))
+            tok = logits.argmax(-1)[:, None]
+            steps = 16
+            torch.cuda.synchronize()
+            with head_launches() as head:
+                reset_counts()
+                for _ in range(steps):
+                    logits, cache = eng.step(cache, tok)
+                    tok = logits.argmax(-1)[:, None]
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            want = {k: v * steps for k, v in family_decode_counts(
+                spec, route == "layer").items()}
+            expect(counts, want, f"{model} {route} decode")
+            # #4's launches by caller: the head's apart from q|k|v's
+            counts["norm_qkv"] -= head["norm_qkv"]
+            counts["norm_qkv_head"] = head["norm_qkv"]
+            if head["norm_qkv"] != steps:
+                raise AssertionError(f"{model} {route} decode: the head "
+                                     f"launched #4 {head['norm_qkv']} times "
+                                     f"in {steps} steps")
+            lg = logits.float()
+            if not bool(torch.isfinite(lg).all()) or lg.shape != (
+                    1, spec.vocab):
+                raise AssertionError(f"{model} {route}: logits of shape "
+                                     f"{tuple(lg.shape)}, finite "
+                                     f"{bool(torch.isfinite(lg).all())}")
+            bench = benchmark_decode(spec, eng.params, rng.integers(
+                0, spec.vocab, size=(1, 64)), warmup=8, log=lambda s: None,
+                cache_dtype=cdt)
+            prof = profile_decode(eng, rng.integers(0, spec.vocab,
+                                                    size=(1, 64)))
+        med = bench["median_s"] * 1e3
+        if prof["device_ms"] > 0:
+            prof["device_busy_share"] = prof["device_ms"] / med
+        by_name = ({"norm_qkv_gemv_kernel": 1} if route == "layer" else
+                   {"norm_qkv_gemv_kernel": spec.n_layers + 1,
+                    "mlp_stream_kernel": spec.n_layers})
+        single_row_check(f"{model} {route} decode profile", prof, by_name,
+                         family_decode_counts(spec, route == "layer"))
+        r = {"route": route, "cache": str(cdt).replace("torch.", ""),
+             "layers": spec.n_layers, "median_ms": med,
+             "tokens_per_s": bench["tokens_per_s"],
+             "p90_ms": bench["p90_s"] * 1e3, "launches": counts,
+             "launches_per_step": family_decode_counts(spec,
+                                                       route == "layer"),
+             "steps": steps, "device_ms": prof["device_ms"],
+             "device_busy_share": prof.get("device_busy_share"),
+             "device_ms_by_family": prof["device_ms_by_family"],
+             "kernels_per_step": prof["kernels_per_step"]}
+        log(f"families {model} decode {route} ({spec.n_layers} layers, "
+            f"{r['cache']} KV): median {med:.3f} ms/token, device "
+            f"{prof['device_ms']:.3f} ms a step, busy share "
+            f"{r['device_busy_share']} on {card}; " + json.dumps(r))
+        out[route] = r
+        del eng
+    return out
+
+
+def logit_drift(ref, got):
+    """Each step's max |got - ref| over max |ref| (forced_agree's measure)
+    of two teacher-forced logit stacks."""
+    return ((got - ref).abs().amax(-1) / ref.abs().amax(-1)).tolist()
+
+
+# a kernel-vs-plain logit reading may lie this far above the floor, the
+# plain version's own distance from its f64 twin (forced_greedy)
+FLOOR_MARGIN = 1.5
+
+
+def forced_greedy(what, eng, prompt, n_new, want, tol) -> dict:
+    """Greedy tokens of kernel decoding (its launches exactly `want`) held
+    to the plain versions' (which launch nothing) by forced_agree: both
+    teacher-forced on the kernel's tokens, their logits within the limit
+    of max |logit| at every step, and where either side's top token is not
+    the kernel's, only at a near tie of both sides' logits. The limit is
+    tol, or FLOOR_MARGIN times the floor where that is larger: the floor
+    is how far the plain versions' logits move when their matmuls run in
+    f64 (f64_matmuls), which no route computed in f32 can be held below
+    (on the families' 2-layer OPT-6.7B at a8 it reads above
+    TOL["logits_a8"]: scripts/family_drift.py)."""
+    import torch
+
+    _drop_graphs(eng)
+    reset_counts()
+    toks = eng.generate(prompt, n_new)
+    torch.cuda.synchronize()
+    expect(launch_counts(), want, what)
+    t = [toks[0].tolist()]
+    kern = engine_forced_logits(eng, [prompt[0]], t)
+    with plain_decoding(eng):
+        reset_counts()
+        plain = engine_forced_logits(eng, [prompt[0]], t)
+        plain_toks = eng.generate(prompt, n_new)[0].tolist()
+        with f64_matmuls():
+            plain64 = engine_forced_logits(eng, [prompt[0]], t)
+        expect(launch_counts(), {}, f"{what}: plain decoding")
+    floor = max(logit_drift(plain[0], plain64[0]))
+    limit = max(tol, FLOOR_MARGIN * floor)
+    seen = forced_agree(what, t, plain, kern, limit)
+    n_eq = sum(a == b for a, b in zip(t[0], plain_toks))
+    log(f"{what}: greedy tokens, kernels {t[0]} vs plain {plain_toks} "
+        f"({n_eq} of {n_new} equal); teacher-forced on the kernel tokens, "
+        f"{len(seen['parted'])} of {seen['positions']} positions part at a "
+        f"near tie, logits within {seen['max_rel']:.4g} of max |logit| "
+        f"(limit {limit:.4g}: the larger of {tol} and {FLOOR_MARGIN} x the "
+        f"floor {floor:.4g}, the plain versions in f32 against f64)")
+    return {"tokens": t[0], "plain_tokens": plain_toks, "equal": n_eq,
+            "parted": len(seen["parted"]), "max_rel": seen["max_rel"],
+            "floor": floor, "limit": limit,
+            "worst_gap_share": seen["worst_gap_share"]}
+
+
+def family_greedy(model, spec, params, device) -> dict:
+    """2-layer cut of the served model (w4a8 g-1, bf16 activations, the
+    8-bit head, an int8 cache): kernel decoding against plain decoding
+    (forced_greedy: TOL["logits_a8"], or FLOOR_MARGIN x the floor read in
+    the run where that is larger) with exact launches (a 64-token
+    prompt on the unfused route: each layer's four linears and the head
+    on the tensor cores; 16 steps fused), and generate_chained's tokens
+    (CUDA graphs) equal to generate's; Gemma also on the layer route over
+    a bf16 cache."""
+    import torch
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.ops.pack import PackedWeight
+
+    small = dataclasses.replace(spec, n_layers=2)
+    p2 = {**params, "layers": params["layers"][:2]}
+    assert isinstance(p2["lm_head"]["w"], PackedWeight)
+    prompt = np.random.default_rng(29).integers(0, spec.vocab, size=(1, 64))
+    n_new, out = 16, {}
+    eng = DecodeEngine(small, p2, max_len=128, batch=1,
+                       cache_dtype=torch.int8, a8=True)
+    per_step = family_decode_counts(small)
+    # q|k|v (BLOOM's own, fuse_serving's), o, fc1 / gate|up, fc2 / down
+    prefill = {"qmm_mma": 4 * 2 + 1}
+    want = {k: v * n_new for k, v in per_step.items()}
+    for k, v in prefill.items():
+        want[k] = want.get(k, 0) + v
+    out["fused"] = forced_greedy(f"{model} 2-layer decoding (fused, int8 KV)",
+                                 eng, prompt, n_new, want,
+                                 TOL["logits_a8"])
+    # the chained decode (one CUDA graph a chunk: learned positions and
+    # alibi read the device length) gives generate's tokens
+    chained = eng.generate_chained(prompt, n_new, chunk=8)[0].tolist()
+    if chained != out["fused"]["tokens"]:
+        raise AssertionError(f"{model}: generate_chained parts from "
+                             f"generate: {chained} vs "
+                             f"{out['fused']['tokens']}")
+    if spec.arch == "gemma":
+        engb = DecodeEngine(small, p2, max_len=128, batch=1,
+                            cache_dtype=torch.bfloat16, a8=True)
+        wl = {"layer": 2 * n_new, "norm_qkv": n_new, **prefill}
+        with env_var("GPTQ_TPU_LAYER_FUSION", "on"):
+            out["layer"] = forced_greedy(
+                f"{model} 2-layer decoding (layer route, bf16 KV)", engb,
+                prompt, n_new, wl, TOL["logits_a8"])
+    return out
+
+
+def write_hf_opt(path, n_layers, device, seed=0) -> int:
+    """An HF OPT checkpoint directory at OPT-6.7B width (its published
+    config.json at n_layers): one F16 model.safetensors of seeded random
+    weights and biases (write_hf_dir), learned positions of 2,050 rows and
+    no lm_head.weight (OPT ties its head to the embedding). Returns the
+    bytes written."""
+    cfg = dict(FAMILY_HF["opt-6.7b"], num_hidden_layers=n_layers,
+               architectures=["OPTForCausalLM"])
+    H, F, V = cfg["hidden_size"], cfg["ffn_dim"], cfg["vocab_size"]
+    pre = "model.decoder."
+    shapes = {pre + "embed_tokens.weight": (V, H),
+              pre + "embed_positions.weight": (
+                  cfg["max_position_embeddings"] + 2, H)}
+
+    def linear(name, n_out, n_in):
+        shapes[name + ".weight"] = (n_out, n_in)
+        shapes[name + ".bias"] = (n_out,)
+
+    for i in range(n_layers):
+        lp = f"{pre}layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(f"{lp}self_attn.{name}", H, H)
+        linear(lp + "fc1", F, H)
+        linear(lp + "fc2", H, F)
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            shapes[f"{lp}{ln}.weight"] = shapes[f"{lp}{ln}.bias"] = (H,)
+    shapes[pre + "final_layer_norm.weight"] = (H,)
+    shapes[pre + "final_layer_norm.bias"] = (H,)
+    return write_hf_dir(path, cfg, shapes, device, seed)
+
+
+def family_cli(device, tmp) -> dict:
+    """One OPT path through gptq_tpu_torch.cli: a 2-layer OPT-6.7B-width F16
+    directory written here, the tokenizer and `datasets` stood in as in the
+    cli phase (offline_data): w4 g128 act-order true-sequential, --new-eval,
+    --save (its PPL evals: 2,048-row windows, each layer's six linears on
+    the tensor cores, the tied head dense), the saved file's wikitext2 PPL
+    against its dense twin; then the saved file served through the CLI
+    (--faster-kernel --int8_kv --quant_lm_head 8: act-order weights keep
+    the unfused route, four #1 a layer a step; the head, untied and packed
+    to 8 bits, on #4)."""
+    from gptq_tpu_torch.models.convert import hf_config
+    from gptq_tpu_torch.models.registry import spec_from_hf_config
+
+    L = 2
+    hf = os.path.join(tmp, "opt-6.7b-2l")
+    t0 = time.perf_counter()
+    nbytes = write_hf_opt(hf, L, device, seed=31)
+    spec = spec_from_hf_config(hf_config(hf))
+    log(f"families cli: wrote a {L}-layer OPT-6.7B-width HF directory (F16 "
+        f"safetensors, {nbytes / 2**30:.2f} GiB) in "
+        f"{time.perf_counter() - t0:.1f} s; tokenizer and datasets stood in")
+    path = os.path.join(tmp, "opt_w4.npz")
+    with offline_data(spec.vocab) as tok:
+        out = cli_quantize(
+            "opt w4", [hf, "c4", "--wbits", "4", "--groupsize", "128",
+                       "--act-order", "--true-sequential", "--nsamples", "8",
+                       "--new-eval", "--save", path, "--results_log",
+                       os.path.join(tmp, "opt_ppl.txt")],
+            lambda w: {"qmm_mma": w * 6 * L})
+        ppl = out["ppl"]["wikitext2"]
+        ref = dense_ppl(spec, path, tok, device)
+    rel = abs(ppl / ref - 1.0)
+    log(f"families cli opt w4: wikitext2 PPL packed {ppl:.4f} vs "
+        f"dense-dequantized {ref:.4f}: rel diff {rel:.2e}")
+    if not rel < 0.005:
+        raise AssertionError(f"families cli: packed vs dense PPL differ by "
+                             f"{rel:.3g}")
+    out["ppl_dense"] = ref
+    n_tok, steps = 32, 100 + 32
+    bench, counts, printed = serve_cli(
+        path, n_tok, ["--faster-kernel", "--int8_kv", "--quant_lm_head", "8"],
+        "auto")
+    assert "lm_head quantized to 8 bits" in printed
+    expect(counts, {"qmm": 4 * L * steps, "norm_qkv": steps,
+                    "attention": L * steps}, "families cli serve")
+    out["serve"] = {"median_ms": bench["median_s"] * 1e3,
+                    "tokens_per_s": bench["tokens_per_s"], "launches": counts}
+    os.remove(path)
+    shutil.rmtree(hf, ignore_errors=True)
+    return out
+
+
+# the families' kernel branches in the kernels line: (row kernel, the
+# entry's name, its source, the TPU kernel it replaces, its device code)
+FAMILY_KERNELS = {
+    "norm_qkv": ("norm_qkv", FFN_SRC, "gptq_tpu/ops/ffn.py:483", GEMV_SRC),
+    "attn_mlp": ("attn_mlp", FFN_SRC, "gptq_tpu/ops/ffn.py:383",
+                 STREAM_DEV_SRC),
+    "ffn": ("ffn", FFN_SRC, "gptq_tpu/ops/ffn.py:312", STREAM_DEV_SRC),
+    "layer": ("layer_fused", LAYER_SRC, "gptq_tpu/ops/layer_fused.py:97",
+              STREAM_DEV_SRC),
+    "attention": ("decode_attention", PARTIAL_SRC,
+                  "gptq_tpu/ops/attention.py:253", PARTIAL_SRC),
+}
+BRANCH = {"opt-6.7b": "layernorm + biases, relu, no GLU",
+          "bloom-7b1": "layernorm + biases, gelu_tanh, no GLU, fused q|k|v",
+          "gemma-7b": "rmsnorm1p, gelu_tanh GLU, hd 256"}
+
+
+CACHE_OF = {"int8": "int8", "bf16": "bfloat16"}
+
+
+def family_entries(fam) -> list:
+    """The kernels line's entries of the families phase: one per family and
+    branch, its M = 1 (#3: B = 1) readings, the M = 32 (B = 32) ones under
+    m32, launches from the family's served decode steps (the wrappers'
+    counters over those eager steps; #4's head counted apart from its
+    q|k|v, #3's on the route that serves the entry's cache)."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "unfused_ms", "wrapper_ms", "fused_route_ms", "rel_err")
+    out = []
+    groups = {}
+    for r in fam["rows"]:
+        tag = r.get("w") or r.get("cache")
+        groups.setdefault((r["model"], r["kernel"], tag), []).append(r)
+    for (model, kernel, tag), rs in groups.items():
+        name, src, replaces, dev = FAMILY_KERNELS[kernel]
+        one = next(r for r in rs if r.get("M", r.get("B", 1)) == 1
+                   and "ms" in r and r.get("a8", True))
+        many = [r for r in rs if r.get("M", r.get("B")) == 32]
+        serve = fam["serve"][model]
+        if kernel == "layer":
+            launches = serve.get("layer", {}).get("launches", {}).get(
+                "layer", 0)
+        elif kernel == "attention":  # the route that serves this cache
+            launches = sum(r["launches"].get("attention", 0)
+                           for r in serve.values()
+                           if r["cache"] == CACHE_OF[tag])
+        else:
+            launches = serve["fused"]["launches"][
+                "norm_qkv_head" if tag == "head" else kernel]
+        entry = {"name": f"{name} [{model} {tag}: {BRANCH[model]}]",
+                 "route": "cuda", "source": src, "replaces": replaces,
+                 "device_code": dev, "launches": launches,
+                 "max_abs_err": max(r["max_abs_err"] for r in rs),
+                 **{k: one.get(k) for k in keys}}
+        if entry["library_ms"] is None and kernel != "layer":
+            raise AssertionError(f"{entry['name']}: no library time")
+        entry["kernel_route"] = one.get("route")  # ops/ffn's, at M = 1
+        if many:
+            entry["m32"] = {k: many[0].get(k) for k in keys}
+            entry["m32"]["kernel_route"] = many[0].get("route")
+        entry["shape"] = {k: one[k] for k in ("K", "N", "Np", "S", "filled",
+                                              "cache", "Hkv", "hd", "a8")
+                          if k in one}
+        out.append(entry)
+    return out
+
+
+def phase_families(device, tmp, card, peaks, report):
+    """OPT-6.7B (32 layers), BLOOM-7b1 and Gemma-7B (8 layers each) at
+    their published widths, weights from a seed: each family's kernel
+    branches held and timed (family_kernel_rows, gemma_layer_rows), its
+    2-layer greedy tokens against the plain versions, its served model's
+    launches, per-token latency and profile; then one OPT path through the
+    CLI (family_cli)."""
+    import torch
+
+    from gptq_tpu_torch.models.common import fuse_serving
+    from gptq_tpu_torch.pipeline import quantize_lm_head
+
+    fam = {"rows": [], "serve": {}, "greedy": {}}
+    for model, L in FAMILY_LAYERS.items():
+        t0 = time.perf_counter()
+        spec = family_spec(model, L)
+        params = synth_family_params(spec, device, seed=len(model))
+        assert quantize_lm_head(spec, params, bits=8)
+        served = fuse_serving(spec, params, a8=True)
+        cfg = FAMILY_HF[model]
+        log(f"families {model}: {L} of "
+            f"{cfg.get('num_hidden_layers', cfg.get('n_layer'))} layers, "
+            f"spec {json.dumps(dataclasses.asdict(spec))}; built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        timer = device_ms
+        fam["rows"] += family_kernel_rows(model, spec, served, device, peaks,
+                                          timer)
+        if spec.arch == "gemma":
+            fam["rows"] += gemma_layer_rows(model, spec, served, device,
+                                            peaks, timer)
+        fam["greedy"][model] = family_greedy(model, spec, params, device)
+        fam["serve"][model] = family_serve(model, spec, params, device, card)
+        del params, served
+        torch.cuda.empty_cache()
+        log(f"families {model}: {time.perf_counter() - t0:.1f} s")
+    fam["cli"] = family_cli(device, tmp)
+    report["families"] = fam
+
+
 def phase_batch(device, card, peaks, report):
     """Continuous batching at llama-7B width: the serve phase's 32-layer
     checkpoint (w4a8 g-1, 8-bit head, fuse_serving(a8=True)) through
@@ -4931,7 +5819,9 @@ def main(argv=None) -> int:
                                 torch.cuda.empty_cache())),
                 ("moe", lambda: phase_moe(device, tmp, card, peaks, report)),
                 ("cli", lambda: phase_cli(device, tmp, report)),
-                ("batch", lambda: phase_batch(device, card, peaks, report))):
+                ("batch", lambda: phase_batch(device, card, peaks, report)),
+                ("families", lambda: phase_families(device, tmp, card, peaks,
+                                                    report))):
             if phase in phases:
                 t0 = time.perf_counter()
                 run()
@@ -5346,7 +6236,7 @@ def main(argv=None) -> int:
                  and r["cache"] == "int8"),
             report.get("sp", {}).get("launches", {}).get("partial_wide", 0),
             "B=1, H=Hkv=32, hd=128, int8 " + cut + " of 32 layers; launches "
-            "from 132 eager steps of the 32-layer SPEngine(sp=1) decode"))
+            "from 132 eager steps of the 8-layer SPEngine(sp=1) decode"))
         kernels.append(partial_entry(
             "decode_attention_partial", 684,
             next(r for r in pr if r["entry"] == "narrow"
@@ -5355,6 +6245,8 @@ def main(argv=None) -> int:
             "TinyLlama-1.1B: B=1, H=32, Hkv=4, hd=64, int8 " + cut + " of 22 "
             "layers; launches from 16 eager steps of the 2-layer "
             "TinyLlama-width SPEngine(sp=1) decode"))
+    if "families" in report:
+        kernels += family_entries(report["families"])
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

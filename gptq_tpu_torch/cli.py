@@ -17,14 +17,16 @@ defaults): quantize from a model directory, save, evaluate, serve.
 
 Runs on the GPU (`--device cuda`, the default, raises without one).
 
-Quantize: without --load, the model is an HF llama / Mixtral checkpoint
-directory (models/convert.params_from_dir; GPTQ_TPU_CKPT_DIR maps a hub
+Quantize: without --load, the model is an HF checkpoint directory of
+OPT, BLOOM, llama / Mixtral or Gemma, a Meta llama directory or a raw
+Gemma .ckpt (models/convert.params_from_dir; GPTQ_TPU_CKPT_DIR maps a hub
 id to a local directory). With --wbits < 16 (or --trits) the
 calibration windows of `dataset` (data.get_loaders) go through
 pipeline.quantize_model: GPTQ, or --nearest (RTN), --bcq (whole-weight
 BCQ) or --lut_eval (the solver's BCQ lut mode). --eval_pack or --save
 packs the weights (sign planes for --lut_eval), and --quant_lm_head
-then packs the head; --quant_experts quantizes a Mixtral model's expert
+then packs the head (a tied head from the embedding table, which the
+JAX CLI leaves dense); --quant_experts quantizes a Mixtral model's expert
 stacks. --save writes the checkpoint (io.save_checkpoint, readable by
 both packages). Then the PPL of wikitext2, ptb and c4 (or --new-eval's
 ptb-new / c4-new) is appended to --results_log, in the JAX CLI's line.

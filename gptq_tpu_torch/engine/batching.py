@@ -80,6 +80,11 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 "ContinuousBatcher(mesh=...): data-parallel slots over a "
                 "mesh are not ported (ROADMAP item 18)")
+        if spec.arch != "llama":
+            raise NotImplementedError(
+                f"ContinuousBatcher: arch {spec.arch!r} is not served by "
+                f"the batcher yet (ROADMAP queue 1: the batcher on the OPT, "
+                f"BLOOM and Gemma families)")
         self.spec = spec
         self.params = params
         self.B = batch_slots

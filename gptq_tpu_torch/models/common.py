@@ -1,5 +1,5 @@
-"""Functional llama-family decoder core (port of the llama subset of
-gptq_tpu/models/common.py).
+"""Functional decoder core of the four families, OPT, BLOOM, llama (with
+Mixtral-style routed experts) and Gemma (port of gptq_tpu/models/common.py).
 
 Params are plain nested dicts of tensors; a "linear" is {"w": (out, in)
 [, "b"]} and `linear_apply` serves PackedWeight low-bit weights through
@@ -30,8 +30,16 @@ the blocks that gate refuses. A cache's length may be a device tensor
 writes and the kernels then read it on the device, so a CUDA graph can
 replay a step. `attn_fn` replaces the attention of a block (the ring
 prefill and the SPCache decode of parallel/sp.py); it keeps the whole-
-layer route off. Tensor / expert parallelism and the OPT / BLOOM / Gemma
-families are not ported yet (ROADMAP queue 1, items 13 and 18).
+layer route off. The families differ as in the JAX package: OPT has
+learned positions (offset 2), optional project_in / project_out and the
+post-norm block of OPT-350m (do_layer_norm_before False); BLOOM a natively
+fused, biased q|k|v linear, a layernorm on the word embedding and alibi
+attention (its decode attends the materialized cache with the token's own
+k / v as one more softmax column, no decode kernel, as in the JAX package);
+OPT / BLOOM an fc1 -> act -> fc2 MLP with biases, which the fused route
+serves with glu=False; Gemma rmsnorm1p, gelu_tanh and an embedding scaled
+by sqrt(hidden) in the embedding's dtype. Tensor / expert parallelism are
+not ported yet (ROADMAP queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ class ArchSpec:
     """Static architecture description (same fields as the JAX package's
     ArchSpec, so checkpoint headers interchange)."""
 
-    arch: str  # opt | bloom | llama | gemma (only llama runs here)
+    arch: str  # opt | bloom | llama | gemma
     n_layers: int
     hidden: int
     n_heads: int
@@ -98,14 +106,6 @@ class ArchSpec:
     @property
     def scale(self) -> float:
         return self.qk_scale if self.qk_scale > 0 else 1.0 / float(math.sqrt(self.hd))
-
-
-def _check_arch(spec: ArchSpec) -> None:
-    if spec.arch != "llama":
-        raise NotImplementedError(
-            f"arch={spec.arch!r}: only the llama family (dense, or with "
-            f"routed experts) is ported; OPT / BLOOM / Gemma wait (ROADMAP "
-            f"queue 1, item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +291,32 @@ def attention(spec: ArchSpec, q, k, v, mask) -> torch.Tensor:
     return out.reshape(B, T, H * hd).to(q.dtype)
 
 
+def _attention_with_self(spec: ArchSpec, q, k_all, v_all, mask, k_new,
+                         v_new) -> torch.Tensor:
+    """Decode attention over the cache slots under `mask` plus the token's
+    own (not yet written) k / v as one more softmax column (the deferred
+    write of an alibi model; the self column's alibi bias is slope * 0).
+    q, k_new, v_new: (B, 1, H | kvh, hd); mask: (*, *, 1, S) additive,
+    NEG_INF at and beyond the filled length."""
+    B, T, H, hd = q.shape
+    kvh = k_all.shape[2]
+    if kvh != H:
+        rep = H // kvh
+        k_all = torch.repeat_interleave(k_all, rep, dim=2)
+        v_all = torch.repeat_interleave(v_all, rep, dim=2)
+        k_new = torch.repeat_interleave(k_new, rep, dim=2)
+        v_new = torch.repeat_interleave(v_new, rep, dim=2)
+    qf = q.to(torch.float32) * spec.scale
+    sc = torch.einsum("bthd,bshd->bhts", qf, k_all.to(torch.float32)) + mask
+    s_self = (qf * k_new.to(torch.float32)).sum(-1)  # (B, 1, H)
+    full = torch.cat([sc, s_self.permute(0, 2, 1)[..., None]], dim=-1)
+    p = torch.softmax(full, dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", p[..., :-1],
+                       v_all.to(torch.float32))
+    out = out + p[..., -1:].permute(0, 2, 1, 3) * v_new.to(torch.float32)
+    return out.reshape(B, T, H * hd).to(q.dtype)
+
+
 def causal_mask(T: int, S: int, device="cpu") -> torch.Tensor:
     """(1, 1, T, S) additive mask; queries are the last T of S positions."""
     q_pos = torch.arange(T, device=device)[:, None] + (S - T)
@@ -299,9 +325,31 @@ def causal_mask(T: int, S: int, device="cpu") -> torch.Tensor:
     return m[None, None]
 
 
+_slopes: dict = {}  # (n_heads, device) -> the alibi slopes on the device
+
+
+def alibi_bias(spec: ArchSpec, q_pos: torch.Tensor,
+               k_pos: torch.Tensor) -> torch.Tensor:
+    """BLOOM's alibi additive bias slope_h * (k_pos - q_pos): q_pos (..., T,
+    1), k_pos (S,) -> (..., H, T, S) (HF convention). The slopes are copied
+    to the device once (a CUDA graph of the chained decode cannot capture
+    a copy from the host)."""
+    key = (spec.n_heads, k_pos.device)
+    if key not in _slopes:
+        _slopes[key] = torch.as_tensor(alibi_slopes(spec.n_heads),
+                                       device=k_pos.device)
+    slopes = _slopes[key]
+    rel = (k_pos.to(torch.float32) - q_pos.to(torch.float32))
+    return slopes[:, None, None] * rel.unsqueeze(-3)
+
+
 def build_mask(spec: ArchSpec, T: int, S: int, device="cpu") -> torch.Tensor:
-    _check_arch(spec)
-    return causal_mask(T, S, device)
+    """(1, 1 | H, T, S) additive mask: causal, plus alibi's bias."""
+    mask = causal_mask(T, S, device)
+    if spec.pos == "alibi":
+        q_pos = torch.arange(T, device=device)[:, None] + (S - T)
+        mask = mask + alibi_bias(spec, q_pos, torch.arange(S, device=device))
+    return mask
 
 
 # ---------------------------------------------------------------------------
@@ -309,10 +357,11 @@ def build_mask(spec: ArchSpec, T: int, S: int, device="cpu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def fuse_serving(spec: ArchSpec, params: dict, a8: bool = False) -> dict:
-    """Merge q/k/v and gate/up PackedWeights that share one input into
-    single wider weights (one dequant-matmul launch instead of three /
-    two). With a8=True every packed linear is marked for dynamic int8
-    activations (the --faster-kernel path)."""
+    """Merge q/k/v (not BLOOM's, which is one linear already) and the llama
+    / Gemma gate/up PackedWeights that share one input into single wider
+    weights (one dequant-matmul launch instead of three / two), each
+    part's bias kept in b_parts. With a8=True every packed linear is
+    marked for dynamic int8 activations (the --faster-kernel path)."""
 
     def try_fuse(lp, names, key):
         lins = [lp.get(n) for n in names]
@@ -336,8 +385,10 @@ def fuse_serving(spec: ArchSpec, params: dict, a8: bool = False) -> dict:
     new_layers = []
     for lp in params["layers"]:
         lp = dict(lp)
-        try_fuse(lp, ("q", "k", "v"), "qkv_fused")
-        try_fuse(lp, ("gate", "up"), "gateup_fused")
+        if spec.arch != "bloom":
+            try_fuse(lp, ("q", "k", "v"), "qkv_fused")
+        if spec.arch in ("llama", "gemma"):
+            try_fuse(lp, ("gate", "up"), "gateup_fused")
         if a8:
             for key, val in lp.items():
                 w = val.get("w") if isinstance(val, dict) else None
@@ -431,6 +482,15 @@ def _norm_qkv_ok(spec, p, captures, n_rows, device):
     if not spec.do_layer_norm_before or spec.norm_type not in (
             "rmsnorm", "rmsnorm1p", "layernorm"):
         return None
+    if spec.arch == "bloom":  # its q|k|v is natively one fused linear
+        entry = p.get("qkv")
+        if entry is None or not _stream_preferred(entry.get("w")):
+            return None
+        if entry.get("act_q") is not None:
+            return None
+        if entry.get("b") is not None and entry["w"].Np != entry["w"].N:
+            return None
+        return _a8_mode(entry) if norm_qkv_fusable(entry["w"]) else None
     entry = p.get("qkv_fused")
     if entry is None or not _stream_preferred(entry.get("w")):
         return None
@@ -457,11 +517,12 @@ def _qkv_fused_bias(entry):
 
 
 def _mlp_entries(spec, p):
-    """(fc1-like entry, fc2-like entry, glu) for the fused MLP kernels: the
-    llama family's fused gate|up weight (OPT / BLOOM fc1 / fc2 wait with
-    those families)."""
-    if spec.arch == "llama":
+    """(fc1-like entry, fc2-like entry, glu) for the fused MLP kernels:
+    llama / Gemma the fused gate|up weight (GLU), OPT / BLOOM fc1 / fc2."""
+    if spec.arch in ("llama", "gemma"):
         return p.get("gateup_fused"), p.get("down"), True
+    if spec.arch in ("opt", "bloom"):
+        return p.get("fc1"), p.get("fc2"), False
     return None, None, False
 
 
@@ -483,6 +544,11 @@ def _attn_mlp_ok(spec, p, captures, n_rows, device):
     if glu and (any(b is not None for b in g_e["b_parts"])
                 or d_e.get("b") is not None):
         return None  # the llama family has no MLP biases
+    if not glu:
+        # OPT / BLOOM biases fold into the kernel only when stored == N
+        for e in (g_e, d_e):
+            if e.get("b") is not None and e["w"].Np != e["w"].N:
+                return None
     o = p.get("o")
     if o is None or not _stream_preferred(o.get("w")) or o.get("act_q"):
         return None
@@ -565,6 +631,8 @@ def _head_fusion_ok(spec, params, n_rows, device):
         return None
     if params.get("final_ln") is None:
         return None
+    if params["embed"].get("project_out") is not None:
+        return None  # OPT's projection lies between final_ln and the head
     lm = params.get("lm_head")
     if lm is None or not _stream_preferred(lm.get("w")):
         return None
@@ -586,6 +654,10 @@ def _qkv(spec: ArchSpec, p: dict, x: torch.Tensor, captures):
     hd = spec.hd
     if "qkv_fused" in p:
         q, k, v = _apply_fused(p["qkv_fused"], x)
+    elif spec.arch == "bloom":
+        if captures is not None:
+            captures["self_attention.query_key_value"] = x
+        return _split_bloom_qkv(linear_apply(p["qkv"], x), hd)
     else:
         if captures is not None:
             captures["self_attn.q_proj"] = x
@@ -599,12 +671,20 @@ def _qkv(spec: ArchSpec, p: dict, x: torch.Tensor, captures):
             v.reshape(B, T, v.shape[-1] // hd, hd))
 
 
+def _split_bloom_qkv(fused: torch.Tensor, hd: int):
+    """BLOOM's fused q|k|v output (B, T, H * 3 hd), interleaved per head,
+    -> q, k, v (B, T, H, hd)."""
+    B, T, n = fused.shape
+    fused = fused.reshape(B, T, n // (3 * hd), 3 * hd)
+    return torch.split(fused, hd, dim=-1)
+
+
 def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
                   positions=None, mask=None, cache=None, cache_len=None,
                   capture: bool = False, rope=None, defer_write: bool = False,
                   full_cache=None, moe_aux: list | None = None,
                   attn_fn=None):
-    """One llama decoder block. Returns (out, new_kv, captures).
+    """One decoder block. Returns (out, new_kv, captures).
 
     With `cache` = (k, v, k_scale, v_scale) per-layer views, keys/values
     are written IN PLACE at [cache_len, cache_len + T) (a (B,) cache_len:
@@ -645,23 +725,32 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     qkv_a8 = _norm_qkv_ok(spec, p, captures, B * T, x.device)
     if qkv_a8 is not None:
         # ln1 + fused q|k|v in one launch
-        entry = p["qkv_fused"]
-        y = norm_qkv_fused(x, p["ln1"]["w"], entry["w"], norm=spec.norm_type,
-                           eps=float(spec.norm_eps), a8=qkv_a8,
-                           b_ln=p["ln1"].get("b"),
-                           b_qkv=_qkv_fused_bias(entry))
-        outs, off = [], 0
-        for n_stored, n_logical in entry["splits"].parts:
-            outs.append(y[..., off:off + n_logical])
-            off += n_stored
-        q, k, v = (o.reshape(B, T, o.shape[-1] // spec.hd, spec.hd)
-                   for o in outs)
+        if spec.arch == "bloom":  # the natively fused q|k|v linear
+            entry = p["qkv"]
+            y = norm_qkv_fused(x, p["ln1"]["w"], entry["w"],
+                               norm=spec.norm_type, eps=float(spec.norm_eps),
+                               a8=qkv_a8, b_ln=p["ln1"].get("b"),
+                               b_qkv=entry.get("b"))
+            q, k, v = _split_bloom_qkv(y[..., :entry["w"].N], spec.hd)
+        else:
+            entry = p["qkv_fused"]
+            y = norm_qkv_fused(x, p["ln1"]["w"], entry["w"],
+                               norm=spec.norm_type, eps=float(spec.norm_eps),
+                               a8=qkv_a8, b_ln=p["ln1"].get("b"),
+                               b_qkv=_qkv_fused_bias(entry))
+            outs, off = [], 0
+            for n_stored, n_logical in entry["splits"].parts:
+                outs.append(y[..., off:off + n_logical])
+                off += n_stored
+            q, k, v = (o.reshape(B, T, o.shape[-1] // spec.hd, spec.hd)
+                       for o in outs)
     else:
-        h = norm_apply(spec, p["ln1"], x)
+        h = norm_apply(spec, p["ln1"], x) if spec.do_layer_norm_before else x
         q, k, v = _qkv(spec, p, h, captures)
-    cos, sin = rope if rope is not None else rope_tables(spec, positions)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if spec.pos == "rope":
+        cos, sin = rope if rope is not None else rope_tables(spec, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
     new_kv = None
     if cache is not None:
@@ -671,6 +760,17 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
                 raise ValueError("defer_write decodes one token at a time "
                                  "over the stacked cache (full_cache)")
             new_kv = (k, v)
+            if spec.pos == "alibi":
+                # no decode kernel takes alibi (as in the JAX package): the
+                # materialized cache under the caller's mask + the token
+                if ks is not None:
+                    k_all = ck.to(torch.float32) * ks[..., None]
+                    v_all = cv.to(torch.float32) * vs[..., None]
+                else:
+                    k_all, v_all = ck, cv
+                attn = _attention_with_self(spec, q, k_all, v_all, mask, k, v)
+                return _finish_block(spec, p, residual, attn, captures,
+                                     new_kv, moe_aux)
             kL, vL, ksL, vsL, li = full_cache
             out = decode_attention(q[:, 0], kL, vL, cache_len, spec.scale,
                                    k_scale=ksL, v_scale=vsL, fresh_k=k[:, 0],
@@ -699,29 +799,49 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
 
 
 def _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux=None):
-    """Post-attention half of a llama block (o projection + GLU MLP, or
-    the routed expert FFN of an MoE layer)."""
+    """Post-attention half of a block: the o projection, then the GLU MLP
+    (llama / Gemma), fc1 -> act -> fc2 (OPT / BLOOM) or the routed expert
+    FFN of an MoE layer; OPT-350m's post-norm where do_layer_norm_before
+    is False."""
     n_rows = attn.numel() // attn.shape[-1]
     mlp_a8 = (None if "router" in p else
               _attn_mlp_ok(spec, p, captures, n_rows, attn.device))
     if mlp_a8 is not None:
-        # o + residual + ln2 + gate|up + act + down + residual in one launch
+        # o + residual + ln2 + MLP + residual in one launch
         g_e, d_e, glu = _mlp_entries(spec, p)
         out = attn_mlp_fused(
             attn, residual, p["ln2"]["w"], p["o"]["w"], g_e["w"], d_e["w"],
             act=spec.act, norm=spec.norm_type, eps=float(spec.norm_eps),
-            glu=glu, a8=mlp_a8, b_ln=p["ln2"].get("b"), b_o=p["o"].get("b"))
+            glu=glu, a8=mlp_a8, b_ln=p["ln2"].get("b"), b_o=p["o"].get("b"),
+            b_g=None if glu else g_e.get("b"),
+            b_d=None if glu else d_e.get("b"))
         return out, new_kv, captures
     if captures is not None:
-        captures["self_attn.o_proj"] = attn
+        o_name = {"bloom": "self_attention.dense",
+                  "opt": "self_attn.out_proj"}.get(spec.arch,
+                                                   "self_attn.o_proj")
+        captures[o_name] = attn
     h = residual + linear_apply(p["o"], attn)
-    m = norm_apply(spec, p["ln2"], h)
+    if not spec.do_layer_norm_before:  # OPT-350m's post-norm
+        h = norm_apply(spec, p["ln1"], h)
+    m = norm_apply(spec, p["ln2"], h) if spec.do_layer_norm_before else h
     if "router" in p:
         if captures is not None:
             captures["moe.input"] = m  # gptq_quantize_experts calibration
         mlp_out = moe_ffn(spec, p, m, activation=lambda g: activation(spec, g),
                           aux_out=moe_aux)
         return h + mlp_out, new_kv, captures
+    if spec.arch in ("opt", "bloom"):
+        bloom = spec.arch == "bloom"
+        if captures is not None:
+            captures["mlp.dense_h_to_4h" if bloom else "fc1"] = m
+        inner = activation(spec, linear_apply(p["fc1"], m))
+        if captures is not None:
+            captures["mlp.dense_4h_to_h" if bloom else "fc2"] = inner
+        out = h + linear_apply(p["fc2"], inner)
+        if not spec.do_layer_norm_before:
+            out = norm_apply(spec, p["ln2"], out)
+        return out, new_kv, captures
     ffn_a8 = _ffn_fusion_entry(p, captures, m.device)
     if n_rows <= 32 and ffn_a8 is not None:
         # gate|up + act + down in one launch
@@ -749,8 +869,23 @@ def _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux=None):
 
 def embed_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
                   positions=None) -> torch.Tensor:
-    _check_arch(spec)
-    return params["embed"]["tokens"][input_ids]
+    """Token embeddings: OPT's project_in and learned positions (offset 2,
+    HF's OPTLearnedPositionalEmbedding; positions default to 0 .. T - 1),
+    BLOOM's word-embedding layernorm, Gemma's scale in the embedding's
+    dtype."""
+    emb = params["embed"]["tokens"][input_ids]
+    if spec.arch == "opt":
+        if params["embed"].get("project_in") is not None:
+            emb = linear_apply(params["embed"]["project_in"], emb)
+        if positions is None:
+            positions = torch.arange(input_ids.shape[-1],
+                                     device=input_ids.device)
+        emb = emb + params["embed"]["positions"][positions + 2]
+    elif spec.arch == "bloom":
+        emb = norm_apply(spec, params["embed"]["ln"], emb)
+    elif spec.arch == "gemma":
+        emb = emb * torch.tensor(spec.embed_scale, dtype=emb.dtype)
+    return emb
 
 
 def head_forward(spec: ArchSpec, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -766,6 +901,8 @@ def head_forward(spec: ArchSpec, params: dict, h: torch.Tensor) -> torch.Tensor:
         return y[..., :lm["w"].N]
     if params.get("final_ln") is not None:
         h = norm_apply(spec, params["final_ln"], h)
+    if params["embed"].get("project_out") is not None:
+        h = linear_apply(params["embed"]["project_out"], h)
     lm = params.get("lm_head")
     if lm is None:  # tied embeddings
         return _dense(h, params["embed"]["tokens"])
@@ -787,8 +924,9 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
     it on the host). A (B,) cache.length holds one length per slot
     (engine/batching.py's lock-step): each row appends at its own length,
     and decode takes the deferred write whatever the layer route says.
-    `moe_aux`, a list, collects each MoE layer's load-balancing loss."""
-    _check_arch(spec)
+    `moe_aux`, a list, collects each MoE layer's load-balancing loss.
+    Alibi (BLOOM) adds its bias to the mask on every path, the deferred
+    decode's too (which then masks the slots at and past the length)."""
     B, T = input_ids.shape
     dev = input_ids.device
     start = 0 if cache is None else cache.length
@@ -802,19 +940,25 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
                      + torch.arange(T, device=dev))
     else:
         positions = (start + torch.arange(T, device=dev)).expand(B, T)
+    alibi = spec.pos == "alibi"
     if cache is None:
-        mask = causal_mask(T, T, dev)
-    elif defer:
+        mask = build_mask(spec, T, T, dev)
+    elif defer and not alibi:
         mask = None  # decode_attention masks by length itself
     else:
         S = cache.k.shape[2]
         k_pos = torch.arange(S, device=dev)
         q_pos = positions[:, :, None] if per_slot else positions[0, :, None]
-        mask = torch.where(k_pos <= q_pos, 0.0, NEG_INF).to(torch.float32)
+        # the deferred decode masks the slots strictly below the length
+        valid = k_pos < q_pos if defer else k_pos <= q_pos
+        mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
         mask = mask[:, None] if per_slot else mask[None, None]
+        if alibi:
+            bias = alibi_bias(spec, q_pos, k_pos)
+            mask = mask + torch.where(valid.unsqueeze(-3), bias, 0.0)
 
     h = embed_forward(spec, params, input_ids, positions)
-    rope = rope_tables(spec, positions)
+    rope = rope_tables(spec, positions) if spec.pos == "rope" else None
     fresh = []
     for i, bp in enumerate(params["layers"]):
         layer_cache = None
@@ -857,11 +1001,15 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
 
 def init_params(spec: ArchSpec, seed: int = 0, dtype=torch.float32,
                 device="cuda") -> dict:
-    """Random params with the structure of converted HF weights, drawn
-    from a torch.Generator seeded with `seed` on `device`. With
-    spec.n_experts every layer carries a router and expert stacks
-    (models/moe.init_moe_params) in place of gate / up / down."""
-    _check_arch(spec)
+    """Random params with the structure of converted HF weights (the JAX
+    package's init_params per family), drawn from a torch.Generator seeded
+    with `seed` on `device`. With spec.n_experts (llama / Gemma only) every
+    layer carries a router and expert stacks (models/moe.init_moe_params)
+    in place of gate / up / down."""
+    if spec.n_experts and spec.arch not in ("llama", "gemma"):
+        raise ValueError(
+            f"n_experts={spec.n_experts} is only supported for the "
+            f"llama / gemma (GLU-FFN) families, not arch={spec.arch!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -876,22 +1024,37 @@ def init_params(spec: ArchSpec, seed: int = 0, dtype=torch.float32,
                       if spec.linear_bias else None)}
 
     def norm_p():
-        return {"w": torch.ones(h, dtype=dtype, device=device)}
+        if spec.norm_type == "layernorm":
+            return {"w": torch.ones(h, dtype=dtype, device=device),
+                    "b": torch.zeros(h, dtype=dtype, device=device)}
+        fill = torch.ones if spec.norm_type == "rmsnorm" else torch.zeros
+        return {"w": fill(h, dtype=dtype, device=device)}
 
     qd = spec.n_heads * spec.hd
     kvd = spec.kv_heads * spec.hd
     layers = []
     for _ in range(spec.n_layers):
-        lp = {"ln1": norm_p(), "ln2": norm_p(),
-              "q": lin(qd, h), "k": lin(kvd, h), "v": lin(kvd, h),
-              "o": lin(h, qd)}
-        if spec.n_experts:
-            lp.update(init_moe_params(spec, gen, dtype, device))
+        lp = {"ln1": norm_p(), "ln2": norm_p()}
+        if spec.arch == "bloom":
+            lp.update(qkv=lin(3 * h, h), o=lin(h, h), fc1=lin(f, h),
+                      fc2=lin(h, f))
         else:
-            lp.update(gate=lin(f, h), up=lin(f, h), down=lin(h, f))
+            lp.update(q=lin(qd, h), k=lin(kvd, h), v=lin(kvd, h),
+                      o=lin(h, qd))
+            if spec.arch == "opt":
+                lp.update(fc1=lin(f, h), fc2=lin(h, f))
+            elif spec.n_experts:
+                lp.update(init_moe_params(spec, gen, dtype, device))
+            else:
+                lp.update(gate=lin(f, h), up=lin(f, h), down=lin(h, f))
         layers.append(lp)
-    params = {"embed": {"tokens": randn(spec.vocab, h) * 0.02},
-              "layers": layers, "final_ln": norm_p()}
+    embed = {"tokens": randn(spec.vocab, h) * 0.02}
+    if spec.arch == "opt":
+        embed.update(positions=randn(spec.max_pos + 2, h) * 0.02,
+                     project_in=None, project_out=None)
+    elif spec.arch == "bloom":
+        embed["ln"] = norm_p()
+    params = {"embed": embed, "layers": layers, "final_ln": norm_p()}
     params["lm_head"] = (None if spec.tie_embeddings else
                          {"w": randn(spec.vocab, h) * 0.02, "b": None})
     return params

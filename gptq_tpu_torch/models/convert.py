@@ -1,5 +1,6 @@
-"""HF checkpoint directory -> the port's params (port of the llama /
-Mixtral half of gptq_tpu/models/convert.py).
+"""HF checkpoint directory -> the port's params (port of
+gptq_tpu/models/convert.py: OPT, BLOOM, llama with Mixtral's experts, and
+Gemma through the llama converter).
 
 Sources: a live transformers *ForCausalLM instance (params_from_hf_torch),
 a state dict (params_from_state_dict), or a directory holding
@@ -14,11 +15,9 @@ leaf is widened to f32 exactly (f16 / bf16 sources), as the JAX package's
 numbers. Mixtral's per-expert weights stack on a leading E axis
 (models/moe.py). params_from_dir(host=True) keeps the blocks' linear
 weights in CPU memory for the layer-streamed quantize (the JAX package's
-`_arr` under host_params).
-
-OPT / BLOOM state dicts, Meta `params.json` + `consolidated.*.pth`
-checkpoints and raw Gemma `.ckpt` files are refused with
-NotImplementedError (ROADMAP queue 1, item 13), never mis-converted.
+`_arr` under host_params). A directory of Meta `params.json` +
+`consolidated.*.pth` shards and a raw Gemma `.ckpt` file go through
+models/convert_meta.py.
 """
 
 from __future__ import annotations
@@ -34,8 +33,6 @@ import torch
 from gptq_tpu_torch.config import resolve_device
 from gptq_tpu_torch.models.common import ArchSpec
 from gptq_tpu_torch.models.registry import spec_from_hf_config
-
-_ITEM13 = "ROADMAP queue 1, item 13"
 
 # safetensors dtype -> numpy dtype of the stored bytes (BF16 as its bits)
 _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -144,21 +141,25 @@ def params_from_hf_torch(model, dtype=torch.float32,
 
 def params_from_dir(path: str, dtype=torch.float32, device="cuda",
                     host: bool = False) -> tuple[ArchSpec, dict]:
-    """An HF checkpoint directory (llama / Mixtral) -> (spec, params) on
-    `device`. host=True keeps each block's linear weights (q k v o gate
-    up down) in CPU memory and puts everything else on `device` (Mixtral's
-    expert stacks too), so that pipeline.quantize_model streams a model
-    larger than the card's memory one layer at a time."""
+    """An HF checkpoint directory (OPT, BLOOM, llama / Mixtral, Gemma), a
+    Meta-format llama directory (params.json + consolidated.*.pth) or a
+    raw Gemma .ckpt file -> (spec, params) on `device`. host=True keeps
+    each block's linear weights in CPU memory and puts everything else on
+    `device` (Mixtral's expert stacks too), so that
+    pipeline.quantize_model streams a model larger than the card's memory
+    one layer at a time (the Meta formats convert on `device`, as the
+    JAX package converts them whatever host says)."""
     path = resolve_model_path(path)
     if os.path.isfile(path) and path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{path}: raw Gemma checkpoints are not ported ({_ITEM13})")
+        from gptq_tpu_torch.models.convert_meta import params_from_gemma_ckpt
+
+        return params_from_gemma_ckpt(path, dtype, device)
     if (os.path.isdir(path)
             and os.path.exists(os.path.join(path, "params.json"))
             and glob.glob(os.path.join(path, "consolidated.*.pth"))):
-        raise NotImplementedError(
-            f"{path}: Meta-format llama checkpoints are not ported "
-            f"({_ITEM13})")
+        from gptq_tpu_torch.models.convert_meta import params_from_meta_llama
+
+        return params_from_meta_llama(path, dtype, device)
     if not os.path.isfile(os.path.join(path, "config.json")):
         raise FileNotFoundError(f"{path}: no config.json (the port converts "
                                 f"local HF checkpoint directories)")
@@ -169,13 +170,12 @@ def params_from_dir(path: str, dtype=torch.float32, device="cuda",
 
 def params_from_state_dict(sd: dict, spec: ArchSpec, dtype=torch.float32,
                            device="cuda", host: bool = False) -> dict:
-    """HF parameter names -> the port's params (llama and Mixtral); host
-    as params_from_dir's."""
-    if spec.arch != "llama":
-        raise NotImplementedError(
-            f"arch {spec.arch!r}: its state dicts are not ported ({_ITEM13})")
-    return _convert_llama(sd, spec, dtype, resolve_device(device),
-                          "cpu" if host else None)
+    """HF parameter names -> the port's params; host as params_from_dir's
+    (llama and Gemma share names)."""
+    conv = {"opt": _convert_opt, "bloom": _convert_bloom}.get(spec.arch,
+                                                            _convert_llama)
+    return conv(sd, spec, dtype, resolve_device(device),
+                "cpu" if host else None)
 
 
 def _t(v, dtype, device) -> torch.Tensor:
@@ -196,8 +196,76 @@ def _lin(sd, prefix, dtype, device, w_device=None) -> dict:
             "b": None if b is None else _t(b, dtype, device)}
 
 
-def _norm(sd, prefix, dtype, device) -> dict:
-    return {"w": _t(sd[prefix + ".weight"], dtype, device)}
+def _norm(sd, prefix, dtype, device, has_bias=False) -> dict:
+    """A norm's weight, and (layernorm: has_bias) its bias where present."""
+    p = {"w": _t(sd[prefix + ".weight"], dtype, device)}
+    if has_bias and prefix + ".bias" in sd:
+        p["b"] = _t(sd[prefix + ".bias"], dtype, device)
+    return p
+
+
+def _convert_opt(sd, spec, dtype, device, host=None) -> dict:
+    """OPT: learned positions, optional project_in / project_out, layernorm
+    with biases, fc1 / fc2; the final layernorm only where present (OPT-
+    350m has none), lm_head where the state dict holds one."""
+    pre = "model.decoder."
+
+    def opt_lin(name):
+        return (_lin(sd, pre + name, dtype, device)
+                if pre + name + ".weight" in sd else None)
+
+    embed = {"tokens": _t(sd[pre + "embed_tokens.weight"], dtype, device),
+             "positions": _t(sd[pre + "embed_positions.weight"], dtype,
+                             device),
+             "project_in": opt_lin("project_in"),
+             "project_out": opt_lin("project_out")}
+    layers = []
+    for i in range(spec.n_layers):
+        lp = f"{pre}layers.{i}."
+        layers.append({
+            "q": _lin(sd, lp + "self_attn.q_proj", dtype, device, host),
+            "k": _lin(sd, lp + "self_attn.k_proj", dtype, device, host),
+            "v": _lin(sd, lp + "self_attn.v_proj", dtype, device, host),
+            "o": _lin(sd, lp + "self_attn.out_proj", dtype, device, host),
+            "fc1": _lin(sd, lp + "fc1", dtype, device, host),
+            "fc2": _lin(sd, lp + "fc2", dtype, device, host),
+            "ln1": _norm(sd, lp + "self_attn_layer_norm", dtype, device,
+                         True),
+            "ln2": _norm(sd, lp + "final_layer_norm", dtype, device, True),
+        })
+    final_ln = (_norm(sd, pre + "final_layer_norm", dtype, device, True)
+                if pre + "final_layer_norm.weight" in sd else None)
+    lm = None
+    if "lm_head.weight" in sd:
+        lm = {"w": _t(sd["lm_head.weight"], dtype, device), "b": None}
+    return {"embed": embed, "layers": layers, "final_ln": final_ln,
+            "lm_head": lm}
+
+
+def _convert_bloom(sd, spec, dtype, device, host=None) -> dict:
+    """BLOOM: the word-embedding layernorm, one fused q|k|v linear, fc1 /
+    fc2 (dense_h_to_4h / dense_4h_to_h), a tied head."""
+    pre = "transformer."
+    layers = []
+    for i in range(spec.n_layers):
+        lp = f"{pre}h.{i}."
+        layers.append({
+            "qkv": _lin(sd, lp + "self_attention.query_key_value", dtype,
+                        device, host),
+            "o": _lin(sd, lp + "self_attention.dense", dtype, device, host),
+            "fc1": _lin(sd, lp + "mlp.dense_h_to_4h", dtype, device, host),
+            "fc2": _lin(sd, lp + "mlp.dense_4h_to_h", dtype, device, host),
+            "ln1": _norm(sd, lp + "input_layernorm", dtype, device, True),
+            "ln2": _norm(sd, lp + "post_attention_layernorm", dtype, device,
+                         True),
+        })
+    return {"embed": {"tokens": _t(sd[pre + "word_embeddings.weight"], dtype,
+                                   device),
+                      "ln": _norm(sd, pre + "word_embeddings_layernorm",
+                                  dtype, device, True)},
+            "layers": layers,
+            "final_ln": _norm(sd, pre + "ln_f", dtype, device, True),
+            "lm_head": None}  # tied
 
 
 def _convert_llama(sd, spec, dtype, device, host=None) -> dict:

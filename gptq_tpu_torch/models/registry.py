@@ -1,7 +1,7 @@
 """Architecture registry: per-block linear names, true-sequential groups
-and the HF config mapping (port of the llama entry of
-gptq_tpu/models/registry.py, with its Mixtral branch: llama attention plus
-routed GLU experts; the other families wait, ROADMAP queue 1 item 13)."""
+and the HF config mapping of the four families, OPT, BLOOM, llama (with
+its Mixtral branch: llama attention plus routed GLU experts) and Gemma
+(port of gptq_tpu/models/registry.py)."""
 
 from __future__ import annotations
 
@@ -22,9 +22,67 @@ class ArchInfo:
 
 
 ARCHS = {
+    "opt": ArchInfo(
+        spec_defaults=dict(arch="opt", act="relu", pos="learned",
+                           norm_type="layernorm", linear_bias=True),
+        linears={
+            "self_attn.k_proj": "k",
+            "self_attn.v_proj": "v",
+            "self_attn.q_proj": "q",
+            "self_attn.out_proj": "o",
+            "fc1": "fc1",
+            "fc2": "fc2",
+        },
+        seq_groups=(
+            ("self_attn.k_proj", "self_attn.v_proj", "self_attn.q_proj"),
+            ("self_attn.out_proj",),
+            ("fc1",),
+            ("fc2",),
+        ),
+        hf_prefix="model.decoder.layers",
+    ),
+    "bloom": ArchInfo(
+        spec_defaults=dict(arch="bloom", act="gelu_tanh", pos="alibi",
+                           norm_type="layernorm", linear_bias=True,
+                           tie_embeddings=True),
+        linears={
+            "self_attention.query_key_value": "qkv",
+            "self_attention.dense": "o",
+            "mlp.dense_h_to_4h": "fc1",
+            "mlp.dense_4h_to_h": "fc2",
+        },
+        seq_groups=(
+            ("self_attention.query_key_value",),
+            ("self_attention.dense",),
+            ("mlp.dense_h_to_4h",),
+            ("mlp.dense_4h_to_h",),
+        ),
+        hf_prefix="transformer.h",
+    ),
     "llama": ArchInfo(
         spec_defaults=dict(arch="llama", act="silu", pos="rope",
                            norm_type="rmsnorm", linear_bias=False),
+        linears={
+            "self_attn.q_proj": "q",
+            "self_attn.k_proj": "k",
+            "self_attn.v_proj": "v",
+            "self_attn.o_proj": "o",
+            "mlp.gate_proj": "gate",
+            "mlp.up_proj": "up",
+            "mlp.down_proj": "down",
+        },
+        seq_groups=(
+            ("self_attn.k_proj", "self_attn.v_proj", "self_attn.q_proj"),
+            ("self_attn.o_proj",),
+            ("mlp.up_proj", "mlp.gate_proj"),
+            ("mlp.down_proj",),
+        ),
+        hf_prefix="model.layers",
+    ),
+    "gemma": ArchInfo(
+        spec_defaults=dict(arch="gemma", act="gelu_tanh", pos="rope",
+                           norm_type="rmsnorm1p", linear_bias=False,
+                           tie_embeddings=True),
         linears={
             "self_attn.q_proj": "q",
             "self_attn.k_proj": "k",
@@ -46,9 +104,6 @@ ARCHS = {
 
 
 def get_arch(name: str) -> ArchInfo:
-    if name not in ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported (ROADMAP queue 1, item 13)")
     return ARCHS[name]
 
 
@@ -56,6 +111,8 @@ def arch_of_hf_config(config) -> str:
     """The family of an HF config's model_type, as the JAX package maps it
     (mixtral and every unknown type -> llama)."""
     mt = getattr(config, "model_type", "")
+    if mt in ARCHS:
+        return mt
     for fam in ("opt", "bloom", "gemma"):
         if fam in mt:
             return fam
@@ -64,16 +121,37 @@ def arch_of_hf_config(config) -> str:
 
 def spec_from_hf_config(config) -> ArchSpec:
     """An ArchSpec from an HF config: any object with the config's
-    attributes (a transformers PretrainedConfig or a SimpleNamespace).
-    Llama and Mixtral only; a Mixtral config (num_local_experts > 0) gets
-    expert_capacity = E / k, the dropless capacity its inference has."""
+    attributes (a transformers PretrainedConfig or a SimpleNamespace). A
+    Mixtral config (num_local_experts > 0) gets expert_capacity = E / k,
+    the dropless capacity its inference has; Gemma scales its embedding by
+    sqrt(hidden)."""
     arch = arch_of_hf_config(config)
-    if arch != "llama":
-        raise NotImplementedError(
-            f"model_type {getattr(config, 'model_type', '')!r} ({arch}) is "
-            f"not ported (ROADMAP queue 1, item 13)")
     d = dict(ARCHS[arch].spec_defaults)
-    d.update(
+    if arch == "opt":
+        d.update(
+            n_layers=config.num_hidden_layers,
+            hidden=config.hidden_size,
+            n_heads=config.num_attention_heads,
+            ffn=config.ffn_dim,
+            vocab=config.vocab_size,
+            max_pos=config.max_position_embeddings,
+            word_embed_dim=config.word_embed_proj_dim,
+            do_layer_norm_before=config.do_layer_norm_before,
+            norm_eps=1e-5,
+        )
+        return ArchSpec(**d)
+    if arch == "bloom":
+        d.update(
+            n_layers=config.n_layer,
+            hidden=config.hidden_size,
+            n_heads=config.n_head,
+            ffn=4 * config.hidden_size,
+            vocab=config.vocab_size,
+            max_pos=2048,
+            norm_eps=config.layer_norm_epsilon,
+        )
+        return ArchSpec(**d)
+    d.update(  # llama / gemma
         n_layers=config.num_hidden_layers,
         hidden=config.hidden_size,
         n_heads=config.num_attention_heads,
@@ -85,7 +163,8 @@ def spec_from_hf_config(config) -> ArchSpec:
         max_pos=config.max_position_embeddings,
         norm_eps=config.rms_norm_eps,
         rope_theta=getattr(config, "rope_theta", 10000.0),
-        tie_embeddings=bool(getattr(config, "tie_word_embeddings", False)),
+        tie_embeddings=bool(getattr(config, "tie_word_embeddings",
+                                    arch == "gemma")),
         n_experts=getattr(config, "num_local_experts", 0) or 0,
         expert_top_k=getattr(config, "num_experts_per_tok", 2) or 2,
     )
@@ -93,4 +172,9 @@ def spec_from_hf_config(config) -> ArchSpec:
         # HF Mixtral inference drops no assignment: capacity E / k gives
         # C = ceil(k * N * (E / k) / E) = N slots per expert
         d["expert_capacity"] = d["n_experts"] / d["expert_top_k"]
+    if arch == "gemma":
+        d["embed_scale"] = float(config.hidden_size) ** 0.5
+        if getattr(config, "hidden_activation", None) in (
+                "gelu_pytorch_tanh", None):
+            d["act"] = "gelu_tanh"
     return ArchSpec(**d)

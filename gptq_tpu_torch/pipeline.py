@@ -12,7 +12,8 @@ The solver's `lut` mode (--lut_eval) fits BCQ alphas and pack_model
 packs its sign planes for ops/bcq_matmul.py. The Hessian-free modes
 (--nearest: uniform RTN, --bcq: whole-weight BCQ) write dense weights
 and skip the calibration capture. quantize_lm_head packs the output
-projection (per-channel RTN) for the fused head. On an MoE model the
+projection (per-channel RTN; a tied head from the embedding table) for
+the fused head. On an MoE model the
 attention linears quantize here and the expert stacks through
 models/moe.gptq_quantize_experts. With `resume_dir`, quantize_model keeps
 a journal of finished layers and an interrupted run restarts at the first
@@ -122,7 +123,8 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
     dev = calib_ids.device
     positions = torch.arange(T, device=dev)[None]
     mask = build_mask(spec, T, T, dev)
-    inps = torch.stack([embed_forward(spec, params, calib_ids[j:j + 1])[0]
+    inps = torch.stack([embed_forward(spec, params, calib_ids[j:j + 1],
+                                      positions)[0]
                         for j in range(nsamples)])
 
     if cfg.true_sequential:
@@ -323,10 +325,15 @@ def pack_model(spec: ArchSpec, params: dict, quantizers: dict,
 def quantize_lm_head(spec: ArchSpec, params: dict, bits: int = 8) -> bool:
     """Quantize the output projection in place: per-channel RTN (the head
     has no calibration Hessian in the sequential pipeline), packed with
-    groupsize -1 for the fused head kernel. A no-op (returns False) for
-    tied embeddings or a head that is already packed."""
+    groupsize -1 for the fused head kernel. A tied head (lm_head None:
+    BLOOM, Gemma, an OPT directory without lm_head.weight) gets a packed
+    lm_head of its own from the embedding table, which the embedding
+    keeps dense; the JAX package leaves a tied head dense. A no-op
+    (returns False) for a head that is already packed."""
     lm = params.get("lm_head")
-    if lm is None or lm.get("w") is None or isinstance(lm["w"], PackedWeight):
+    if lm is None:
+        lm = params["lm_head"] = {"w": params["embed"]["tokens"], "b": None}
+    if lm.get("w") is None or isinstance(lm["w"], PackedWeight):
         return False
     W = lm["w"].to(torch.float32)  # (vocab, hidden)
     p = find_params(W, bits=bits, perchannel=True, weight=True)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from gptq_tpu.ops import attention as ja
 from gptq_tpu_torch.ops import attention as ta
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # the head-loop kernel at any hd: the un-jitted body re-reads the env var
 _jax_head_loop = jax.jit(ja.decode_attention.__wrapped__,

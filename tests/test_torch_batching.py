@@ -19,6 +19,7 @@ from gptq_tpu_torch.engine.batching import ContinuousBatcher
 from gptq_tpu_torch.engine.decode import DecodeEngine
 from gptq_tpu_torch.models import common as tc
 from gptq_tpu_torch.weights import params_from_jax, to_numpy_tree
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 KW = dict(arch="llama", n_layers=2, hidden=32, n_heads=4, n_kv_heads=2,
           ffn=64, vocab=61, max_pos=128, act="silu", pos="rope",

@@ -18,6 +18,7 @@ from gptq_tpu.quant import rtn as jr
 from gptq_tpu_torch.quant import bcq as tb
 from gptq_tpu_torch.quant import gptq as tg
 from gptq_tpu_torch.quant import rtn as tr
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 EXACT = 0.995  # share of entries that must match exactly
 LOSS_RTOL = 0.01

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from gptq_tpu.ops import pack as jpack
 from gptq_tpu_torch.ops import bcq_matmul as tbm
 from gptq_tpu_torch.ops import pack as tpack
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # gptq_tpu.ops re-exports the function under the module's name
 jbm = importlib.import_module("gptq_tpu.ops.bcq_matmul")

@@ -24,6 +24,7 @@ from gptq_tpu_torch.models import common as tc
 from test_torch_fused_serving import _pair as packed_model
 from test_torch_model import _ids
 from test_torch_model import _pair as dense_model
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CACHES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16),

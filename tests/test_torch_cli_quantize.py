@@ -27,6 +27,7 @@ from gptq_tpu_torch.models import common as tc
 from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.ops.bcq_matmul import _unpack_signs
 from gptq_tpu_torch.pipeline import quantize_model
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 VOCAB = 99
 LINEARS = ("q", "k", "v", "o", "gate", "up", "down")

@@ -17,6 +17,7 @@ import torch
 from gptq_tpu.models import convert as jconv
 from gptq_tpu_torch.models import common as tc
 from gptq_tpu_torch.models import convert as tconv
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 RTOL = 1e-4  # of max |logit|
 
@@ -105,21 +106,28 @@ def test_reader_matches_safetensors_on_bf16_and_f16(tmp_path):
 
 
 def test_refuses_formats_it_does_not_convert(tmp_path):
+    # the Meta formats and OPT / BLOOM / Gemma convert now
+    # (tests/test_torch_families_convert.py); what holds no checkpoint is
+    # refused, never converted to something
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        tconv.params_from_dir(str(empty), device="cpu")
+    opt = tmp_path / "opt"
+    opt.mkdir()
+    (opt / "config.json").write_text(json.dumps({
+        "model_type": "opt", "num_hidden_layers": 1, "hidden_size": 8,
+        "num_attention_heads": 2, "ffn_dim": 16, "vocab_size": 10,
+        "max_position_embeddings": 8, "word_embed_proj_dim": 8,
+        "do_layer_norm_before": True}))
+    with pytest.raises(FileNotFoundError, match="no checkpoint shards"):
+        tconv.params_from_dir(str(opt), device="cpu")
     meta = tmp_path / "meta"
     meta.mkdir()
     (meta / "params.json").write_text("{}")
     (meta / "consolidated.00.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(EOFError):  # an empty shard is no checkpoint
         tconv.params_from_dir(str(meta), device="cpu")
-    ckpt = tmp_path / "gemma.ckpt"
-    ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tconv.params_from_dir(str(ckpt), device="cpu")
-    opt = tmp_path / "opt"
-    opt.mkdir()
-    (opt / "config.json").write_text(json.dumps({"model_type": "opt"}))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tconv.params_from_dir(str(opt), device="cpu")
 
 
 def test_ckpt_dir_maps_a_hub_id(tmp_path, monkeypatch):

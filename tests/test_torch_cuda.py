@@ -1875,3 +1875,185 @@ def test_mlp_rows_graph_replays(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, tf.attn_mlp_fused(attn, xres, w2, o, gu, dn))
+
+
+# ---------------------------------------------------------------------------
+# the OPT, BLOOM and Gemma branches of #4-#6, #12 and #3
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("act", ["relu", "gelu_tanh"])  # OPT, BLOOM
+@pytest.mark.parametrize("M", [1, 32])
+@pytest.mark.parametrize("a8", [False, True])
+def test_attn_mlp_no_glu_family_branches(cuda, act, M, a8):
+    """#5 without GLU (fc1 -> act -> fc2), layernorm and o / fc1 / fc2
+    biases: one row on the stream kernel, 32 on the rows kernel, held to
+    the plain version with the near-tie rule (chip_smoke.tie_check)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(90 + M + a8 + 3 * (act == "relu"))
+    H, F = 512, 2048
+    o = _fusable(rng, 4, -1, H, H).to(cuda)
+    fc1 = _fusable(rng, 4, -1, H, F).to(cuda)
+    fc2 = _fusable(rng, 4, -1, F, H).to(cuda)
+    assert tf.mlp_route(M, o, fc1, fc2, a8) == ("stream" if M == 1
+                                                else "rows")
+    attn, xres = (torch.from_numpy(rng.normal(size=(M, H)).astype(np.float32))
+                  .to(cuda) for _ in range(2))
+    kw = dict(act=act, norm="layernorm", eps=1e-5, glu=False, a8=a8,
+              b_ln=_vec(rng, H, cuda), b_o=_vec(rng, H, cuda),
+              b_g=_vec(rng, F, cuda), b_d=_vec(rng, H, cuda))
+    w2 = _vec(rng, H, cuda, base=1.0)
+    got = tf.attn_mlp_fused(attn, xres, w2, o, fc1, fc2, **kw)
+    again = tf.attn_mlp_fused(attn, xres, w2, o, fc1, fc2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err, rel, flips = chip_smoke.tie_check(
+        "attn_mlp", got, lambda: tf.attn_mlp_fused_reference(
+            attn, xres, w2, o, fc1, fc2, **kw), FUSED_RTOL)
+    print(f"rel err {rel:.3g} after {flips} near-tie flips")
+
+
+@pytest.mark.parametrize("M", [1, 32])
+@pytest.mark.parametrize("a8", [False, True])
+def test_norm_qkv_padded_head_matches_plain(cuda, M, a8):
+    """#4 as a head after a final layernorm: an 8-bit weight whose stored
+    width is padded (N 1,920 of Np 2,048, as OPT's 50,272 of 50,688); the
+    padded columns come out zero."""
+    rng = np.random.default_rng(95 + M + a8)
+    K, N = 512, 1920
+    codes = rng.integers(0, 256, size=(N, K)).astype(np.float32)
+    scale = (rng.random(N) * 0.02 + 0.01).astype(np.float32)
+    pw = tpack.pack_quantized(
+        torch.from_numpy((codes - 128) * scale[:, None]),
+        torch.from_numpy(scale)[None], torch.full((1, N), 128.0), 8).to(cuda)
+    assert (pw.N, pw.Np) == (N, 2048) and tf.norm_qkv_fusable(pw)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda)
+    kw = dict(norm="layernorm", eps=1e-5, a8=a8, b_ln=_vec(rng, K, cuda))
+    w1 = _vec(rng, K, cuda, base=1.0)
+    got = tf.norm_qkv_fused(x, w1, pw, **kw)
+    torch.cuda.synchronize()
+    want = tf.norm_qkv_fused_reference(x, w1, pw, **kw)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=FUSED_RTOL)
+    assert bool((got[:, N:] == 0).all())
+
+
+@pytest.mark.parametrize("cache", ["bf16", "f32"])
+@pytest.mark.parametrize("a8", [False, True])
+def test_layer_kernel_gemma_shape(cuda, cache, a8):
+    """#12 at Gemma-7B's layer shape, narrowed: hd 256, MHA, H hd (1,024)
+    != hidden (768), rmsnorm1p, gelu_tanh; the near-tie rule, and the
+    written k / v rows bit for bit against the kernel's own q|k|v row."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+    import chip_smoke
+
+    H = Hkv = 4
+    hd, hidden, F, S, length = 256, 768, 1536, 256, 131
+    rng = np.random.default_rng(97 + a8)
+    qkv = tpack.fuse_packed([_fusable(rng, 4, -1, hidden, H * hd)
+                             for _ in range(3)]).to(cuda)
+    ws = [qkv, _fusable(rng, 4, -1, H * hd, hidden).to(cuda),
+          _fusable(rng, 4, -1, hidden, F, parts=2).to(cuda),
+          _fusable(rng, 4, -1, F, hidden).to(cuda)]
+
+    class _Splits:
+        parts = ((H * hd, H * hd),) * 3
+
+    assert tl.layer_fusable(ws[0], _Splits, *ws[1:], hidden, H, Hkv,
+                            head_dim=hd)
+    spec = tc.ArchSpec(arch="gemma", n_layers=2, hidden=hidden, n_heads=H,
+                       n_kv_heads=Hkv, head_dim=hd, ffn=F, vocab=8,
+                       max_pos=S, pos="rope", norm_type="rmsnorm1p",
+                       act="gelu_tanh")
+    lens = torch.tensor(length, dtype=torch.int32, device=cuda)
+    cos, sin = tc.rope_tables(spec, lens.reshape(1, 1))
+    x = torch.from_numpy(rng.normal(size=(1, 1, hidden)).astype(np.float32)
+                         ).to(cuda)
+    w1, w2 = _vec(rng, hidden, cuda), _vec(rng, hidden, cuda)
+    dt = torch.bfloat16 if cache == "bf16" else torch.float32
+    kv0 = [torch.from_numpy(rng.normal(size=(2, 1, S, Hkv, hd)).astype(
+        np.float32)).to(cuda).to(dt) for _ in range(2)]
+    kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=hd, act="gelu_tanh",
+              norm="rmsnorm1p", eps=1e-6, sm_scale=hd ** -0.5, a8=a8, layer=1)
+    args = (cos, sin, w1, w2, *ws)
+    kern = [c.clone() for c in kv0]
+    got = tl.decode_layer_fused(x, *kern, lens, *args, **kw)
+    torch.cuda.synchronize()
+    plain = [c.clone() for c in kv0]
+    err, rel, flips = chip_smoke.tie_check(
+        "layer", got, lambda: tl.decode_layer_fused_reference(
+            x, *plain, lens, *args, **kw), FUSED_RTOL)
+    print(f"rel err {rel:.3g} after {flips} near-tie flips")
+    own = [c.clone() for c in kv0]
+    _, scratch = tl._layer_cuda(x, *own, lens, cos, sin, w1, w2, *ws, H, Hkv,
+                                hd, "gelu_tanh", "rmsnorm1p", 1e-6,
+                                hd ** -0.5, a8, 1)
+    torch.cuda.synchronize()
+    qd, kvw = H * hd, Hkv * hd
+    row = scratch["qkv"]
+    want_k = tl.rope_rows(row[qd:qd + kvw].reshape(Hkv, hd), cos.reshape(-1),
+                          sin.reshape(-1)).to(dt)
+    assert torch.equal(own[0][1, 0, length], want_k)
+    assert torch.equal(own[1][1, 0, length],
+                       row[qd + kvw:qd + 2 * kvw].reshape(Hkv, hd).to(dt))
+    assert torch.equal(kern[0], own[0]) and torch.equal(kern[1], own[1])
+
+
+_FAMILY_SPECS = {
+    "opt": dict(arch="opt", act="relu", pos="learned", norm_type="layernorm",
+                linear_bias=True),
+    "bloom": dict(arch="bloom", act="gelu_tanh", pos="alibi",
+                  norm_type="layernorm", linear_bias=True,
+                  tie_embeddings=True),
+    "gemma": dict(arch="gemma", act="gelu_tanh", pos="rope",
+                  norm_type="rmsnorm1p", linear_bias=False,
+                  tie_embeddings=True, n_kv_heads=2, head_dim=256,
+                  embed_scale=512 ** 0.5),
+}
+
+
+@pytest.mark.parametrize("name", list(_FAMILY_SPECS))
+def test_family_decode_kernels_match_plain(cuda, name):
+    """A 2-layer model of each family (w4a8 g-1, an 8-bit head, int8
+    cache) decodes through the fused kernels (per step: L + 1 #4, L #5, and
+    #3 except under alibi) and, teacher-forced on the same tokens, its
+    logits hold to the plain versions' within chip_smoke's logits_a8
+    bound (int8 activation ties of a route summed in another order)."""
+    from gptq_tpu_torch import pipeline as tpipe
+    from gptq_tpu_torch.engine import decode as tdec
+    from gptq_tpu_torch.ops import attention as tatt
+    import chip_smoke
+
+    spec = tc.ArchSpec(n_layers=2, hidden=512, n_heads=4, ffn=2048,
+                       vocab=1000, max_pos=64, **_FAMILY_SPECS[name])
+    params = tc.init_params(spec, seed=5, device=cuda)
+    rng = np.random.default_rng(5)
+    for lp in params["layers"]:
+        for key, lin in list(lp.items()):
+            if key.startswith("ln"):
+                continue
+            N, K = lin["w"].shape
+            lp[key] = {"w": _fusable(rng, 4, -1, K, N).to(cuda),
+                       "b": None if lin["b"] is None
+                       else _vec(rng, N, cuda)}
+    assert tpipe.quantize_lm_head(spec, params, bits=8)
+    eng = tdec.DecodeEngine(spec, params, max_len=32, cache_dtype=torch.int8,
+                            a8=True)
+    ids = torch.from_numpy(rng.integers(0, 1000, size=(1, 12))).to(cuda)
+
+    def forced():
+        cache, out = eng.new_cache(), []
+        for t in range(ids.shape[1]):
+            logits, cache = eng.step(cache, ids[:, t:t + 1])
+            out.append(logits.float().cpu())
+        return torch.cat(out)
+
+    counts = (tf.norm_qkv_launches, tf.attn_mlp_launches, tatt.launches)
+    got = forced()
+    torch.cuda.synchronize()
+    n = ids.shape[1]
+    assert (tf.norm_qkv_launches - counts[0], tf.attn_mlp_launches - counts[1],
+            tatt.launches - counts[2]) == (3 * n, 2 * n,
+                                           0 if name == "bloom" else 2 * n)
+    with chip_smoke.plain_versions():
+        want = forced()
+    _close(got.numpy(), want.numpy(), rtol=chip_smoke.TOL["logits_a8"])

@@ -14,6 +14,7 @@ import pytest
 
 from gptq_tpu import data as jdata
 from gptq_tpu_torch import data as tdata
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 VOCAB = 99
 SEQLEN = 64

@@ -29,6 +29,7 @@ from gptq_tpu.ops import pack as jpack
 from gptq_tpu.ops import qmatmul as jq
 from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.ops import qmatmul as tq
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 RTOL = 1e-4  # the card's limit for #8 against its reference
 

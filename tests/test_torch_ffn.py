@@ -24,6 +24,7 @@ from gptq_tpu.ops import ffn as jf
 from gptq_tpu.ops import pack as jpack
 from gptq_tpu_torch.ops import ffn as tf
 from gptq_tpu_torch.ops import pack as tpack
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TOL = {False: 1e-4, True: 1e-3}  # a8 -> tolerance relative to max|want|
 NEAR = 2e-6  # a "near tie": within this relative distance of a boundary

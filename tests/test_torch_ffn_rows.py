@@ -38,6 +38,7 @@ from gptq_tpu_torch.ops import layer_fused as tl
 from gptq_tpu_torch.ops import pack as tpack
 from test_torch_ffn import (CANDIDATES, MAX_FLIPS, TOL, _jt, _Ties, _x,
                             fused_pair, packed_pair)
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CHUNK, RR, SEGK = tl.CHUNK, tl.STAGE_ROWS, tf.ROWS_SEGK
 H, F, BLOCKS = 512, 1024, 5  # o and down cut in K over 5 blocks
@@ -201,20 +202,25 @@ def _check_rows(run_port, want, a8, monkeypatch):
     """test_torch_ffn._check's rule row by row: a row over TOL[a8] of
     max|want| passes only if rounding at most MAX_FLIPS of its own near
     ties the other way (chosen greedily among its CANDIDATES nearest)
-    brings it within TOL[a8]."""
+    brings it within TOL[a8]. run_port(rows) replays the rows `rows` (all
+    where None). A row's flips are searched on a replay of that row alone:
+    a row's output depends on its own inputs only (test_rows_replay_row_
+    independent), and its near ties keep their rounding points, their
+    distances and their order, their indices shifted to row 0."""
     tol, want = TOL[a8], np.asarray(want, np.float64)
     scale = np.max(np.abs(want))
 
-    def row_err(got, m):
-        return np.max(np.abs(np.asarray(got, np.float64)[m] - want[m])) / scale
+    def row_err(got_row, m):
+        return np.max(np.abs(np.asarray(got_row, np.float64) - want[m])) / scale
 
     with monkeypatch.context() as mp:
         ties = _RowTies(mp)
-        got = run_port()
+        got = run_port(None)
     for m in range(want.shape[0]):
-        err, flips = row_err(got, m), frozenset()
-        cands = [key for _, key in sorted(ties.near)
-                 if key[1] // ties.width[key[0]] == m][:CANDIDATES]
+        err, flips = row_err(got[m], m), frozenset()
+        # row m's near ties, keyed as the replay of row m alone meets them
+        cands = [(p, e - m * ties.width[p]) for _, (p, e) in sorted(ties.near)
+                 if e // ties.width[p] == m][:CANDIDATES]
         while err > tol and len(flips) < MAX_FLIPS:
             best = None
             for key in cands:
@@ -222,7 +228,7 @@ def _check_rows(run_port, want, a8, monkeypatch):
                     continue
                 with monkeypatch.context() as mp:
                     _RowTies(mp, flips | {key})
-                    e = row_err(run_port(), m)
+                    e = row_err(run_port([m])[0], m)
                 if best is None or e < best[0]:
                     best = (e, flips | {key})
             if best is None or best[0] >= err:
@@ -253,8 +259,9 @@ def test_norm_qkv_rows_replay_matches_jax(tag, a8, M, monkeypatch):
     weights = [tp, None, None, None]
     monkeypatch.setattr(tf, "_phase", rows_phase(_plan(weights), weights))
 
-    def port():
-        return tf.norm_qkv_fused_reference(tx, tw, tp, norm="rmsnorm",
+    def port(rows):
+        x = tx if rows is None else tx[rows]
+        return tf.norm_qkv_fused_reference(x, tw, tp, norm="rmsnorm",
                                            eps=1e-5, a8=a8).numpy()
 
     _check_rows(port, np.asarray(want), a8, monkeypatch)
@@ -296,9 +303,10 @@ def test_attn_mlp_rows_replay_matches_jax(tag, a8, act, norm, glu, M,
                              eps=1e-5, glu=glu, a8=a8, interpret=True, **jb)
     monkeypatch.setattr(tf, "_phase", rows_phase(plan, weights))
 
-    def port():
+    def port(rows):
+        a, r = (ta, tr) if rows is None else (ta[rows], tr[rows])
         return tf.attn_mlp_fused_reference(
-            ta, tr, tw2, to, tg, td, act=act, norm=norm, eps=1e-5, glu=glu,
+            a, r, tw2, to, tg, td, act=act, norm=norm, eps=1e-5, glu=glu,
             a8=a8, **tb).numpy()
 
     _check_rows(port, np.asarray(want), a8, monkeypatch)
@@ -320,8 +328,9 @@ def test_ffn_rows_replay_matches_jax(tag, a8, M, monkeypatch):
     want = jf.ffn_fused(jm, jg, jd, act="silu", a8=a8, interpret=True)
     monkeypatch.setattr(tf, "_phase", rows_phase(plan, weights))
 
-    def port():
-        return tf.ffn_fused_reference(tm, tg, td, act="silu", a8=a8).numpy()
+    def port(rows):
+        m = tm if rows is None else tm[rows]
+        return tf.ffn_fused_reference(m, tg, td, act="silu", a8=a8).numpy()
 
     _check_rows(port, np.asarray(want), a8, monkeypatch)
 

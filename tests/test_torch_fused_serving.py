@@ -21,6 +21,7 @@ from gptq_tpu_torch.ops import ffn as tf
 from gptq_tpu_torch.ops import qmatmul as tq
 from gptq_tpu_torch.weights import params_from_jax, to_numpy_tree
 from test_torch_ffn import packed_pair
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # per-layer packing: (bits, groupsize, act-order)
 LAYERS = ((4, -1, False), (3, 128, False), (4, 128, True), (4, 64, False))
@@ -213,10 +214,16 @@ def test_quantize_lm_head_matches_jax():
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     np.testing.assert_array_equal(np.asarray(jw.scale), tw.scale.numpy())
     np.testing.assert_array_equal(np.asarray(jw.zoff), tw.zoff.numpy())
-    # already packed, or tied embeddings: a no-op in both packages
+    # already packed: a no-op in both packages
     assert not tpipe.quantize_lm_head(tspec, tp)
+    # a tied head: the port packs the embedding table (the JAX package
+    # leaves it dense), as JAX packs an explicit head of that table
     tied = {**tp, "lm_head": None}
-    assert not tpipe.quantize_lm_head(tspec, tied)
+    assert tpipe.quantize_lm_head(tspec, tied, bits=8)
+    jp["lm_head"] = {"w": jp["embed"]["tokens"], "b": None}
+    assert jpipe.quantize_lm_head(jspec, jp, bits=8)
+    for a, b in zip(jp["lm_head"]["w"].words, tied["lm_head"]["w"].words):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
 @pytest.mark.parametrize("a8", [True, False])

@@ -30,6 +30,7 @@ from gptq_tpu.ops import pack as jpack
 from gptq_tpu.ops import qmatmul as jq
 from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.ops import qmatmul as tq
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 jbm = importlib.import_module("gptq_tpu.ops.bcq_matmul")
 

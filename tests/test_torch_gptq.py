@@ -16,6 +16,7 @@ from gptq_tpu.quant import gptq as jg
 from gptq_tpu.quant import uniform as ju
 from gptq_tpu_torch.quant import gptq as tg
 from gptq_tpu_torch.quant import uniform as tu
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _hessian(rng, cols, nbatch=4, tokens=64):

@@ -28,6 +28,7 @@ from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.weights import params_from_jax, to_numpy_tree
 from test_torch_bcq_matmul import _pair as bcq_pair
 from test_torch_ffn import _check, fused_pair, packed_pair
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 HIDDEN, H, FFN = 256, 4, 512
 HD = HIDDEN // H

@@ -37,6 +37,7 @@ from gptq_tpu_torch.ops import qmatmul as tq
 from test_torch_ffn import _check, _jt, _x, fused_pair, packed_pair
 from test_torch_gemv import RTOL, _rel, gemv_replay, row_dots
 from test_torch_moe import _bank_pair
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 NCW, RW = 16, 2  # csrc/layer_stream.cuh: consumer warps, a warp's word rows
 CHUNK, RR = tl.CHUNK, tl.STAGE_ROWS

@@ -23,6 +23,7 @@ from gptq_tpu_torch import io as tio
 from gptq_tpu_torch.engine import decode as tdec
 from gptq_tpu_torch.models import common as tc
 from gptq_tpu_torch.weights import params_from_jax, to_numpy_tree
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-4  # relative to max |logit|: f32 on both sides, other op order

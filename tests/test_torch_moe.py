@@ -33,6 +33,7 @@ from gptq_tpu_torch.models import registry as treg
 from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.ops import qmatmul as tq
 from gptq_tpu_torch.weights import params_from_jax, to_numpy_tree
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # hidden 48 pads the gate / up banks' K to 64 (pack_expert_stack's
 # multiple of 32); capacity E / k = 2.0 makes the model dropless
@@ -380,8 +381,13 @@ def test_spec_from_hf_config_matches_on_mixtral():
                                "model_type": "llama"})
     assert dataclasses.asdict(treg.spec_from_hf_config(llama)) == \
         dataclasses.asdict(jreg.spec_from_hf_config(llama))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        treg.spec_from_hf_config(SimpleNamespace(model_type="opt"))
+    # OPT is ported: its spec is JAX's (tests/test_torch_families.py)
+    opt = SimpleNamespace(model_type="opt", num_hidden_layers=2,
+                          hidden_size=64, num_attention_heads=4, ffn_dim=128,
+                          vocab_size=99, max_position_embeddings=32,
+                          word_embed_proj_dim=64, do_layer_norm_before=True)
+    assert dataclasses.asdict(treg.spec_from_hf_config(opt)) == \
+        dataclasses.asdict(jreg.spec_from_hf_config(opt))
 
 
 def _model_pair(seed=0, pack=None, attn_bits=None):
@@ -417,7 +423,8 @@ def test_init_params_and_refusals_lifted():
     logits, _ = tc.model_forward(tspec, tp, torch.zeros((1, 5),
                                                         dtype=torch.long))
     assert logits.shape == (1, 5, KW["vocab"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # experts serve a GLU FFN: llama and Gemma only, as in the JAX package
+    with pytest.raises(ValueError, match="n_experts"):
         tc.init_params(dataclasses.replace(tspec, arch="opt"), device="cpu")
 
 

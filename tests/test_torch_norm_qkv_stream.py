@@ -30,6 +30,7 @@ from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.ops import qmatmul as tq
 from test_torch_ffn import _check, _jt, _x, fused_pair, packed_pair
 from test_torch_gemv import gemv_replay
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def stream_phase(splits):

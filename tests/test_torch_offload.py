@@ -21,6 +21,7 @@ from gptq_tpu_torch import pipeline as tpipe
 from gptq_tpu_torch.config import QuantConfig
 from gptq_tpu_torch.models import convert as tconv
 from gptq_tpu_torch.ops.pack import PackedWeight
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
 QKW = dict(wbits=4, groupsize=16, act_order=True, true_sequential=True,

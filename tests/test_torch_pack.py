@@ -8,6 +8,7 @@ import jax.numpy as jnp
 
 from gptq_tpu.ops import pack as jpack
 from gptq_tpu_torch.ops import pack as tpack
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])

@@ -121,6 +121,7 @@ from gptq_tpu.engine import decode as jdec  # noqa: E402
 from gptq_tpu_torch.engine import decode as tdec  # noqa: E402
 from gptq_tpu_torch.models import common as tcommon  # noqa: E402
 from gptq_tpu_torch.ops import bcq_matmul as tbm  # noqa: E402
+from torch_threads import torch_threads  # noqa: E402,F401 (autouse)
 
 LUT_QKW = dict(wbits=3, groupsize=32, lut_eval=True, bcq_round=5,
                apot_nums=2, true_sequential=True, nsamples=8)

@@ -12,6 +12,7 @@ from gptq_tpu.ops import qmatmul as jq
 from gptq_tpu_torch.ops import pack as tpack
 from gptq_tpu_torch.ops import qmatmul as tq
 from test_torch_gemv import gemv_replay
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 RTOL = 1e-5  # both sides f32 on the CPU; sums in another order
 

@@ -32,6 +32,7 @@ from gptq_tpu_torch.parallel import sp as tsp
 from gptq_tpu_torch.weights import (params_from_jax, sp_cache_from_jax,
                                     to_numpy_tree)
 from test_torch_model import _close, _pack_jax
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # tests/test_sp.py's sizes (3 layers, GQA 4 / 2, head dim 12)
