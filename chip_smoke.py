@@ -149,8 +149,9 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                written here (config.json and an F16 model.safetensors
                from a seed, 1.24 GiB), the tokenizer and `datasets`
                stood in by seeded synthetic text; w4 g128 act-order
-               true-sequential with the 8-bit head (--eval_pack --save),
-               then --lut_eval 3-bit g128: each run's stage times, its
+               true-sequential with the 8-bit head (--eval_pack --save)
+               and beside it, in a process of its own, --lut_eval 3-bit
+               g128: each run's stage times, its
                PPL evals' launches (#1, then #13; exact counts) and its
                wikitext2 PPL against the dense twin of its saved file;
                then the saved w4 file served through the CLI.
@@ -203,6 +204,30 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                OPT-6.7B-width F16 directory through the CLI (w4 g128
                act-order --new-eval --save, PPL against the dense twin,
                a serve with the untied 8-bit head).
+ 10. mixed   - mixed precision: #1 on a 3-bit v (4096x4096), #4 on a
+               3-bit llama q|k|v and on OPT-6.7B's layernorm + biased
+               q|k|v at 3 bits, #5 / #6 on o 3 / gate|up 4 / down 3
+               (configs/linearwise.json) at M = 1 and 32, a8 and a16,
+               and #12 at q|k|v 4 / o 3 / gate|up 4 / down 3 and at 3
+               bits, each held to its plain version (the near-tie rule)
+               and timed; in-process serves (B = 1, 8-bit head) at
+               linearwise.json's bits (32 layers, int8 KV: 96 #1, 32 #5,
+               32 #3 and the head's #4 a step), at per-layer bits (8
+               layers, 4 at 3 bits then 4 at 4: fused on int8 KV and the
+               layer route on bf16) and at per-module bits (2 layers, one
+               with a dense o: #6), with exact launches, a profile's
+               device ms a step beside the byte bound, and 2-layer greedy
+               tokens against the plain versions; then the CLI on the
+               2-layer directories of the cli and families phases:
+               --analyse on llama, then side by side, each in a process
+               of its own, --linearmix (llama) and --layermix (OPT,
+               `opt-6.7b`), each saved and served after, --quant_config
+               results/quant_config.json, --non_linear and --columnwise
+               (s per layer; PPL evals' launches exact); and
+               add_actquant's 8-bit activation quantizers on the
+               --linearmix file, served through #1, greedy tokens against
+               plain. The kernels line counts a mixed entry's launches
+               on the weights it names only.
 Then one JSON line {"kernels": [...]}, and last {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero, printing no
@@ -229,7 +254,7 @@ from unittest import mock
 import numpy as np
 
 PHASES = ("build", "kernels", "quantize", "serve", "sp", "moe", "cli",
-          "batch", "families")
+          "batch", "families", "mixed")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
 FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
 BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
@@ -419,11 +444,12 @@ def bcq_linear(gen, K, N, bits, groupsize, device):
 
 
 def synth_packed_params(spec, device, bits=4, groupsize=-1, seed=0,
-                        fmt="uniform"):
+                        fmt="uniform", bits_of=None):
     """Seeded random packed llama params (the counterpart of the JAX
     package's bench.py:synth_packed_params): random codes (fmt="bcq":
     sign planes and alphas) in the real serving format, bf16 embedding /
-    norms, a dense bf16 lm_head."""
+    norms, a dense bf16 lm_head. bits_of(i, key), where given, sets the
+    bits of layer i's linear `key` (mixed precision)."""
     import torch
 
     gen = torch.Generator(device=device)
@@ -432,14 +458,17 @@ def synth_packed_params(spec, device, bits=4, groupsize=-1, seed=0,
     kv = spec.kv_heads * spec.hd
     make = bcq_linear if fmt == "bcq" else packed_linear
 
-    def lin(K, N):
-        return {"w": make(gen, K, N, bits, groupsize, device), "b": None}
+    def lin(K, N, i=None, key=None):
+        b = bits if bits_of is None else bits_of(i, key)
+        return {"w": make(gen, K, N, b, groupsize, device), "b": None}
 
     layers = []
-    for _ in range(spec.n_layers):
+    for i in range(spec.n_layers):
         layers.append({
-            "q": lin(h, h), "k": lin(h, kv), "v": lin(h, kv), "o": lin(h, h),
-            "gate": lin(h, f), "up": lin(h, f), "down": lin(f, h),
+            "q": lin(h, h, i, "q"), "k": lin(h, kv, i, "k"),
+            "v": lin(h, kv, i, "v"), "o": lin(h, h, i, "o"),
+            "gate": lin(h, f, i, "gate"), "up": lin(h, f, i, "up"),
+            "down": lin(f, h, i, "down"),
             "ln1": {"w": torch.ones(h, dtype=torch.bfloat16, device=device)},
             "ln2": {"w": torch.ones(h, dtype=torch.bfloat16, device=device)},
         })
@@ -4232,6 +4261,66 @@ def cli_quantize(what, argv, want_counts) -> dict:
             "windows": windows, "launches": counts}
 
 
+def cli_batch(runs) -> list:
+    """Runs of cli_quantize side by side, each in a process of its own
+    (this script with --cli-run) under the stood-in data: the solver's
+    column loop is host-bound Python, one core a run, and its small
+    kernels leave the card idle most of the time, so runs side by side
+    each keep about their time alone (s per layer in each run's log
+    line). `runs`: (what, argv, launches a PPL window, tokenizer vocab).
+    Returns each run's cli_quantize result, in order, after logging its
+    lines; a run that fails raises here, and no process outlives the
+    call."""
+    procs = []
+    try:
+        for what, argv, per_window, vocab in runs:
+            f = tempfile.TemporaryFile("w+")
+            arg = json.dumps({"what": what, "argv": argv,
+                              "per_window": per_window, "vocab": vocab})
+            procs.append((what, f, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cli-run",
+                 arg], stdout=f, stderr=subprocess.STDOUT)))
+        out = []
+        for what, f, p in procs:
+            rc = p.wait()
+            f.seek(0)
+            lines = f.read().splitlines()
+            res = [line for line in lines if line.startswith(RESULT)]
+            for line in lines:
+                if not line.startswith(RESULT):
+                    log(line)
+            if rc != 0 or len(res) != 1:
+                raise AssertionError(f"cli {what}: its process exited {rc}")
+            out.append(json.loads(res[0][len(RESULT):]))
+        return out
+    finally:
+        for _, f, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+
+
+def cli_run(arg) -> int:
+    """One run of cli_batch, in its own process: cli_quantize under the
+    stood-in data; its result is printed on a line that starts with
+    RESULT."""
+    import torch
+
+    run = json.loads(arg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with offline_data(run["vocab"]):
+        res = cli_quantize(run["what"], run["argv"], lambda w: {
+            k: v * w for k, v in run["per_window"].items()})
+    print(RESULT + json.dumps(res), flush=True)
+    return 0
+
+
+# the line of a cli_run process that holds its result
+RESULT = "cli_run result: "
+
+
 def dense_ppl(spec, path, tok, device) -> float:
     """wikitext2 PPL of a saved checkpoint with every packed linear (the
     head too) dequantized to dense f32: the packed evals' reference."""
@@ -4252,12 +4341,33 @@ def dense_ppl(spec, path, tok, device) -> float:
                     log=lambda s: None)
 
 
+# the CLI's 2-layer model directories, written once under the smoke's
+# temporary directory and shared by the cli, families and mixed phases (the
+# OPT one is named as configs/layerwise.json's row)
+CLI_DIRS = {
+    "llama-7b": lambda path, device: write_hf_llama(path, 2, device, seed=7),
+    "opt-6.7b": lambda path, device: write_hf_opt(path, 2, device, seed=31)}
+
+
+def cli_dir(tmp, model, device) -> tuple:
+    """The 2-layer HF directory of `model` (CLI_DIRS) at its published
+    width, F16 safetensors: (path, bytes written, seconds; both 0 where an
+    earlier phase wrote it)."""
+    path = os.path.join(tmp, model)
+    if os.path.exists(os.path.join(path, "config.json")):
+        return path, 0, 0.0
+    t0 = time.perf_counter()
+    nbytes = CLI_DIRS[model](path, device)
+    return path, nbytes, time.perf_counter() - t0
+
+
 def phase_cli(device, tmp, report):
-    """quantize from a model directory through the CLI: a 2-layer
-    LLaMA-7B-width HF directory (F16 safetensors) -> convert -> calibrate
+    """quantize from a model directory through the CLI: the 2-layer
+    LLaMA-7B-width HF directory (cli_dir) -> convert -> calibrate
     (16 c4 windows of 2,048) -> GPTQ w4 g128 act-order true-sequential ->
-    pack (+ the 8-bit head) -> save -> PPL through #1; then --lut_eval
-    (3-bit g128) -> sign planes -> PPL through #13; each PPL against the
+    pack (+ the 8-bit head) -> save -> PPL through #1; beside it
+    (cli_batch) --lut_eval (3-bit g128) -> sign planes -> PPL through #13;
+    each PPL against the
     dense twin of its saved file; then the saved w4 file served through
     the CLI (--benchmark 32 --faster-kernel --int8_kv: act-order weights
     take the unfused route, the 8-bit head the fused one). --new-eval
@@ -4267,10 +4377,7 @@ def phase_cli(device, tmp, report):
     from gptq_tpu_torch.models.registry import spec_from_hf_config
 
     L = 2
-    hf = os.path.join(tmp, "llama-7b-2l")
-    t0 = time.perf_counter()
-    nbytes = write_hf_llama(hf, L, device, seed=7)
-    write_s = time.perf_counter() - t0
+    hf, nbytes, write_s = cli_dir(tmp, "llama-7b", device)
     spec = spec_from_hf_config(hf_config(hf))
     log(f"cli: wrote a {L}-layer LLaMA-7B-width HF directory (F16 "
         f"safetensors, {nbytes / 2**30:.2f} GiB) in {write_s:.1f} s")
@@ -4281,18 +4388,17 @@ def phase_cli(device, tmp, report):
     common = ["--nsamples", "16", "--new-eval", "--results_log",
               os.path.join(tmp, "ppl.txt")]
     out = {"write_s": write_s, "bytes": nbytes}
+    # side by side (cli_batch); 2,048-row windows: every linear and the
+    # head on the tensor cores, none on the CUDA-core kernel
+    out["w4"], out["b3"] = cli_batch([
+        ("w4", [hf, "c4", "--wbits", "4", "--groupsize", "128",
+                "--act-order", "--true-sequential", "--eval_pack",
+                "--quant_lm_head", "8", "--save", q4, *common],
+         {"qmm_mma": 7 * L + 1}, spec.vocab),
+        ("lut b3", [hf, "c4", "--wbits", "3", "--groupsize", "128",
+                    "--lut_eval", "--eval_pack", "--save", qb, *common],
+         {"bcq_mma": 7 * L}, spec.vocab)])
     with offline_data(spec.vocab) as tok:
-        out["w4"] = cli_quantize(
-            "w4", [hf, "c4", "--wbits", "4", "--groupsize", "128",
-                   "--act-order", "--true-sequential", "--eval_pack",
-                   "--quant_lm_head", "8", "--save", q4, *common],
-            # 2,048-row windows: every linear and the head on the tensor
-            # cores, none on the CUDA-core kernel
-            lambda w: {"qmm_mma": w * (7 * L + 1)})
-        out["b3"] = cli_quantize(
-            "lut b3", [hf, "c4", "--wbits", "3", "--groupsize", "128",
-                       "--lut_eval", "--eval_pack", "--save", qb, *common],
-            lambda w: {"bcq_mma": w * 7 * L})
         for tag, path in (("w4", q4), ("b3", qb)):
             ppl = out[tag]["ppl"]["wikitext2"]
             ref = dense_ppl(spec, path, tok, device)
@@ -4782,7 +4888,7 @@ def family_spec(model, n_layers):
     return spec_from_hf_config(SimpleNamespace(**cfg))
 
 
-def synth_family_params(spec, device, seed=0):
+def synth_family_params(spec, device, seed=0, bits=4):
     """Seeded random params of an OPT / BLOOM / Gemma spec in the serving
     format: every block linear a random 4-bit g-1 packed weight
     (packed_linear, its grids scaled so that the weights' rms is init_params'
@@ -4814,10 +4920,14 @@ def synth_family_params(spec, device, seed=0):
                 + base).to(torch.bfloat16)
 
     def lin(K, N):
-        pw = packed_linear(gen, K, N, 4, -1, device)
-        f = 0.4 / math.sqrt(K) / 0.051  # packed_linear's rms: 0.011 x 4.64
-        return {"w": dataclasses.replace(pw, scale=pw.scale * f,
-                                         zoff=pw.scale * f * 7.5),
+        pw = packed_linear(gen, K, N, bits, -1, device)
+        # packed_linear's rms: 0.011 x 4.64 at 4 bits; at other bits 0.011
+        # x the uniform codes' rms about their mean (2.29 at 3)
+        rms = 0.051 if bits == 4 else 0.011 * math.sqrt((4 ** bits - 1) / 12)
+        f = 0.4 / math.sqrt(K) / rms
+        return {"w": dataclasses.replace(
+                    pw, scale=pw.scale * f,
+                    zoff=pw.scale * f * ((1 << bits) - 1) / 2),
                 "b": vec(N) if spec.linear_bias else None}
 
     def norm():
@@ -4852,7 +4962,8 @@ def synth_family_params(spec, device, seed=0):
 
 
 def family_kernel_rows(model, spec, served, device, peaks, timer,
-                       seed=17) -> list:
+                       seed=17, tag="w4g-1", prefix="families",
+                       parts=("q|k|v", "head", "mlp"), a8s=(True,)) -> list:
     """The family's branches of #4 (ln1 + q|k|v: OPT three biased parts,
     BLOOM one fused biased linear, Gemma rmsnorm1p; final_ln + the 8-bit
     head), #5 (o + ln2 + the MLP: OPT fc1 -> relu -> fc2, BLOOM gelu_tanh,
@@ -4862,7 +4973,10 @@ def family_kernel_rows(model, spec, served, device, peaks, timer,
     each held to its plain version with the near-tie rule (tie_check;
     #5's residual on its own, residual_check), then timed beside the plain
     version, the unfused route, torch.matmul over the dequantized bf16
-    weights (#5: the three products) and the bound."""
+    weights (#5: the three products) and the bound. The mixed phase calls
+    it on layers of mixed bits: `tag` names the MLP's weights in its rows,
+    `prefix` its log lines, `parts` the checks to run ("q|k|v", "head",
+    "mlp") and `a8s` the activation modes (a16 too)."""
     import torch
 
     from gptq_tpu_torch.models import common
@@ -4891,21 +5005,21 @@ def family_kernel_rows(model, spec, served, device, peaks, timer,
 
     rows = []
 
-    def norm_qkv_row(tag, ln, pw, b, M):
+    def norm_qkv_row(tag, ln, pw, b, M, a8):
         x = torch.randn((M, h), generator=gen, device=device)
         xb = x.to(torch.bfloat16)
         x2 = xb.float()
-        kw = dict(norm=nt, eps=eps, a8=True, b_ln=ln.get("b"), b_qkv=b)
-        route = Fz.norm_qkv_route(M, pw, True)
+        kw = dict(norm=nt, eps=eps, a8=a8, b_ln=ln.get("b"), b_qkv=b)
+        route = Fz.norm_qkv_route(M, pw, a8)
         if route != ("stream" if M == 1 else "rows"):
             raise AssertionError(f"{model} norm_qkv {tag} M={M}: route "
                                  f"{route}")
         plain = functools.partial(Fz.norm_qkv_fused_reference, x, ln["w"],
                                   pw, **kw)
-        err, rel, flips = tie_check(f"{model} norm_qkv {tag} M={M}",
+        err, rel, flips = tie_check(f"{model} norm_qkv {tag} M={M} a8={a8}",
                                     Fz.norm_qkv_fused(x, ln["w"], pw, **kw),
                                     plain, TOL["fused"])
-        unfused_p = (lp if tag == "q|k|v" else
+        unfused_p = (served_as(a8) if tag == "q|k|v" else
                      {"embed": {}, "final_ln": served["final_ln"],
                       "lm_head": served["lm_head"]})
 
@@ -4916,110 +5030,123 @@ def family_kernel_rows(model, spec, served, device, peaks, timer,
             return common.head_forward(spec, unfused_p, xb.reshape(1, M, h))
 
         row = {"model": model, "kernel": "norm_qkv", "w": tag, "M": M,
+               "a8": a8, "bits": pw.bits,
                "route": route, "max_abs_err": err, "rel_err": rel,
                "flips": flips, "N": pw.N, "Np": pw.Np, "K": pw.Kp}
         row.update(fused_times(
-            timer, peaks, M, True, [pw], M * h * 2 + 2 * h * 4 + M * pw.Np * 4,
-            kernel=lambda: Fz._norm_qkv_cuda(x2, ln["w"], pw, nt, eps, True,
+            timer, peaks, M, a8, [pw], M * h * 2 + 2 * h * 4 + M * pw.Np * 4,
+            kernel=lambda: Fz._norm_qkv_cuda(x2, ln["w"], pw, nt, eps, a8,
                                              ln.get("b"), b),
             wrapper=lambda: Fz.norm_qkv_fused(xb, ln["w"], pw, **kw),
             plain=lambda: Fz.norm_qkv_fused_reference(xb, ln["w"], pw, **kw),
             unfused=unfused))
         w = dense(pw)
         row["library_ms"] = timer(lambda: torch.matmul(xb, w))
-        log(f"families {model} " + json.dumps(row))
+        log(f"{prefix} {model} " + json.dumps(row))
         rows.append(row)
 
-    def mlp_rows(M):
+    def mlp_rows(M, a8):
         attn = torch.randn((M, o.Kp), generator=gen, device=device)
         xres = torch.randn((M, h), generator=gen,
                            device=device).to(torch.bfloat16)
-        route = Fz.mlp_route(M, o, gu, dn, True)
+        route = Fz.mlp_route(M, o, gu, dn, a8)
         if route != ("stream" if M == 1 else "rows"):
             raise AssertionError(f"{model} attn_mlp M={M}: route {route}")
         err, rel, flips = tie_check(
-            f"{model} attn_mlp M={M}",
-            Fz.attn_mlp_fused(attn, xres, ln2, o, gu, dn, a8=True, **mlp_kw),
+            f"{model} attn_mlp M={M} a8={a8}",
+            Fz.attn_mlp_fused(attn, xres, ln2, o, gu, dn, a8=a8, **mlp_kw),
             functools.partial(Fz.attn_mlp_fused_reference, attn, xres, ln2,
-                              o, gu, dn, a8=True, **mlp_kw), TOL["fused"])
+                              o, gu, dn, a8=a8, **mlp_kw), TOL["fused"])
         dn0 = dataclasses.replace(dn, scale=torch.zeros_like(dn.scale),
                                   zoff=torch.zeros_like(dn.zoff))
         r2 = residual_check(f"{model} attn_mlp M={M}", attn, xres, ln2, o, gu,
-                            dn0, True, **{k: v for k, v in mlp_kw.items()
-                                          if k != "b_d"})
+                            dn0, a8, **{k: v for k, v in mlp_kw.items()
+                                        if k != "b_d"})
         x2 = xres.float()
         a3, r3 = attn.reshape(1, M, -1), xres.reshape(1, M, h)
-        F = dn.Kp
         wo, wg, wd = dense(o), dense(gu), dense(dn)
         ab = attn.to(torch.bfloat16)
 
-        def library():
+        def library():  # gate's logical columns lead its stored half
             g = torch.matmul(torch.matmul(ab, wo), wg)
-            return torch.matmul(g[:, :F], wd)
+            return torch.matmul(g[:, :wd.shape[0]], wd)
 
-        row = {"model": model, "kernel": "attn_mlp", "w": "w4g-1", "M": M,
-               "route": route, "glu": glu, "act": spec.act,
+        row = {"model": model, "kernel": "attn_mlp", "w": tag, "M": M,
+               "a8": a8, "route": route, "glu": glu, "act": spec.act,
                "max_abs_err": err, "rel_err": rel, "flips": flips,
                "r2_rel_err": r2}
         row.update(fused_times(
-            timer, peaks, M, True, [o, gu, dn],
+            timer, peaks, M, a8, [o, gu, dn],
             M * o.Kp * 4 + M * h * 2 + 2 * h * 4 + M * h * 4,
             kernel=lambda: Fz._mlp_cuda(
-                attn, x2, ln2, o, gu, dn, spec.act, nt, eps, glu, True,
+                attn, x2, ln2, o, gu, dn, spec.act, nt, eps, glu, a8,
                 mlp_kw["b_ln"], mlp_kw["b_o"], mlp_kw["b_g"], mlp_kw["b_d"]),
             wrapper=lambda: Fz.attn_mlp_fused(attn, xres, ln2, o, gu, dn,
-                                              a8=True, **mlp_kw),
+                                              a8=a8, **mlp_kw),
             plain=lambda: Fz.attn_mlp_fused_reference(
-                attn, xres, ln2, o, gu, dn, a8=True, **mlp_kw),
-            unfused=lambda: common._finish_block(spec, lp, r3, a3, None,
-                                                 None)))
+                attn, xres, ln2, o, gu, dn, a8=a8, **mlp_kw),
+            unfused=lambda: common._finish_block(spec, served_as(a8), r3, a3,
+                                                 None, None)))
         row["library_ms"] = timer(library)
-        log(f"families {model} " + json.dumps(row))
+        log(f"{prefix} {model} " + json.dumps(row))
         rows.append(row)
         if not glu:
             return
         m = torch.randn((M, h), generator=gen, device=device)
         err, rel, flips = tie_check(
-            f"{model} ffn M={M}", Fz.ffn_fused(m, gu, dn, act=spec.act,
-                                               a8=True),
+            f"{model} ffn M={M} a8={a8}", Fz.ffn_fused(m, gu, dn, act=spec.act,
+                                                       a8=a8),
             functools.partial(Fz.ffn_fused_reference, m, gu, dn,
-                              act=spec.act, a8=True), TOL["fused"])
+                              act=spec.act, a8=a8), TOL["fused"])
         mb = m.to(torch.bfloat16)
-        row = {"model": model, "kernel": "ffn", "w": "w4g-1", "M": M,
-               "route": Fz.mlp_route(M, None, gu, dn, True), "glu": glu,
+        row = {"model": model, "kernel": "ffn", "w": tag, "M": M, "a8": a8,
+               "route": Fz.mlp_route(M, None, gu, dn, a8), "glu": glu,
                "act": spec.act, "max_abs_err": err, "rel_err": rel,
                "flips": flips}
 
         def unfused_ffn():
-            g, u = common._apply_fused(lp["gateup_fused"], m)
-            return common.linear_apply(lp["down"],
+            lq = served_as(a8)
+            g, u = common._apply_fused(lq["gateup_fused"], m)
+            return common.linear_apply(lq["down"],
                                        common.activation(spec, g) * u)
 
         row.update(fused_times(
-            timer, peaks, M, True, [gu, dn], M * h * 4 * 2,
+            timer, peaks, M, a8, [gu, dn], M * h * 4 * 2,
             kernel=lambda: Fz._mlp_cuda(m, None, None, None, gu, dn, spec.act,
-                                        nt, 0.0, True, True, None, None, None,
+                                        nt, 0.0, True, a8, None, None, None,
                                         None),
-            wrapper=lambda: Fz.ffn_fused(m, gu, dn, act=spec.act, a8=True),
+            wrapper=lambda: Fz.ffn_fused(m, gu, dn, act=spec.act, a8=a8),
             plain=lambda: Fz.ffn_fused_reference(m, gu, dn, act=spec.act,
-                                                 a8=True),
+                                                 a8=a8),
             unfused=unfused_ffn))
         row["library_ms"] = timer(lambda: torch.matmul(
-            torch.matmul(mb, wg)[:, :F], wd))
-        log(f"families {model} " + json.dumps(row))
+            torch.matmul(mb, wg)[:, :wd.shape[0]], wd))
+        log(f"{prefix} {model} " + json.dumps(row))
         rows.append(row)
 
-    for M in (1, 32):
-        norm_qkv_row("q|k|v", lp["ln1"], qkv_e["w"], b_qkv, M)
-        norm_qkv_row("head", served["final_ln"], served["lm_head"]["w"],
-                     None, M)
-        mlp_rows(M)
+    def served_as(a8):
+        """Layer 0 with every entry's activation mode a8 (the unfused
+        route of the same function)."""
+        if a8:
+            return lp
+        return {k: ({kk: vv for kk, vv in v.items() if kk != "serve"}
+                    if isinstance(v, dict) else v) for k, v in lp.items()}
+
+    for a8 in a8s:
+        for M in (1, 32):
+            if "q|k|v" in parts:
+                norm_qkv_row("q|k|v", lp["ln1"], qkv_e["w"], b_qkv, M, a8)
+            if "head" in parts:
+                norm_qkv_row("head", served["final_ln"],
+                             served["lm_head"]["w"], None, M, a8)
+            if "mlp" in parts:
+                mlp_rows(M, a8)
     dq.clear()
     return rows
 
 
 def gemma_layer_rows(model, spec, served, device, peaks, timer,
-                     seed=19) -> list:
+                     seed=19, prefix="families", attention=True) -> list:
     """#12 at Gemma-7B's layer (rmsnorm1p, gelu_tanh, hd 256, H hd = 4,096
     != hidden 3,072) on the served layer 0, a8 and a16, over a bf16 cache
     of 256 slots with 128 filled: held to its plain version with the
@@ -5027,7 +5154,9 @@ def gemma_layer_rows(model, spec, served, device, peaks, timer,
     kernel's own roped q|k|v row, two launches bit for bit; a8 timed (
     layer_times: the plain version, the fused route over the same layer,
     the bound); and #3 at Gemma's heads (H = Hkv = 16, hd 256) on int8 and
-    bf16 caches, one row and 32 (attn_times: the plain version, SDPA)."""
+    bf16 caches, one row and 32 (attn_times: the plain version, SDPA). The
+    mixed phase calls it on llama layers of mixed bits (`prefix` its log
+    lines; attention=False: no #3 rows)."""
     import torch
 
     from gptq_tpu_torch.models import common
@@ -5089,11 +5218,12 @@ def gemma_layer_rows(model, spec, served, device, peaks, timer,
         if a8:
             row.update(layer_times(timer, peaks, spec, x, cache0, lens, args,
                                    kw, ServeFlags(a8=True)))
-        log(f"families {model} " + json.dumps(row))
+        row["bits"] = [pw.bits for pw in ws]
+        log(f"{prefix} {model} " + json.dumps(row))
         rows.append(row)
     if not LF.sync_clean(device):
         raise AssertionError(f"{model}: #12 left barrier or ticket words set")
-    for cache in ("int8", "bf16"):
+    for cache in (("int8", "bf16") if attention else ()):
         for B in (1, 32):
             r = attn_times(gen, device, peaks, timer, S, length, cache=cache,
                            Hkv=Hkv, B=B, H=nh, hd=hd)
@@ -5118,46 +5248,63 @@ def family_decode_counts(spec, layer=False) -> dict:
 
 
 @contextlib.contextmanager
-def head_launches():
-    """Counts the kernel launches made inside the model's head
-    (models/common.head_forward) apart: yields a dict that holds, once the
-    block ends, each wrapper's launches made there."""
+def launches_in(name, key=lambda *args, **kw: "all"):
+    """Counts the kernel launches made inside models/common.<name> apart,
+    by key(*args) of each call: yields a dict {key: {kernel: launches}}
+    that holds, once the block ends, the launches made there."""
     from gptq_tpu_torch.models import common
 
-    seen, real = {}, common.head_forward
+    seen, real = {}, getattr(common, name)
 
-    def head(*args, **kw):
+    def inner(*args, **kw):
         before = launch_counts()
         try:
             return real(*args, **kw)
         finally:
+            mine = seen.setdefault(key(*args, **kw),
+                                   dict.fromkeys(before, 0))
             for k, v in launch_counts().items():
-                if v != before[k]:
-                    seen[k] = seen.get(k, 0) + v - before[k]
+                mine[k] += v - before[k]
 
-    with mock.patch.object(common, "head_forward", head):
+    with mock.patch.object(common, name, inner):
         yield seen
-    for k in launch_counts():
-        seen.setdefault(k, 0)
 
 
-def family_serve(model, spec, params, device, card) -> dict:
-    """The family's served model (w4a8 g-1, an 8-bit head, an int8 cache;
-    Gemma also the layer route on a bf16 cache) through DecodeEngine:
-    `steps` eager decode steps with the counters set to 0 just before and
-    read just after (exact counts a step, the main path's launches);
-    the per-token median (engine.decode.benchmark_decode); a profile's
-    device ms a step, busy share and kernels by name."""
+def bits_key(entries) -> str:
+    """"w" and the bits of the packed weights among the linear entries
+    (say "w3", or "w3/4" for a layer of two widths); "dense" if none."""
+    from gptq_tpu_torch.ops.pack import PackedWeight
+
+    bits = sorted({e["w"].bits for e in entries if isinstance(e, dict)
+                   and isinstance(e.get("w"), PackedWeight)})
+    return "w" + "/".join(map(str, bits)) if bits else "dense"
+
+
+# the launches of a served model apart by the bits of the weights they ran
+# on: each linear's (linear_apply), each layer's (block_forward)
+BY_LINEAR = ("linear_apply", lambda lin, x: bits_key([lin]))
+BY_LAYER = ("block_forward", lambda spec, p, *a, **kw: bits_key(p.values()))
+
+
+def serve_routes(what, spec, params, device, card, peaks, routes,
+                 by=None) -> dict:
+    """A served model (a8, B = 1, an 8-bit head on #4) on each of `routes`:
+    (route, cache dtype, GPTQ_TPU_LAYER_FUSION, launches a step, kernels by
+    name a step). 16 eager decode steps with the counters set to 0 just
+    before and read just after (exact launches: the main path's; #4's
+    inside the head counted apart as norm_qkv_head, one a step; with `by`,
+    BY_LINEAR or BY_LAYER, each kernel's launches also apart by the bits of
+    the weights they ran on, under launches_by), finite logits, the
+    per-token median (engine.decode.benchmark_decode), a profile's device
+    ms a step, busy share and kernels by name, and the step's byte bound
+    (step_bytes)."""
     import torch
 
     from gptq_tpu_torch.engine.decode import DecodeEngine, benchmark_decode
 
     out = {}
-    rng = np.random.default_rng(23)
-    routes = [("fused", torch.int8, "off")]
-    if spec.pos == "rope" and spec.arch == "gemma":
-        routes.append(("layer", torch.bfloat16, "on"))
-    for route, cdt, layer in routes:
+    rng = np.random.default_rng(73)
+    for route, cdt, layer, per_step, by_name in routes:
         with env_var("GPTQ_TPU_LAYER_FUSION", layer):
             eng = DecodeEngine(spec, params, max_len=256, batch=1,
                                cache_dtype=cdt, a8=True)
@@ -5166,27 +5313,29 @@ def family_serve(model, spec, params, device, card) -> dict:
             tok = logits.argmax(-1)[:, None]
             steps = 16
             torch.cuda.synchronize()
-            with head_launches() as head:
+            split = (launches_in(*by) if by is not None
+                     else contextlib.nullcontext({}))
+            with launches_in("head_forward") as head, split as split_by:
                 reset_counts()
                 for _ in range(steps):
                     logits, cache = eng.step(cache, tok)
                     tok = logits.argmax(-1)[:, None]
                 torch.cuda.synchronize()
                 counts = launch_counts()
-            want = {k: v * steps for k, v in family_decode_counts(
-                spec, route == "layer").items()}
-            expect(counts, want, f"{model} {route} decode")
+            expect(counts, {k: v * steps for k, v in per_step.items()},
+                   f"{what} {route} decode")
             # #4's launches by caller: the head's apart from q|k|v's
-            counts["norm_qkv"] -= head["norm_qkv"]
-            counts["norm_qkv_head"] = head["norm_qkv"]
-            if head["norm_qkv"] != steps:
-                raise AssertionError(f"{model} {route} decode: the head "
-                                     f"launched #4 {head['norm_qkv']} times "
-                                     f"in {steps} steps")
+            n_head = head["all"]["norm_qkv"]
+            if n_head != steps:
+                raise AssertionError(f"{what} {route} decode: the head "
+                                     f"launched #4 {n_head} times in "
+                                     f"{steps} steps")
+            counts["norm_qkv"] -= n_head
+            counts["norm_qkv_head"] = n_head
             lg = logits.float()
             if not bool(torch.isfinite(lg).all()) or lg.shape != (
                     1, spec.vocab):
-                raise AssertionError(f"{model} {route}: logits of shape "
+                raise AssertionError(f"{what} {route}: logits of shape "
                                      f"{tuple(lg.shape)}, finite "
                                      f"{bool(torch.isfinite(lg).all())}")
             bench = benchmark_decode(spec, eng.params, rng.integers(
@@ -5195,26 +5344,32 @@ def family_serve(model, spec, params, device, card) -> dict:
             prof = profile_decode(eng, rng.integers(0, spec.vocab,
                                                     size=(1, 64)))
         med = bench["median_s"] * 1e3
-        if prof["device_ms"] > 0:
-            prof["device_busy_share"] = prof["device_ms"] / med
-        by_name = ({"norm_qkv_gemv_kernel": 1} if route == "layer" else
-                   {"norm_qkv_gemv_kernel": spec.n_layers + 1,
-                    "mlp_stream_kernel": spec.n_layers})
-        single_row_check(f"{model} {route} decode profile", prof, by_name,
-                         family_decode_counts(spec, route == "layer"))
+        single_row_check(f"{what} {route} decode profile", prof, by_name,
+                         per_step)
+        # the profiled steps' least bytes: weights once, the cache filled
+        # by the 64-token prompt and 3 warm steps
+        nbytes = step_bytes(spec, eng.params, [64 + 3],
+                            torch.tensor([], dtype=cdt).element_size(),
+                            cdt == torch.int8)
         r = {"route": route, "cache": str(cdt).replace("torch.", ""),
              "layers": spec.n_layers, "median_ms": med,
              "tokens_per_s": bench["tokens_per_s"],
              "p90_ms": bench["p90_s"] * 1e3, "launches": counts,
-             "launches_per_step": family_decode_counts(spec,
-                                                       route == "layer"),
-             "steps": steps, "device_ms": prof["device_ms"],
-             "device_busy_share": prof.get("device_busy_share"),
+             "launches_per_step": per_step, "steps": steps,
+             "device_ms": prof["device_ms"],
+             "device_busy_share": (prof["device_ms"] / med
+                                   if prof["device_ms"] > 0 else None),
              "device_ms_by_family": prof["device_ms_by_family"],
-             "kernels_per_step": prof["kernels_per_step"]}
-        log(f"families {model} decode {route} ({spec.n_layers} layers, "
+             "kernels_per_step": prof["kernels_per_step"],
+             "step_bytes": nbytes,
+             "step_bound_ms": nbytes / peaks["bw"] * 1e3}
+        if by is not None:
+            r["launches_by"] = {k: {n: v for n, v in c.items() if v}
+                                for k, c in split_by.items()}
+        log(f"{what} decode {route} ({spec.n_layers} layers, "
             f"{r['cache']} KV): median {med:.3f} ms/token, device "
-            f"{prof['device_ms']:.3f} ms a step, busy share "
+            f"{prof['device_ms']:.3f} ms a step (bound "
+            f"{r['step_bound_ms']:.3f}), busy share "
             f"{r['device_busy_share']} on {card}; " + json.dumps(r))
         out[route] = r
         del eng
@@ -5275,51 +5430,44 @@ def forced_greedy(what, eng, prompt, n_new, want, tol) -> dict:
             "worst_gap_share": seen["worst_gap_share"]}
 
 
-def family_greedy(model, spec, params, device) -> dict:
-    """2-layer cut of the served model (w4a8 g-1, bf16 activations, the
-    8-bit head, an int8 cache): kernel decoding against plain decoding
-    (forced_greedy: TOL["logits_a8"], or FLOOR_MARGIN x the floor read in
-    the run where that is larger) with exact launches (a 64-token
-    prompt on the unfused route: each layer's four linears and the head
-    on the tensor cores; 16 steps fused), and generate_chained's tokens
-    (CUDA graphs) equal to generate's; Gemma also on the layer route over
-    a bf16 cache."""
+def greedy_routes(what, spec, params, routes, prefill, chained=()) -> dict:
+    """A cut of a served model (params' layers as given; a8, bf16
+    activations, the 8-bit head): kernel decoding against plain decoding
+    on each route of `routes` ((route, cache dtype, GPTQ_TPU_LAYER_FUSION,
+    launches a step)) by forced_greedy (TOL["logits_a8"], or FLOOR_MARGIN
+    x the floor read in the run where that is larger): a 64-token prompt,
+    whose launches are `prefill` (the unfused route: each packed linear on
+    the tensor cores), then 16 steps, launches exact. On the routes named
+    in `chained`, generate_chained's tokens (CUDA graphs; learned
+    positions and alibi read the device length) equal generate's."""
     import torch
 
     from gptq_tpu_torch.engine.decode import DecodeEngine
-    from gptq_tpu_torch.ops.pack import PackedWeight
 
-    small = dataclasses.replace(spec, n_layers=2)
-    p2 = {**params, "layers": params["layers"][:2]}
-    assert isinstance(p2["lm_head"]["w"], PackedWeight)
+    small = dataclasses.replace(spec, n_layers=len(params["layers"]))
     prompt = np.random.default_rng(29).integers(0, spec.vocab, size=(1, 64))
     n_new, out = 16, {}
-    eng = DecodeEngine(small, p2, max_len=128, batch=1,
-                       cache_dtype=torch.int8, a8=True)
-    per_step = family_decode_counts(small)
-    # q|k|v (BLOOM's own, fuse_serving's), o, fc1 / gate|up, fc2 / down
-    prefill = {"qmm_mma": 4 * 2 + 1}
-    want = {k: v * n_new for k, v in per_step.items()}
-    for k, v in prefill.items():
-        want[k] = want.get(k, 0) + v
-    out["fused"] = forced_greedy(f"{model} 2-layer decoding (fused, int8 KV)",
-                                 eng, prompt, n_new, want,
-                                 TOL["logits_a8"])
-    # the chained decode (one CUDA graph a chunk: learned positions and
-    # alibi read the device length) gives generate's tokens
-    chained = eng.generate_chained(prompt, n_new, chunk=8)[0].tolist()
-    if chained != out["fused"]["tokens"]:
-        raise AssertionError(f"{model}: generate_chained parts from "
-                             f"generate: {chained} vs "
-                             f"{out['fused']['tokens']}")
-    if spec.arch == "gemma":
-        engb = DecodeEngine(small, p2, max_len=128, batch=1,
-                            cache_dtype=torch.bfloat16, a8=True)
-        wl = {"layer": 2 * n_new, "norm_qkv": n_new, **prefill}
-        with env_var("GPTQ_TPU_LAYER_FUSION", "on"):
-            out["layer"] = forced_greedy(
-                f"{model} 2-layer decoding (layer route, bf16 KV)", engb,
-                prompt, n_new, wl, TOL["logits_a8"])
+    for route, cdt, layer, per_step in routes:
+        want = {k: v * n_new for k, v in per_step.items()}
+        for k, v in prefill.items():
+            want[k] = want.get(k, 0) + v
+        with env_var("GPTQ_TPU_LAYER_FUSION", layer):
+            eng = DecodeEngine(small, params, max_len=128, batch=1,
+                               cache_dtype=cdt, a8=True)
+            out[route] = forced_greedy(
+                f"{what} {small.n_layers}-layer decoding ({route}, "
+                f"{str(cdt).replace('torch.', '')} KV)", eng, prompt, n_new,
+                want, TOL["logits_a8"])
+            if route in chained:
+                toks = eng.generate_chained(prompt, n_new, chunk=8)[0]
+                if toks.tolist() != out[route]["tokens"]:
+                    raise AssertionError(
+                        f"{what} {route}: generate_chained parts from "
+                        f"generate: {toks.tolist()} vs "
+                        f"{out[route]['tokens']}")
+        out[route]["launches"] = want  # forced_greedy held them exactly
+        del eng
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5355,26 +5503,24 @@ def write_hf_opt(path, n_layers, device, seed=0) -> int:
 
 
 def family_cli(device, tmp) -> dict:
-    """One OPT path through gptq_tpu_torch.cli: a 2-layer OPT-6.7B-width F16
-    directory written here, the tokenizer and `datasets` stood in as in the
-    cli phase (offline_data): w4 g128 act-order true-sequential, --new-eval,
-    --save (its PPL evals: 2,048-row windows, each layer's six linears on
-    the tensor cores, the tied head dense), the saved file's wikitext2 PPL
-    against its dense twin; then the saved file served through the CLI
-    (--faster-kernel --int8_kv --quant_lm_head 8: act-order weights keep
-    the unfused route, four #1 a layer a step; the head, untied and packed
-    to 8 bits, on #4)."""
+    """One OPT path through gptq_tpu_torch.cli: the 2-layer
+    OPT-6.7B-width F16 directory (cli_dir), the tokenizer and `datasets`
+    stood in as in the cli phase (offline_data): w4 g128 act-order
+    true-sequential, --new-eval, --save (its PPL evals: 2,048-row windows,
+    each layer's six linears on the tensor cores, the tied head dense), the
+    saved file's wikitext2 PPL against its dense twin; then the saved file
+    served through the CLI (--faster-kernel --int8_kv --quant_lm_head 8:
+    act-order weights keep the unfused route, four #1 a layer a step; the
+    head, untied and packed to 8 bits, on #4)."""
     from gptq_tpu_torch.models.convert import hf_config
     from gptq_tpu_torch.models.registry import spec_from_hf_config
 
     L = 2
-    hf = os.path.join(tmp, "opt-6.7b-2l")
-    t0 = time.perf_counter()
-    nbytes = write_hf_opt(hf, L, device, seed=31)
+    hf, nbytes, write_s = cli_dir(tmp, "opt-6.7b", device)
     spec = spec_from_hf_config(hf_config(hf))
     log(f"families cli: wrote a {L}-layer OPT-6.7B-width HF directory (F16 "
-        f"safetensors, {nbytes / 2**30:.2f} GiB) in "
-        f"{time.perf_counter() - t0:.1f} s; tokenizer and datasets stood in")
+        f"safetensors, {nbytes / 2**30:.2f} GiB) in {write_s:.1f} s; "
+        f"tokenizer and datasets stood in")
     path = os.path.join(tmp, "opt_w4.npz")
     with offline_data(spec.vocab) as tok:
         out = cli_quantize(
@@ -5402,7 +5548,6 @@ def family_cli(device, tmp) -> dict:
     out["serve"] = {"median_ms": bench["median_s"] * 1e3,
                     "tokens_per_s": bench["tokens_per_s"], "launches": counts}
     os.remove(path)
-    shutil.rmtree(hf, ignore_errors=True)
     return out
 
 
@@ -5477,9 +5622,9 @@ def phase_families(device, tmp, card, peaks, report):
     """OPT-6.7B (32 layers), BLOOM-7b1 and Gemma-7B (8 layers each) at
     their published widths, weights from a seed: each family's kernel
     branches held and timed (family_kernel_rows, gemma_layer_rows), its
-    2-layer greedy tokens against the plain versions, its served model's
-    launches, per-token latency and profile; then one OPT path through the
-    CLI (family_cli)."""
+    2-layer greedy tokens against the plain versions (greedy_routes), its
+    served model's launches, per-token latency and profile (serve_routes);
+    then one OPT path through the CLI (family_cli)."""
     import torch
 
     from gptq_tpu_torch.models.common import fuse_serving
@@ -5503,8 +5648,24 @@ def phase_families(device, tmp, card, peaks, report):
         if spec.arch == "gemma":
             fam["rows"] += gemma_layer_rows(model, spec, served, device,
                                             peaks, timer)
-        fam["greedy"][model] = family_greedy(model, spec, params, device)
-        fam["serve"][model] = family_serve(model, spec, params, device, card)
+        # 2 layers; q|k|v (BLOOM's own, fuse_serving's), o, fc1 /
+        # gate|up, fc2 / down and the head in the prefill
+        small = dataclasses.replace(spec, n_layers=2)
+        routes = [("fused", torch.int8, "off", family_decode_counts(small))]
+        if spec.arch == "gemma":
+            routes.append(("layer", torch.bfloat16, "on",
+                           family_decode_counts(small, True)))
+        fam["greedy"][model] = greedy_routes(
+            model, spec, {**params, "layers": params["layers"][:2]}, routes,
+            {"qmm_mma": 4 * 2 + 1}, chained=("fused",))
+        routes = [("fused", torch.int8, "off", family_decode_counts(spec),
+                   {"norm_qkv_gemv_kernel": L + 1, "mlp_stream_kernel": L})]
+        if spec.arch == "gemma":
+            routes.append(("layer", torch.bfloat16, "on",
+                           family_decode_counts(spec, True),
+                           {"norm_qkv_gemv_kernel": 1}))
+        fam["serve"][model] = serve_routes(f"families {model}", spec, params,
+                                           device, card, peaks, routes)
         del params, served
         torch.cuda.empty_cache()
         log(f"families {model}: {time.perf_counter() - t0:.1f} s")
@@ -5746,6 +5907,423 @@ def phase_batch(device, card, peaks, report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# mixed: mixed precision (bits per linear, per layer, per module) on the
+# kernels, the serving routes and the CLI
+# ---------------------------------------------------------------------------
+
+# the per-layer bits of the in-process serve: 4 layers at 3 bits, then 4 at 4
+MIXED_LAYER_BITS = (3, 3, 3, 3, 4, 4, 4, 4)
+# the kernel checks' layer: q|k|v 3 bits (#4), o 3 / gate|up 4 / down 3
+# (configs/linearwise.json's MLP: #5 / #6)
+MIXED_KERNEL_BITS = {"q": 3, "k": 3, "v": 3, "o": 3, "gate": 4, "up": 4,
+                     "down": 3}
+# #12's two layers: q|k|v 4 beside linearwise's o / gate|up / down, and
+# all four at 3 bits
+MIXED_LAYERS = {"w4/3/4/3": {"q": 4, "k": 4, "v": 4, "o": 3, "gate": 4,
+                             "up": 4, "down": 3},
+                "w3": dict.fromkeys(MIXED_KERNEL_BITS, 3)}
+
+
+def linearwise_bits():
+    """bits_of(i, key) of configs/linearwise.json for the llama linears,
+    through the port's MixedPrecision and the CLI's table lookup."""
+    from gptq_tpu_torch.cli import _cfg_path
+    from gptq_tpu_torch.config import MixedPrecision
+    from gptq_tpu_torch.models.registry import get_arch
+
+    with open(_cfg_path("linearwise.json")) as f:
+        mp = MixedPrecision(linear_bits=json.load(f))
+    name_of = {key: name for name, key in get_arch("llama").linears.items()}
+    return lambda i, key: mp.bits_for(i, name_of[key], 4)
+
+
+def mixed_qmm_rows(v, device, peaks, timer) -> list:
+    """#1 at one row on a 3-bit 4096x4096 weight (linearwise's v), a8 and
+    bf16 a16: held to the plain version as qmm_checks holds #1, timed
+    beside it, torch.matmul over the dequantized bf16 weight and the
+    bound."""
+    import torch
+
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(71)
+    rows = []
+    for a8, xdt in ((True, torch.float32), (False, torch.bfloat16)):
+        x = torch.randn((1, v.K), generator=gen, device=device).to(xdt)
+        route = Q.qmm_route(1, v.bits, v.groupsize, xdt, a8=a8, Np=v.Np)
+        if route != "single_row":
+            raise AssertionError(f"mixed qmm w3 a8={a8}: route {route}")
+        got = Q.dequant_matmul(x, v, a8=a8).float()
+        want = Q.dequant_matmul_reference(x, v, a8=a8).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        tol = TOL["qmm_a8" if a8 else "qmm_a16"]
+        ulp = 2.0**-7 * want.abs() if xdt == torch.bfloat16 else 0.0
+        if not bool((diff <= tol * want.abs().max() + ulp).all()):
+            raise AssertionError(f"mixed qmm w3 a8={a8}: rel err "
+                                 f"{float(diff.max() / want.abs().max()):.3g}")
+        row = {"kernel": "qmm", "w": "v w3g-1", "K": v.K, "N": v.N, "M": 1,
+               "a8": a8, "x": str(xdt).replace("torch.", ""), "route": route,
+               "max_abs_err": float(diff.max()),
+               "rel_err": float(diff.max() / want.abs().max())}
+        row.update(matmul_times(
+            v, x, a8, peaks, timer, kernel=Q._qmm_cuda, prepare=Q._prepare,
+            wrapper=Q.dequant_matmul, plain=Q.dequant_matmul_reference,
+            dense=Q.dequant))
+        log("mixed " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def mixed_kernel_rows(device, peaks, timer) -> list:
+    """The kernels at mixed bits, llama-7B width (ffn 11,264 stored): #4
+    on a 3-bit q|k|v and #5 / #6 on o 3 / gate|up 4 / down 3 at M = 1 (the
+    streams) and M = 32 (the rows kernels), a8 and a16
+    (family_kernel_rows); #4 on OPT-6.7B's layernorm + biased q|k|v at 3
+    bits; #12 on q|k|v 4 / o 3 / gate|up 4 / down 3 and on all four at 3
+    bits (gemma_layer_rows: the plain version, the written cache rows, two
+    launches, the fused route, the bound); #1 on the 3-bit v. Each held
+    to its plain version with the near-tie rule."""
+    from gptq_tpu_torch.models.common import fuse_serving
+
+    spec = llama7b_spec(1)
+    params = synth_packed_params(spec, device, seed=41,
+                                 bits_of=lambda i, k: MIXED_KERNEL_BITS[k])
+    served = fuse_serving(spec, params, a8=True)
+    rows = mixed_qmm_rows(params["layers"][0]["v"]["w"], device, peaks,
+                          timer)
+    rows += family_kernel_rows("llama-7b", spec, served, device, peaks,
+                               timer, seed=43, tag="o3 gate|up4 down3",
+                               prefix="mixed", parts=("q|k|v", "mlp"),
+                               a8s=(True, False))
+    del params, served
+    for tag, bits in MIXED_LAYERS.items():
+        p = synth_packed_params(spec, device, seed=47,
+                                bits_of=lambda i, k, b=bits: b[k])
+        rows += gemma_layer_rows(f"llama-7b {tag}", spec,
+                                 fuse_serving(spec, p, a8=True), device,
+                                 peaks, timer, prefix="mixed",
+                                 attention=False)
+    ospec = family_spec("opt-6.7b", 1)
+    op = synth_family_params(ospec, device, seed=53, bits=3)
+    rows += family_kernel_rows("opt-6.7b", ospec,
+                               fuse_serving(ospec, op, a8=True), device,
+                               peaks, timer, seed=59, prefix="mixed",
+                               parts=("q|k|v",), a8s=(True, False))
+    return rows
+
+
+def mixed_serves(device, card, peaks) -> dict:
+    """The served models of mixed bits, in process, weights from a seed,
+    an 8-bit head, a8, B = 1:
+      * linearmix: 32 llama-7B layers at configs/linearwise.json's bits
+        (q / k 4, v 3: q|k|v stays three #1; o 3, gate|up 4, down 3: one
+        #5), int8 KV: a step 96 #1, 32 #5, 32 #3 and the head's #4;
+      * per-layer: 8 layers, 4 at 3 bits then 4 at 4, int8 KV on the fused
+        route (9 #4, 8 #5, 8 #3 a step) and bf16 KV on the layer route (8
+        #12 and the head's #4);
+      * per-module: 2 layers, one q|k|v 4 / o 3 / gate|up 4 / down 3 and
+        one whose o is dense (as a columnwise o stays), gate|up 4 / down
+        3: fused (3 #4, 1 #5, 1 #6, 2 #3 a step) and on the layer route
+        (1 #12; the dense-o layer on #4 and #6, its attention in torch on
+        the write-first path).
+    Each (but per-module) through serve_routes, its launches also apart
+    by the bits of the weights they ran on (linearmix by linear, per-layer
+    by layer); each, cut to 2 layers, through greedy_routes."""
+    import torch
+
+    from gptq_tpu_torch.pipeline import quantize_lm_head
+
+    out = {}
+    spec = llama7b_spec(32)
+    t0 = time.perf_counter()
+    params = synth_packed_params(spec, device, seed=83,
+                                 bits_of=linearwise_bits())
+    assert quantize_lm_head(spec, params, bits=8)
+    fused_lm = {"qmm": 96, "attn_mlp": 32, "attention": 32, "norm_qkv": 1}
+    out["linearmix"] = serve_routes(
+        "mixed linearmix", spec, params, device, card, peaks,
+        [("fused", torch.int8, "off", fused_lm,
+          {"qgemv_kernel": 96, "mlp_stream_kernel": 32,
+           "norm_qkv_gemv_kernel": 1})], by=BY_LINEAR)
+    # q / k / v, o, gate|up, down a layer and the head on the tensor cores
+    out["linearmix"]["greedy"] = greedy_routes(
+        "mixed linearmix", spec, {**params, "layers": params["layers"][:2]},
+        [("fused", torch.int8, "off", {"qmm": 6, "attn_mlp": 2,
+                                       "attention": 2, "norm_qkv": 1})],
+        {"qmm_mma": 6 * 2 + 1})
+    log(f"mixed linearmix: {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spec = llama7b_spec(len(MIXED_LAYER_BITS))
+    params = synth_packed_params(spec, device, seed=89,
+                                 bits_of=lambda i, k: MIXED_LAYER_BITS[i])
+    assert quantize_lm_head(spec, params, bits=8)
+    L = spec.n_layers
+    out["layerwise"] = serve_routes(
+        "mixed per-layer bits", spec, params, device, card, peaks,
+        [("fused", torch.int8, "off",
+          {"norm_qkv": L + 1, "attn_mlp": L, "attention": L},
+          {"norm_qkv_gemv_kernel": L + 1, "mlp_stream_kernel": L}),
+         ("layer", torch.bfloat16, "on", {"layer": L, "norm_qkv": 1},
+          {"norm_qkv_gemv_kernel": 1})], by=BY_LAYER)
+    # layers 3 and 4: one at 3 bits, one at 4
+    out["layerwise"]["greedy"] = greedy_routes(
+        "mixed per-layer bits", spec,
+        {**params, "layers": params["layers"][3:5]},
+        [("fused", torch.int8, "off",
+          {"norm_qkv": 3, "attn_mlp": 2, "attention": 2}),
+         ("layer", torch.bfloat16, "on", {"layer": 2, "norm_qkv": 1})],
+        {"qmm_mma": 4 * 2 + 1})
+    log(f"mixed per-layer bits: {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    spec = llama7b_spec(2)
+    layers = [MIXED_LAYERS["w4/3/4/3"],
+              {"q": 4, "k": 4, "v": 4, "o": 4, "gate": 4, "up": 4,
+               "down": 3}]
+    params = synth_packed_params(spec, device, seed=97,
+                                 bits_of=lambda i, k: layers[i][k])
+    o = params["layers"][1]["o"]
+    params["layers"][1]["o"] = {"w": dense_weight(o["w"]).to(torch.bfloat16),
+                                "b": None}
+    assert quantize_lm_head(spec, params, bits=8)
+    # prefill: layer 0 q|k|v, o, gate|up, down; layer 1 all but o; the head
+    out["per_module"] = {"greedy": greedy_routes(
+        "mixed per-module bits", spec, params,
+        [("fused", torch.int8, "off",
+          {"norm_qkv": 3, "attn_mlp": 1, "ffn": 1, "attention": 2}),
+         # the dense-o layer keeps the write-first path: its attention
+         # over the written cache in torch, as in the JAX package
+         ("layer", torch.bfloat16, "on",
+          {"layer": 1, "norm_qkv": 2, "ffn": 1})],
+        {"qmm_mma": 4 + 3 + 1})}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixed_cli(device, tmp) -> dict:
+    """The CLI at mixed bits and with the other quantizers, on the 2-layer
+    LLaMA-7B-width and OPT-6.7B-width directories of the cli and families
+    phases (cli_dir), 4 x 2,048 calibration tokens, the tokenizer and
+    `datasets` stood in (offline_data), --new-eval:
+      * --analyse on the llama directory (results/quant_config.json under
+        a working directory of its own);
+      * side by side (cli_batch), each PPL eval's launches exact:
+        --linearmix (llama) and --layermix (OPT: layerwise.json's
+        opt-6.7b row, both layers 3 bits) with --save; on the llama
+        directory --quant_config on the analysed file (its columnwise
+        modules stay dense), --non_linear and --columnwise (dense
+        results: no launches in the PPL evals; the columnwise solves at
+        --bcq_round 1), s per layer in each;
+      * the --linearmix and --layermix files served through the CLI
+        (--benchmark --faster-kernel --int8_kv --quant_lm_head 8);
+      * the --linearmix file with add_actquant's 8-bit activation
+        quantizers, served through #1: greedy tokens against the plain
+        versions (greedy_routes)."""
+    import torch
+
+    from gptq_tpu_torch import cli
+    from gptq_tpu_torch.data import synthetic_stream
+    from gptq_tpu_torch.io import load_checkpoint
+    from gptq_tpu_torch.models.convert import hf_config
+    from gptq_tpu_torch.models.registry import spec_from_hf_config
+    from gptq_tpu_torch.pipeline import add_actquant
+
+    L = 2
+    d = os.path.join(tmp, "mixed")
+    os.makedirs(d, exist_ok=True)
+    llama, _, _ = cli_dir(tmp, "llama-7b", device)
+    opt, _, _ = cli_dir(tmp, "opt-6.7b", device)
+    lv = spec_from_hf_config(hf_config(llama)).vocab
+    ov = spec_from_hf_config(hf_config(opt)).vocab
+    common = ["--nsamples", "4", "--new-eval", "--results_log",
+              os.path.join(d, "ppl.txt")]
+    q_lin, q_lay, q_qc = (os.path.join(d, f"{n}.npz")
+                          for n in ("linearmix", "layermix", "quant_config"))
+    out = {}
+
+    with offline_data(lv):
+        buf = io.StringIO()
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([llama, "c4", "--wbits", "3", "--nsamples",
+                               "4", "--analyse"])
+            with open("results/quant_config.json") as f:
+                qc = json.load(f)
+        finally:
+            os.chdir(cwd)
+    assert rc == 0
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().strip().splitlines()[:2]:
+        log(f"cli mixed analyse | {line}")
+    if len(qc) != 7 * L or {v["bits"] for v in qc.values()} != {3}:
+        raise AssertionError(f"mixed cli --analyse: {len(qc)} entries "
+                             f"{sorted({v['bits'] for v in qc.values()})}")
+    dense_n = sum(v["columnwise"] for v in qc.values())
+    out["analyse"] = {"wall_s": wall, "columnwise": dense_n,
+                      "modules": len(qc)}
+    log(f"mixed cli --analyse: {wall:.1f} s, {dense_n} of {len(qc)} "
+        f"modules columnwise")
+
+    runs = {
+        # q / k / v, o, gate, up, down a layer on the tensor cores
+        "linearmix": ([llama, "--wbits", "4", "--linearmix", "--save",
+                       q_lin], {"qmm_mma": 7 * L}, lv),
+        "layermix": ([opt, "--wbits", "4", "--groupsize", "128",
+                      "--layermix", "--save", q_lay], {"qmm_mma": 6 * L},
+                     ov),
+        # the columnwise solves at one refinement round of the APoT
+        # alphas (--bcq_round, 5 by default): a re-fit every 8 columns
+        # sets the batch's wall time
+        "quant_config": ([llama, "--wbits", "3", "--quant_config",
+                          os.path.join(d, "results", "quant_config.json"),
+                          "--bcq_round", "1", "--save", q_qc],
+                         {"qmm_mma": len(qc) - dense_n}, lv),
+        "non_linear": ([llama, "--wbits", "3", "--non_linear"], {}, lv),
+        "columnwise": ([llama, "--wbits", "3", "--columnwise",
+                        "--bcq_round", "1"], {}, lv)}
+    res = cli_batch([(f"mixed {k}", [argv[0], "c4", *argv[1:], *common],
+                      per_window, vocab)
+                     for k, (argv, per_window, vocab) in runs.items()])
+    out.update(zip(runs, res))
+
+    serve_flags = ["--faster-kernel", "--int8_kv", "--quant_lm_head", "8"]
+    n_tok, steps = 8, 100 + 8
+    for key, path, want in (
+            # q / k 4 bits and v 3 stay three #1; o 3, gate|up 4, down 3
+            # one #5
+            ("linearmix", q_lin, {"qmm": 3 * L * steps, "attn_mlp": L * steps,
+                                  "attention": L * steps, "norm_qkv": steps}),
+            # opt-6.7b's first layers are 3 bits: layernorm + biases
+            # through #4 and #5
+            ("layermix", q_lay, {"norm_qkv": (L + 1) * steps,
+                                 "attn_mlp": L * steps,
+                                 "attention": L * steps})):
+        bench, counts, _ = serve_cli(path, n_tok, serve_flags, "auto")
+        expect(counts, want, f"mixed cli serve of the --{key} file")
+        out[key]["serve"] = {"median_ms": bench["median_s"] * 1e3,
+                             "launches": counts, "steps": steps}
+
+    # add_actquant at 8 bits on the --linearmix file: every linear through
+    # #1 (act_q keeps the fused kernels off; gate|up share their quantizer
+    # and fuse, q / k / v differ in bits)
+    spec, params, _ = load_checkpoint(q_lin, device=device)
+    calib = torch.as_tensor(synthetic_stream(spec.vocab, 4 * 128, seed=5)
+                            .reshape(4, 128), device=device)
+    t0 = time.perf_counter()
+    add_actquant(spec, params, calib, bits=8)
+    out["act_q"] = {"fit_s": time.perf_counter() - t0}
+    out["act_q"]["greedy"] = greedy_routes(
+        "mixed act_q 8-bit", spec, params,
+        [("unfused", torch.int8, "off", {"qmm": 6 * L, "attention": L})],
+        {"qmm_mma": 6 * L})["unfused"]
+    del params
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mixed(device, tmp, card, peaks, report):
+    """Mixed precision on the card: the kernels at mixed bits
+    (mixed_kernel_rows), the in-process serves at per-linear, per-layer
+    and per-module bits (mixed_serves) and the CLI's mixed-precision,
+    analysis and quantizer flags (mixed_cli)."""
+    import torch
+
+    t0 = time.perf_counter()
+    mx = {"rows": mixed_kernel_rows(device, peaks, device_ms)}
+    torch.cuda.empty_cache()
+    log(f"mixed kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mx["serve"] = mixed_serves(device, card, peaks)
+    log(f"mixed serves: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mx["cli"] = mixed_cli(device, tmp)
+    log(f"mixed cli: {time.perf_counter() - t0:.1f} s")
+    report["mixed"] = mx
+
+
+def mixed_entries(mx) -> list:
+    """The kernels line's entries of the mixed phase: one per kernel and
+    bit mix, its M = 1 a8 readings (a16 under a16, M = 32 under m32),
+    launches from the mixed serves' eager steps (the main path of that
+    mix), only those on the weights the entry names (launches_by)."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "unfused_ms", "wrapper_ms", "fused_route_ms", "rel_err",
+            "tiles_ms")
+    sv, cli = mx["serve"], mx["cli"]
+    lm = sv["linearmix"]["fused"]
+    lw = sv["layerwise"]
+    pm = sv["per_module"]["greedy"]
+    opt_serve = cli["layermix"]["serve"]
+    launches = {
+        # v's 32 a step: the #1 launches on 3-bit weights (q / k: 4 bits)
+        ("qmm", "v w3g-1"): lm["launches_by"].get("w3", {}).get("qmm", 0),
+        # the 3-bit layers' (4 of 8) q|k|v
+        ("norm_qkv", "llama-7b", "q|k|v"):
+            lw["fused"]["launches_by"].get("w3", {}).get(
+                "norm_qkv", 0),
+        # both layers of the --layermix file are 3 bits; less the head's
+        ("norm_qkv", "opt-6.7b", "q|k|v"):
+            opt_serve["launches"]["norm_qkv"] - opt_serve["steps"],
+        ("attn_mlp",): lm["launches"]["attn_mlp"],
+        ("ffn",): sum(r.get("launches", {}).get("ffn", 0)
+                      for r in pm.values()),
+        ("layer", "llama-7b w4/3/4/3"): pm["layer"]["launches"]["layer"],
+        ("layer", "llama-7b w3"): lw["layer"]["launches_by"].get(
+            "w3", {}).get("layer", 0),
+    }
+    what = {
+        "qmm": ("qmm", QMM_SRC, "gptq_tpu/ops/qmatmul.py:156", GEMV_SRC),
+        **{k: v for k, v in FAMILY_KERNELS.items()
+           if k in ("norm_qkv", "attn_mlp", "ffn", "layer")}}
+    groups = {}
+    for r in mx["rows"]:
+        key = (r["kernel"], r.get("model", ""), r["w"] if "w" in r else "")
+        groups.setdefault(key, []).append(r)
+    out = []
+    for (kernel, model, tag), rs in groups.items():
+        name, src, replaces, dev = what[kernel]
+        one = next(r for r in rs if r.get("M", 1) == 1 and r.get("a8", True)
+                   and "ms" in r)
+        a16 = [r for r in rs if r.get("M", 1) == 1 and not r.get("a8", True)
+               and "ms" in r]
+        many = [r for r in rs if r.get("M") == 32 and r.get("a8", True)]
+        n = next(v for k, v in launches.items()
+                 if k[0] == kernel and all(p in (model, tag) for p in k[1:]))
+        label = {"qmm": tag, "attn_mlp": tag,
+                 "ffn": tag.replace("o3 ", ""),
+                 "norm_qkv": f"{model} {tag} w{one.get('bits')}"}.get(
+                     kernel, model)
+        entry = {"name": f"{name} [mixed: {label}]", "route": "cuda",
+                 "source": src, "replaces": replaces, "device_code": dev,
+                 "launches": n,
+                 "max_abs_err": max(r["max_abs_err"] for r in rs),
+                 **{k: one.get(k) for k in keys},
+                 "kernel_route": one.get("route")}
+        if a16:
+            entry["a16"] = {k: a16[0].get(k) for k in keys}
+        if many:
+            entry["m32"] = {k: many[0].get(k) for k in keys}
+            entry["m32"]["kernel_route"] = many[0].get("route")
+        out.append(entry)
+    if any(e["launches"] <= 0 for e in out):
+        raise AssertionError("mixed: a kernel of the mixed path launched no "
+                             "time: " + json.dumps(
+                                 {e["name"]: e["launches"] for e in out}))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5754,6 +6332,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of the kernels phase's "
                          "checks, by function name (default: all; a subset "
                          "prints no kernels line)")
+    ap.add_argument("--cli-run", default="",
+                    help="one CLI quantize run (JSON), as cli_batch starts "
+                         "it in a process of its own")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     checks = set(filter(None, args.checks.split(",")))
@@ -5764,6 +6345,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.cli_run:
+        return cli_run(args.cli_run)
     from gptq_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5821,7 +6404,9 @@ def main(argv=None) -> int:
                 ("cli", lambda: phase_cli(device, tmp, report)),
                 ("batch", lambda: phase_batch(device, card, peaks, report)),
                 ("families", lambda: phase_families(device, tmp, card, peaks,
-                                                    report))):
+                                                    report)),
+                ("mixed", lambda: phase_mixed(device, tmp, card, peaks,
+                                              report))):
             if phase in phases:
                 t0 = time.perf_counter()
                 run()
@@ -6247,6 +6832,8 @@ def main(argv=None) -> int:
             "TinyLlama-width SPEngine(sp=1) decode"))
     if "families" in report:
         kernels += family_entries(report["families"])
+    if "mixed" in report:
+        kernels += mixed_entries(report["mixed"])
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,13 @@ defaults): quantize from a model directory, save, evaluate, serve.
     python -m gptq_tpu_torch.cli dummy c4 --load q.npz --benchmark 128 \
         --faster-kernel --int8_kv --quant_lm_head 8
 
+    python -m gptq_tpu_torch.cli /models/opt-6.7b c4 --wbits 4 \
+        --layermix --save q.npz
+
+    python -m gptq_tpu_torch.cli /models/llama-7b c4 --wbits 3 --analyse
+    python -m gptq_tpu_torch.cli /models/llama-7b c4 --wbits 3 \
+        --quant_config results/quant_config.json --eval_pack
+
     python -m gptq_tpu_torch.cli dummy c4 --lut_bench --groupsize 128
 
     torchrun --nproc-per-node 2 -m gptq_tpu_torch.cli dummy c4 \
@@ -22,10 +29,21 @@ OPT, BLOOM, llama / Mixtral or Gemma, a Meta llama directory or a raw
 Gemma .ckpt (models/convert.params_from_dir; GPTQ_TPU_CKPT_DIR maps a hub
 id to a local directory). With --wbits < 16 (or --trits) the
 calibration windows of `dataset` (data.get_loaders) go through
-pipeline.quantize_model: GPTQ, or --nearest (RTN), --bcq (whole-weight
-BCQ) or --lut_eval (the solver's BCQ lut mode). --eval_pack or --save
-packs the weights (sign planes for --lut_eval), and --quant_lm_head
-then packs the head (a tied head from the embedding table, which the
+pipeline.quantize_model: GPTQ (uniform grids; --lut_eval: the solver's
+BCQ lut mode; --columnwise: APoT BCQ re-fit every 8 columns; --non_linear
+with --hyperbits / --exploreBits / --exploreSplit: the non-uniform
+codebook grid), or --nearest (RTN) or --bcq (whole-weight BCQ). Mixed
+precision gives each linear its own bits: --layermix (bits per layer of
+the model's row in configs/layerwise.json), --linearmix (bits per linear
+type, configs/linearwise.json) or --quant_config FILE (per module path
+{bits, columnwise}); the tables are read from a local quant_bit/, then a
+local configs/, then the repository's configs/ (_cfg_path). --analyse
+runs the sensitivity analysis instead (analysis.analyse_model), writes
+the derived per-module config to results/quant_config.json under the
+working directory and exits. --eval_pack or --save packs the weights,
+each linear at its own bits (sign planes for --lut_eval; the columnwise
+and non-linear modes stay dense), and --quant_lm_head then packs the
+head (a tied head from the embedding table, which the
 JAX CLI leaves dense); --quant_experts quantizes a Mixtral model's expert
 stacks. --save writes the checkpoint (io.save_checkpoint, readable by
 both packages). Then the PPL of wikitext2, ptb and c4 (or --new-eval's
@@ -52,8 +70,7 @@ device each, cuda:LOCAL_RANK; gloo on the CPU), with the chained
 protocol; only rank 0 prints the result line, protocol `chained-sp{N}`.
 
 Flags of pieces not ported yet exit with the ROADMAP item that holds
-them: --analyse and the mixed-precision flags (item 12), --non_linear and
---columnwise (item 11), --task (item 14), --tp > 1 and --ep > 1 (item 18).
+them: --task (item 14), --tp > 1 and --ep > 1 (item 18).
 """
 
 from __future__ import annotations
@@ -128,6 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True)
     p.add_argument("--apot_nums", type=int, default=2)
     p.add_argument("--non_linear", action="store_true")
+    p.add_argument("--hyperbits", type=int, default=5)
+    p.add_argument("--exploreBits", type=int, default=1)
+    p.add_argument("--exploreSplit", type=int, default=20)
     p.add_argument("--linearmix", action="store_true")
     p.add_argument("--layermix", action="store_true")
     p.add_argument("--quant_config", type=str, default="")
@@ -168,12 +188,48 @@ def config_from_args(args):
         seed=args.seed, lut_eval=args.lut_eval, columnwise=args.columnwise,
         bcq_round=args.bcq_round, use_bst=args.use_bst,
         apot_nums=args.apot_nums, bcq=args.bcq, non_linear=args.non_linear,
-        layermix=args.layermix, linearmix=args.linearmix,
+        hyperbits=args.hyperbits, exploreBits=args.exploreBits,
+        exploreSplit=args.exploreSplit, layermix=args.layermix,
+        linearmix=args.linearmix,
         quant_config=args.quant_config or None,
         save=args.save or None, load=args.load or None,
         benchmark=args.benchmark, check=args.check,
         faster_kernel=args.faster_kernel, new_eval=args.new_eval,
     )
+
+
+def _cfg_path(name: str) -> str:
+    """A mixed-precision table: a local quant_bit/ (the reference's
+    layout), then a local configs/, then the repository's configs/."""
+    for cand in (os.path.join("quant_bit", name), os.path.join("configs", name),
+                 os.path.join(os.path.dirname(os.path.dirname(
+                     os.path.abspath(__file__))), "configs", name)):
+        if os.path.exists(cand):
+            return cand
+    return name
+
+
+def load_mixed_precision(args, model_name: str):
+    """The MixedPrecision of --quant_config / --layermix / --linearmix (in
+    that order of precedence), or None. A --layermix model missing from
+    layerwise.json exits with the names the table has."""
+    from gptq_tpu_torch.config import MixedPrecision
+
+    if args.quant_config:
+        with open(args.quant_config) as f:
+            return MixedPrecision(module_config=json.load(f))
+    if args.layermix:
+        with open(_cfg_path("layerwise.json")) as f:
+            table = json.load(f)
+        name = model_name.rstrip("/").split("/")[-1]
+        if name not in table:
+            raise SystemExit(f"--layermix: no per-layer bits for {name!r} in "
+                             f"layerwise.json; it has {', '.join(table)}")
+        return MixedPrecision(layer_bits=table[name])
+    if args.linearmix:
+        with open(_cfg_path("linearwise.json")) as f:
+            return MixedPrecision(linear_bits=json.load(f))
+    return None
 
 
 def append_result_log(path: str, args, ppl: float, dataset: str,
@@ -203,14 +259,6 @@ def refuse_unported(args) -> None:
     for on, what, item in (
             (args.ep > 1, "--ep: expert-parallel serving", "18, the rest"),
             (args.tp > 1, "--tp: tensor-parallel serving", "18, the rest"),
-            (args.analyse, "--analyse: sensitivity analysis", "12"),
-            (args.quant_config or args.layermix or args.linearmix,
-             "--quant_config / --layermix / --linearmix: mixed precision",
-             "12"),
-            (args.non_linear, "--non_linear: the non-linear grid solver",
-             "11"),
-            (args.columnwise, "--columnwise: the columnwise BCQ solver",
-             "11"),
             (args.task, "--task: the zero-shot harness", "14")):
         if on:
             raise SystemExit(f"{what} is not ported yet (ROADMAP item "
@@ -315,6 +363,21 @@ def main(argv=None) -> int:
                                required=not (args.benchmark and args.load))
     seqlen = spec.max_pos
 
+    if args.analyse:
+        from gptq_tpu_torch.analysis import analyse_model, derive_quant_config
+
+        calib, _ = get_loaders(args.dataset, nsamples=args.nsamples,
+                               seed=args.seed, seqlen=seqlen,
+                               tokenizer=tokenizer,
+                               data_dir=args.data_dir or None)
+        t0 = time.perf_counter()
+        st = analyse_model(spec, params, torch.as_tensor(calib, device=device))
+        print(f"analysed in {time.perf_counter() - t0:.2f}s")
+        qc = derive_quant_config(st, bits=args.wbits,
+                                 out_path="results/quant_config.json")
+        print(json.dumps(qc, indent=2))
+        return 0
+
     if args.quant_experts != "none":
         # fail loudly on configs the flag cannot act on
         if args.load:
@@ -405,8 +468,9 @@ def _quantize(args, cfg, spec, params, tokenizer, seqlen, device) -> None:
     calib = torch.as_tensor(calib, device=device)
     print(f"calibration set {tuple(calib.shape)} in "
           f"{time.perf_counter() - t0:.2f}s")
+    mixed = load_mixed_precision(args, args.model)
     t0 = time.perf_counter()
-    res = quantize_model(spec, params, calib, cfg)
+    res = quantize_model(spec, params, calib, cfg, mixed=mixed)
     print(f"quantization done in {time.perf_counter() - t0:.1f}s")
     if args.quant_experts == "gptq":
         from gptq_tpu_torch.models.moe import gptq_quantize_experts

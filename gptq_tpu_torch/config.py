@@ -40,7 +40,7 @@ class QuantConfig:
     seqlen: int | None = None
 
     # BCQ / shift (APoT) path (quant/bcq.py, GPTQ lut mode, kernel #13;
-    # the columnwise solver waits: ROADMAP item 11)
+    # columnwise: the solver re-fits APoT alphas every 8 columns)
     lut_eval: bool = False
     columnwise: bool = False
     bcq_round: int = 5
@@ -48,13 +48,13 @@ class QuantConfig:
     apot_nums: int = 2
     bcq: bool = False
 
-    # Non-linear grid path (not ported yet)
+    # Non-linear grid path (quant/nonlinear.py)
     non_linear: bool = False
     hyperbits: int = 5
     exploreBits: int = 1
     exploreSplit: int = 20
 
-    # Mixed precision (not ported yet)
+    # Mixed precision (MixedPrecision below)
     layermix: bool = False
     linearmix: bool = False
     quant_config: str | None = None
@@ -85,6 +85,52 @@ class QuantConfig:
     @classmethod
     def from_json(cls, s: str) -> "QuantConfig":
         return cls(**json.loads(s))
+
+
+@dataclass
+class MixedPrecision:
+    """Per-module bit allocation: bits per decoder layer (configs/
+    layerwise.json, --layermix), per linear type (configs/linearwise.json,
+    --linearmix), or per module path ({bits, columnwise}, --quant_config).
+
+    A --quant_config key names a module by its path; it matches layer i's
+    linear when its last path components are `i` and the linear's name
+    (in full, or its last component). The JAX package matches by string
+    suffix, so there layer 1 takes layer 11's entry when that entry is
+    listed first; here the components must be whole."""
+
+    layer_bits: list[int] | None = None          # bits[i] for decoder layer i
+    linear_bits: dict[str, int] | None = None     # bits per linear type name
+    module_config: dict[str, dict] | None = None  # module path -> {bits, columnwise}
+
+    def module_entry(self, layer_idx: int, linear_name: str) -> dict | None:
+        """The first --quant_config entry whose key names this module."""
+        if self.module_config is None:
+            return None
+        short = linear_name.split(".")[-1]
+        tails = ([str(layer_idx), *linear_name.split(".")],
+                 [str(layer_idx), short])
+        for key, cfg in self.module_config.items():
+            parts = key.split(".")
+            if any(parts[-len(t):] == t for t in tails):
+                return cfg
+        return None
+
+    def bits_for(self, layer_idx: int, linear_name: str, default: int) -> int:
+        cfg = self.module_entry(layer_idx, linear_name)
+        if cfg is not None:
+            return int(cfg["bits"])
+        short = linear_name.split(".")[-1]
+        if self.linear_bits is not None and short in self.linear_bits:
+            return int(self.linear_bits[short])
+        if self.layer_bits is not None:
+            return int(self.layer_bits[layer_idx])
+        return default
+
+    def columnwise_for(self, layer_idx: int, linear_name: str,
+                       default: bool) -> bool:
+        cfg = self.module_entry(layer_idx, linear_name)
+        return default if cfg is None else bool(cfg.get("columnwise", default))
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -136,10 +136,13 @@ def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def linear_apply(lin: dict, x: torch.Tensor) -> torch.Tensor:
-    if lin.get("act_q") is not None:
-        raise NotImplementedError(
-            "activation quantizers (act_q) are not ported (ROADMAP queue 1, "
-            "item 11)")
+    aq = lin.get("act_q")
+    if aq is not None:
+        # activation quantization (pipeline.add_actquant): the input
+        # fake-quantized on a per-feature grid, in f32, back in x's dtype
+        q = torch.clamp(torch.round(x / aq["scale"]) + aq["zero"], 0,
+                        aq["maxq"])
+        x = (aq["scale"] * (q - aq["zero"])).to(x.dtype)
     w = lin["w"]
     if isinstance(w, PackedWeight):
         flags = lin.get("serve")
@@ -356,11 +359,24 @@ def build_mask(spec: ArchSpec, T: int, S: int, device="cpu") -> torch.Tensor:
 # serving fusion
 # ---------------------------------------------------------------------------
 
+def same_actq(a, b) -> bool:
+    """Elementwise equality of two activation-quantizer param dicts (both
+    None counts as equal): a fused entry applies part 0's quantizer to the
+    whole input."""
+    if a is None or b is None:
+        return a is None and b is None
+    return (a["maxq"] == b["maxq"] and torch.equal(a["scale"], b["scale"])
+            and torch.equal(a["zero"], b["zero"]))
+
+
 def fuse_serving(spec: ArchSpec, params: dict, a8: bool = False) -> dict:
     """Merge q/k/v (not BLOOM's, which is one linear already) and the llama
     / Gemma gate/up PackedWeights that share one input into single wider
     weights (one dequant-matmul launch instead of three / two), each
-    part's bias kept in b_parts. With a8=True every packed linear is
+    part's bias kept in b_parts. Parts of different bits (mixed
+    precision), formats or act-order perms stay apart (ops/pack
+    fuse_packed), as do parts whose activation quantizers differ; equal
+    ones ride on the fused entry. With a8=True every packed linear is
     marked for dynamic int8 activations (the --faster-kernel path)."""
 
     def try_fuse(lp, names, key):
@@ -368,13 +384,15 @@ def fuse_serving(spec: ArchSpec, params: dict, a8: bool = False) -> dict:
         if any(lin is None or not isinstance(lin.get("w"), PackedWeight)
                for lin in lins):
             return
-        if any(lin.get("act_q") is not None for lin in lins):
+        act_qs = [lin.get("act_q") for lin in lins]
+        if not all(same_actq(act_qs[0], aq) for aq in act_qs[1:]):
             return
         fused = fuse_packed([lin["w"] for lin in lins])
         if fused is None:
             return
         lp[key] = {
             "w": fused,
+            "act_q": act_qs[0],
             "splits": FusedSplits(tuple((lin["w"].Np, lin["w"].N)
                                         for lin in lins)),
             "b_parts": [lin.get("b") for lin in lins],
@@ -404,7 +422,7 @@ def fuse_serving(spec: ArchSpec, params: dict, a8: bool = False) -> dict:
 
 def _apply_fused(entry: dict, x: torch.Tensor) -> list:
     """Run a fused linear and slice each part's logical columns back out."""
-    y = linear_apply({"w": entry["w"], "b": None,
+    y = linear_apply({"w": entry["w"], "b": None, "act_q": entry.get("act_q"),
                       "serve": entry.get("serve")}, x)
     outs = []
     off = 0

@@ -9,7 +9,11 @@ layer's inputs. With true_sequential the Hessians of each sub-block group
 are re-captured after the previous group is quantized.
 
 The solver's `lut` mode (--lut_eval) fits BCQ alphas and pack_model
-packs its sign planes for ops/bcq_matmul.py. The Hessian-free modes
+packs its sign planes for ops/bcq_matmul.py; the `nonlinear` and
+`columnwise` modes write dense quantize-dequantized weights, which
+pack_model leaves dense. A MixedPrecision (`mixed=`) gives each linear
+its own bits and columnwise flag, and pack_model packs each linear at the
+bits its quantizer records. The Hessian-free modes
 (--nearest: uniform RTN, --bcq: whole-weight BCQ) write dense weights
 and skip the calibration capture. quantize_lm_head packs the output
 projection (per-channel RTN; a tied head from the embedding table) for
@@ -22,8 +26,9 @@ its blocks' linear weights in CPU memory; quantize_model then stages one
 block at a time onto the calibration device and writes the quantized
 weights back to the host (the JAX package's offload branch), and
 pack_model packs one linear at a time onto the device, so neither the
-dense model nor more than one dense block ever lies on the card. Mixed
-precision is not ported yet (ROADMAP queue 1).
+dense model nor more than one dense block ever lies on the card.
+add_actquant fits the per-input-feature activation quantizers that
+models/common.linear_apply fake-quantizes each linear's input with.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from gptq_tpu_torch.config import QuantConfig
+from gptq_tpu_torch.config import MixedPrecision, QuantConfig
 from gptq_tpu_torch.models.common import (ArchSpec, block_forward, build_mask,
                                           embed_forward, rope_tables)
 from gptq_tpu_torch.models.registry import get_arch
@@ -51,7 +56,9 @@ from gptq_tpu_torch.quant.uniform import find_params, quantize_uniform
 
 def solver_config_for(cfg: QuantConfig, bits: int,
                       columnwise: bool | None = None) -> SolverConfig:
-    """Map the CLI surface onto a SolverConfig."""
+    """Map the CLI surface onto a SolverConfig. Under --layermix /
+    --linearmix the non-linear grid's hyper grid is 2 bits wider than the
+    linear's own bits (not under --quant_config)."""
     columnwise = cfg.columnwise if columnwise is None else columnwise
     if cfg.non_linear:
         mode = "nonlinear"
@@ -67,7 +74,11 @@ def solver_config_for(cfg: QuantConfig, bits: int,
                         static_groups=cfg.static_groups, sym=cfg.sym,
                         trits=cfg.trits, mse=cfg.mse,
                         bcq_rounds=cfg.bcq_round, use_bst=cfg.use_bst,
-                        apot_nums=cfg.apot_nums)
+                        apot_nums=cfg.apot_nums,
+                        hyperbits=(bits + 2 if cfg.layermix or cfg.linearmix
+                                   else cfg.hyperbits),
+                        explore_bits=cfg.exploreBits,
+                        explore_split=cfg.exploreSplit)
 
 
 @torch.no_grad()
@@ -107,11 +118,15 @@ class QuantResult:
 
 @torch.no_grad()
 def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
-                   cfg: QuantConfig, log: Callable[[str], None] = print,
+                   cfg: QuantConfig, mixed: MixedPrecision | None = None,
+                   log: Callable[[str], None] = print,
                    resume_dir: str | None = None) -> QuantResult:
     """Quantize every per-block linear in place (params mutated) with GPTQ,
     or with the Hessian-free RTN (cfg.nearest) / whole-weight BCQ
-    (cfg.bcq) modes.
+    (cfg.bcq) modes. `mixed` sets each linear's bits and columnwise flag
+    (MixedPrecision.bits_for / columnwise_for of the layer index and the
+    HF linear name); without it every linear takes cfg.wbits and
+    cfg.columnwise.
 
     calib_ids: (nsamples, seqlen) token ids on the params' device. With
     `resume_dir`, each finished layer is journaled there (_resume_save)
@@ -171,26 +186,30 @@ def quantize_model(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
                 key = arch.linears[name]
                 W = bp[key]["w"]
                 full_name = f"{arch.hf_prefix}.{i}.{name}"
+                bits, columnwise = cfg.wbits, cfg.columnwise
+                if mixed is not None:
+                    bits = mixed.bits_for(i, name, bits)
+                    columnwise = mixed.columnwise_for(i, name, columnwise)
                 t0 = time.time()
                 if cfg.nearest or cfg.bcq:
                     if cfg.nearest:
                         mode, bp[key]["w"] = "rtn", rtn_quantize_weight(
-                            W, cfg.wbits, sym=cfg.sym, mse=cfg.mse,
+                            W, bits, sym=cfg.sym, mse=cfg.mse,
                             groupsize=cfg.groupsize)
                     else:
                         mode, bp[key]["w"] = "bcq_rtn", bcq_rtn_weight(
-                            W, cfg.wbits, rounds=cfg.bcq_round,
+                            W, bits, rounds=cfg.bcq_round,
                             groupsize=cfg.groupsize,
                             apot_nums=cfg.apot_nums, use_bst=cfg.use_bst)
-                    quantizers[full_name] = {"mode": mode, "bits": cfg.wbits}
+                    quantizers[full_name] = {"mode": mode, "bits": bits}
                     times[full_name] = time.time() - t0
                     continue
-                scfg = solver_config_for(cfg, cfg.wbits)
+                scfg = solver_config_for(cfg, bits, columnwise)
                 H, _, mean_input = hstates[name]
                 out = gptq_quantize(W, H, scfg, mean_input)
                 bp[key]["w"] = out["Q"].to(W.dtype)
                 losses[full_name] = float(out["loss"])
-                q = {"mode": scfg.mode, "bits": cfg.wbits,
+                q = {"mode": scfg.mode, "bits": bits,
                      "groupsize": cfg.groupsize,
                      "perm": out["perm"] if scfg.actorder else None}
                 for f in ("scale", "zero", "alpha"):
@@ -293,13 +312,47 @@ def _resume_load(resume_dir: str, spec: ArchSpec, params: dict,
     return i
 
 
+@torch.no_grad()
+def add_actquant(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
+                 bits: int, sym: bool = False) -> None:
+    """Fit per-input-feature activation quantizers for every block linear
+    from the first calibration sample's inputs (find_params with
+    weight=False): each linear gets {scale, zero, maxq} under "act_q",
+    and linear_apply fake-quantizes its input with them thereafter. Each
+    layer's inputs come from replaying the layers before it with their
+    quantizers on."""
+    arch = get_arch(spec.arch)
+    nsamples, T = calib_ids.shape
+    dev = calib_ids.device
+    positions = torch.arange(T, device=dev)[None]
+    mask = build_mask(spec, T, T, dev)
+    inps = torch.stack([embed_forward(spec, params, calib_ids[j:j + 1],
+                                      positions)[0]
+                        for j in range(nsamples)])
+    maxq = (1 << bits) - 1
+    for bp in params["layers"]:
+        _, _, caps = block_forward(spec, bp, inps[:1], positions=positions,
+                                   mask=mask, capture=True,
+                                   rope=rope_tables(spec, positions))
+        for name, key in arch.linears.items():
+            if key not in bp:
+                continue
+            p = find_params(caps[name], bits=bits, perchannel=True, sym=sym,
+                            weight=False)
+            bp[key]["act_q"] = {"scale": p.scale[0], "zero": p.zero[0],
+                                "maxq": maxq}
+        inps, _ = _layer_scan(spec, bp, inps, positions, mask, (),
+                              capture=False)
+
+
 def pack_model(spec: ArchSpec, params: dict, quantizers: dict,
                cfg: QuantConfig) -> dict:
-    """Swap quantized dense linears for PackedWeights: uniform grids pack
-    to byteplane fields, the lut mode's BCQ to sign planes (the signs
-    recovered against the solver's alphas). Linears without an entry,
-    and those of the RTN / whole-weight BCQ modes, stay dense (where
-    they are). Each linear is packed on the model's device (the
+    """Swap quantized dense linears for PackedWeights, each at the bits its
+    quantizer records: uniform grids pack to byteplane fields, the lut
+    mode's BCQ to sign planes (the signs recovered against the solver's
+    alphas). Linears without an entry, and those of the RTN / whole-
+    weight BCQ / non-linear / columnwise modes, stay dense (where they
+    are). Each linear is packed on the model's device (the
     embedding's), one at a time: a host-resident weight of an offloaded
     model is copied there alone, so its packed leaves land on the card and
     the dense model never does."""

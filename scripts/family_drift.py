@@ -10,7 +10,7 @@ the tied head packed to 8 bits, an int8 cache, bf16 activations), the
 greedy tokens of kernel decoding after a 64-token prompt, then every
 step's logits teacher-forced on them by:
 
-  kernel   the served route (chip_smoke.family_greedy's);
+  kernel   the served route (chip_smoke.greedy_routes's);
   plain    every kernel's plain version (chip_smoke.plain_versions);
   plain64  the plain versions with their matmuls in f64: the floor, two
            computations exact to f32 that differ in rounding only;

@@ -7,7 +7,8 @@ are equal, the solver's bound (ROADMAP); the result-log lines agree up to
 the number and the PPLs within 1% (tests/test_torch_pipeline.py's bound).
 The same for a tiny Mixtral directory under --quant_experts (codes per
 expert); also the resume journal against an uninterrupted run, and the
-refusals of flags not ported."""
+refusals of flags not ported (--task, --tp, --ep; the mixed-precision,
+analysis and quantizer flags: tests/test_torch_mixed.py)."""
 
 import os
 import sys
@@ -253,9 +254,6 @@ def test_resume_matches_uninterrupted(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--analyse"], "item 12"), (["--layermix"], "item 12"),
-    (["--linearmix"], "item 12"), (["--quant_config", "q.json"], "item 12"),
-    (["--non_linear"], "item 11"), (["--columnwise"], "item 11"),
     (["--task", "piqa"], "item 14"), (["--tp", "2"], "item 18"),
     (["--ep", "2"], "item 18")])
 def test_refuses_flags_not_ported(flags, item):

@@ -2057,3 +2057,95 @@ def test_family_decode_kernels_match_plain(cuda, name):
     with chip_smoke.plain_versions():
         want = forced()
     _close(got.numpy(), want.numpy(), rtol=chip_smoke.TOL["logits_a8"])
+
+
+# mixed precision: #5 / #6 with o, gate|up and down at their own bits
+# (configs/linearwise.json: o 3, gate|up 4, down 3) on each route, and #12
+# with q|k|v, o, gate|up and down at their own bits, with the limits of
+# the uniform cases above
+@pytest.mark.parametrize("kind", ["attn_mlp", "ffn"])
+@pytest.mark.parametrize("bits", [(3, 4, 3), (8, 2, 3)])
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("a8", [False, True])
+def test_mlp_kernels_at_mixed_bits(cuda, kind, bits, M, a8):
+    """The stream (M = 1) and rows (M 2-32) kernels on weights of three
+    bit widths: against the plain version, two launches bit for bit, the
+    sync words clean."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+
+    rng = np.random.default_rng(sum(bits) * 13 + M + a8 + len(kind))
+    H, F = 1024, 2816
+    bo, bg, bd = bits
+    o = _fusable(rng, bo, -1, H, H).to(cuda) if kind == "attn_mlp" else None
+    gu = _fusable(rng, bg, -1, H, F, parts=2).to(cuda)
+    dn = _fusable(rng, bd, -1, F, H).to(cuda)
+    x, xres = (torch.from_numpy(rng.normal(size=(M, H)).astype(np.float32))
+               .to(cuda) for _ in range(2))
+    w2 = _vec(rng, H, cuda, base=1.0)
+    assert tf.mlp_route(M, o, gu, dn, a8) == ("stream" if M == 1 else "rows")
+    if o is not None:
+        got = tf.attn_mlp_fused(x, xres, w2, o, gu, dn, a8=a8)
+        want = tf.attn_mlp_fused_reference(x, xres, w2, o, gu, dn, a8=a8)
+        kern = (x, xres.to(torch.bfloat16).float(), w2, o, gu, dn, "silu",
+                "rmsnorm", 1e-5, True, a8, None, None, None, None)
+    else:
+        got = tf.ffn_fused(x, gu, dn, a8=a8)
+        want = tf.ffn_fused_reference(x, gu, dn, a8=a8)
+        kern = (x, None, None, None, gu, dn, "silu", "rmsnorm", 0.0, True,
+                a8, None, None, None, None)
+    _close(got.cpu().numpy(), want.cpu().numpy(),
+           rtol=FLIP_RTOL if a8 and M > 1 and o is not None else FUSED_RTOL)
+    one, two = tf._mlp_cuda(*kern), tf._mlp_cuda(*kern)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two) and tl.sync_clean(cuda)
+
+
+@pytest.mark.parametrize("bits", [(4, 3, 4, 3), (3, 3, 3, 3), (3, 8, 2, 4)])
+@pytest.mark.parametrize("a8", [False, True])
+def test_layer_kernel_at_mixed_bits(cuda, bits, a8):
+    """#12 on q|k|v, o, gate|up and down of their own bits over a bf16
+    cache of 512 slots, 300 filled: against the plain version (the
+    near-tie rule), two launches bit for bit."""
+    from gptq_tpu_torch.ops import layer_fused as tl
+    import chip_smoke
+
+    rng = np.random.default_rng(sum(bits) + 7 * a8)
+    hidden, H, Hkv, F, S, length = 1024, 8, 4, 1536, 512, 300
+    hd, kvw = hidden // H, Hkv * hidden // H
+    bq, bo, bg, bd = bits
+    ws = [tpack.fuse_packed([_fusable(rng, bq, -1, hidden, n)
+                             for n in (hidden, kvw, kvw)]),
+          _fusable(rng, bo, -1, hidden, hidden),
+          _fusable(rng, bg, -1, hidden, F, parts=2),
+          _fusable(rng, bd, -1, F, hidden)]
+    ws = [w.to(cuda) for w in ws]
+
+    class _Splits:
+        parts = ((hidden, hidden), (kvw, kvw), (kvw, kvw))
+
+    assert tl.layer_fusable(ws[0], _Splits, *ws[1:], hidden, H, Hkv)
+    spec = tc.ArchSpec(arch="llama", n_layers=2, hidden=hidden, n_heads=H,
+                       n_kv_heads=Hkv, ffn=F, vocab=8, max_pos=S, pos="rope")
+    lens = torch.tensor(length, dtype=torch.int32, device=cuda)
+    cos, sin = tc.rope_tables(spec, lens.reshape(1, 1))
+    x = torch.from_numpy(rng.normal(size=(1, 1, hidden)).astype(np.float32)
+                         ).to(cuda)
+    w1, w2 = _vec(rng, hidden, cuda, base=1.0), _vec(rng, hidden, cuda,
+                                                     base=1.0)
+    kv0 = [torch.from_numpy(rng.normal(size=(2, 1, S, Hkv, hd)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16) for _ in range(2)]
+    kw = dict(n_heads=H, n_kv_heads=Hkv, sm_scale=hd ** -0.5, layer=1, a8=a8)
+    args = (cos, sin, w1, w2, *ws)
+    runs = []
+    for _ in range(2):
+        kern = [c.clone() for c in kv0]
+        runs.append((tl.decode_layer_fused(x, *kern, lens, *args, **kw), kern))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    plain = [c.clone() for c in kv0]
+    err, rel, flips = chip_smoke.tie_check(
+        "layer", runs[0][0], lambda: tl.decode_layer_fused_reference(
+            x, *plain, lens, *args, **kw), FUSED_RTOL)
+    print(f"rel err {rel:.3g} after {flips} near-tie flips")
+    assert tl.sync_clean(cuda)

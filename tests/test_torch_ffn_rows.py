@@ -335,6 +335,47 @@ def test_ffn_rows_replay_matches_jax(tag, a8, M, monkeypatch):
     _check_rows(port, np.asarray(want), a8, monkeypatch)
 
 
+@pytest.mark.parametrize("bits,gs,a8,M", [
+    ((3, 4, 3), -1, True, 4),     # linearwise.json: o 3, gate|up 4, down 3
+    ((3, 4, 3), 128, False, 32),
+    ((None, 4, 3), -1, True, 2),  # #6: gate|up 4, down 3
+    ((8, 2, 3), 128, True, 32)])
+def test_mlp_rows_replay_at_mixed_bits_matches_jax(bits, gs, a8, M,
+                                                   monkeypatch):
+    """#5 / #6 at rows 2-32 with a different bit width per weight: the plan
+    counts each weight's stages from its own fields, and the ring's slot
+    is sized by the finest field of all (_rows_smem's fbmin)."""
+    bo, bg, bd = bits
+    rng = np.random.default_rng(sum(b or 0 for b in bits) * 29 + a8 + M)
+    jo, to = (None, None) if bo is None else packed_pair(rng, H, H, bo, gs)
+    jg, tg = fused_pair(rng, H, F, bg, gs)
+    jd, td = packed_pair(rng, F, H, bd, gs)
+    assert tf.mlp_route(M, to, tg, td, a8) == "rows"
+    weights = [None, to, tg, td]
+    plan = _plan(weights)
+    monkeypatch.setattr(tf, "_phase", rows_phase(plan, weights))
+    ja, ta = _jt(_x(rng, M, H))
+    if to is None:
+        want = jf.ffn_fused(ja, jg, jd, act="silu", a8=a8, interpret=True)
+
+        def port(rows):
+            m = ta if rows is None else ta[rows]
+            return tf.ffn_fused_reference(m, tg, td, act="silu",
+                                          a8=a8).numpy()
+    else:
+        jr, tr = _jt(_x(rng, M, H))
+        jw2, tw2 = _jt((rng.random(H) + 0.5).astype(np.float32))
+        want = jf.attn_mlp_fused(ja, jr, jw2, jo, jg, jd, a8=a8,
+                                 interpret=True)
+
+        def port(rows):
+            a, r = (ta, tr) if rows is None else (ta[rows], tr[rows])
+            return tf.attn_mlp_fused_reference(a, r, tw2, to, tg, td,
+                                               a8=a8).numpy()
+
+    _check_rows(port, np.asarray(want), a8, monkeypatch)
+
+
 @pytest.mark.parametrize("a8", [True, False])
 def test_rows_replay_row_independent(a8, monkeypatch):
     """A row's replayed output is the same bits at M = 4 and M = 32, in
@@ -408,6 +449,17 @@ def test_rows_smem_layout():
                 smem = tf._rows_smem(M, a8, ws)
                 assert 0 < smem <= tf.ROWS_SMEM
                 assert tf.mlp_route(M, *ws, a8) == "rows"
+    # mixed bits (linearwise.json's o 3 / gate|up 4 / down 3): the ring's
+    # slot follows the finest field, the 3-bit weights' 1-bit field
+    mixed = [weight(4096, 4096, 3), weight(4096, 22528, 4),
+             weight(11264, 4096, 3)]
+    for M in (2, 32):
+        for a8 in (True, False):
+            smem = tf._rows_smem(M, a8, mixed)
+            assert smem == tf._rows_smem(M, a8, [weight(4096, 4096, 3)] * 3
+                                         + [weight(11264, 4096, 4)])
+            assert 0 < smem <= tf.ROWS_SMEM
+            assert tf.mlp_route(M, *mixed, a8) == "rows"
     big = [weight(65536, 4096, 3)]  # the prepared row alone outgrows it
     assert tf._rows_smem(32, False, big) == 0
     assert tf.norm_qkv_route(32, big[0], False) == "tiles"

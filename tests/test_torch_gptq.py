@@ -129,8 +129,11 @@ def test_gptq_quantize_matches(cfg):
 
 
 def test_other_solver_modes_raise():
-    # the lut mode is ported (tests/test_torch_bcq.py); these wait
-    for mode in ("columnwise", "nonlinear"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # all four of the JAX solver's modes are ported (lut:
+    # tests/test_torch_bcq.py; columnwise / nonlinear:
+    # tests/test_torch_quantizers.py); a mode it does not know raises, as
+    # the JAX solver's does
+    for mode in ("columnwise ", "non_linear", "bcq"):
+        with pytest.raises(ValueError, match="unknown mode"):
             tg.gptq_quantize(torch.zeros(4, 8), torch.eye(8),
                              tg.SolverConfig(mode=mode))

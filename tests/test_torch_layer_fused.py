@@ -288,12 +288,18 @@ def test_model_decode_on_the_layer_route_matches_jax(a8, layer_route,
 LLAMA7B = [(4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096)]
 
 
-@pytest.mark.parametrize("bits,blocks", [(4, 132), (3, 132), (8, 132), (4, 7)])
+@pytest.mark.parametrize("bits,blocks", [
+    (4, 132), (3, 132), (8, 132), (4, 7),
+    # mixed bits per weight (q|k|v, o, gate|up, down): linearwise.json's
+    # o 3 / gate|up 4 / down 3 beside a 4-bit q|k|v, and other mixes
+    ((4, 3, 4, 3), 132), ((4, 3, 4, 3), 7), ((3, 8, 2, 4), 132)])
 def test_layer_plan_covers_every_word_once(bits, blocks):
     """Every field's word rows of every chunk are streamed exactly once,
     in pieces whose slots run in row order; at llama-7B widths on an
-    H100's 132 SMs each block streams within 2% of the mean bytes."""
-    shapes = tuple((bits, K, N) for K, N in LLAMA7B)
+    H100's 132 SMs each block streams within 2% of the mean bytes. A
+    tuple of bits gives each weight its own."""
+    wbits = bits if isinstance(bits, tuple) else (bits,) * 4
+    shapes = tuple((b, K, N) for b, (K, N) in zip(wbits, LLAMA7B))
     plan = tl.layer_plan(shapes, blocks)
     items = plan["items"].tolist()
     first = plan["first"].tolist()
@@ -312,7 +318,7 @@ def test_layer_plan_covers_every_word_once(bits, blocks):
         assert sum((it[3] - it[2]) * tl.CHUNK * 4 for it in its) == plan["bytes"][b]
     for w, (b_, K, N) in enumerate(shapes):
         for c in range(N // tl.CHUNK):
-            for f, (fb, _) in enumerate(tpack.FIELD_SPLITS[bits]):
+            for f, (fb, _) in enumerate(tpack.FIELD_SPLITS[b_]):
                 spans = sorted(seen[w, f, c])
                 assert spans[0][0] == 0 and spans[-1][1] == K * fb // 32
                 assert all(a[1] == b2[0] for a, b2 in zip(spans, spans[1:]))
@@ -328,8 +334,12 @@ def test_layer_plan_covers_every_word_once(bits, blocks):
         for b in range(blocks) for w in range(4))
     assert plan["max_cut"] == listed <= tl.MAX_PIECES
     if blocks == 132:
+        # one width: within 2% of the mean (1.08% at 4 bits, 1.79% at 3);
+        # mixed widths cut stages of other sizes: 2.00% at 4/3/4/3, 2.16%
+        # at 3/8/2/4, held to 2.5%
         mean = sum(plan["bytes"]) / blocks
-        assert max(abs(v - mean) for v in plan["bytes"]) <= 0.02 * mean
+        bound = 0.025 if isinstance(bits, tuple) else 0.02
+        assert max(abs(v - mean) for v in plan["bytes"]) <= bound * mean
 
 
 @pytest.mark.parametrize("blocks", [132, 7])
