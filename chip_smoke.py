@@ -125,7 +125,9 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                forced steps, a limit that a planted fault (the fresh
                pair left out of the combine) must exceed. Greedy checks
                part only at an exact tie of the plain version's logits
-               (greedy_check's tie rule).
+               (greedy_check's tie rule). Then sp = 2 on the one card
+               (sp2_check): two ranks over gloo serve the 8-layer model,
+               teacher-forced on the sp = 1 engine's greedy tokens.
   6. moe     - Mixtral-8x7B width (spec_from_hf_config of its published
                config): GPTQ of a 1-layer model (attention linears, then
                gptq_quantize_experts), pack_model + pack_experts, save /
@@ -228,6 +230,24 @@ Phases, in order (any failure exits non-zero; there is no CPU fallback):
                --linearmix file, served through #1, greedy tokens against
                plain. The kernels line counts a mixed entry's launches
                on the weights it names only.
+ 11. parallel - tensor- and expert-parallel serving (phase_parallel):
+               the ranks of each group are `python -m
+               torch.distributed.run` processes sharing the one card over
+               gloo (parallel_job, `--parallel-run`), each reading the
+               checkpoint on the host and keeping its shards: tp = 2 at
+               llama-7B width (16 layers; per step and rank 81 #1 and 16
+               #3), ep = 2 at Mixtral-8x7B width (8 layers; 4 experts a
+               rank: #8 at the prefill, 48 #9 a step), ep x tp = 2 x 2 (2
+               layers), each teacher-forced on the one-process run's 64
+               greedy tokens (agree_with) with exact launches a rank, a
+               profile, ms / token (time-sliced: no scaling) and the host
+               ms of one all_reduce; the tp = 2 run at a8 and a16, and
+               two planted tp faults (an o all_reduce skipped, an
+               act-order perm shard rolled) that must leave TOL["tp_a8"];
+               the CLI's --tp 2 and --ep 2 (--check)
+               inside the tp and ep jobs. The kernels phase holds #1 at
+               the tp = 2 shard shapes, #3 at 16 heads and #8 / #9 on an
+               ep = 2 rank's 4-expert banks (shard_checks).
 Then one JSON line {"kernels": [...]}, and last {"ok": true, "device": ...}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero, printing no
@@ -254,7 +274,7 @@ from unittest import mock
 import numpy as np
 
 PHASES = ("build", "kernels", "quantize", "serve", "sp", "moe", "cli",
-          "batch", "families", "mixed")
+          "batch", "families", "mixed", "parallel")
 QMM_SRC = "gptq_tpu_torch/csrc/qmatmul.cu"
 FFN_SRC = "gptq_tpu_torch/csrc/ffn.cu"
 BCQ_SRC = "gptq_tpu_torch/csrc/bcq_matmul.cu"
@@ -291,8 +311,17 @@ STREAM_DEV_SRC = "gptq_tpu_torch/csrc/layer_stream.cuh"
 # raised to FLOOR_MARGIN x the floor read in the same run where the plain
 # versions drift further than it from their own f64 twin (OPT-6.7B at a8;
 # scripts/family_drift.py reads the drift, the floor and planted faults).
+# tp_a8: the a8 logits of a tp = 2 decode against the one-process run,
+# relative to max |logit|: a tp rank quantizes its own half of an o / down
+# input row to int8 on that half's absmax (the JAX package's route,
+# parallel/tp.py), a finer grid than the whole row's, so the two differ by
+# int8 grids and not only in summation order; the JAX package holds the
+# same comparison at 5e-2 (tests/test_parallel.py:259; on an H100:
+# 2.54e-2 at 16 llama-7B layers). The same decode at a16 holds
+# logits_a8, and the smoke plants tp faults that must leave tp_a8
+# (tp_faults).
 TOL = {"qmm_a8": 1e-4, "qmm_a16": 2e-3, "attn": 1e-3, "fused": 3e-3,
-       "partial": 1e-3, "logits_a8": 1.6e-2}
+       "partial": 1e-3, "logits_a8": 1.6e-2, "tp_a8": 5e-2}
 
 
 def log(msg: str) -> None:
@@ -350,14 +379,15 @@ def random_words(gen, rows, cols, device):
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
 
-def packed_linear(gen, K, N, bits, groupsize, device, perm=False):
+def packed_linear(gen, K, N, bits, groupsize, device, perm=False, tp=1):
     """Random packed weight of logical (K, N): stored dims padded like
-    pack_quantized pads them, pad grids zero."""
+    pack_quantized(..., tp=tp) pads them, pad grids zero."""
     import torch
 
     from gptq_tpu_torch.ops.pack import FIELD_SPLITS, PackedWeight, pad_dim
 
-    Kp, Np = pad_dim(K, groupsize), pad_dim(N)
+    unit = 512 * tp
+    Kp, Np = pad_dim(K, groupsize, unit), pad_dim(N, -1, unit)
     ng = 1 if groupsize <= 0 else Kp // groupsize
     words = tuple(random_words(gen, Kp // (32 // fb), Np, device)
                   for fb, _ in FIELD_SPLITS[bits])
@@ -1525,11 +1555,14 @@ def fused_bcq_checks(device, peaks, timer, report):
     a16), with the near-tie rule of tests/test_torch_ffn.py (tie_check)
     and attn_mlp's residual on its own; each case timed beside its plain
     version, the unfused route of the same function (the norm and #13 on
-    the same weights, GPTQ_TPU_FFN_FUSION=off) and its byte bound."""
+    the same weights, GPTQ_TPU_FFN_FUSION=off), the library (torch.matmul
+    of the function's products on the dequantized bf16 weights) and its
+    byte bound."""
     import torch
 
     from gptq_tpu_torch.models import common
     from gptq_tpu_torch.models.common import FusedSplits, ServeFlags
+    from gptq_tpu_torch.ops import bcq_matmul as Bm
     from gptq_tpu_torch.ops import ffn as Fz
     from gptq_tpu_torch.ops.pack import fuse_packed
 
@@ -1544,16 +1577,18 @@ def fused_bcq_checks(device, peaks, timer, report):
         pws = [bcq_linear(gen, K, N, 3, gs, device) for _ in range(parts)]
         return fuse_packed(pws), FusedSplits(tuple((p.Np, p.N) for p in pws))
 
-    def times(M, a8, weights, io_bytes, kernel, plain, unfused):
+    def times(M, a8, weights, io_bytes, kernel, plain, unfused, library):
         ms = timer(kernel)
         plain_ms = timer(plain)
         with fusion_mode("off"):
             unfused_ms = timer(unfused)
+        library_ms = timer(library)
         nbytes = sum(packed_bytes(pw) for pw in weights) + io_bytes
         ops = 2 * M * sum(pw.Kp * pw.Np for pw in weights)
         t_bytes = nbytes / peaks["bw"] * 1e3
         t_ops = ops / peaks["int8" if a8 else "bf16"] * 1e3
         return {"ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+                "library_ms": library_ms,
                 "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1572,6 +1607,9 @@ def fused_bcq_checks(device, peaks, timer, report):
         gu, splits = fused_weight(H, F, gs, 2)
         dn = bcq_linear(gen, F, H, 3, gs, device)
         dn0 = dataclasses.replace(dn, alpha=torch.zeros_like(dn.alpha))
+        # the library's yardstick: the products on dequantized bf16 (K, N)
+        wq, wo, wg, wd = (Bm.bcq_dequant(w).to(torch.bfloat16)
+                          for w in (qkv, o, gu, dn))
         for M in (1, 32):
             x = torch.randn((M, H), generator=gen, device=device)
             attn = torch.randn((M, H), generator=gen, device=device)
@@ -1586,6 +1624,7 @@ def fused_bcq_checks(device, peaks, timer, report):
                      "down": {"w": dn, "b": None, "serve": flags},
                      "ln2": {"w": ln}}
                 xb, x2 = x.to(torch.bfloat16), x.to(torch.bfloat16).float()
+                ab = attn.to(torch.bfloat16)
                 r4 = {"w": tag, "M": M, "a8": a8}
                 check("norm_qkv", r4, Fz.norm_qkv_fused(x, ln, qkv, a8=a8),
                       lambda: Fz.norm_qkv_fused_reference(x, ln, qkv, a8=a8))
@@ -1597,7 +1636,8 @@ def fused_bcq_checks(device, peaks, timer, report):
                     plain=lambda: Fz.norm_qkv_fused_reference(xb, ln, qkv,
                                                               a8=a8),
                     unfused=lambda: common.linear_apply(
-                        lin, common.norm_apply(spec, {"w": ln}, xb))))
+                        lin, common.norm_apply(spec, {"w": ln}, xb)),
+                    library=lambda: torch.matmul(xb, wq)))
                 r5 = {"w": tag, "M": M, "a8": a8}
                 check("attn_mlp", r5,
                       Fz.attn_mlp_fused(attn, xres, ln, o, gu, dn, a8=a8),
@@ -1617,7 +1657,9 @@ def fused_bcq_checks(device, peaks, timer, report):
                     plain=lambda: Fz.attn_mlp_fused_reference(
                         attn, xres, ln, o, gu, dn, a8=a8),
                     unfused=lambda: common._finish_block(spec, p, r3, a3,
-                                                         None, None)))
+                                                         None, None),
+                    library=lambda: torch.matmul(torch.matmul(
+                        torch.matmul(ab, wo), wg)[:, :dn.K], wd)))
                 r6 = {"w": tag, "M": M, "a8": a8}
                 check("ffn", r6, Fz.ffn_fused(attn, gu, dn, a8=a8),
                       lambda: Fz.ffn_fused_reference(attn, gu, dn, a8=a8))
@@ -1634,10 +1676,12 @@ def fused_bcq_checks(device, peaks, timer, report):
                         0.0, True, a8, None, None, None, None),
                     plain=lambda: Fz.ffn_fused_reference(attn, gu, dn,
                                                          a8=a8),
-                    unfused=unfused_ffn))
+                    unfused=unfused_ffn,
+                    library=lambda: torch.matmul(
+                        torch.matmul(ab, wg)[:, :dn.K], wd)))
                 for r in (r4, r5, r6):
                     log("fused bcq " + json.dumps(r))
-        del qkv, o, gu, dn, dn0
+        del qkv, o, gu, dn, dn0, wq, wo, wg, wd
     report["fused_bcq_rows"] = rows
     report["fused_bcq_max_abs_err"] = worst
 
@@ -3975,6 +4019,7 @@ def sp_serve(device, card, report):
         f"prefill of {pre_s[0]:.4f} s), then "
         f"64 tokens at {filled} filled slots: median "
         f"{r['long']['median_ms']:.3f} ms/token on {card}")
+    r["sp2"] = sp2_check(eng, card)
     del eng, cache, logits
     torch.cuda.empty_cache()
 
@@ -6324,6 +6369,700 @@ def mixed_entries(mx) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# parallel: tensor- and expert-parallel serving (parallel/tp.py, ep.py,
+# engine/serving.EPEngine, cli --tp / --ep)
+# ---------------------------------------------------------------------------
+
+def shard_checks(device, peaks, timer, report):
+    """#1 at a tp = 2 rank's llama-7B shard shapes (M = 1, w4a8 g-1: q|k|v
+    4096x6144 and gate|up 4096x11264 in the shard-interleaved fusion,
+    gate 4096x5632 as the route runs it (ffn 11008 is stored 11264, so
+    gate and up stay apart, as in the JAX package), o 2048x4096, down
+    5632x4096) held to its plain version and timed beside its byte bound
+    and torch.matmul on the dequantized bf16 weight; #3 at a rank's local
+    heads: llama-7B's 16 (S 256 and 2048) and Mixtral's 16 on 4 kv
+    heads; #8 (M = 32, the prefill) and #9 (M = 1) on an ep = 2 rank's
+    4-expert Mixtral banks (gate 4 x 4096 -> 14336, down 4 x 14336 ->
+    4096, w4 g-1, bf16 x), as expert_checks holds and times the 8-expert
+    ones."""
+    import torch
+
+    from gptq_tpu_torch.ops import qmatmul as Q
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    rows, worst = [], 0.0
+    for tag, K, N in (("q|k|v", 4096, 6144), ("o", 2048, 4096),
+                      ("gate|up", 4096, 11264), ("gate", 4096, 5632),
+                      ("down", 5632, 4096)):
+        pw = packed_linear(gen, K, N, 4, -1, device)
+        x = torch.randn((1, K), generator=gen, device=device)
+        route = Q.qmm_route(1, 4, -1, x.dtype, a8=True, Np=pw.Np)
+        if route != "single_row":
+            raise AssertionError(f"tp shard qmm {tag}: route {route}")
+        before = Q.launches
+        got = Q.dequant_matmul(x, pw, a8=True).float()
+        if Q.launches != before + 1:
+            raise AssertionError(f"tp shard qmm {tag}: no single-row launch")
+        want = Q.dequant_matmul_reference(x, pw, a8=True).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not rel <= TOL["qmm_a8"]:
+            raise AssertionError(f"tp shard qmm {tag} K={K} N={N}: rel err "
+                                 f"{rel:.3g} > {TOL['qmm_a8']}")
+        worst = max(worst, err)
+        row = {"w": tag, "K": K, "N": N, "M": 1, "a8": True,
+               "max_abs_err": err, "rel_err": rel}
+        row.update(matmul_times(
+            pw, x, True, peaks, timer, kernel=Q._qmm_cuda, prepare=Q._prepare,
+            wrapper=Q.dequant_matmul, plain=Q.dequant_matmul_reference,
+            dense=Q.dequant))
+        rows.append(row)
+        log("tp shard qmm " + json.dumps(row))
+    attn = []
+    for S, length, Hkv in ((256, 128, 16), (2048, 2048, 16), (2048, 2048, 4)):
+        attn.append(attn_times(gen, device, peaks, timer, S, length, "int8",
+                               Hkv, 1, H=16))
+        log("tp shard attention " + json.dumps(attn[-1]))
+    bank_rows = []
+    for tag, K, N, per_x in (("gate", 4096, 14336, False),
+                             ("down", 14336, 4096, True)):
+        pe = packed_bank(gen, 4, K, N, 4, -1, device)
+        x = torch.randn((4, 32, K) if per_x else (32, K), generator=gen,
+                        device=device).to(torch.bfloat16)
+        before = Q.expert_mma_launches
+        got = Q.expert_dequant_matmul(x, pe)
+        if Q.expert_mma_launches != before + 1:
+            raise AssertionError(f"ep bank {tag}: #8 took another kernel")
+        err = close_check(f"ep bank {tag} M=32", got,
+                          Q.expert_dequant_matmul_reference(x, pe),
+                          TOL["qmm_a16"], False)
+        row = {"kernel": "expert_mma", "w": tag, "E": 4, "K": K, "N": N,
+               "M": 32, "max_abs_err": err}
+        row.update(expert_times(pe, x, peaks, timer))
+        bank_rows.append(row)
+        log("ep bank " + json.dumps(row))
+        x1 = torch.randn((1, K), generator=gen, device=device).to(
+            torch.bfloat16)
+        idx = torch.tensor([2], dtype=torch.int32, device=device)
+        err = close_check(f"ep bank {tag} select",
+                          Q.expert_dequant_matmul_select(x1, pe, idx),
+                          Q.expert_dequant_matmul_select_reference(x1, pe,
+                                                                   idx),
+                          TOL["qmm_a16"], False)
+        row = {"kernel": "select", "w": tag, "E": 4, "K": K, "N": N, "M": 1,
+               "max_abs_err": err}
+        row.update(select_times(pe, x1, idx, peaks, timer))
+        bank_rows.append(row)
+        log("ep bank " + json.dumps(row))
+        del pe
+    report["tp_shard_rows"] = rows
+    report["tp_shard_attn"] = attn
+    report["tp_shard_max_abs_err"] = worst
+    report["ep_bank_rows"] = bank_rows
+
+
+TP_LAYERS = 16  # the tp = 2 serve's depth: 16 of llama-7B's 32 (the time limit)
+
+
+def parallel_job(what, n, job, timeout=300) -> list:
+    """One parallel_rank job as n ranks of `python -m torch.distributed.run
+    --nproc-per-node n` (every rank on cuda:0 over gloo: one card), in a
+    session of its own that is killed whole at `timeout` seconds. Returns
+    the ranks' result dicts (each rank writes its own to job["out"] +
+    ".<rank>.json"); raises with the output's tail on a non-zero exit or
+    the limit."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(n), "--master-port", str(free_port()),
+           os.path.abspath(__file__), "--parallel-run", json.dumps(job)]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, env=env, cwd=root, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        raise AssertionError(f"{what}: {n} ranks did not finish within "
+                             f"{timeout} s:\n{out[-6000:]}")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    if p.returncode != 0:
+        raise AssertionError(f"{what}: {n} ranks exited {p.returncode}:\n"
+                             f"{out[-6000:]}")
+    log(f"{what}: {n} ranks in {time.perf_counter() - t0:.1f} s")
+    res = []
+    for r in range(n):
+        path = f"{job['out']}.{r}.json"
+        if not os.path.exists(path):
+            raise AssertionError(f"{what}: rank {r} wrote no result:\n"
+                                 f"{out[-4000:]}")
+        with open(path) as f:
+            res.append(json.load(f))
+    return res
+
+
+def parallel_rank(arg) -> int:
+    """One rank of a parallel job (JSON): joins the group
+    (init_distributed: gloo, the ranks sharing cuda:0), reads the
+    checkpoint on the host and keeps its own shards on the card, then
+    teacher-forces the one-process run's greedy tokens job["tokens"]
+    after job["prompt"] (rank 0 writes the logits to job["out"] +
+    ".npz"), holds each kernel's launches over those steps, profiles 8
+    steps, times 16 and one all_reduce, runs the CLI with job["cli"]
+    where given (rank 0 keeps its result line), and writes its result to
+    job["out"] + ".<rank>.json". job["job"]: "tp" (tp_local_view over the
+    world), "ep" / "eptp" (EPEngine at job["ep"] x job["tp"], a8 as
+    job["a8"], f32 activations and cache where job["f32"]), "sp2"
+    (SPEngine over the world, the sp phase's 8-layer model)."""
+    import torch
+    import torch.distributed as dist
+
+    from gptq_tpu_torch import cli
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.engine.serving import EPEngine, SPEngine
+    from gptq_tpu_torch.io import load_checkpoint
+    from gptq_tpu_torch.models.common import ServeFlags
+    from gptq_tpu_torch.parallel.distributed import init_distributed
+    from gptq_tpu_torch.parallel.tp import (move_params, shard_group,
+                                            tp_local_view)
+    from gptq_tpu_torch.pipeline import quantize_lm_head
+
+    job = json.loads(arg)
+    kind = job["job"]
+    device = init_distributed("cuda")
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    if kind == "sp2":
+        spec = llama7b_spec(8)
+        params = synth_packed_params(spec, device, seed=0)
+    else:
+        spec, params, _ = load_checkpoint(job["path"], device="cpu")
+    if job.get("quant_head"):
+        assert quantize_lm_head(spec, params, bits=8)
+    L = spec.n_layers
+    group = None
+    if kind == "tp":
+        tp = shard_group()
+        local = move_params(tp_local_view(spec, params, tp.size, tp.rank,
+                                          fuse=True, a8=True), device)
+        eng = DecodeEngine(spec, local, max_len=128, cache_dtype=torch.int8,
+                           tp=tp)
+        per_step = {"qmm": 5 * L + 1, "attention": L}
+        by_name = {"qgemv_kernel": 5 * L + 1}
+    elif kind in ("ep", "eptp"):
+        if job["f32"]:  # f32 activations and cache (phase_parallel)
+            params["embed"]["tokens"] = params["embed"]["tokens"].float()
+        eng = EPEngine(spec, params, ep=job["ep"], tp=job["tp"], max_len=128,
+                       cache_dtype=torch.float32 if job["f32"] else torch.int8,
+                       fuse=True, a8=job["a8"], device=device).engine
+        if job["tp"] == 1:  # the fused route on attention, the head fused
+            per_step = moe_decode_counts(L, 1)
+            by_name = {"qsel_gemv_kernel": 6 * L, "qgemv_kernel": L,
+                       "norm_qkv_gemv_kernel": L + 1}
+        else:  # under tp the fused routes stand down: q|k|v, o, the head
+            group = eng.tp.group
+            per_step = {"qmm": 2 * L + 1, "select": 6 * L, "attention": L}
+            by_name = {"qsel_gemv_kernel": 6 * L, "qgemv_kernel": 2 * L + 1}
+    else:
+        eng = SPEngine(spec, params, sp=2, max_len=256,
+                       cache_dtype=torch.int8, fuse=True, a8=True,
+                       device=device)
+        per_step = {"partial_wide": L, "norm_qkv": L + 1, "attn_mlp": L}
+        by_name = None
+    del params
+    res = {"rank": rank, "job": kind, "layers": L,
+           "load_s": time.perf_counter() - t0, "graph": bool(eng.graph)}
+    prompt = np.asarray(job["prompt"])[None]
+    toks = job["tokens"]
+    if kind in ("ep", "eptp"):  # the prefill: #8 on the rank's bank
+        reset_counts()
+        eng.prefill(torch.as_tensor(prompt, device=device))
+        torch.cuda.synchronize()
+        res["prefill_launches"] = {k: v for k, v in launch_counts().items()
+                                   if v}
+        if res["prefill_launches"].get("expert_mma") != 3 * L:
+            raise AssertionError(f"{kind} prefill: launches "
+                                 f"{res['prefill_launches']}")
+    t0 = time.perf_counter()
+    rows, counts = teacher_forced(eng, prompt, toks[:-1])
+    res["forced_s"] = time.perf_counter() - t0
+    expect(counts, {k: v * (len(toks) - 1) for k, v in per_step.items()},
+           f"{kind} rank {rank}: {len(toks) - 1} teacher-forced steps")
+    res.update(forced_launches=counts, top=rows.argmax(-1).tolist())
+    if rank == 0:
+        np.savez(job["out"] + ".npz", logits=rows.cpu().numpy())
+    if kind == "tp":
+        res["faults"] = tp_faults(eng, prompt, toks[:8], job["out"], rank)
+    if by_name is not None:
+        prof = profile_decode(eng, prompt)
+        single_row_check(f"{kind} rank {rank} decode profile", prof, by_name,
+                         per_step)
+        res["profile"] = {k: prof[k] for k in (
+            "device_ms", "device_ms_by_family", "kernels_per_step",
+            "launches", "profiled_wall_ms", "buffer_requests")}
+        logits, cache = eng.prefill(torch.as_tensor(prompt, device=device))
+        times, _, _ = timed_steps(eng, cache, logits.argmax(-1)[:, None], 16)
+        res["median_ms"] = float(np.median(times)) * 1e3
+    # the host's cost of one all_reduce of a residual row: over the tp
+    # group (eptp), else the world
+    buf = torch.zeros((1, spec.hidden), dtype=torch.bfloat16, device=device)
+    dist.all_reduce(buf, group=group)
+    ts = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    res["all_reduce_ms"] = float(np.median(ts)) * 1e3
+    del eng
+    torch.cuda.empty_cache()
+    if kind == "tp":  # the same decode at a16, on the a16 run's tokens
+        eng = DecodeEngine(spec, {**local, "layers": [
+            {k: ({**v, "serve": ServeFlags()} if isinstance(v, dict)
+                 and "serve" in v else v) for k, v in lp.items()}
+            for lp in local["layers"]]}, max_len=128,
+            cache_dtype=torch.int8, tp=tp)
+        rows, counts = teacher_forced(eng, prompt, job["tokens_a16"][:-1])
+        expect(counts, {k: v * (len(job["tokens_a16"]) - 1)
+                        for k, v in per_step.items()}, f"tp a16 rank {rank}")
+        res["top_a16"] = rows.argmax(-1).tolist()
+        if rank == 0:
+            np.savez(job["out"] + ".a16.npz", logits=rows.cpu().numpy())
+        del eng, local
+        torch.cuda.empty_cache()
+    if job.get("cli"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if cli.main(job["cli"]) != 0:
+                raise AssertionError(f"cli {job['cli']} failed")
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith('{"benchmark"')]
+        if len(lines) != (rank == 0):
+            raise AssertionError(f"cli rank {rank}: result lines {lines}")
+        res["cli"] = json.loads(lines[0]) if lines else None
+        res["cli_s"] = time.perf_counter() - t0
+    with open(f"{job['out']}.{rank}.json", "w") as f:
+        json.dump(res, f)
+    # no reference to a group may outlive the default one (a group torn
+    # down at the interpreter's exit, its peers gone, aborts the process)
+    del group
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_faults(eng, prompt, toks, out, rank) -> list:
+    """Planted faults in a tp decode, each teacher-forced on toks after
+    prompt with the same fault on every rank (so the ranks still make the
+    same collectives); rank 0 writes each one's logits to out +
+    ".fault_<name>.npz". "o_not_reduced": layer 2's o projection skips its
+    all_reduce (each rank keeps its own partial sum); "perm_rolled":
+    layer 0's act-order o shard takes its input rows one place off (the
+    rank's slice of the padded permutation rolled by one). The engine's
+    params are restored after each."""
+    from gptq_tpu_torch.models import common
+
+    layers = eng.params["layers"]
+    target = layers[2]["o"]
+    row = common._row_linear
+
+    def o_not_reduced(lin, x, tp):
+        if lin is target:
+            return common.linear_apply(lin, x)
+        return row(lin, x, tp)
+
+    names = []
+    for name in ("o_not_reduced", "perm_rolled"):
+        saved = layers[0]["o"]
+        w = saved["w"]
+        assert w.perm is not None, "layer 0's o is not an act-order shard"
+        try:
+            if name == "perm_rolled":
+                layers[0]["o"] = {**saved, "w": dataclasses.replace(
+                    w, perm=w.perm.roll(1))}
+                logits, _ = teacher_forced(eng, prompt, toks)
+            else:
+                with mock.patch.object(common, "_row_linear", o_not_reduced):
+                    logits, _ = teacher_forced(eng, prompt, toks)
+        finally:
+            layers[0]["o"] = saved
+        if rank == 0:
+            np.savez(f"{out}.fault_{name}.npz", logits=logits.cpu().numpy())
+        names.append(name)
+    return names
+
+
+def fault_readings(res, rows, base, sound) -> dict:
+    """tp_faults' logits against the one-process run's rows: max |fault -
+    one-process| / max |one-process| over their steps, each of which must
+    exceed TOL["tp_a8"] (else the limit could not tell the fault from the
+    ranks' own int8 grids); `sound` is the sound run's reading."""
+    import torch
+
+    out = {}
+    for name in res[0]["faults"]:
+        got = torch.from_numpy(np.load(f"{base}.fault_{name}.npz")["logits"])
+        want = rows[:got.shape[0]].cpu()
+        out[name] = float(((got - want).abs().amax(-1)
+                           / want.abs().amax(-1)).max())
+    log(f"tp=2 planted faults (prefill + {got.shape[0] - 1} teacher-forced "
+        f"steps, a8): max |fault - one-process| / max |one-process| "
+        + json.dumps(out) + f"; the sound run {sound:.4g}; limit "
+        f"{TOL['tp_a8']}")
+    for name, v in out.items():
+        if not v > TOL["tp_a8"]:
+            raise AssertionError(f"tp=2: TOL['tp_a8'] cannot see the planted "
+                                 f"fault {name} ({v:.4g})")
+    return out
+
+
+def synth_tp_params(spec, device, seed=7, act_order=(0, 1)):
+    """Seeded random llama params packed for tp = 2 (pack_quantized(tp=2)'s
+    padding, units of 1,024): w4 g-1, the layers in `act_order` g128 with
+    one act-order permutation a width (q / k / v / gate / up / o share the
+    hidden one, as one Hessian gives q / k / v theirs), an 8-bit packed
+    head (replicated under tp), bf16 embedding and norms."""
+    import torch
+
+    params = synth_packed_params(spec, device, seed=seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    h, f = spec.hidden, spec.ffn
+    kv = spec.kv_heads * spec.hd
+    for i in act_order:
+        perm_h = torch.randperm(h, generator=gen, device=device).to(
+            torch.int32)
+        perm_f = torch.randperm(f, generator=gen, device=device).to(
+            torch.int32)
+        for key, K, N in (("q", h, h), ("k", h, kv), ("v", h, kv),
+                          ("o", h, h), ("gate", h, f), ("up", h, f),
+                          ("down", f, h)):
+            pw = packed_linear(gen, K, N, 4, 128, device, tp=2)
+            pw.perm = perm_f if key == "down" else perm_h
+            params["layers"][i][key] = {"w": pw, "b": None}
+    params["lm_head"] = {"w": packed_linear(gen, h, spec.vocab, 8, -1, device,
+                                            tp=2), "b": None}
+    return params
+
+
+def condition_grids(params, bits=4) -> None:
+    """In place: every block weight's (and expert bank's) grids rescaled so
+    that its weights' rms is init_params' 0.4 / sqrt(K), its zero points
+    at the uniform codes' mean, as synth_family_params conditions them.
+    With packed_linear's own grids (weights half a step below zero on
+    average) the residual of a random llama grows ~60x over 16 layers and
+    its attention turns hard: the ~1% that a tp rank's own int8 grid
+    moves an activation then flips the key a step attends (on an H100 the
+    one-process run and the tp = 2 ranks parted by 2x max |logit| at one
+    of 64 steps; at a16 within 0.7%)."""
+    from gptq_tpu_torch.ops.pack import PackedExperts, PackedWeight
+
+    rms = 0.051 if bits == 4 else 0.011 * math.sqrt((4 ** bits - 1) / 12)
+
+    def cond(w):
+        f = 0.4 / math.sqrt(w.K) / rms
+        return dataclasses.replace(w, scale=w.scale * f,
+                                   zoff=w.scale * f * ((1 << bits) - 1) / 2)
+
+    for lp in params["layers"]:
+        for val in lp.values():
+            if isinstance(val, dict) and isinstance(val.get("w"), PackedWeight):
+                val["w"] = cond(val["w"])
+        ex = lp.get("experts", {})
+        for k, pe in ex.items():
+            if isinstance(pe, PackedExperts):
+                ex[k] = cond(pe)
+
+
+def greedy_rows(eng, prompt, n) -> tuple:
+    """The one-process run's n greedy tokens after prompt, and the f32
+    logits that picked each ((n, vocab))."""
+    import torch
+
+    logits, cache = eng.prefill(torch.as_tensor(prompt, device=eng.device))
+    toks, rows = [], []
+    for i in range(n):
+        rows.append(logits[0].float())
+        toks.append(int(logits[0].argmax()))
+        if i + 1 < n:
+            logits, cache = eng.step(
+                cache, torch.tensor([[toks[-1]]], device=eng.device))
+    return toks, torch.stack(rows)
+
+
+def agree_with(what, toks, rows, res, out, tol="logits_a8",
+               top="top") -> dict:
+    """A sharded run teacher-forced on the one-process run's greedy tokens
+    `toks` (which `rows` picked) against it (forced_agree: within TOL[tol]
+    of max |logit| at every step, and where the ranks' top token is not
+    the one-process run's, a near tie). Every rank's tops (res[r][top])
+    must be the same; where they equal toks at every step, the ranks' own
+    greedy decoding gives toks."""
+    import torch
+
+    for r in res[1:]:
+        if r[top] != res[0][top]:
+            raise AssertionError(f"{what}: ranks 0 and {r['rank']} pick "
+                                 f"different tokens")
+    got = torch.from_numpy(np.load(out)["logits"]).to(rows.device)
+    agree = forced_agree(what, [toks], [got], [rows], TOL[tol])
+    agree["greedy_equal"] = not agree["parted"]
+    log(f"{what}: the ranks' greedy tokens "
+        f"{'equal' if agree['greedy_equal'] else 'part at near ties from'} "
+        f"the one-process run's {len(toks)}; teacher-forced logits within "
+        f"{agree['max_rel']:.4g} of max |logit| (limit {TOL[tol]})")
+    return agree
+
+
+def parallel_entries(kernels, report) -> None:
+    """The parallel readings on the kernels line's entries: #1 (qmm) and #3
+    (decode_attention) at a tp = 2 rank's shapes, with each rank's
+    launches of the tp = 2 serve's teacher-forced steps; #9
+    (expert_select) and #8 (expert_matmul_mma) on an ep = 2 rank's
+    4-expert bank."""
+    by = {k["name"]: k for k in kernels}
+    par = report.get("parallel", {})
+    keys = ("K", "N", "max_abs_err", "ms", "wrapper_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    if "qmm" in by and "tp_shard_rows" in report:
+        by["qmm"]["tp2"] = {
+            "shapes": [{"w": r["w"], **{k: r[k] for k in keys}}
+                       for r in report["tp_shard_rows"]],
+            "launches_per_rank": [r["forced_launches"].get("qmm", 0)
+                                  for r in par.get("tp", {}).get("ranks", [])],
+            "shape": "a tp = 2 rank's llama-7B shards, w4a8 g-1, M = 1; "
+                     "launches: each rank's 63 teacher-forced steps"}
+    if "decode_attention" in by and "tp_shard_attn" in report:
+        by["decode_attention"]["tp2"] = {
+            "rows": [{k: r[k] for k in ("S", "length", "H", "Hkv",
+                                        "max_abs_err", "ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by")}
+                     for r in report["tp_shard_attn"]],
+            "launches_per_rank": [
+                r["forced_launches"].get("attention", 0)
+                for r in par.get("tp", {}).get("ranks", [])]}
+    ep = par.get("ep", {}).get("ranks", [])
+    banks = report.get("ep_bank_rows", [])
+    bank_keys = ("w", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+    for name, kernel, launches, shape in (
+            ("expert_select", "select",
+             [r["forced_launches"].get("select", 0) for r in ep],
+             "an ep = 2 rank's 4-expert banks (gate 4096x14336, down "
+             "14336x4096, w4 g-1, M = 1, bf16 x); launches: each rank's 63 "
+             "teacher-forced steps of 8 Mixtral layers"),
+            ("expert_matmul_mma", "expert_mma",
+             [r.get("prefill_launches", {}).get("expert_mma", 0)
+              for r in ep],
+             "an ep = 2 rank's 4-expert banks at M = 32 (the prefill); "
+             "launches: each rank's 32-token prefill of 8 Mixtral layers")):
+        if name in by and (ep or banks):
+            by[name]["ep2"] = {
+                "rows": [{k: r[k] for k in bank_keys} for r in banks
+                         if r["kernel"] == kernel],
+                "launches_per_rank": launches, "shape": shape}
+
+
+def phase_parallel(device, tmp, card, peaks, report):
+    """Tensor- and expert-parallel serving on one card: the ranks of each
+    group are processes that share cuda:0 over gloo, so their ms / token
+    time-slices one card and says nothing of scaling. tp = 2 at llama-7B
+    width (TP_LAYERS layers, w4a8 g-1 with two g128 act-order layers,
+    packed for tp = 2, an 8-bit head, int8 KV; each rank's #1 and #3 at
+    their shard shapes; held at a8 to TOL["tp_a8"] and at a16 to
+    TOL["logits_a8"], and planted faults (tp_faults) held beyond
+    TOL["tp_a8"]; then the CLI's --tp 2 --check on its first 2
+    layers); ep = 2 at
+    Mixtral-8x7B width (8 layers, 4-bit banks, 4 experts a rank: #8 at
+    the prefill, #9 at decode; then the CLI's --ep 2 --check on 2 layers);
+    ep x tp = 2 x 2 (2 layers, f32 activations and cache, as moe_serve's
+    requests: the ~1% a tp rank's own int8 grid (or bf16 rounding of its
+    partial sums) moves the o projection can flip a router's near-tie
+    top-2 choice: 8% of max |logit| at one step on an H100 at a8); each
+    teacher-forced on the one-process
+    run's 64 greedy tokens after a 32-token prompt (tp = 1 through the
+    same tp view; ep = 1 DecodeEngine). Weights from a seed (the tp
+    model's grids conditioned as the families phase's are:
+    condition_grids; the Mixtral ones synth_moe_params's, as the moe
+    phase's)."""
+    import torch
+
+    from gptq_tpu_torch.engine.decode import DecodeEngine
+    from gptq_tpu_torch.io import save_checkpoint
+    from gptq_tpu_torch.models.common import ShardGroup
+    from gptq_tpu_torch.parallel.tp import tp_local_view
+    from gptq_tpu_torch.pipeline import quantize_lm_head
+
+    out = {}
+    n_new = 64
+    rng = np.random.default_rng(41)
+    # tp = 2, llama-7B width
+    spec = llama7b_spec(TP_LAYERS)
+    L = spec.n_layers
+    t0 = time.perf_counter()
+    params = synth_tp_params(spec, device)
+    condition_grids(params)
+    path = os.path.join(tmp, "tp_llama.npz")
+    path_cli = os.path.join(tmp, "tp_llama2.npz")  # its first 2 layers
+    save_checkpoint(path, spec, params)
+    save_checkpoint(path_cli, llama7b_spec(2),
+                    {**params, "layers": params["layers"][:2]})
+    prompt = rng.integers(0, spec.vocab, size=32)
+    greedy = {}
+    # the one-process run: tp = 1 through the same view, a8 and a16
+    for a8 in (True, False):
+        ref = DecodeEngine(spec, tp_local_view(spec, params, 1, 0, fuse=True,
+                                               a8=a8),
+                           max_len=128, cache_dtype=torch.int8,
+                           tp=ShardGroup())
+        greedy[a8] = greedy_rows(ref, prompt[None], n_new)
+        del ref
+    del params
+    torch.cuda.empty_cache()
+    toks, rows = greedy[True]
+    log(f"parallel: a {L}-layer tp = 2 checkpoint "
+        f"({os.path.getsize(path) / 2**30:.2f} GiB) and its one-process "
+        f"run in {time.perf_counter() - t0:.1f} s")
+    base = os.path.join(tmp, "tp")
+    res = parallel_job("tp=2", 2, {
+        "job": "tp", "path": path, "out": base, "prompt": prompt.tolist(),
+        "tokens": toks, "tokens_a16": greedy[False][0],
+        "cli": ["dummy", "c4", "--load", path_cli, "--benchmark",
+                                "32", "--tp", "2", "--faster-kernel",
+                                "--int8_kv", "--check"]})
+    agree = agree_with(f"tp=2 ({L} layers, a8)", toks, rows, res,
+                       base + ".npz", tol="tp_a8")
+    agree16 = agree_with(f"tp=2 ({L} layers, a16)", *greedy[False], res,
+                         base + ".a16.npz", top="top_a16")
+    faults = fault_readings(res, rows, base, agree["max_rel"])
+    log("tp=2: ranks' seconds (load, teacher-forced steps, cli) "
+        + json.dumps([[round(r["load_s"], 1), round(r["forced_s"], 1),
+                       round(r.get("cli_s", 0.0), 1)] for r in res]))
+    out["tp"] = {"layers": L, "ranks": res, "agree": agree,
+                 "agree_a16": agree16, "faults": faults,
+                 "cli": cli_result("cli --tp 2 (2 layers)", res, "-tp2")}
+    r0 = res[0]
+    log(f"tp=2 decode ({L} llama-7B layers, w4a8 + w8 head, int8 KV; 2 "
+        f"ranks time-slicing one card over gloo: no scaling): median "
+        f"{r0['median_ms']:.3f} ms/token, device "
+        f"{r0['profile']['device_ms']:.3f} ms a step (rank 0; rank 1 "
+        f"{res[1]['profile']['device_ms']:.3f}), one all_reduce of (1, 4096) "
+        f"bf16 {r0['all_reduce_ms']:.4f} ms of host time; launches a step "
+        f"(each rank) {5 * L + 1} qgemv_kernel, {L} attnd_tile; on {card}")
+    os.remove(path)
+    os.remove(path_cli)
+
+    # ep = 2 and ep x tp = 2 x 2, Mixtral-8x7B width
+    spec = mixtral_spec(8)
+    t0 = time.perf_counter()
+    params = synth_moe_params(spec, device, seed=5)
+    assert quantize_lm_head(spec, params, bits=8)  # once, on the card
+    path8 = os.path.join(tmp, "ep_moe8.npz")
+    path2 = os.path.join(tmp, "ep_moe2.npz")
+    save_checkpoint(path8, spec, params)
+    save_checkpoint(path2, mixtral_spec(2),
+                    {**params, "layers": params["layers"][:2]})
+    log(f"parallel: 8- and 2-layer Mixtral-width checkpoints in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the one-process runs read the weights in memory (saving and loading
+    # a checkpoint keeps every leaf bit for bit)
+    refs = {"ep": params, "eptp": {
+        **params, "layers": params["layers"][:2],
+        "embed": {**params["embed"],
+                  "tokens": params["embed"]["tokens"].float()}}}
+    del params
+    for what, n, ep, tp, a8, p in (("ep=2", 2, 2, 1, True, path8),
+                                   ("ep x tp = 2 x 2", 4, 2, 2, False, path2)):
+        kind = "ep" if tp == 1 else "eptp"
+        f32 = tp > 1
+        spec = mixtral_spec(8 if kind == "ep" else 2)
+        ref = DecodeEngine(spec, refs.pop(kind), max_len=128, a8=a8,
+                           cache_dtype=torch.float32 if f32 else torch.int8)
+        prompt = rng.integers(0, spec.vocab, size=32)
+        toks, rows = greedy_rows(ref, prompt[None], n_new)
+        del ref
+        torch.cuda.empty_cache()
+        base = os.path.join(tmp, kind)
+        job = {"job": kind, "path": p, "out": base, "prompt": prompt.tolist(),
+               "tokens": toks, "ep": ep, "tp": tp, "a8": a8, "f32": f32}
+        if kind == "ep":  # the CLI on the 2-layer file (its load is short)
+            job["cli"] = ["dummy", "c4", "--load", path2, "--benchmark", "32",
+                          "--ep", "2", "--faster-kernel", "--int8_kv",
+                          "--check", "--results_log",
+                          os.path.join(tmp, "ep_ppl.txt")]
+        res = parallel_job(what, n, job)
+        agree = agree_with(f"{what} ({spec.n_layers} layers)", toks, rows,
+                           res, base + ".npz")
+        out[kind] = {"layers": spec.n_layers, "a8": a8, "f32": f32,
+                     "ranks": res, "agree": agree}
+        if kind == "ep":
+            out[kind]["cli"] = cli_result("cli --ep 2", res, "chained-ep2")
+        r0 = res[0]
+        log(f"{what}: ranks' seconds (load, teacher-forced steps, cli) "
+            + json.dumps([[round(r["load_s"], 1), round(r["forced_s"], 1),
+                           round(r.get("cli_s", 0.0), 1)] for r in res]))
+        log(f"{what} decode ({spec.n_layers} Mixtral layers, "
+            f"w4{'a8' if a8 else 'a16'} + w8 head, "
+            f"{'f32 activations and KV' if f32 else 'int8 KV'}; {n} ranks "
+            f"time-slicing one card over gloo: no scaling): median "
+            f"{r0['median_ms']:.3f} ms/token, device "
+            f"{r0['profile']['device_ms']:.3f} ms a step (rank 0), "
+            f"{6 * spec.n_layers} #9 selections a step a rank, prefill "
+            f"launches {json.dumps(r0['prefill_launches'])}, one all_reduce "
+            f"{r0['all_reduce_ms']:.4f} ms of host time; on {card}")
+    os.remove(path8)
+    os.remove(path2)
+    report["parallel"] = out
+
+
+def cli_result(what, res, protocol) -> dict:
+    """Rank 0's CLI result line (its protocol ending in `protocol`, a
+    finite PPL: the --check run's)."""
+    r = res[0]["cli"]
+    ppl = r["benchmark"].get("ppl", float("nan"))
+    if not (r["protocol"].endswith(protocol) and math.isfinite(ppl)):
+        raise AssertionError(f"{what}: result {r}")
+    log(f"{what} ({res[0]['cli_s']:.1f} s): "
+        + json.dumps({"protocol": r["protocol"], "benchmark": r["benchmark"]}))
+    return r
+
+
+def sp2_check(eng, card) -> dict:
+    """sp = 2 on one card: two ranks over gloo (the ring's hops staged
+    through host copies, the chained loop eager) serve the sp phase's
+    8-layer model, teacher-forced on the sp = 1 engine `eng`'s 16 greedy
+    tokens after a 64-token prompt (agree_with)."""
+    import tempfile as _tf
+
+    prompt = np.random.default_rng(43).integers(0, eng.spec.vocab, size=64)
+    toks, rows = greedy_rows(eng, prompt[None], 16)
+    with _tf.TemporaryDirectory() as d:
+        base = os.path.join(d, "sp2")
+        res = parallel_job("sp=2", 2, {
+            "job": "sp2", "out": base, "prompt": prompt.tolist(),
+            "tokens": toks, "quant_head": True})
+        agree = agree_with("sp=2 vs sp=1 (8 layers)", toks, rows, res,
+                           base + ".npz")
+    log(f"sp=2 on one card (2 ranks over gloo, graph {res[0]['graph']}): "
+        f"one all_reduce {res[0]['all_reduce_ms']:.4f} ms of host time, "
+        f"on {card}")
+    return {"ranks": res, "agree": agree}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6335,6 +7074,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cli-run", default="",
                     help="one CLI quantize run (JSON), as cli_batch starts "
                          "it in a process of its own")
+    ap.add_argument("--parallel-run", default="",
+                    help="one rank of a parallel job (JSON), as "
+                         "parallel_job starts it under torch.distributed.run")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     checks = set(filter(None, args.checks.split(",")))
@@ -6347,6 +7089,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.cli_run:
         return cli_run(args.cli_run)
+    if args.parallel_run:
+        return parallel_rank(args.parallel_run)
     from gptq_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6381,7 +7125,7 @@ def main(argv=None) -> int:
         for check in (qmm_checks, attn_checks, fused_checks, rows_checks,
                       fused_bcq_checks, layer_checks, bcq_checks,
                       stream_checks, expert_checks, partial_checks,
-                      mma_crossover):
+                      mma_crossover, shard_checks):
             if checks and check.__name__ not in checks:
                 continue
             t0 = time.perf_counter()
@@ -6406,7 +7150,9 @@ def main(argv=None) -> int:
                 ("families", lambda: phase_families(device, tmp, card, peaks,
                                                     report)),
                 ("mixed", lambda: phase_mixed(device, tmp, card, peaks,
-                                              report))):
+                                              report)),
+                ("parallel", lambda: phase_parallel(device, tmp, card, peaks,
+                                                    report))):
             if phase in phases:
                 t0 = time.perf_counter()
                 run()
@@ -6432,11 +7178,13 @@ def main(argv=None) -> int:
                         and r["a8"])
             return {"max_abs_err": report["fused_bcq_max_abs_err"][name],
                     **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "unfused_ms")},
+                                            "bound_by", "unfused_ms",
+                                            "library_ms")},
                     "shape": "3-bit BCQ sign planes g128, a8, M=1",
                     "rows": [{k: r[k] for k in ("w", "M", "a8", "ms",
                                                 "plain_ms", "unfused_ms",
-                                                "bound_ms", "rel_err")}
+                                                "library_ms", "bound_ms",
+                                                "rel_err")}
                              for r in rs]}
 
         def fused_entry(name, line, row, launches, shape):
@@ -6832,6 +7580,7 @@ def main(argv=None) -> int:
             "TinyLlama-width SPEngine(sp=1) decode"))
     if "families" in report:
         kernels += family_entries(report["families"])
+    parallel_entries(kernels, report)
     if "mixed" in report:
         kernels += mixed_entries(report["mixed"])
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -22,6 +22,11 @@ defaults): quantize from a model directory, save, evaluate, serve.
     torchrun --nproc-per-node 2 -m gptq_tpu_torch.cli dummy c4 \
         --load q.npz --benchmark 128 --faster-kernel --sp 2
 
+    torchrun --nproc-per-node 2 -m gptq_tpu_torch.cli dummy c4 \
+        --load q.npz --benchmark 128 --faster-kernel --tp 2
+    torchrun --nproc-per-node 4 -m gptq_tpu_torch.cli dummy c4 \
+        --load mixtral.npz --benchmark 128 --ep 2 --tp 2
+
 Runs on the GPU (`--device cuda`, the default, raises without one).
 
 Quantize: without --load, the model is an HF checkpoint directory of
@@ -65,12 +70,24 @@ GPTQ_TPU_LAYER_FUSION=on serves each decode layer in one launch
 (csrc/layer_fused.cu). An MoE (Mixtral-style) checkpoint serves the same
 way, its expert banks through csrc/qexpert.cu. `--sp N` (N > 1, under
 torchrun with N processes: N must equal WORLD_SIZE) serves through
-engine/serving.SPEngine, the KV cache sharded over the N ranks (one CUDA
-device each, cuda:LOCAL_RANK; gloo on the CPU), with the chained
-protocol; only rank 0 prints the result line, protocol `chained-sp{N}`.
+engine/serving.SPEngine, the KV cache sharded over the N ranks, with
+the chained protocol; only rank 0 prints the result line, protocol
+`chained-sp{N}`. `--tp M` (under torchrun with M processes) serves
+tensor-parallel: each rank loads the checkpoint on the host, keeps its
+shards (parallel/tp.tp_local_view) and runs the benchmark above over its
+tp group. `--ep N` (with `--tp M`: N * M processes) serves an MoE
+checkpoint through engine/serving.EPEngine's chained protocol and
+appends its result to --results_log, protocol `chained-ep{N}[xtp{M}]`.
+Quantizing with `--tp M --save` (one process, no --load) pads the packed
+dims for an M-way split (pack_model(tp=): each shard starts on a
+subblock boundary). The process group
+and each rank's device come from parallel/distributed.init_distributed:
+rank r on cuda:(LOCAL_RANK % cards), NCCL where every rank has a card of
+its own, gloo where ranks share one (the chained benchmark then runs
+eagerly: "graph": false) and on the CPU.
 
 Flags of pieces not ported yet exit with the ROADMAP item that holds
-them: --task (item 14), --tp > 1 and --ep > 1 (item 18).
+them: --task (item 14), --sp with --tp > 1 (item 18, sp x tp).
 """
 
 from __future__ import annotations
@@ -161,14 +178,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pack weights and evaluate through the serving "
                         "kernels")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (not ported yet)")
+                   help="tensor-parallel ways: torchrun processes over which "
+                        "the linears shard (Megatron col / row); also pads "
+                        "packing for that split")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ways: long-context serving with "
                         "the KV cache sharded over N torchrun processes "
                         "(ring-attention prefill + SPCache decode). int8 "
                         "cache is the default at max_len >= 1024")
     p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel ways (not ported yet)")
+                   help="expert-parallel ways: MoE expert stacks split over "
+                        "torchrun processes (EPEngine; composes with --tp)")
     p.add_argument("--max_len", type=int, default=0,
                    help="serving cache capacity for --sp benchmarks "
                         "(default: benchmark length + headroom)")
@@ -257,8 +277,8 @@ def refuse_unported(args) -> None:
         raise SystemExit("--sp and --ep are separate serving engines; "
                          "pick one")
     for on, what, item in (
-            (args.ep > 1, "--ep: expert-parallel serving", "18, the rest"),
-            (args.tp > 1, "--tp: tensor-parallel serving", "18, the rest"),
+            (args.sp > 1 and args.tp > 1,
+             "--sp with --tp > 1: sp x tp serving", "18, sp x tp"),
             (args.task, "--task: the zero-shot harness", "14")):
         if on:
             raise SystemExit(f"{what} is not ported yet (ROADMAP item "
@@ -323,8 +343,15 @@ def main(argv=None) -> int:
 
     refuse_unported(args)
     device = resolve_device(args.device)
-    if args.sp > 1:
-        device = _sp_device(args.sp, device)
+    # tp / ep ranks read the checkpoint on the host and keep their shards
+    # on the card (_benchmark); without --load, --tp only pads the packing
+    host = (args.tp > 1 or args.ep > 1) and bool(args.load)
+    import torch.distributed as dist
+
+    # a group this run starts, it ends (a caller's stays the caller's)
+    own_group = (args.sp > 1 or host) and not dist.is_initialized()
+    if args.sp > 1 or host:
+        device = _parallel_device(args, device)
     if args.lut_bench:
         from gptq_tpu_torch.ops.kernel_bench import bench_kernels
 
@@ -343,7 +370,8 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     quant = None
     if args.load:
-        spec, params, loaded_cfg = load_checkpoint(args.load, device=device)
+        spec, params, loaded_cfg = load_checkpoint(
+            args.load, device="cpu" if host else device)
         print(f"loaded packed checkpoint {args.load}")
         quant = quant_fields(params, loaded_cfg)
         # the result lines carry the checkpoint's quantization, not this
@@ -353,14 +381,29 @@ def main(argv=None) -> int:
                 setattr(args, f, getattr(loaded_cfg, f))
             elif loaded_cfg is None and f in quant:
                 setattr(args, f, quant[f])
-        if args.quant_lm_head and quantize_lm_head(spec, params,
-                                                   bits=args.quant_lm_head):
+        if args.quant_lm_head and quantize_lm_head(
+                spec, params, bits=args.quant_lm_head, tp=max(1, args.tp)):
             print(f"lm_head quantized to {args.quant_lm_head} bits")
     else:
+        if (args.tp > 1 or args.ep > 1) and args.benchmark:
+            raise SystemExit("--tp / --ep serve a packed checkpoint: "
+                             "quantize and --save it (with --tp to pad for "
+                             "the split), then --load it under torchrun")
         spec, params = _convert(args, device)
 
-    tokenizer = load_tokenizer(args.model,
-                               required=not (args.benchmark and args.load))
+    if host:
+        # the sharded ranks serve the benchmark; a PPL eval would hold the
+        # whole model on each rank's card
+        if not args.benchmark:
+            raise SystemExit("--tp / --ep serve the decode benchmark "
+                             "(--benchmark N); run the PPL evals without "
+                             "them")
+        print("--tp / --ep: PPL evals not run (they run unsharded, "
+              "without --tp / --ep)")
+        tokenizer = None
+    else:
+        tokenizer = load_tokenizer(args.model,
+                                   required=not (args.benchmark and args.load))
     seqlen = spec.max_pos
 
     if args.analyse:
@@ -432,6 +475,8 @@ def main(argv=None) -> int:
     if args.benchmark:
         _benchmark(args, spec, params, quant or quant_fields(params, cfg),
                    device)
+    if own_group:
+        dist.destroy_process_group()
     return 0
 
 
@@ -479,32 +524,52 @@ def _quantize(args, cfg, spec, params, tokenizer, seqlen, device) -> None:
                               keep_grids=args.expert_bits < 8)
     if args.eval_pack or args.save:
         t0 = time.perf_counter()
-        pack_model(spec, params, res.quantizers, cfg)
+        pack_model(spec, params, res.quantizers, cfg, tp=max(1, args.tp))
         print(f"packed in {time.perf_counter() - t0:.2f}s")
-        if args.quant_lm_head and quantize_lm_head(spec, params,
-                                                   bits=args.quant_lm_head):
+        if args.quant_lm_head and quantize_lm_head(
+                spec, params, bits=args.quant_lm_head, tp=max(1, args.tp)):
             print(f"lm_head quantized to {args.quant_lm_head} bits")
 
 
 def _benchmark(args, spec, params, quant, device) -> None:
-    """The decode benchmark; prints one JSON result line."""
+    """The decode benchmark; prints one JSON result line (under tp / ep /
+    sp: rank 0 does)."""
+    import torch.distributed as dist
+
     from gptq_tpu_torch.engine import decode
     from gptq_tpu_torch.models.common import fuse_serving
 
     ids = np.random.default_rng(args.seed).integers(
         0, spec.vocab, size=(1, args.benchmark))
-    if args.faster_kernel:
-        params = fuse_serving(spec, params, a8=True)
-        print("--faster-kernel: serving with dynamic int8 activations")
     cache_dtype = torch.int8 if args.int8_kv else torch.bfloat16
+    if args.ep > 1:
+        _serve_ep(args, spec, params, ids, quant, device)
+        return
+    tp = None
+    if args.tp > 1:
+        # the rank's shards, fused shard-interleaved (the unsharded
+        # engine fuses too), a8 under --faster-kernel
+        from gptq_tpu_torch.parallel.tp import (move_params, shard_group,
+                                                tp_local_view)
+
+        tp = shard_group()
+        params = move_params(tp_local_view(spec, params, tp.size, tp.rank,
+                                           fuse=True, a8=args.faster_kernel),
+                             device)
+    elif args.faster_kernel:
+        params = fuse_serving(spec, params, a8=True)
+    if args.faster_kernel:
+        print("--faster-kernel: serving with dynamic int8 activations")
     if args.sp > 1:
         _serve_sp(args, spec, params, ids, quant, device)
         return
+    rank0 = tp is None or tp.rank == 0
+    log = print if rank0 else (lambda s: None)
     if args.benchmark_batch > 1:
         # batched lock-step decode: weight reads amortise over the batch
         n, nb = args.benchmark, args.benchmark_batch
         eng = decode.DecodeEngine(spec, params, max_len=n + 8, batch=nb,
-                                  cache_dtype=cache_dtype)
+                                  cache_dtype=cache_dtype, tp=tp)
         prompt = np.tile(ids[:1, :1], (nb, 1))
         # the first run captures the chunks' graphs
         eng.generate_chained(prompt, max_new_tokens=n)
@@ -512,45 +577,78 @@ def _benchmark(args, spec, params, quant, device) -> None:
         eng.generate_chained(prompt, max_new_tokens=n)
         dt = time.perf_counter() - t0
         rate = n * nb / dt
-        print(f"batch {nb}: {rate:.1f} tok/s ({dt / n * 1e3:.2f} ms/step "
-              f"incl dispatch)")
+        log(f"batch {nb}: {rate:.1f} tok/s ({dt / n * 1e3:.2f} ms/step "
+            f"incl dispatch)")
         r = {"tokens_per_s": rate, "step_s": dt / n, "batch": nb,
              "n_tokens": n}
         protocol = f"batch{nb}"
-    elif decode.measure_dispatch_rtt(reps=3, device=device) > 1e-3:
-        print("dispatch RTT > 1ms: using on-device chained protocol")
-        r = decode.benchmark_decode_chained(spec, params, ids,
-                                            check=args.check,
-                                            cache_dtype=cache_dtype)
-        protocol = "chained"
     else:
-        r = decode.benchmark_decode(spec, params, ids, check=args.check,
-                                    cache_dtype=cache_dtype)
-        protocol = "per-token"
-    print(json.dumps({"benchmark": r, "protocol": protocol, "quant": quant,
-                      "device": str(device),
-                      "kind": (torch.cuda.get_device_name(device)
-                               if device.type == "cuda" else "cpu")}))
+        rtt = torch.tensor([decode.measure_dispatch_rtt(reps=3,
+                                                        device=device)],
+                           device=device)
+        if tp is not None:
+            dist.broadcast(rtt, 0)  # every rank takes rank 0's protocol
+        if float(rtt[0]) > 1e-3:
+            log("dispatch RTT > 1ms: using on-device chained protocol")
+            r = decode.benchmark_decode_chained(spec, params, ids,
+                                                check=args.check,
+                                                cache_dtype=cache_dtype,
+                                                tp=tp, log=log)
+            protocol = "chained"
+        else:
+            r = decode.benchmark_decode(spec, params, ids, check=args.check,
+                                        cache_dtype=cache_dtype, tp=tp,
+                                        log=log)
+            protocol = "per-token"
+    if tp is not None:
+        protocol += f"-tp{tp.size}"
+    if rank0:
+        print(json.dumps({"benchmark": r, "protocol": protocol,
+                          "quant": quant, "device": str(device),
+                          "kind": (torch.cuda.get_device_name(device)
+                                   if device.type == "cuda" else "cpu")}))
 
 
-def _sp_device(sp: int, device: torch.device) -> torch.device:
-    """This process's device under torchrun --nproc-per-node sp, and the
-    default process group (nccl on CUDA, gloo on the CPU) if none is up."""
-    import os
+def _parallel_device(args, device: torch.device) -> torch.device:
+    """This process's device under torchrun --nproc-per-node (sp, or tp *
+    ep), with the default process group
+    (parallel/distributed.init_distributed)."""
+    from gptq_tpu_torch.parallel.distributed import init_distributed
 
-    import torch.distributed as dist
-
+    ways = args.sp if args.sp > 1 else args.tp * args.ep
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != sp:
-        raise SystemExit(f"--sp {sp} runs under torchrun --nproc-per-node "
-                         f"{sp}: WORLD_SIZE is {world}")
-    if device.type == "cuda":
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-        torch.cuda.set_device(device)
-    if not dist.is_initialized():
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                                init_method="env://")
-    return device
+    if world != ways:
+        flags = (f"--sp {args.sp}" if args.sp > 1 else
+                 " ".join(f"--{k} {v}" for k, v in (("tp", args.tp),
+                                                     ("ep", args.ep))
+                          if v > 1))
+        raise SystemExit(f"{flags} runs under torchrun --nproc-per-node "
+                         f"{ways}: WORLD_SIZE is {world}")
+    return init_distributed(device.type)
+
+
+def _serve_ep(args, spec, params, ids, quant, device) -> None:
+    """The --ep N [--tp M] benchmark: EPEngine's chained protocol on every
+    rank; rank 0 appends the result to --results_log and prints the
+    result line."""
+    from gptq_tpu_torch.engine.serving import EPEngine
+
+    max_len = args.max_len or args.benchmark + 8
+    eng = EPEngine(spec, params, ep=args.ep, tp=args.tp, max_len=max_len,
+                   cache_dtype=torch.int8 if args.int8_kv else torch.bfloat16,
+                   fuse=True, a8=args.faster_kernel, device=device)
+    r = eng.benchmark_chained(ids, check=args.check,
+                              log=print if eng.rank == 0 else lambda s: None)
+    if eng.rank == 0:
+        tag = f"ep{args.ep}" + (f"xtp{args.tp}" if args.tp > 1 else "")
+        append_result_log(args.results_log, args,
+                          r.get("ppl", round(r["tokens_per_s"], 2)),
+                          "decode-ppl" if args.check else "decode-tok/s",
+                          protocol=f"chained-{tag}")
+        print(json.dumps({"benchmark": r, "protocol": f"chained-{tag}",
+                          "quant": quant, "device": str(device),
+                          "kind": (torch.cuda.get_device_name(device)
+                                   if device.type == "cuda" else "cpu")}))
 
 
 def _serve_sp(args, spec, params, ids, quant, device) -> None:

@@ -17,18 +17,27 @@ next, and leaves the next token and the advanced length in the engine's
 chained state, so successive replays continue the sequence. On the CPU
 the same steps run eagerly. A step that cannot be captured raises; no
 path falls back to eager steps on the card.
+
+Under tensor or expert parallelism (`tp` / `ep` ShardGroups: the CLI's
+--tp) the engine runs this rank's local params (parallel/tp.py) over its
+groups; every rank makes the same calls. A CUDA graph captures NCCL's
+collectives but not gloo's, so on a gloo group (ranks sharing one card)
+the chained loop runs its steps eagerly on the card: the engine's `graph`
+says which, and so do the chained benchmark's result and log line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from gptq_tpu_torch.config import resolve_device
-from gptq_tpu_torch.models.common import (ArchSpec, KVCache, fuse_serving,
-                                          model_forward)
+from gptq_tpu_torch.models.common import (ArchSpec, KVCache, ShardGroup,
+                                          fuse_serving, model_forward)
+from gptq_tpu_torch.parallel.distributed import graph_capable
 
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator | None = None,
@@ -55,25 +64,41 @@ def _sync(device: torch.device) -> None:
 
 
 class DecodeEngine:
+    """Cached decode of one model (or, with `tp` / `ep` ShardGroups, of
+    this rank's local params: parallel/tp.tp_local_view, parallel/ep,
+    which also build the serving fusion; fuse_serving runs otherwise)."""
+
     def __init__(self, spec: ArchSpec, params: dict, max_len: int = 2048,
-                 batch: int = 1, cache_dtype=torch.bfloat16, a8: bool = False):
+                 batch: int = 1, cache_dtype=torch.bfloat16, a8: bool = False,
+                 tp: ShardGroup | None = None, ep: ShardGroup | None = None):
         self.spec = spec
-        self.params = fuse_serving(spec, params, a8=a8)
+        self.tp, self.ep = tp, ep
+        self.params = (params if tp is not None or ep is not None
+                       else fuse_serving(spec, params, a8=a8))
         self.max_len = max_len
         self.batch = batch
         self.cache_dtype = cache_dtype
         self.device = params["embed"]["tokens"].device
+        # the cache holds the rank's kv heads under tp
+        self._cache_spec = spec if tp is None else dataclasses.replace(
+            spec, n_kv_heads=spec.kv_heads // tp.size)
+        # chunks run as CUDA graphs unless a group's collectives cannot be
+        # captured (gloo)
+        self.graph = self.device.type == "cuda" and all(
+            g is None or g.size == 1 or graph_capable(g.group)
+            for g in (tp, ep))
         self._state = None  # the chained loop's cache, token and length
         self._graphs = {}   # captured chunks: key -> (CUDAGraph, tokens)
 
     def new_cache(self) -> KVCache:
-        return KVCache.init(self.spec, self.batch, self.max_len,
+        return KVCache.init(self._cache_spec, self.batch, self.max_len,
                             self.cache_dtype, self.device)
 
     @torch.no_grad()
     def step(self, cache: KVCache, token: torch.Tensor):
         """One forward over `token` (B, T) -> (last-position logits, cache)."""
-        logits, cache = model_forward(self.spec, self.params, token, cache)
+        logits, cache = model_forward(self.spec, self.params, token, cache,
+                                      tp=self.tp, ep=self.ep)
         return logits[:, -1], cache
 
     def prefill(self, ids: torch.Tensor, cache: KVCache | None = None):
@@ -150,10 +175,11 @@ class DecodeEngine:
 
     def _run(self, key, fn, generator=None) -> torch.Tensor:
         """fn() (the steps of one chunk) on the chained state: eagerly on
-        the CPU; on CUDA as a graph captured at the first call with `key`
-        and replayed after. Returns the chunk's outputs (on CUDA a static
-        tensor that the next replay of the same key overwrites)."""
-        if self.device.type != "cuda":
+        the CPU and on a gloo group; else as a CUDA graph captured at the
+        first call with `key` and replayed after. Returns the chunk's
+        outputs (from a graph a static tensor that the next replay of the
+        same key overwrites)."""
+        if not self.graph:
             return fn()
         entry = self._graphs.get(key)
         if entry is None:
@@ -237,14 +263,15 @@ def _round_len(n: int, cache_dtype) -> int:
 @torch.no_grad()
 def benchmark_decode(spec: ArchSpec, params: dict, input_ids,
                      check: bool = False, warmup: int = 100, log=print,
-                     cache_dtype=torch.bfloat16) -> dict:
+                     cache_dtype=torch.bfloat16,
+                     tp: ShardGroup | None = None) -> dict:
     """Feed input_ids (1, n) one token at a time through the cached decode
     step; report the median per-token latency (host clock around each
     synchronised step). With check=True also accumulate the next-token
-    NLL and report its PPL."""
+    NLL and report its PPL. `tp`: params are the rank's tp_local_view."""
     n = int(np.prod(np.shape(input_ids)))
     engine = DecodeEngine(spec, params, max_len=_round_len(n + 1, cache_dtype),
-                          batch=1, cache_dtype=cache_dtype)
+                          batch=1, cache_dtype=cache_dtype, tp=tp)
     dev = engine.device
     ids = torch.as_tensor(np.asarray(input_ids).reshape(1, n),
                           device=dev).to(torch.int64)
@@ -293,20 +320,16 @@ def measure_dispatch_rtt(reps: int = 5, device="cuda") -> float:
 
 
 @torch.no_grad()
-def benchmark_decode_chained(spec: ArchSpec, params: dict, input_ids,
-                             check: bool = False, warmup: int = 2,
-                             reps: int = 3, log=print,
-                             cache_dtype=torch.bfloat16) -> dict:
-    """Decode benchmark with the token loop on the device (the JAX
-    package's protocol). The workload of benchmark_decode (input_ids fed
-    one token at a time through a growing cache), but all n steps of a
-    chain run as one CUDA graph (eagerly on the CPU). The host's share is
-    cancelled by differencing a full-length and a half-length chain, each
-    the min over `reps` timed runs after `warmup`; both are reported.
-    With check=True also the PPL of the full chain's next-token NLL."""
+def chained_run(engine: DecodeEngine, input_ids, check: bool, warmup: int,
+                reps: int, log=print) -> dict:
+    """The chained protocol on `engine` (batch 1): the n ids fed one a step
+    from an empty cache, as one chained run (one CUDA graph where the
+    engine captures), for the first n // 2 ids and for all n, each the
+    min over `reps` timed runs after `warmup`; the per-token time is the
+    difference of the two. With check also the PPL of the full chain's
+    next-token NLL. A sharded engine's result says whether its chunks
+    were captured ("graph": on a gloo group they run eagerly)."""
     n = int(np.prod(np.shape(input_ids)))
-    engine = DecodeEngine(spec, params, max_len=_round_len(n + 1, cache_dtype),
-                          batch=1, cache_dtype=cache_dtype)
     dev = engine.device
     ids = torch.as_tensor(np.asarray(input_ids).reshape(n),
                           device=dev).to(torch.int64)
@@ -332,9 +355,9 @@ def benchmark_decode_chained(spec: ArchSpec, params: dict, input_ids,
             ts.append(time.perf_counter() - t0)
         return min(ts)
 
-    half = n // 2
-    t_half = timed(half)
+    t_half = timed(n // 2)
     t_full = timed(n)
+    half = n // 2
     per_tok = (t_full - t_half) / (n - half)
     rtt = measure_dispatch_rtt(device=dev)
     below_floor = per_tok <= 0
@@ -346,9 +369,12 @@ def benchmark_decode_chained(spec: ArchSpec, params: dict, input_ids,
               "full_run_s": t_full, "half_run_s": t_half,
               "dispatch_rtt_s": rtt, "n_tokens": n,
               "below_noise_floor": below_floor}
+    if engine.tp is not None or engine.ep is not None:
+        result["graph"] = engine.graph
     qualifier = (" (upper bound: difference below noise floor)"
                  if below_floor else "")
-    log(f"Per-token (chained, {dev.type}): {per_tok * 1e3:.3f} ms "
+    mode = "" if engine.graph or dev.type != "cuda" else ", eager: gloo"
+    log(f"Per-token (chained, {dev.type}{mode}): {per_tok * 1e3:.3f} ms "
         f"({result['tokens_per_s']:.1f} tok/s){qualifier}; "
         f"dispatch RTT {rtt * 1e3:.3f} ms")
     if check:
@@ -359,3 +385,25 @@ def benchmark_decode_chained(spec: ArchSpec, params: dict, input_ids,
         result["ppl"] = float(np.exp(total / (n - 1)))
         log(f"PPL: {result['ppl']:.4f}")
     return result
+
+
+@torch.no_grad()
+def benchmark_decode_chained(spec: ArchSpec, params: dict, input_ids,
+                             check: bool = False, warmup: int = 2,
+                             reps: int = 3, log=print,
+                             cache_dtype=torch.bfloat16,
+                             tp: ShardGroup | None = None,
+                             ep: ShardGroup | None = None) -> dict:
+    """Decode benchmark with the token loop on the device (the JAX
+    package's protocol). The workload of benchmark_decode (input_ids fed
+    one token at a time through a growing cache), but all n steps of a
+    chain run as one CUDA graph (eagerly on the CPU). The host's share is
+    cancelled by differencing a full-length and a half-length chain, each
+    the min over `reps` timed runs after `warmup`; both are reported.
+    With check=True also the PPL of the full chain's next-token NLL.
+    `tp` / `ep`: params are the rank's local view (DecodeEngine); on a
+    gloo group the chains run eagerly ("graph": false)."""
+    n = int(np.prod(np.shape(input_ids)))
+    engine = DecodeEngine(spec, params, max_len=_round_len(n + 1, cache_dtype),
+                          batch=1, cache_dtype=cache_dtype, tp=tp, ep=ep)
+    return chained_run(engine, input_ids, check, warmup, reps, log)

@@ -1,5 +1,6 @@
-"""Sequence-parallel serving engine (port of SPEngine in
-gptq_tpu/engine/serving.py, tp = 1): long-context serving with the KV
+"""Sharded serving engines (port of gptq_tpu/engine/serving.py).
+
+SPEngine (tp = 1): long-context serving with the KV
 cache sharded over the ranks of a torch.distributed process group for its
 whole lifetime (parallel/sp.py: ring prefill, SPCache decode). The CLI
 reaches it with `--sp N` under `torchrun --nproc-per-node N`.
@@ -12,6 +13,13 @@ the token the next chunk feeds, the cache length (a 0-dim int32 device
 tensor), and a benchmark chain's ids and NLLs. The combine's
 all_reduce calls are captured inside the graph. Capacity guards run on
 the host once per chunk.
+
+EPEngine: MoE serving with the expert stacks split over ep ranks
+(parallel/ep.py), attention optionally tensor-parallel over an (ep, tp)
+layout of the world; the CLI's `--ep N [--tp M]` under torchrun with
+N * M processes. Its chained benchmark runs engine/decode's chained loop,
+as one CUDA graph a chain where the groups are NCCL's and eagerly on
+the card where they are gloo's (ranks sharing one card).
 """
 
 from __future__ import annotations
@@ -22,10 +30,16 @@ import numpy as np
 import torch
 
 from gptq_tpu_torch.config import resolve_device
-from gptq_tpu_torch.models.common import ArchSpec, fuse_serving
+from gptq_tpu_torch.engine.decode import DecodeEngine, chained_run
+from gptq_tpu_torch.models.common import (ArchSpec, KVCache, ShardGroup,
+                                          fuse_serving)
+from gptq_tpu_torch.parallel.distributed import graph_capable
+from gptq_tpu_torch.parallel.ep import _check, ep_specs, ep_tp_local
+from gptq_tpu_torch.parallel.mesh import make_layout
 from gptq_tpu_torch.parallel.sp import (SPCache, group_layout,
                                         make_sp_cache_prefill,
                                         make_sp_decode_step)
+from gptq_tpu_torch.parallel.tp import move_params
 
 
 def _round_up(n: int, unit: int) -> int:
@@ -55,7 +69,7 @@ class SPEngine:
         if tp > 1:
             raise NotImplementedError(
                 "SPEngine: tp > 1 (sp x tp serving) is not ported yet "
-                "(ROADMAP item 18, the rest)")
+                "(ROADMAP item 18, sp x tp)")
         size, self.rank = group_layout(group)
         if size != sp:
             raise ValueError(f"SPEngine: sp={sp} but the process group has "
@@ -69,6 +83,10 @@ class SPEngine:
         self.cache_dtype = cache_dtype
         self.int8 = cache_dtype == torch.int8
         self.max_len = _round_up(max_len, 128 * sp)
+        # chunks run as CUDA graphs, but for a gloo group's collectives,
+        # which a graph cannot capture (ranks sharing one card)
+        self.graph = (self.device.type == "cuda"
+                      and graph_capable(group))
         # sp replicates the weights: serve-time fusion applies up front
         self.params = (fuse_serving(spec, params, a8=a8)
                        if fuse or a8 else params)
@@ -159,10 +177,11 @@ class SPEngine:
 
     def _run(self, st: dict, key, fn) -> torch.Tensor:
         """fn() (one chunk's steps) on the chained state: eagerly on the
-        CPU; on CUDA a graph captured at the first call with `key` (after
-        one eager warm step, which brings up every library, kernel and
-        communicator the step needs) and replayed after."""
-        if self.device.type != "cuda":
+        CPU and on a gloo group; else a CUDA graph captured at the first
+        call with `key` (after one eager warm step, which brings up every
+        library, kernel and communicator the step needs) and replayed
+        after."""
+        if not self.graph:
             return fn()
         entry = self._graphs.get(key)
         if entry is None:
@@ -315,9 +334,10 @@ class SPEngine:
             "below_noise_floor": below,
             "sp": self.sp, "tp": self.tp,
             "cache_dtype": "int8" if self.int8 else "bfloat16",
-            "max_len": self.max_len,
+            "max_len": self.max_len, "graph": self.graph,
         }
         log(f"sp={self.sp} tp={self.tp} cache={result['cache_dtype']} "
+            f"{'cuda graph ' if self.graph else ''}"
             f"max_len={self.max_len}: {per_tok * 1e3:.3f} ms/token "
             f"({result['tokens_per_s']:.1f} tok/s)"
             f"{' (upper bound)' if below else ''}")
@@ -329,3 +349,75 @@ class SPEngine:
             result["ppl"] = float(np.exp(total / full))
             log(f"PPL: {result['ppl']:.4f}")
         return result
+
+
+class EPEngine:
+    """MoE serving with the expert stacks split over the ep ranks: each
+    rank holds E / ep experts. With tp > 1 the world is an (ep, tp)
+    layout (parallel/mesh.make_layout): attention linears
+    split over the rank's tp group and the KV cache holds its kv heads;
+    at tp = 1 the cache is whole on every rank and the serving fusion
+    (fuse / a8) applies before the experts are sliced. params are the
+    whole model, on any device (a host copy keeps the card's memory to
+    the rank's share); the rank's local params go to `device`. Every
+    rank builds the engine and makes the same calls. The decode step
+    takes prefill too (T > 1 appends)."""
+
+    def __init__(self, spec: ArchSpec, params: dict, ep: int, tp: int = 1,
+                 max_len: int = 2048, cache_dtype=torch.bfloat16,
+                 fuse: bool = True, a8: bool = False, device="cuda"):
+        _check(spec, ep)
+        layout = make_layout(ep, tp)
+        self.spec, self.ep, self.tp = spec, ep, tp
+        self.max_len = max_len
+        self.cache_dtype = cache_dtype
+        self.rank = layout.outer_rank * tp + layout.tp_rank
+        epg = ShardGroup(layout.outer_group, ep, layout.outer_rank)
+        if tp > 1:
+            local = ep_tp_local(spec, params, layout, fuse=fuse, a8=a8)
+            tpg = ShardGroup(layout.tp_group, tp, layout.tp_rank)
+        else:
+            local = ep_specs(fuse_serving(spec, params, a8=a8)
+                             if fuse or a8 else params, ep, layout.outer_rank)
+            tpg = None
+        local = move_params(local, resolve_device(device))
+        self.engine = DecodeEngine(spec, local, max_len=max_len, batch=1,
+                                   cache_dtype=cache_dtype, tp=tpg, ep=epg)
+        self.device = self.engine.device
+
+    def new_cache(self, batch: int = 1) -> KVCache:
+        e = self.engine
+        return KVCache.init(e._cache_spec, batch, self.max_len,
+                            self.cache_dtype, self.device)
+
+    def prefill(self, ids, cache: KVCache | None = None):
+        """(last-position logits, cache) of a prompt (B, T)."""
+        ids = torch.as_tensor(np.asarray(ids), device=self.device)
+        cache = cache if cache is not None else self.new_cache(ids.shape[0])
+        return self.engine.step(cache, ids.to(torch.int64))
+
+    def step(self, cache: KVCache, token):
+        return self.engine.step(
+            cache, torch.as_tensor(token, device=self.device))
+
+    def generate(self, prompt_ids, max_new_tokens: int) -> np.ndarray:
+        """Greedy generation: (B, max_new_tokens) token ids."""
+        logits, cache = self.prefill(prompt_ids)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            logits, cache = self.step(cache, tok)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1).cpu().numpy()
+
+    @torch.no_grad()
+    def benchmark_chained(self, input_ids, check: bool = False,
+                          warmup: int = 2, reps: int = 3, log=print) -> dict:
+        """The JAX package's forced-sequence protocol through the ep step
+        (decode.chained_run), with the ep / tp sizes."""
+        n = int(np.prod(np.shape(input_ids)))
+        if n + 1 > self.max_len:
+            raise ValueError(f"{n} tokens exceed max_len {self.max_len}")
+        return {**chained_run(self.engine, input_ids, check, warmup, reps,
+                              log), "ep": self.ep, "tp": self.tp}

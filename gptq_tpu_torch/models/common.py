@@ -38,12 +38,27 @@ attention (its decode attends the materialized cache with the token's own
 k / v as one more softmax column, no decode kernel, as in the JAX package);
 OPT / BLOOM an fc1 -> act -> fc2 MLP with biases, which the fused route
 serves with glu=False; Gemma rmsnorm1p, gelu_tanh and an embedding scaled
-by sqrt(hidden) in the embedding's dtype. Tensor / expert parallelism are
-not ported yet (ROADMAP queue 1, item 18).
+by sqrt(hidden) in the embedding's dtype.
+
+Tensor parallelism (`tp`, a ShardGroup: parallel/tp.py builds each rank's
+local params): q / k / v / gate / up / fc1 are the rank's column shards
+(its local heads and FFN columns), o / down / fc2 its row shards, whose
+partial products all_reduce over the group (`_row_linear`, the bias added
+once after the sum; an act-order row shard gathers the input over the
+group first and takes its slice of the permutation). BLOOM's alibi
+slopes are the rank's heads' (`_local_slopes`); a dense head sharded in
+vocab (ServeFlags.vocab_tp) gathers its logits. Under tp every fused
+route stands down, as in the JAX package, so each linear runs through
+dequant_matmul / bcq_matmul on its shard. Expert parallelism (`ep`)
+runs each rank's slice of the expert banks (models/moe.py). The
+gathers are all_reduce calls (SUM over a zero-filled full-width buffer
+into which each rank writes its slice): gloo takes them on CUDA tensors
+(through host copies), and a CUDA graph captures NCCL's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from dataclasses import dataclass
@@ -51,6 +66,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gptq_tpu_torch.config import resolve_device
 from gptq_tpu_torch.models.moe import init_moe_params, moe_ffn
@@ -115,9 +131,46 @@ class ArchSpec:
 @dataclass(frozen=True)
 class ServeFlags:
     """Serving-mode flags on a linear. a8: dynamic int8 activations
-    (the --faster-kernel path)."""
+    (the --faster-kernel path). vocab_tp: the head is this tp rank's vocab
+    slice; head_forward gathers the logits over the group."""
 
     a8: bool = False
+    vocab_tp: bool = False
+
+
+@dataclass(frozen=True)
+class ShardGroup:
+    """A rank's tensor- or expert-parallel group: the torch.distributed
+    group (None: the default group; at size 1 no collective runs), its
+    size and this rank's index in it. Passing one, of any size, marks the
+    forward as sharded: the fused routes stand down (the JAX package's
+    tp_axis)."""
+
+    group: object = None
+    size: int = 1
+    rank: int = 0
+
+
+def all_reduce_sum(x: torch.Tensor, g: ShardGroup) -> torch.Tensor:
+    """Sum of x over the group's ranks (x itself at size 1)."""
+    if g.size == 1:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, group=g.group)
+    return x
+
+
+def all_gather_last(x: torch.Tensor, g: ShardGroup) -> torch.Tensor:
+    """x (..., n) of every rank -> (..., size * n) in rank order: one
+    all_reduce SUM of a zero-filled buffer holding this rank's slice
+    (exact: every other term is 0)."""
+    if g.size == 1:
+        return x
+    n = x.shape[-1]
+    buf = x.new_zeros(*x.shape[:-1], g.size * n)
+    buf[..., g.rank * n:(g.rank + 1) * n] = x
+    dist.all_reduce(buf, group=g.group)
+    return buf
 
 
 @dataclass(frozen=True)
@@ -328,30 +381,43 @@ def causal_mask(T: int, S: int, device="cpu") -> torch.Tensor:
     return m[None, None]
 
 
-_slopes: dict = {}  # (n_heads, device) -> the alibi slopes on the device
+# (n_heads, tp size, tp rank, device) -> the alibi slopes on the device
+_slopes: dict = {}
 
 
-def alibi_bias(spec: ArchSpec, q_pos: torch.Tensor,
-               k_pos: torch.Tensor) -> torch.Tensor:
-    """BLOOM's alibi additive bias slope_h * (k_pos - q_pos): q_pos (..., T,
-    1), k_pos (S,) -> (..., H, T, S) (HF convention). The slopes are copied
-    to the device once (a CUDA graph of the chained decode cannot capture
-    a copy from the host)."""
-    key = (spec.n_heads, k_pos.device)
+def _local_slopes(spec: ArchSpec, device, tp: ShardGroup | None = None):
+    """The alibi slopes of this rank's heads (all of them without tp): the
+    formula needs the global head count, and the rank's heads are the
+    contiguous block rank * H / tp ... Copied to the device once (a CUDA
+    graph of the chained decode cannot capture a copy from the host)."""
+    size, rank = (1, 0) if tp is None else (tp.size, tp.rank)
+    key = (spec.n_heads, size, rank, device)
     if key not in _slopes:
-        _slopes[key] = torch.as_tensor(alibi_slopes(spec.n_heads),
-                                       device=k_pos.device)
-    slopes = _slopes[key]
+        lh = spec.n_heads // size
+        _slopes[key] = torch.as_tensor(
+            alibi_slopes(spec.n_heads)[rank * lh:(rank + 1) * lh],
+            device=device)
+    return _slopes[key]
+
+
+def alibi_bias(spec: ArchSpec, q_pos: torch.Tensor, k_pos: torch.Tensor,
+               tp: ShardGroup | None = None) -> torch.Tensor:
+    """BLOOM's alibi additive bias slope_h * (k_pos - q_pos): q_pos (..., T,
+    1), k_pos (S,) -> (..., H, T, S) (HF convention; H the rank's heads
+    under tp)."""
+    slopes = _local_slopes(spec, k_pos.device, tp)
     rel = (k_pos.to(torch.float32) - q_pos.to(torch.float32))
     return slopes[:, None, None] * rel.unsqueeze(-3)
 
 
-def build_mask(spec: ArchSpec, T: int, S: int, device="cpu") -> torch.Tensor:
+def build_mask(spec: ArchSpec, T: int, S: int, device="cpu",
+               tp: ShardGroup | None = None) -> torch.Tensor:
     """(1, 1 | H, T, S) additive mask: causal, plus alibi's bias."""
     mask = causal_mask(T, S, device)
     if spec.pos == "alibi":
         q_pos = torch.arange(T, device=device)[:, None] + (S - T)
-        mask = mask + alibi_bias(spec, q_pos, torch.arange(S, device=device))
+        mask = mask + alibi_bias(spec, q_pos, torch.arange(S, device=device),
+                                 tp)
     return mask
 
 
@@ -468,10 +534,11 @@ def _a8_mode(*entries):
     return modes.pop() if len(modes) == 1 else None
 
 
-def _ffn_fusion_entry(p, captures, device):
+def _ffn_fusion_entry(p, captures, device, tp=None):
     """The gate|up entry's activation mode (True = a8, False = a16) when
-    ffn_fused can serve this block's MLP, else None."""
-    if not _ffn_fusion_impl(device) or captures is not None:
+    ffn_fused can serve this block's MLP, else None (always under tp)."""
+    if (not _ffn_fusion_impl(device) or tp is not None
+            or captures is not None):
         return None
     gu = p.get("gateup_fused")
     dn = p.get("down")
@@ -491,11 +558,11 @@ def _ffn_fusion_entry(p, captures, device):
     return a8
 
 
-def _norm_qkv_ok(spec, p, captures, n_rows, device):
+def _norm_qkv_ok(spec, p, captures, n_rows, device, tp=None):
     """Activation mode (True = a8, False = a16) when norm_qkv_fused can
     serve this block's attention input (ln1 + fused q|k|v), else None."""
-    if (not _ffn_fusion_impl(device) or captures is not None
-            or n_rows > 32):
+    if (not _ffn_fusion_impl(device) or tp is not None
+            or captures is not None or n_rows > 32):
         return None
     if not spec.do_layer_norm_before or spec.norm_type not in (
             "rmsnorm", "rmsnorm1p", "layernorm"):
@@ -544,11 +611,11 @@ def _mlp_entries(spec, p):
     return None, None, False
 
 
-def _attn_mlp_ok(spec, p, captures, n_rows, device):
+def _attn_mlp_ok(spec, p, captures, n_rows, device, tp=None):
     """Activation mode (True = a8, False = a16) when attn_mlp_fused can
     serve this block (o + residual + norm + MLP + residual), else None."""
-    if (not _ffn_fusion_impl(device) or captures is not None
-            or n_rows > 32):
+    if (not _ffn_fusion_impl(device) or tp is not None
+            or captures is not None or n_rows > 32):
         return None
     if not spec.do_layer_norm_before or spec.norm_type not in (
             "rmsnorm", "rmsnorm1p", "layernorm"):
@@ -595,14 +662,14 @@ def _layer_fusion_impl() -> bool:
     return False
 
 
-def _layer_fusion_ok(spec, p, captures, B, T, cache, cache_len):
+def _layer_fusion_ok(spec, p, captures, B, T, cache, cache_len, tp=None):
     """Activation mode (True = a8, False = a16) when decode_layer_fused can
     serve this whole block, else None (the JAX gate): decode only at
     B == T == 1 with a scalar length, a bf16 / f32 cache, rope + pre-norm
     rmsnorm, and four bias-free PackedWeight entries sharing one a8
     mode."""
-    if (not _layer_fusion_impl() or captures is not None or B != 1
-            or T != 1):
+    if (not _layer_fusion_impl() or tp is not None or captures is not None
+            or B != 1 or T != 1):
         return None
     if cache is None or cache_len is None:
         return None
@@ -639,11 +706,11 @@ def _layer_fusion_ok(spec, p, captures, B, T, cache, cache_len):
     return a8
 
 
-def _head_fusion_ok(spec, params, n_rows, device):
+def _head_fusion_ok(spec, params, n_rows, device, tp=None):
     """Activation mode (True = a8 under --faster-kernel, False = bf16) when
     final_ln + the packed lm_head can run as one norm_qkv_fused launch,
     else None."""
-    if not _ffn_fusion_impl(device) or n_rows > 32:
+    if not _ffn_fusion_impl(device) or tp is not None or n_rows > 32:
         return None
     if spec.norm_type not in ("rmsnorm", "rmsnorm1p", "layernorm"):
         return None
@@ -689,6 +756,24 @@ def _qkv(spec: ArchSpec, p: dict, x: torch.Tensor, captures):
             v.reshape(B, T, v.shape[-1] // hd, hd))
 
 
+def _row_linear(lin: dict, x: torch.Tensor, tp: ShardGroup | None):
+    """A row-parallel (input-sharded) linear: the rank's partial product,
+    summed over the tp group, the bias added once after the sum. An
+    act-order row shard carries the rank's slice of the padded
+    permutation (parallel/tp.py): the input is gathered over the group
+    and the rank takes the rows its permuted weight shard needs."""
+    if tp is None:
+        return linear_apply(lin, x)
+    w = lin.get("w")
+    if isinstance(w, PackedWeight) and w.perm is not None:
+        x = all_gather_last(x, tp)[..., w.perm.long()]
+        lin = {**lin, "w": dataclasses.replace(w, perm=None)}
+    y = all_reduce_sum(linear_apply({**lin, "b": None}, x), tp)
+    if lin.get("b") is not None:
+        y = y + lin["b"]
+    return y
+
+
 def _split_bloom_qkv(fused: torch.Tensor, hd: int):
     """BLOOM's fused q|k|v output (B, T, H * 3 hd), interleaved per head,
     -> q, k, v (B, T, H, hd)."""
@@ -701,7 +786,8 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
                   positions=None, mask=None, cache=None, cache_len=None,
                   capture: bool = False, rope=None, defer_write: bool = False,
                   full_cache=None, moe_aux: list | None = None,
-                  attn_fn=None):
+                  attn_fn=None, tp: ShardGroup | None = None,
+                  ep: ShardGroup | None = None):
     """One decoder block. Returns (out, new_kv, captures).
 
     With `cache` = (k, v, k_scale, v_scale) per-layer views, keys/values
@@ -718,12 +804,15 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     layer's load-balancing loss. `attn_fn(spec, q, k, v, mask)`, given,
     replaces attention() (sequence-parallel ring prefill / SPCache decode)
     and keeps the whole-layer route off; the fused norm_qkv and attn_mlp
-    routes stay as their gates decide."""
+    routes stay as their gates decide. `tp` (a ShardGroup): p holds the
+    rank's shards (module doc) and every fused route stands down; `ep`:
+    an MoE layer runs the rank's expert slice (models/moe.moe_ffn)."""
     captures = {} if capture else None
     B, T, _ = x.shape
     residual = x
     layer_a8 = (None if attn_fn is not None or defer_write else
-                _layer_fusion_ok(spec, p, captures, B, T, cache, cache_len))
+                _layer_fusion_ok(spec, p, captures, B, T, cache,
+                                 cache_len, tp))
     if layer_a8 is not None:
         # the whole decoder layer in one launch (ln1 + q|k|v + rope +
         # attention + o + ln2 + MLP + residuals); it writes the fresh rows
@@ -740,7 +829,7 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
             eps=float(spec.norm_eps), sm_scale=float(spec.scale), a8=layer_a8,
             layer=li)
         return y.to(x.dtype), cache, captures
-    qkv_a8 = _norm_qkv_ok(spec, p, captures, B * T, x.device)
+    qkv_a8 = _norm_qkv_ok(spec, p, captures, B * T, x.device, tp)
     if qkv_a8 is not None:
         # ln1 + fused q|k|v in one launch
         if spec.arch == "bloom":  # the natively fused q|k|v linear
@@ -788,14 +877,14 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
                     k_all, v_all = ck, cv
                 attn = _attention_with_self(spec, q, k_all, v_all, mask, k, v)
                 return _finish_block(spec, p, residual, attn, captures,
-                                     new_kv, moe_aux)
+                                     new_kv, moe_aux, tp, ep)
             kL, vL, ksL, vsL, li = full_cache
             out = decode_attention(q[:, 0], kL, vL, cache_len, spec.scale,
                                    k_scale=ksL, v_scale=vsL, fresh_k=k[:, 0],
                                    fresh_v=v[:, 0], layer=li)
             attn = out.reshape(B, 1, -1).to(x.dtype)
             return _finish_block(spec, p, residual, attn, captures, new_kv,
-                                 moe_aux)
+                                 moe_aux, tp, ep)
         if ks is not None:
             kq, ksn = _quantize_kv(k)
             vq, vsn = _quantize_kv(v)
@@ -813,17 +902,19 @@ def block_forward(spec: ArchSpec, p: dict, x: torch.Tensor, *,
     else:
         k_all, v_all = k, v
     attn = (attn_fn or attention)(spec, q, k_all, v_all, mask)
-    return _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux)
+    return _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux,
+                         tp, ep)
 
 
-def _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux=None):
+def _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux=None,
+                  tp: ShardGroup | None = None, ep: ShardGroup | None = None):
     """Post-attention half of a block: the o projection, then the GLU MLP
     (llama / Gemma), fc1 -> act -> fc2 (OPT / BLOOM) or the routed expert
     FFN of an MoE layer; OPT-350m's post-norm where do_layer_norm_before
-    is False."""
+    is False. Under tp the row shards o / down / fc2 sum over the group."""
     n_rows = attn.numel() // attn.shape[-1]
     mlp_a8 = (None if "router" in p else
-              _attn_mlp_ok(spec, p, captures, n_rows, attn.device))
+              _attn_mlp_ok(spec, p, captures, n_rows, attn.device, tp))
     if mlp_a8 is not None:
         # o + residual + ln2 + MLP + residual in one launch
         g_e, d_e, glu = _mlp_entries(spec, p)
@@ -839,14 +930,15 @@ def _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux=None):
                   "opt": "self_attn.out_proj"}.get(spec.arch,
                                                    "self_attn.o_proj")
         captures[o_name] = attn
-    h = residual + linear_apply(p["o"], attn)
+    h = residual + _row_linear(p["o"], attn, tp)
     if not spec.do_layer_norm_before:  # OPT-350m's post-norm
         h = norm_apply(spec, p["ln1"], h)
     m = norm_apply(spec, p["ln2"], h) if spec.do_layer_norm_before else h
     if "router" in p:
         if captures is not None:
             captures["moe.input"] = m  # gptq_quantize_experts calibration
-        mlp_out = moe_ffn(spec, p, m, activation=lambda g: activation(spec, g),
+        mlp_out = moe_ffn(spec, p, m, ep=ep,
+                          activation=lambda g: activation(spec, g),
                           aux_out=moe_aux)
         return h + mlp_out, new_kv, captures
     if spec.arch in ("opt", "bloom"):
@@ -856,11 +948,11 @@ def _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux=None):
         inner = activation(spec, linear_apply(p["fc1"], m))
         if captures is not None:
             captures["mlp.dense_4h_to_h" if bloom else "fc2"] = inner
-        out = h + linear_apply(p["fc2"], inner)
+        out = h + _row_linear(p["fc2"], inner, tp)
         if not spec.do_layer_norm_before:
             out = norm_apply(spec, p["ln2"], out)
         return out, new_kv, captures
-    ffn_a8 = _ffn_fusion_entry(p, captures, m.device)
+    ffn_a8 = _ffn_fusion_entry(p, captures, m.device, tp)
     if n_rows <= 32 and ffn_a8 is not None:
         # gate|up + act + down in one launch
         mlp_out = ffn_fused(m, p["gateup_fused"]["w"], p["down"]["w"],
@@ -878,7 +970,7 @@ def _finish_block(spec, p, residual, attn, captures, new_kv, moe_aux=None):
     inner = gate * up
     if captures is not None:
         captures["mlp.down_proj"] = inner
-    return h + linear_apply(p["down"], inner), new_kv, captures
+    return h + _row_linear(p["down"], inner, tp), new_kv, captures
 
 
 # ---------------------------------------------------------------------------
@@ -906,9 +998,13 @@ def embed_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
     return emb
 
 
-def head_forward(spec: ArchSpec, params: dict, h: torch.Tensor) -> torch.Tensor:
+def head_forward(spec: ArchSpec, params: dict, h: torch.Tensor,
+                 tp: ShardGroup | None = None) -> torch.Tensor:
+    """final_ln (+ OPT's project_out) and the head -> logits. A head that
+    is the rank's vocab slice (ServeFlags.vocab_tp) gathers its logits
+    over the tp group."""
     head_a8 = _head_fusion_ok(spec, params, h.numel() // h.shape[-1],
-                              h.device)
+                              h.device, tp)
     if head_a8 is not None:
         # final_ln + packed lm_head in one launch
         lm = params["lm_head"]
@@ -924,12 +1020,18 @@ def head_forward(spec: ArchSpec, params: dict, h: torch.Tensor) -> torch.Tensor:
     lm = params.get("lm_head")
     if lm is None:  # tied embeddings
         return _dense(h, params["embed"]["tokens"])
-    return linear_apply(lm, h)
+    logits = linear_apply(lm, h)
+    flags = lm.get("serve")
+    if tp is not None and flags is not None and flags.vocab_tp:
+        logits = all_gather_last(logits, tp)
+    return logits
 
 
 def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
                   cache: KVCache | None = None,
-                  moe_aux: list | None = None):
+                  moe_aux: list | None = None,
+                  tp: ShardGroup | None = None,
+                  ep: ShardGroup | None = None):
     """Full forward -> (logits (B, T, vocab), new cache or None).
 
     With a cache, appends T tokens at cache.length. Single-token decode
@@ -944,7 +1046,10 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
     and decode takes the deferred write whatever the layer route says.
     `moe_aux`, a list, collects each MoE layer's load-balancing loss.
     Alibi (BLOOM) adds its bias to the mask on every path, the deferred
-    decode's too (which then masks the slots at and past the length)."""
+    decode's too (which then masks the slots at and past the length).
+    `tp` / `ep` (ShardGroups): params are the rank's local view
+    (parallel/tp.py, parallel/ep.py) and the cache holds the rank's kv
+    heads; the logits come out whole on every rank."""
     B, T = input_ids.shape
     dev = input_ids.device
     start = 0 if cache is None else cache.length
@@ -960,7 +1065,7 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
         positions = (start + torch.arange(T, device=dev)).expand(B, T)
     alibi = spec.pos == "alibi"
     if cache is None:
-        mask = build_mask(spec, T, T, dev)
+        mask = build_mask(spec, T, T, dev, tp)
     elif defer and not alibi:
         mask = None  # decode_attention masks by length itself
     else:
@@ -972,7 +1077,7 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
         mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
         mask = mask[:, None] if per_slot else mask[None, None]
         if alibi:
-            bias = alibi_bias(spec, q_pos, k_pos)
+            bias = alibi_bias(spec, q_pos, k_pos, tp)
             mask = mask + torch.where(valid.unsqueeze(-3), bias, 0.0)
 
     h = embed_forward(spec, params, input_ids, positions)
@@ -990,7 +1095,7 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
             defer_write=defer,
             full_cache=((cache.k, cache.v, cache.k_scale, cache.v_scale, i)
                         if cache is not None and T == 1 else None),
-            moe_aux=moe_aux)
+            moe_aux=moe_aux, tp=tp, ep=ep)
         if defer:
             fresh.append(new_kv)
     if defer:
@@ -1005,7 +1110,7 @@ def model_forward(spec: ArchSpec, params: dict, input_ids: torch.Tensor,
             writes = ((cache.k, fk), (cache.v, fv))
         for buf, rows in writes:
             _write_slots(buf, rows, start, 2)
-    logits = head_forward(spec, params, h)
+    logits = head_forward(spec, params, h, tp)
     new_cache = None
     if cache is not None:
         new_cache = KVCache(k=cache.k, v=cache.v, length=start + T,

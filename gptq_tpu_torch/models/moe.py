@@ -1,5 +1,5 @@
 """Mixture-of-experts FFN: Mixtral-style routed GLU experts (port of
-gptq_tpu/models/moe.py without its expert-parallel arguments).
+gptq_tpu/models/moe.py).
 
 Routing is the JAX package's: softmax over the router logits, the top k
 taken with ties to the lower expert index (a stable descending sort:
@@ -25,8 +25,17 @@ which take the dropless path only and run, as in the JAX package:
   * N > 32: per expert and projection one dequant_matmul (#1's M > 1
     kernel).
 `gptq_quantize_experts` quantizes the expert stacks with GPTQ from each
-expert's routed tokens. Expert parallelism (`ep_axis`) waits with the
-parallel library (ROADMAP item 18).
+expert's routed tokens.
+
+Expert parallelism (`ep`, a models/common.ShardGroup; parallel/ep.py):
+the expert stacks are the rank's E / ep slice, experts ep_rank * E / ep
+onwards; the router stays whole and runs over all tokens on every rank;
+the rank keeps its experts' routing columns (dropless) or its slice of
+the dispatch / combine tensors, runs its local bank, and the partial
+outputs sum over the ep group (one all_reduce of the f32 output). At
+N == 1 the select kernel takes the top k of the rank's local weights,
+so a selection of an expert that lives on another rank has weight 0
+and adds an exact 0.
 """
 
 from __future__ import annotations
@@ -122,19 +131,18 @@ def _f32mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(torch.float32), b.to(torch.float32))
 
 
-def moe_ffn(spec, p: dict, x: torch.Tensor, ep_axis=None, ep_size: int = 1,
-            activation=None, aux_out: list | None = None) -> torch.Tensor:
+def moe_ffn(spec, p: dict, x: torch.Tensor, ep=None, activation=None,
+            aux_out: list | None = None) -> torch.Tensor:
     """Routed GLU expert FFN of x (B, T, D) -> (B, T, D) in x's dtype.
 
     p: {"router": {"w": (E, D)}, "experts": {"gate": (E, F, D), "up":
     (E, F, D), "down": (E, D, F)}} dense, int8 codes with "<name>_scale"
     (E, rows) entries, or PackedExperts banks. `aux_out`, a list, collects
     this layer's load-balancing loss; without it the loss is not computed
-    (XLA drops the unused loss from the JAX package's graph)."""
-    if ep_axis is not None or ep_size != 1:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis / ep_size) is not ported: it waits "
-            "with the parallel library (ROADMAP item 18)")
+    (XLA drops the unused loss from the JAX package's graph). `ep`, a
+    ShardGroup: the stacks are this rank's expert slice (module doc)."""
+    from gptq_tpu_torch.models.common import all_reduce_sum
+
     B, T, D = x.shape
     N = B * T
     xt = x.reshape(N, D)
@@ -150,6 +158,15 @@ def moe_ffn(spec, p: dict, x: torch.Tensor, ep_axis=None, ep_size: int = 1,
                                        aux=want_aux)
     if aux_out is not None:
         aux_out.append(aux)
+    sharded = ep is not None and ep.size > 1
+    el = spec.n_experts // ep.size if sharded else spec.n_experts
+    if sharded:
+        e0 = ep.rank * el
+        if dropless:
+            w = w[:, e0:e0 + el]
+        else:
+            dispatch = dispatch[:, e0:e0 + el]
+            combine = combine[:, e0:e0 + el]
 
     if isinstance(ex["gate"], PackedExperts):
         if not dropless:
@@ -158,6 +175,8 @@ def moe_ffn(spec, p: dict, x: torch.Tensor, ep_axis=None, ep_size: int = 1,
                 "capacity-bound GShard routing is a training regime — "
                 "keep dense/int8 stacks there")
         y = _packed_expert_ffn(ex, xt, w, act, top_k=spec.expert_top_k)
+        if sharded:
+            y = all_reduce_sum(y, ep)
         return y.reshape(B, T, D).to(x.dtype)
 
     # int8 RTN stacks dequantize in the activations' dtype, as the JAX
@@ -173,7 +192,7 @@ def moe_ffn(spec, p: dict, x: torch.Tensor, ep_axis=None, ep_size: int = 1,
     if dropless:
         # one expert at a time: an (N, F) intermediate, not (E, N, F)
         y = torch.zeros((N, D), dtype=torch.float32, device=x.device)
-        for e in range(spec.n_experts):
+        for e in range(el):
             g = _f32mm(xt, ew("gate", e).T)
             u = _f32mm(xt, ew("up", e).T)
             inner = act(g) * u
@@ -187,6 +206,8 @@ def moe_ffn(spec, p: dict, x: torch.Tensor, ep_axis=None, ep_size: int = 1,
         inner = act(g) * u
         ye = _f32mm(inner.to(cdt), ew("down").transpose(1, 2))  # (E, C, D)
         y = torch.einsum("nec,ecd->nd", combine, ye)
+    if sharded:
+        y = all_reduce_sum(y, ep)
     return y.reshape(B, T, D).to(x.dtype)
 
 

@@ -211,12 +211,15 @@ def pack_quantized(
     bias: torch.Tensor | None = None,
     perm: torch.Tensor | None = None,
     actorder: bool = False,
+    tp: int = 1,
 ) -> PackedWeight:
     """Pack a GPTQ-quantized weight for serving.
 
     Q: (N, K) dequantized weight (original column order); scale/zero:
     (num_groups, N) solver grids. With actorder and groupsize > 0, K is
-    stored in permuted order and serving gathers x[:, perm]."""
+    stored in permuted order and serving gathers x[:, perm]. `tp` pads
+    the stored dims in units of 512 * tp, so that 1/tp shards start on
+    subblock boundaries (parallel/tp.py)."""
     Nn, K = Q.shape
     if actorder and perm is not None and groupsize > 0:
         Qp = Q[:, perm.long()]
@@ -227,7 +230,8 @@ def pack_quantized(
     codes = quantize_to_codes(Qp, scale, zero, bits)
     scale = scale.to(torch.float32)
     zoff = (scale * zero).to(torch.float32)
-    Kp, Np = pad_dim(K, groupsize, 512), pad_dim(Nn, -1, 512)
+    unit = 512 * max(1, tp)
+    Kp, Np = pad_dim(K, groupsize, unit), pad_dim(Nn, -1, unit)
     if (Kp, Np) != (K, Nn):
         codes = torch.nn.functional.pad(codes, (0, Np - Nn, 0, Kp - K))
         ng_p = Kp // groupsize if groupsize > 0 else 1
@@ -242,11 +246,16 @@ def pack_quantized(
                         fmt="uniform")
 
 
-def fuse_packed(pws: list) -> Optional[PackedWeight]:
+def fuse_packed(pws: list, tp: int = 1) -> Optional[PackedWeight]:
     """Concatenate PackedWeights sharing one input (q/k/v, gate/up) along N
     into one wider weight: one kernel launch instead of several. The fused
     N is the total STORED width (each part's pad columns compute exact
-    zeros). Returns None when the parts are not fusable."""
+    zeros). Returns None when the parts are not fusable.
+
+    tp > 1 builds the shard-interleaved layout of tensor parallelism: N
+    runs [p0 shard 0, p1 shard 0, ..., p0 shard 1, ...], so that the tp
+    equal slices of the fused N are each the standard fused weight of one
+    rank's column shards (part widths Np_i / tp)."""
     p0 = pws[0]
     for pw in pws:
         if (pw.fmt != p0.fmt or pw.bits != p0.bits or pw.Kp != p0.Kp
@@ -258,15 +267,23 @@ def fuse_packed(pws: list) -> Optional[PackedWeight]:
             return None
         if pw.perm is not None and not torch.equal(pw.perm, p0.perm):
             return None
+        if tp > 1 and pw.Np % tp:
+            return None
+
+    def cat(ts):
+        if tp == 1:
+            return torch.cat(ts, dim=-1)
+        chunks = [t.chunk(tp, dim=-1) for t in ts]
+        return torch.cat([ch[s] for s in range(tp) for ch in chunks], dim=-1)
+
     if p0.fmt == "bcq":
-        words = (torch.cat([pw.words[0] for pw in pws], dim=-1),)
-        alpha = torch.cat([pw.alpha for pw in pws], dim=-1)
+        words = (cat([pw.words[0] for pw in pws]),)
+        alpha = cat([pw.alpha for pw in pws])
         scale = zoff = None
     else:
-        words = tuple(torch.cat(list(ws), dim=-1)
-                      for ws in zip(*[pw.words for pw in pws]))
-        scale = torch.cat([pw.scale for pw in pws], dim=-1)
-        zoff = torch.cat([pw.zoff for pw in pws], dim=-1)
+        words = tuple(cat(list(ws)) for ws in zip(*[pw.words for pw in pws]))
+        scale = cat([pw.scale for pw in pws])
+        zoff = cat([pw.zoff for pw in pws])
         alpha = None
     return PackedWeight(
         words=words, scale=scale, zoff=zoff, alpha=alpha, bias=None,
@@ -367,20 +384,21 @@ def pack_expert_stack(W: torch.Tensor, scale: torch.Tensor,
 
 def pack_bcq(B: torch.Tensor, alpha: torch.Tensor,
              bias: torch.Tensor | None = None,
-             groupsize: int = -1) -> PackedWeight:
+             groupsize: int = -1, tp: int = 1) -> PackedWeight:
     """Pack BCQ signs for serving.
 
     B: (N, num_groups, g, bits) in {-1, +1}; alpha: (N, num_groups, bits).
     Stored as (bits, Kp//32, Np) sign bitplanes (+1 -> bit set), each a
     1-bit byteplane field of pack_codes, and alpha (num_groups, bits, Np)
-    f32, both zero-padded like pack_quantized pads."""
+    f32, both zero-padded like pack_quantized pads (for `tp` as there)."""
     Nn, ng, g, bits = B.shape
     K = ng * g
     signs = (B.reshape(Nn, K, bits) > 0).to(torch.int32)
     signs = signs.permute(2, 1, 0)  # (bits, K, N)
     gsz = g if groupsize != -1 else -1
     alpha_t = alpha.to(torch.float32).permute(1, 2, 0)  # (ng, bits, N)
-    Kp, Np = pad_dim(K, gsz, 512), pad_dim(Nn, -1, 512)
+    unit = 512 * max(1, tp)
+    Kp, Np = pad_dim(K, gsz, unit), pad_dim(Nn, -1, unit)
     if (Kp, Np) != (K, Nn):
         signs = torch.nn.functional.pad(signs, (0, Np - Nn, 0, Kp - K))
         ng_p = Kp // gsz if gsz > 0 else 1

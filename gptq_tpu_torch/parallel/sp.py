@@ -94,14 +94,18 @@ def _ring_attention(spec: ArchSpec, q, k, v, my_chunk: int, sp: int, group,
     acc = torch.zeros((B, H, Tc, hd), device=dev)
     kc, vc = k.contiguous(), v.contiguous()
     nxt, prv = _peer(group, (my_chunk + 1) % sp), _peer(group, (my_chunk - 1) % sp)
+    # gloo's send / recv hand a CUDA tensor's device pointer to a socket
+    # (the process aborts): its hops stage through host copies
+    staged = dev.type == "cuda" and dist.get_backend(group) == "gloo"
     for r in range(sp):
         reqs = None
         if r < sp - 1:  # start the next hop's exchange before this one's math
-            kn, vn = torch.empty_like(kc), torch.empty_like(vc)
+            ks, vs = (kc.cpu(), vc.cpu()) if staged else (kc, vc)
+            kn, vn = torch.empty_like(ks), torch.empty_like(vs)
             reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, kc, nxt, group),
+                dist.P2POp(dist.isend, ks, nxt, group),
                 dist.P2POp(dist.irecv, kn, prv, group),
-                dist.P2POp(dist.isend, vc, nxt, group),
+                dist.P2POp(dist.isend, vs, nxt, group),
                 dist.P2POp(dist.irecv, vn, prv, group)])
         j = (my_chunk - r) % sp  # the chunk held at this hop
         kr = torch.repeat_interleave(kc, rep, dim=2) if rep > 1 else kc
@@ -128,7 +132,7 @@ def _ring_attention(spec: ArchSpec, q, k, v, my_chunk: int, sp: int, group,
         if reqs is not None:
             for req in reqs:
                 req.wait()
-            kc, vc = kn, vn
+            kc, vc = (kn.to(dev), vn.to(dev)) if staged else (kn, vn)
     out = acc / l[..., None]  # every row has >= 1 allowed key (itself)
     return out.transpose(1, 2).reshape(B, Tc, H * hd).to(q.dtype)
 

@@ -346,7 +346,7 @@ def add_actquant(spec: ArchSpec, params: dict, calib_ids: torch.Tensor,
 
 
 def pack_model(spec: ArchSpec, params: dict, quantizers: dict,
-               cfg: QuantConfig) -> dict:
+               cfg: QuantConfig, tp: int = 1) -> dict:
     """Swap quantized dense linears for PackedWeights, each at the bits its
     quantizer records: uniform grids pack to byteplane fields, the lut
     mode's BCQ to sign planes (the signs recovered against the solver's
@@ -355,7 +355,9 @@ def pack_model(spec: ArchSpec, params: dict, quantizers: dict,
     are). Each linear is packed on the model's device (the
     embedding's), one at a time: a host-resident weight of an offloaded
     model is copied there alone, so its packed leaves land on the card and
-    the dense model never does."""
+    the dense model never does. `tp` pads the stored dims so that the
+    tensor-parallel ranks slice them on subblock boundaries
+    (parallel/tp.py)."""
     arch = get_arch(spec.arch)
     dev = params["embed"]["tokens"].device
     for i, bp in enumerate(params["layers"]):
@@ -368,21 +370,24 @@ def pack_model(spec: ArchSpec, params: dict, quantizers: dict,
             if q["mode"] == "uniform" and q["bits"] in (1, 2, 3, 4, 8):
                 bp[key]["w"] = pack_quantized(
                     W, q["scale"], q["zero"], q["bits"], groupsize=gs,
-                    perm=q.get("perm"), actorder=q.get("perm") is not None)
+                    perm=q.get("perm"), actorder=q.get("perm") is not None,
+                    tp=tp)
             elif q["mode"] == "lut":
                 _, B = bcq_quantize(W, q["alpha"], groupsize=gs)
-                bp[key]["w"] = pack_bcq(B, q["alpha"], groupsize=gs)
+                bp[key]["w"] = pack_bcq(B, q["alpha"], groupsize=gs, tp=tp)
     return params
 
 
-def quantize_lm_head(spec: ArchSpec, params: dict, bits: int = 8) -> bool:
+def quantize_lm_head(spec: ArchSpec, params: dict, bits: int = 8,
+                     tp: int = 1) -> bool:
     """Quantize the output projection in place: per-channel RTN (the head
     has no calibration Hessian in the sequential pipeline), packed with
     groupsize -1 for the fused head kernel. A tied head (lm_head None:
     BLOOM, Gemma, an OPT directory without lm_head.weight) gets a packed
     lm_head of its own from the embedding table, which the embedding
     keeps dense; the JAX package leaves a tied head dense. A no-op
-    (returns False) for a head that is already packed."""
+    (returns False) for a head that is already packed. `tp` pads as
+    pack_model's does."""
     lm = params.get("lm_head")
     if lm is None:
         lm = params["lm_head"] = {"w": params["embed"]["tokens"], "b": None}
@@ -392,5 +397,5 @@ def quantize_lm_head(spec: ArchSpec, params: dict, bits: int = 8) -> bool:
     p = find_params(W, bits=bits, perchannel=True, weight=True)
     Q = quantize_uniform(W, p.scale, p.zero, (1 << bits) - 1)
     lm["w"] = pack_quantized(Q, p.scale.reshape(1, -1), p.zero.reshape(1, -1),
-                             bits, groupsize=-1)
+                             bits, groupsize=-1, tp=tp)
     return True

@@ -7,7 +7,7 @@ are equal, the solver's bound (ROADMAP); the result-log lines agree up to
 the number and the PPLs within 1% (tests/test_torch_pipeline.py's bound).
 The same for a tiny Mixtral directory under --quant_experts (codes per
 expert); also the resume journal against an uninterrupted run, and the
-refusals of flags not ported (--task, --tp, --ep; the mixed-precision,
+refusals of flags not ported (--task; the mixed-precision,
 analysis and quantizer flags: tests/test_torch_mixed.py)."""
 
 import os
@@ -254,8 +254,7 @@ def test_resume_matches_uninterrupted(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--task", "piqa"], "item 14"), (["--tp", "2"], "item 18"),
-    (["--ep", "2"], "item 18")])
+    (["--task", "piqa"], "item 14")])
 def test_refuses_flags_not_ported(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP {item}"):
         tcli.main(["dummy", "c4", "--wbits", "4", "--device", "cpu", *flags])

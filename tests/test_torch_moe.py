@@ -278,8 +278,6 @@ def test_moe_ffn_refusals():
     x = torch.zeros((1, 8, 48))
     with pytest.raises(ValueError, match="dropless"):
         tm.moe_ffn(tspec, tp, x)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        tm.moe_ffn(tspec, tp, x, ep_axis="ep", ep_size=2)
     with pytest.raises(ValueError, match="int8"):
         _, t8 = _moe_layer("int8", seed=8)
         tm.pack_experts({"layers": [t8]})

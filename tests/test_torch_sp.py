@@ -562,7 +562,8 @@ def test_sp2_two_processes_match_jax(tmp_path):
 
 def test_cli_sp_guards(tmp_path, monkeypatch):
     """--sp N needs WORLD_SIZE = N (torchrun --nproc-per-node N); --sp
-    with --ep keeps the JAX CLI's refusal; --ep alone is not ported."""
+    with --ep keeps the JAX CLI's refusal; --sp with --tp > 1 (sp x tp)
+    is not ported."""
     from gptq_tpu_torch import cli
 
     base = ["dummy", "c4", "--load", str(tmp_path / "none.npz"),
@@ -572,5 +573,5 @@ def test_cli_sp_guards(tmp_path, monkeypatch):
         cli.main(base + ["--sp", "2"])
     with pytest.raises(SystemExit, match="pick one"):
         cli.main(base + ["--sp", "2", "--ep", "2"])
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(base + ["--ep", "2"])
+    with pytest.raises(SystemExit, match="sp x tp serving is not ported"):
+        cli.main(base + ["--sp", "2", "--tp", "2"])
